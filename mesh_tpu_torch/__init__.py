@@ -1,0 +1,21 @@
+"""mesh_tpu_torch: the PyTorch/CUDA port of mesh_tpu for NVIDIA Hopper.
+
+A second package beside ``mesh_tpu``: plain array code is PyTorch, and each
+Pallas kernel of the JAX package becomes a CUDA kernel written for
+``sm_90a`` (``csrc/``, built at first use by ``_build``).  Every public entry
+point takes ``device=`` and defaults to the card; only an explicit
+``device="cpu"`` runs on the CPU, where each kernel's plain PyTorch version
+stands in.  The package imports neither JAX nor ``mesh_tpu``.
+
+This slice covers the posed-body -> normals -> closest-point path: the
+synthetic SMPL-sized body model and ``lbs``, vertex normals, and the
+brute-force closest-face and nearest-vertex kernels behind the batched and
+``Mesh`` facades.
+"""
+
+from .batch import (  # noqa: F401
+    batched_closest_faces_and_points,
+    batched_vertex_normals,
+    fused_normals_and_closest_points,
+)
+from .mesh import Mesh  # noqa: F401
