@@ -11,20 +11,37 @@ Phases (any failure raises and exits non-zero; none catches its own):
    same card tensors, at the main path's shapes (256 posed SMPL-sized
    bodies x 1024 queries; closest_faces in all four variants) and on one
    body with 4096 queries (all variants; the degenerate-tail variants also
-   on a mesh with planted zero-area and collinear faces).  Built without
-   FMA contraction, each kernel must pick exactly the faces (vertices) its
-   plain version picks;
+   on a mesh with planted zero-area and collinear faces); culled_faces in
+   all four variants on the large batch of phase 5, and both rope_faces
+   entries on the scan of phase 6, each over all its query tiles.  Built
+   without FMA contraction, each kernel must pick exactly the faces
+   (vertices) its plain version picks, with the same tiles or leaves
+   tested;
 3. main path at full width: lbs -> vertex normals -> batched closest point
    for 256 bodies x 1024 queries, median step time over 10 reps, the
    faces checked against the plain version on the same batch;
 4. facade: ``mesh_tpu_torch.Mesh`` closest faces/points, nearest vertices,
    vertex normals and the fused call on one body, with the reference's
    dtypes and shapes; the closest faces/points against the plain
-   reconstruction-form scan.
+   reconstruction-form scan;
+5. large batch: ``batch_step`` on 64 posed bodies of a 98,304-face
+   template (``_uv_sphere(256, 192)``) with 4096 surface-proximal queries
+   each, which routes to the sphere-culled kernel; median step time over
+   10 reps, and the result against the brute-force kernel on the same
+   inputs (sqdist within 1e-5, faces equal except at ties);
+6. scan: ``Mesh.closest_faces_and_points`` on a 209,304-face sphere with
+   65,536 surface-proximal queries, which routes to the BVH rope kernels:
+   the streamed entry by default (path ``scan``) and the resident one
+   under ``MESH_TPU_BVH_STREAM_VMEM_MB=32`` (path ``scan_resident``); the
+   two must be bit-identical, and both are held against the brute-force
+   kernel; the host BVH build is timed apart from the cached calls.
 
-Phases 3 and 4 are the two driven paths.  Kernel launch counts are set to
+After phase 6, the four closest-point routes (brute, culled, resident and
+streamed rope) are timed at both drives' shapes: the crossover evidence.
+
+Phases 3-6 are the driven paths (phase 6 twice).  Kernel launch counts are set to
 0 just before each and read just after it, and every kernel must have
-launched on each path of ``KERNEL_PATHS``.  The last lines are the card's
+launched on each path of ``KERNEL_PATHS`` and on no other path.  The last lines are the card's
 name and power limit (nvidia-smi), one JSON line describing every kernel
 with its launches per path, and ``{"ok": true, "device": ...}``.
 
@@ -50,6 +67,18 @@ QUERIES_PER_MESH = 1024
 FACADE_QUERIES = 4096
 REPS = 10
 
+#: phase 5: a finer body template, (n_seg, n_ring) of _uv_sphere, scaled
+#: to body proportions (49,154 vertices, 98,304 faces)
+LARGE_TEMPLATE = (256, 192)
+LARGE_BATCH = 64
+LARGE_QUERIES = 4096
+#: scan points: a random face, a random barycentric point, N(0, 5 mm)
+SCAN_NOISE = 0.005
+
+#: phase 6: bench.py's accel_stream_proxy recipe at 65,536 queries
+SCAN_FACES = 210000
+SCAN_QUERIES = 65536
+
 #: H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 #: and HBM3 bandwidth
 PEAK_FP32_OPS = 67e12
@@ -63,10 +92,16 @@ VERTEX_PAIR_OPS = 10
 
 VARIANTS = [("fast", False), ("fast", True), ("safe", False), ("safe", True)]
 
-#: kernel -> the driven paths that must launch it; the first path's count
-#: is the kernel's ``launches`` in the kernels line
+#: operations per pair of the rope kernels: the fast tile with its tail
+ROPE_PAIR_OPS = FACE_PAIR_OPS[("fast", True)]
+
+#: kernel -> the driven paths that must launch it (and no other path may);
+#: the first path's count is the kernel's ``launches`` in the kernels line
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade"),
-                "nearest_vertices": ("facade",)}
+                "nearest_vertices": ("facade",),
+                "culled_faces": ("large_batch",),
+                "rope_faces_stream": ("scan",),
+                "rope_faces_resident": ("scan_resident",)}
 
 
 def log(*args):
@@ -227,6 +262,282 @@ def check_facade_against_scan(v, f, q, faces, points):
         "differ, all at ties (max gap %.3g)" % (gap, n_diff, tie))
 
 
+def kernel_counters():
+    """The launch-count dicts of every kernel wrapper."""
+    from mesh_tpu_torch.accel import rope_kernel as rk
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import culled_kernel as qk
+
+    return ck.LAUNCHES, qk.LAUNCHES, rk.LAUNCHES
+
+
+def reset_launches():
+    for counts in kernel_counters():
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches():
+    out = {}
+    for counts in kernel_counters():
+        out.update(counts)
+    return out
+
+
+def timed(fn):
+    """(fn(), milliseconds of this one call by CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def surface_queries(verts, faces, n_q, rng):
+    """Scan-like points on a batch ``verts`` [B, V, 3]: per body, n_q
+    random faces, random barycentric points and N(0, SCAN_NOISE) noise."""
+    n_b = verts.shape[0]
+    dev = verts.device
+    pick = torch.as_tensor(rng.randint(0, faces.shape[0], (n_b, n_q)),
+                           device=dev)
+    w = torch.as_tensor(rng.dirichlet([1.0, 1.0, 1.0], (n_b, n_q)),
+                        dtype=torch.float32, device=dev)
+    noise = torch.as_tensor(rng.randn(n_b, n_q, 3) * SCAN_NOISE,
+                            dtype=torch.float32, device=dev)
+    rows = torch.arange(n_b, device=dev)[:, None, None]
+    tri = verts[rows, faces.long()[pick]]                 # [B, Q, 3, 3]
+    return (torch.einsum("bqk,bqkx->bqx", w, tri) + noise).contiguous()
+
+
+def check_against_brute(name, v, f, q, faces, sqdist, brute):
+    """A drive's faces and sqdist [B, Q] against the brute-force kernel's
+    result on the same inputs (v [B, V, 3], q [B, Q, 3]): sqdist within
+    1e-5, faces equal except at ties, where the two faces' distances in
+    the brute kernel's frame are within 1e-6."""
+    from mesh_tpu_torch.query.point_triangle import closest_point_on_triangle
+
+    gap = float((sqdist - brute["sqdist"]).abs().max())
+    check(gap <= 1e-5, "%s: sqdist %.3g from the brute kernel" % (name, gap))
+    differ = faces.long() != brute["face"].long()
+    n_diff, tie = int(differ.sum()), 0.0
+    if n_diff:
+        center = v.mean(dim=-2, keepdim=True)
+        b, qi = differ.nonzero(as_tuple=True)
+        vc = v - center
+        qc = (q - center)[b, qi]
+
+        def sqd(face):
+            t = vc[b[:, None], f.long()[face.long()]]
+            return closest_point_on_triangle(qc, t[:, 0], t[:, 1], t[:, 2])[1]
+
+        tie = float((sqd(faces[b, qi]) - sqd(brute["face"][b, qi])).abs().max())
+        check(tie <= 1e-6, "%s: %d faces differ from the brute kernel's and "
+              "are %.3g apart, not a tie" % (name, n_diff, tie))
+    log("  %s vs brute kernel: sqdist within %.3g, %d of %d faces differ, "
+        "all at ties (max gap %.3g)" % (name, gap, n_diff, faces.numel(), tie))
+    return {"sqdist_gap": gap, "faces_differ": n_diff, "tie_gap": tie}
+
+
+def compare_culled(qk, ops, variant, tail, timing):
+    """Kernel vs plain for culled_faces on one operand set: identical faces
+    and tested tiles over every query tile."""
+    k, kv = qk.argmin_culled(ops, variant, tail)
+    (p, pv), plain_ms = timed(
+        lambda: qk.argmin_culled_plain(ops, variant, tail))
+    mism = int((k != p).sum())
+    check(mism == 0 and bool((kv == pv).all()),
+          "culled_faces[%s, tail=%s]: %d of %d faces (and %d tile counts) "
+          "differ from the plain version" % (
+              variant, tail, mism, k.numel(), int((kv != pv).sum())))
+    rk_, rp = qk.culled_epilogue(ops, k), qk.culled_epilogue(ops, p)
+    err = max(float((rk_["point"] - rp["point"]).abs().max()),
+              float((rk_["sqdist"] - rp["sqdist"]).abs().max()))
+    tile_q, tile_f = ops["tile_q"], ops["tile_f"]
+    n_ft = ops["fsph"].shape[1]
+    tested = int(kv.sum())
+    out = {"variant": variant, "degenerate_tail": tail,
+           "shape": list(ops["seed"].shape) + [ops["planes"].shape[-1]],
+           "faces_identical": True, "max_abs_err": err,
+           "face_tiles_tested": tested, "face_tiles": kv.numel() * n_ft,
+           "plain_ms": plain_ms}
+    if timing:
+        out["ms"] = cuda_ms(lambda: qk.argmin_culled(ops, variant, tail),
+                            reps=REPS)
+        n_bytes = 4 * (sum(ops[key].numel() for key in (
+            "pts_s", "seed", "qsph", "fsph", "planes")) + k.numel()
+            + kv.numel())
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            tested * tile_q * tile_f, FACE_PAIR_OPS[(variant, tail)], n_bytes)
+    log("  culled_faces[%s, tail=%s] %s: faces and tile counts identical, "
+        "%d of %d face tiles tested, max abs point/sqdist diff %.3g, plain "
+        "%.1f ms%s" % (variant, tail, out["shape"], tested, out["face_tiles"],
+                       err, plain_ms, "" if not timing else
+                       ", %.3f ms (bound %.3f ms)"
+                       % (out["ms"], out["bound_ms"])))
+    return out
+
+
+def compare_rope(rk, ops, n_buffers):
+    """Kernel vs plain for one rope_faces entry on one operand set:
+    identical distances, faces and leaf counts over every query tile."""
+    name = "rope_faces_stream" if n_buffers else "rope_faces_resident"
+    kd, ki, kl = rk.rope_argmin(ops, n_buffers)
+    (pd, pi, pl), plain_ms = timed(lambda: rk.rope_argmin_plain(ops,
+                                                                n_buffers))
+    check(torch.equal(ki, pi) and torch.equal(kl, pl) and torch.equal(kd, pd),
+          "%s: %d of %d faces (and %d leaf counts) differ from the plain "
+          "version" % (name, int((ki != pi).sum()), ki.numel(),
+                       int((kl != pl).sum())))
+    leaves = int(kl.sum())
+    tile_q, tile_f = ops["tile_q"], ops["tile_f"]
+    n_leaves = ops["rows"].shape[-1] // tile_f
+    out = {"shape": [ops["seed"].shape[0], ops["rows"].shape[-1]],
+           "n_buffers": n_buffers, "faces_identical": True,
+           "max_abs_err": float((kd - pd).abs().max()),
+           "leaves_tested": leaves, "leaves": kl.numel() * n_leaves,
+           "plain_ms": plain_ms,
+           "ms": cuda_ms(lambda: rk.rope_argmin(ops, n_buffers), reps=REPS)}
+    n_bytes = 4 * (sum(ops[key].numel() for key in (
+        "pts_s", "seed", "boxes", "topo", "rows")) + 2 * kd.numel()
+        + kl.numel())
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        leaves * tile_q * tile_f, ROPE_PAIR_OPS, n_bytes)
+    log("  %s %s: faces, distances and leaf counts identical, %d of %d "
+        "leaves tested, %.3f ms (plain %.1f ms, bound %.3f ms)" % (
+            name, out["shape"], leaves, out["leaves"], out["ms"], plain_ms,
+            out["bound_ms"]))
+    return out, (kd, ki, kl)
+
+
+def large_batch_inputs(dev):
+    """Phase 5's inputs: the finer-template body model, betas and pose for
+    LARGE_BATCH bodies, the posed vertices and surface-proximal queries."""
+    from mesh_tpu_torch.models import lbs, synthetic_body_model
+    from mesh_tpu_torch.models.body_model import _uv_sphere
+
+    v, f = _uv_sphere(*LARGE_TEMPLATE)
+    model = synthetic_body_model(
+        seed=0, template=(v * np.array([0.3, 0.2, 0.9]), f), device=dev)
+    rng = np.random.RandomState(0)
+    betas = torch.as_tensor(rng.randn(LARGE_BATCH, model.num_betas) * 0.3,
+                            dtype=torch.float32, device=dev)
+    pose = torch.as_tensor(rng.randn(LARGE_BATCH, model.num_joints, 3) * 0.1,
+                           dtype=torch.float32, device=dev)
+    verts, _ = lbs(model, betas, pose, device=dev)
+    queries = surface_queries(verts, model.faces, LARGE_QUERIES, rng)
+    return model, betas, pose, verts, queries
+
+
+def scan_inputs():
+    """Phase 6's mesh and queries: bench.py's parametric sphere and its
+    surface-proximal points (unit directions pushed a few percent off)."""
+    from mesh_tpu_torch.query.autotune import _sphere_mesh
+
+    v, f = _sphere_mesh(SCAN_FACES)
+    rng = np.random.RandomState(0)
+    pts = rng.randn(SCAN_QUERIES, 3)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    pts *= 1.0 + 0.05 * rng.randn(SCAN_QUERIES, 1)
+    return v, f, pts.astype(np.float32)
+
+
+def drive_scan(path, v, f, pts, dev):
+    """One scan path: the Mesh facade (first call cold, then warm calls)
+    and the accel rung with its stats, counts reset just before and read
+    just after."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
+    from mesh_tpu_torch.query import culled as auto
+
+    reset_launches()
+    auto.STRATEGY.clear()
+    m = Mesh(v, f, device=dev)
+    t0 = time.perf_counter()
+    faces, points = m.closest_faces_and_points(pts)
+    first_s = time.perf_counter() - t0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        faces2, points2 = m.closest_faces_and_points(pts)
+        times.append((time.perf_counter() - t0) * 1e3)
+    vt, ft = m.device_arrays()
+    res, stats = closest_faces_and_points_accel(vt, ft, pts, with_stats=True,
+                                                device=dev)
+    launches = read_launches()
+    check(dict(auto.STRATEGY) == {"accel_bvh": 6},
+          "%s routes %s, not the BVH" % (path, auto.STRATEGY))
+    check(faces.dtype == np.uint32 and faces.shape == (1, SCAN_QUERIES)
+          and points.dtype == np.float64
+          and points.shape == (SCAN_QUERIES, 3), "%s facade dtype/shape"
+          % path)
+    check(np.array_equal(faces, faces2) and np.array_equal(points, points2)
+          and np.array_equal(faces[0], res["face"].astype(np.uint32))
+          and np.array_equal(points, res["point"].astype(np.float64)),
+          "%s: repeated calls disagree" % path)
+    check(bool(np.isfinite(res["sqdist"]).all()), "%s sqdist not finite"
+          % path)
+    log("  %s: backend %s, %d pair tests (%.1f%% of Q x F), first facade "
+        "call %.3f s (with the host BVH build), warm calls median %.3f ms "
+        "(min %.3f, max %.3f)" % (
+            path, stats["backend"], stats["pair_tests"],
+            100.0 * stats["pair_tests"] / (SCAN_QUERIES * f.shape[0]),
+            first_s, statistics.median(times), min(times), max(times)))
+    return res, stats, launches, {
+        "first_call_s": first_s, "warm_call_ms": statistics.median(times),
+        "warm_call_ms_min": min(times), "warm_call_ms_max": max(times)}
+
+
+def crossover(dev, large, scan):
+    """Every closest-point route timed at both drives' shapes (ms, CUDA
+    events around whole calls, 3 reps after a warm-up): brute force,
+    culled, resident and streamed rope."""
+    from mesh_tpu_torch.accel import rope_kernel as rk
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import culled_kernel as qk
+
+    verts, f_l, q_l, nondegen = large
+    v_s, f_s, p_s = scan
+    n_b, n_q = q_l.shape[:2]
+    shapes = [
+        ("large_batch %d bodies x %d" % (n_b, n_q), verts, f_l, q_l, nondegen,
+         False),
+        ("large_batch body 0 x %d" % n_q, verts[0], f_l, q_l[0], nondegen,
+         True),
+        ("scan 1 x %d" % p_s.shape[0], torch.as_tensor(v_s, device=dev),
+         torch.as_tensor(f_s, device=dev), torch.as_tensor(p_s, device=dev),
+         True, True),
+    ]
+    rows = []
+    for label, v, f, q, nd, single in shapes:
+        row = {"shape": label, "faces": int(f.shape[0]),
+               "brute": cuda_ms(lambda: ck.closest_point_kernel(
+                   v, f, q, assume_nondegenerate=nd), 3),
+               "culled": cuda_ms(lambda: qk.closest_point_culled_kernel(
+                   v, f, q, assume_nondegenerate=nd), 3)}
+        vb, qb = (v[None], q[None]) if single else (v, q)
+        ops = qk.culled_operands(vb, f, qb)
+        _, tested = qk.argmin_culled(ops, "fast", not nd)
+        row["culled_face_tiles_tested"] = float(tested.sum()) / (
+            tested.numel() * ops["fsph"].shape[1])
+        del ops
+        if single:
+            row["rope_resident"] = cuda_ms(
+                lambda: rk.closest_point_bvh_kernel(v, f, q, device=dev), 3)
+            row["rope_stream"] = cuda_ms(
+                lambda: rk.closest_point_bvh_stream_kernel(v, f, q,
+                                                           device=dev), 3)
+        rows.append(row)
+        log("  crossover at %s (%d faces): %s; culled tests %.1f%% of its "
+            "face tiles" % (label, row["faces"], ", ".join(
+                "%s %.3f ms" % (k, row[k]) for k in (
+                    "brute", "culled", "rope_resident", "rope_stream")
+                if k in row), 100 * row["culled_face_tiles_tested"]))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -234,9 +545,14 @@ def main():
         return 1
 
     from mesh_tpu_torch import Mesh, _build
+    from mesh_tpu_torch.accel import rope_kernel as rk
+    from mesh_tpu_torch.accel.build import build_bvh, clear_index_cache
     from mesh_tpu_torch.batch import batch_step
     from mesh_tpu_torch.models import lbs, synthetic_body_model
     from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import culled as auto
+    from mesh_tpu_torch.query import culled_kernel as qk
+    from mesh_tpu_torch.query.autotune import stream_tile_params
     from mesh_tpu_torch.query.closest_point import closest_faces_and_points_t
 
     t_start = time.perf_counter()
@@ -276,6 +592,20 @@ def main():
     main_variant = ("fast", not nondegen)
     log("posed batch %s nondegenerate: %s -> main path runs closest_faces"
         "[%s, tail=%s]" % (tuple(verts.shape), nondegen, *main_variant))
+
+    # -- inputs of the large-mesh drives (phases 5 and 6) --------------------
+    t0 = time.perf_counter()
+    model_l, betas_l, pose_l, verts_l, queries_l = large_batch_inputs(dev)
+    f_l = model_l.faces
+    nondegen_l = ck.mesh_is_nondegenerate(verts_l.cpu().numpy(),
+                                          f_l.cpu().numpy())
+    variant_l = ("fast", not nondegen_l)
+    v_s, f_s, p_s = scan_inputs()
+    n_buffers = stream_tile_params()[2]
+    log("large batch %s (%d faces) nondegenerate: %s -> culled_faces[%s, "
+        "tail=%s]; scan mesh %d faces, %d queries; inputs %.1f s"
+        % (tuple(verts_l.shape), f_l.shape[0], nondegen_l, *variant_l,
+           f_s.shape[0], SCAN_QUERIES, time.perf_counter() - t0))
 
     # -- 2. kernels vs plain on the card -------------------------------------
     log("== kernels vs plain")
@@ -320,11 +650,27 @@ def main():
         (verts[:1] - b0mean).transpose(-1, -2).contiguous(), timing=True)
     del vplanes
 
+    # culled_faces at phase 5's shapes (every query tile of all 64 bodies)
+    culled_runs = []
+    for variant, tail in VARIANTS:
+        ops_l = qk.culled_operands(verts_l, f_l, queries_l, variant)
+        culled_runs.append(compare_culled(qk, ops_l, variant, tail,
+                                          timing=(variant, tail) == variant_l))
+        del ops_l
+    # both rope_faces entries at phase 6's shapes (every query tile)
+    ops_s = rk.rope_operands(v_s, f_s, p_s, device=dev)
+    rope_stream, (sd, si, sl) = compare_rope(rk, ops_s, n_buffers)
+    rope_resident, (rd, ri, rl) = compare_rope(rk, ops_s, None)
+    check(torch.equal(si, ri) and torch.equal(sd, rd)
+          and bool((sl >= rl).all()), "rope_faces: the streamed entry is not "
+          "bit-identical to the resident one, or tests fewer leaves")
+    log("  rope_faces: streamed and resident entries bit-identical; %d vs "
+        "%d leaves tested" % (int(sl.sum()), int(rl.sum())))
+
     # -- 3. main path at full width ------------------------------------------
     log("== main path: %d bodies x %d queries, %d faces each"
         % (BATCH, QUERIES_PER_MESH, f.shape[0]))
-    for key in ck.LAUNCHES:
-        ck.LAUNCHES[key] = 0
+    reset_launches()
 
     def step():
         v, _ = lbs(model, betas, pose, device=dev)
@@ -347,7 +693,7 @@ def main():
         float(checksum)
         times.append(start.elapsed_time(end))
     step_ms = statistics.median(times)
-    launches = {"main_path": dict(ck.LAUNCHES)}
+    launches = {"main_path": read_launches()}
     check(tuple(res["face"].shape) == (BATCH, QUERIES_PER_MESH)
           and res["face"].dtype == torch.int32, "face shape/dtype")
     check(tuple(res["point"].shape) == (BATCH, QUERIES_PER_MESH, 3),
@@ -384,8 +730,7 @@ def main():
     # -- 4. facade ---------------------------------------------------------
     log("== facade: Mesh on one body, %d queries" % FACADE_QUERIES)
     q_np = q1[0].cpu().numpy()
-    for key in ck.LAUNCHES:
-        ck.LAUNCHES[key] = 0
+    reset_launches()
     m = Mesh(posed[0], f_np, device=dev)
     faces_f, points_f = m.closest_faces_and_points(q_np)
     check(faces_f.dtype == np.uint32 and faces_f.shape == (1, FACADE_QUERIES),
@@ -408,12 +753,118 @@ def main():
     check(np.array_equal(faces2, faces_f)
           and np.allclose(points2, points_f, atol=1e-6)
           and np.allclose(n2, vn, atol=1e-6), "fused facade disagrees")
-    launches["facade"] = dict(ck.LAUNCHES)
+    launches["facade"] = read_launches()
+    log("facade ok")
+
+    # -- 5. large batch: batch_step through the culled kernel --------------
+    log("== large batch: %d bodies x %d queries, %d faces each"
+        % (LARGE_BATCH, LARGE_QUERIES, f_l.shape[0]))
+    reset_launches()
+    auto.STRATEGY.clear()
+
+    def step_l():
+        v, _ = lbs(model_l, betas_l, pose_l, device=dev)
+        normals, res = batch_step(v, f_l, queries_l,
+                                  assume_nondegenerate=nondegen_l,
+                                  tile_variant=variant_l[0])
+        checksum = (normals.sum() + res["point"].sum() + res["sqdist"].sum()
+                    + res["face"].sum().to(torch.float32))
+        return normals, res, checksum
+
+    normals_l, res_l, checksum_l = step_l()         # warm-up
+    float(checksum_l)
+    times_l = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        normals_l, res_l, checksum_l = step_l()
+        end.record()
+        float(checksum_l)
+        times_l.append(start.elapsed_time(end))
+    step_l_ms = statistics.median(times_l)
+    launches["large_batch"] = read_launches()
+    check(dict(auto.STRATEGY) == {"culled": REPS + 1},
+          "large batch routes %s, not the culled kernel" % auto.STRATEGY)
+    check(tuple(res_l["face"].shape) == (LARGE_BATCH, LARGE_QUERIES)
+          and res_l["face"].dtype == torch.int32
+          and tuple(res_l["point"].shape) == (LARGE_BATCH, LARGE_QUERIES, 3)
+          and tuple(normals_l.shape) == tuple(verts_l.shape),
+          "large batch shapes/dtypes")
+    for name, t in (("normals", normals_l), ("point", res_l["point"]),
+                    ("sqdist", res_l["sqdist"])):
+        check(bool(torch.isfinite(t).all()), "large batch %s not finite"
+              % name)
+    check(bool(((res_l["face"] >= 0) & (res_l["face"] < f_l.shape[0])).all()),
+          "large batch face index out of range")
+    v_step_l, _ = lbs(model_l, betas_l, pose_l, device=dev)
+    brute_l = ck.closest_point_kernel(v_step_l, f_l, queries_l,
+                                      assume_nondegenerate=nondegen_l)
+    large_vs_brute = check_against_brute(
+        "large batch", v_step_l, f_l, queries_l, res_l["face"],
+        res_l["sqdist"], brute_l)
+    del brute_l
+    n_queries_l = LARGE_BATCH * LARGE_QUERIES
+    log("large batch step: median %.3f ms over %d reps (min %.3f, max %.3f), "
+        "%.0f queries/s, checksum %.6g, route culled, on %s"
+        % (step_l_ms, REPS, min(times_l), max(times_l),
+           n_queries_l / (step_l_ms / 1e3), float(checksum_l), smi))
+
+    # -- 6. scan: the Mesh facade through the BVH rope kernels --------------
+    log("== scan: Mesh on a %d-face sphere, %d queries"
+        % (f_s.shape[0], SCAN_QUERIES))
+    clear_index_cache()
+    res_s, stats_s, launches["scan"], scan_calls = drive_scan(
+        "scan", v_s, f_s, p_s, dev)
+    budget = os.environ.get("MESH_TPU_BVH_STREAM_VMEM_MB")
+    os.environ["MESH_TPU_BVH_STREAM_VMEM_MB"] = "32"
+    try:
+        clear_index_cache()
+        res_r, stats_r, launches["scan_resident"], resident_calls = \
+            drive_scan("scan_resident", v_s, f_s, p_s, dev)
+    finally:
+        if budget is None:
+            del os.environ["MESH_TPU_BVH_STREAM_VMEM_MB"]
+        else:
+            os.environ["MESH_TPU_BVH_STREAM_VMEM_MB"] = budget
+    check(stats_s["backend"] == "rope_stream"
+          and stats_r["backend"] == "rope_resident",
+          "scan backends %s / %s" % (stats_s["backend"], stats_r["backend"]))
+    check(all(np.array_equal(res_s[k], res_r[k])
+              for k in ("face", "part", "point", "sqdist")),
+          "scan and scan_resident results are not bit-identical")
+    check(stats_s["pair_tests"] >= stats_r["pair_tests"],
+          "streamed pair tests below the resident walk's")
+    log("  scan and scan_resident bit-identical (faces, parts, points, "
+        "sqdist); pair tests %d streamed >= %d resident"
+        % (stats_s["pair_tests"], stats_r["pair_tests"]))
+    v_s_t = torch.as_tensor(v_s, device=dev)
+    f_s_dev = torch.as_tensor(f_s, device=dev)
+    p_s_t = torch.as_tensor(p_s, device=dev)
+    brute_s = ck.closest_point_kernel(
+        v_s_t[None], f_s_dev, p_s_t[None],
+        assume_nondegenerate=ck.mesh_is_nondegenerate(v_s, f_s))
+    scan_vs_brute = check_against_brute(
+        "scan", v_s_t[None], f_s_dev, p_s_t[None],
+        torch.as_tensor(res_s["face"], device=dev)[None],
+        torch.as_tensor(res_s["sqdist"], device=dev)[None], brute_s)
+    del brute_s
+
     for name, paths in KERNEL_PATHS.items():
-        for path in paths:
-            check(launches[path][name] > 0,
-                  "kernel %s never launched on the %s path" % (name, path))
-    log("facade ok; launches per path: %s" % launches)
+        for path, counts in launches.items():
+            if path in paths:
+                check(counts[name] > 0, "kernel %s never launched on the %s "
+                      "path" % (name, path))
+            else:
+                check(counts[name] == 0, "kernel %s launched %d times on the "
+                      "%s path, which does not use it"
+                      % (name, counts[name], path))
+    log("launches per path: %s" % launches)
+
+    # -- crossover evidence ---------------------------------------------------
+    log("== crossover: every route at both drives' shapes")
+    crossover_rows = crossover(dev, (verts_l, f_l, queries_l, nondegen_l),
+                               (v_s, f_s, p_s))
 
     # per-stage breakdown of one main-path step, after the counted drive
     stages = {}
@@ -430,6 +881,37 @@ def main():
     del ops
     log("stage breakdown (ms, separate runs): " + ", ".join(
         "%s %.3f" % kv for kv in stages.items()))
+    stages_l = {}
+    stages_l["lbs"] = cuda_ms(lambda: lbs(model_l, betas_l, pose_l,
+                                          device=dev), 3)
+    stages_l["vert_normals"] = cuda_ms(lambda: batch_step(verts_l, f_l, None),
+                                       3)
+    stages_l["culled_prologue"] = cuda_ms(lambda: qk.culled_operands(
+        verts_l, f_l, queries_l, variant_l[0]), 3)
+    ops_l = qk.culled_operands(verts_l, f_l, queries_l, variant_l[0])
+    stages_l["culled_kernel"] = cuda_ms(lambda: qk.argmin_culled(
+        ops_l, *variant_l), 3)
+    best_l, _ = qk.argmin_culled(ops_l, *variant_l)
+    stages_l["culled_epilogue"] = cuda_ms(
+        lambda: qk.culled_epilogue(ops_l, best_l), 3)
+    del ops_l
+    log("large batch stage breakdown (ms, separate runs): " + ", ".join(
+        "%s %.3f" % kv for kv in stages_l.items()))
+    builds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        build_bvh(v_s, f_s, leaf_size=ops_s["tile_f"])
+        builds.append((time.perf_counter() - t0) * 1e3)
+    stages_s = {"host_bvh_build": statistics.median(builds)}
+    stages_s["rope_prologue"] = cuda_ms(lambda: rk.rope_operands(
+        v_s, f_s, p_s, device=dev), 3)
+    stages_s["rope_stream_kernel"] = rope_stream["ms"]
+    stages_s["rope_resident_kernel"] = rope_resident["ms"]
+    stages_s["rope_epilogue"] = cuda_ms(
+        lambda: rk._rope_epilogue(ops_s, si, sl), 3)
+    log("scan stage breakdown (ms; build on the host clock, median of 3; "
+        "the rest separate CUDA-event runs): " + ", ".join(
+            "%s %.3f" % kv for kv in stages_s.items()))
 
     # -- kernels line, card line, result ---------------------------------------
     main = next(r for r in face_runs
@@ -460,10 +942,48 @@ def main():
          "library_ms": vert_facade["library_ms"],
          "batch": vert_batch},
     ]
+    main_l = next(r for r in culled_runs
+                  if (r["variant"], r["degenerate_tail"]) == variant_l)
+    kernels.append(
+        {"name": "culled_faces", "route": "cuda",
+         "source": "mesh_tpu_torch/csrc/culled_faces.cu",
+         "replaces": "mesh_tpu/query/pallas_culled.py:288",
+         "launches": launches["large_batch"]["culled_faces"],
+         "launches_by_path": {p: launches[p]["culled_faces"]
+                              for p in launches},
+         "max_abs_err": max(r["max_abs_err"] for r in culled_runs),
+         "ms": main_l["ms"], "plain_ms": main_l["plain_ms"],
+         "bound_ms": main_l["bound_ms"], "bound_by": main_l["bound_by"],
+         "library_ms": None,
+         "variant": "%s, tail=%s" % variant_l,
+         "variants": culled_runs})
+    for name, run, path, replaces in (
+            ("rope_faces_stream", rope_stream, "scan",
+             "mesh_tpu/accel/pallas_stream.py:206"),
+            ("rope_faces_resident", rope_resident, "scan_resident",
+             "mesh_tpu/accel/pallas_bvh.py:214")):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "mesh_tpu_torch/csrc/rope_faces.cu",
+             "replaces": replaces,
+             "launches": launches[path][name],
+             "launches_by_path": {p: launches[p][name] for p in launches},
+             "max_abs_err": run["max_abs_err"],
+             "ms": run["ms"], "plain_ms": run["plain_ms"],
+             "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
+             "library_ms": None, "detail": run})
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels, "main_path_step_ms": step_ms,
-                      "stages_ms": stages, "build_s": build_s}), flush=True)
+    print(json.dumps({
+        "kernels": kernels, "main_path_step_ms": step_ms,
+        "stages_ms": stages, "build_s": build_s,
+        "large_batch": {"step_ms": step_l_ms, "step_ms_min": min(times_l),
+                        "step_ms_max": max(times_l), "stages_ms": stages_l,
+                        "vs_brute": large_vs_brute},
+        "scan": {"stream": dict(stats_s, **scan_calls),
+                 "resident": dict(stats_r, **resident_calls),
+                 "stages_ms": stages_s, "vs_brute": scan_vs_brute},
+        "crossover_ms": crossover_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)

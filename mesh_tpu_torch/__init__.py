@@ -7,10 +7,11 @@ point takes ``device=`` and defaults to the card; only an explicit
 ``device="cpu"`` runs on the CPU, where each kernel's plain PyTorch version
 stands in.  The package imports neither JAX nor ``mesh_tpu``.
 
-This slice covers the posed-body -> normals -> closest-point path: the
-synthetic SMPL-sized body model and ``lbs``, vertex normals, and the
-brute-force closest-face and nearest-vertex kernels behind the batched and
-``Mesh`` facades.
+Ported so far: the posed-body -> normals -> closest-point path (the
+synthetic body model and ``lbs``, vertex normals, the brute-force
+closest-face and nearest-vertex kernels behind the batched and ``Mesh``
+facades), and closest point on large meshes (the auto ladder's
+sphere-culled kernel and BVH rope walks, ``accel``).
 """
 
 from .batch import (  # noqa: F401

@@ -5,8 +5,10 @@ shared library with a plain C interface, loaded with ``ctypes``.  The build
 happens at first use, all sources at once (one ``nvcc`` each, in parallel),
 into ``build/mesh_tpu_torch/`` beside the package, under a name keyed by
 the sources' and flags' digest, so an edited source never loads a stale
-library.  Kernels launch on PyTorch's current stream; every launch's
-``cudaGetLastError()`` is checked and a non-zero code raises.
+library.  Each kernel declares its C argument types; a launch passes
+tensors as device pointers and ints as ints, on PyTorch's current stream,
+and every launch's ``cudaGetLastError()`` is checked: a non-zero code
+raises.
 """
 
 import ctypes
@@ -24,13 +26,19 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "build", "mesh_tpu_torch")
 
-#: kernel name -> (source file, C entry point, argument types after the
-#: three pointers pts/cols/out)
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+#: kernel name -> (source file, C entry point, argument types before the
+#: trailing stream)
 KERNELS = {
     "closest_faces": ("closest_faces.cu", "mt_closest_faces",
-                      [ctypes.c_int] * 5),
+                      [_PTR] * 3 + [_INT] * 5),
     "nearest_vertices": ("nearest_vertices.cu", "mt_nearest_vertices",
-                         [ctypes.c_int] * 3),
+                         [_PTR] * 3 + [_INT] * 3),
+    "culled_faces": ("culled_faces.cu", "mt_culled_faces",
+                     [_PTR] * 7 + [_INT] * 7),
+    "rope_faces": ("rope_faces.cu", "mt_rope_faces",
+                   [_PTR] * 8 + [_INT] * 6),
 }
 
 #: no FMA contraction and no fast math: the kernels round like the plain
@@ -114,8 +122,7 @@ def load(name):
                 build()
             lib = ctypes.CDLL(path)
             fn = getattr(lib, KERNELS[name][1])
-            fn.argtypes = ([ctypes.c_void_p] * 3 + KERNELS[name][2]
-                           + [ctypes.c_void_p])
+            fn.argtypes = KERNELS[name][2] + [_PTR]
             fn.restype = ctypes.c_int
             lib.mt_error_string.argtypes = [ctypes.c_int]
             lib.mt_error_string.restype = ctypes.c_char_p
@@ -123,21 +130,16 @@ def load(name):
         return lib
 
 
-def launch(name, pts, cols, out, *ints):
-    """Launch kernel ``name`` on ``pts`` [B, Q, 3], ``cols`` [B, R, N] and
-    ``out`` [B, Q] (CUDA tensors, checked by the caller) on the current
-    stream of their device; ``ints`` are the kernel's trailing int
-    arguments (closest_faces: variant, tail)."""
-    n_b, n_q = pts.shape[:2]
-    if n_b > 65535:
-        raise ValueError("%s: batch of %d meshes exceeds the grid's 65535"
-                         % (name, n_b))
+def launch(name, device, *args):
+    """Launch kernel ``name`` on the current stream of CUDA ``device``:
+    each of ``args`` is a tensor (passed as its data pointer; the caller
+    checks device, dtype, shape and contiguity) or an int, in the order of
+    the kernel's C entry point."""
     lib = load(name)
-    with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        err = getattr(lib, KERNELS[name][1])(
-            pts.data_ptr(), cols.data_ptr(), out.data_ptr(),
-            n_b, n_q, cols.shape[-1], *ints, stream)
+    values = [a.data_ptr() if torch.is_tensor(a) else int(a) for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, KERNELS[name][1])(*values, stream)
     if err != 0:
         raise RuntimeError("%s launch failed: CUDA error %d (%s)" % (
             name, err, lib.mt_error_string(err).decode()))

@@ -2,8 +2,9 @@
 (counterpart of mesh_tpu/batch.py without its engine/planner).
 
 The batch is a leading tensor dimension: ``batch_step`` hands all B meshes
-to one ``closest_faces`` kernel launch and one ``vert_normals`` pass, not a
-Python loop over meshes.  Numpy goes in and out with the reference's dtypes
+to one closest-point kernel launch (brute force up to the crossover, the
+sphere-culled kernel above it) and one ``vert_normals`` pass, not a Python
+loop over meshes.  Numpy goes in and out with the reference's dtypes
 and shapes.
 """
 
@@ -12,7 +13,8 @@ import numpy as np
 from .geometry.vert_normals import vert_normals_t
 from .query.closest_kernel import mesh_is_nondegenerate
 from .query.closest_point import closest_point_dispatch
-from .utils.device import as_tensor, tile_variant
+from .utils.device import as_tensor
+from .utils.knobs import tile_variant
 
 __all__ = [
     "stack_mesh_batch",
@@ -58,7 +60,8 @@ def batch_step(vs, f, pts, with_normals=True, assume_nondegenerate=False,
     """One batched step on tensors on their own device: vertex normals of
     ``vs`` [B, V, 3] (when ``with_normals``) and, when ``pts`` [B, Q, 3] is
     given, the closest-point result dict of every (mesh, query set) pair
-    from one kernel launch.  Returns (normals or None, result or None)."""
+    from one kernel launch (``closest_point_dispatch`` picks the kernel).
+    Returns (normals or None, result or None)."""
     normals = vert_normals_t(vs, f) if with_normals else None
     res = None if pts is None else closest_point_dispatch(
         vs, f, pts, assume_nondegenerate=assume_nondegenerate,

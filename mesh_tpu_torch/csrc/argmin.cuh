@@ -27,19 +27,12 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#include <cstddef>
+#include "common.cuh"
 
 namespace mt {
 
 constexpr int kThreads = 128;   // queries per block
 constexpr int kTileCols = 128;  // columns staged per shared-memory tile
-
-__device__ __forceinline__ float clamp01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
-}
 
 template <class Cost>
 __global__ void __launch_bounds__(kThreads)
@@ -92,7 +85,3 @@ int launch_argmin(const float* pts, const float* cols, int* out, int n_b,
 }
 
 }  // namespace mt
-
-extern "C" const char* mt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

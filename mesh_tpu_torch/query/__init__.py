@@ -11,3 +11,4 @@ from .closest_point import (  # noqa: F401
     closest_vertices_with_distance,
 )
 from .culled import closest_faces_and_points_auto  # noqa: F401
+from .culled_kernel import closest_point_culled_kernel  # noqa: F401

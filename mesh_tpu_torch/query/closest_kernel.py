@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..geometry.cross_product import cross3
-from ..utils.device import safe_tiles
+from ..utils.knobs import safe_tiles
 from .point_triangle import closest_point_on_triangle
 
 #: number of per-face planes of either tile
@@ -50,7 +50,7 @@ _PLAIN_PAIRS = {"cpu": 1 << 20, "cuda": 1 << 26}
 # ---------------------------------------------------------------------------
 # Per-pair cost functions: the plain versions' tiles.  px/py/pz are
 # [..., TQ, 1] and every face plane [..., 1, TF]; each returns [..., TQ, TF].
-# The CUDA functors in csrc/closest_faces.cu do the same operations in the
+# The CUDA functors in csrc/face_cost.cuh do the same operations in the
 # same order.
 
 def _sqdist_tile_fast(px, py, pz,
@@ -388,6 +388,16 @@ def _check_operands(pts, cols, n_rows, name):
         raise ValueError("%s: no kernel for device %s" % (name, pts.device))
 
 
+def _grid(pts, cols, name):
+    """(meshes, queries, columns) of an argmin launch, whose grid takes at
+    most 65535 meshes."""
+    n_b, n_q = pts.shape[:2]
+    if n_b > 65535:
+        raise ValueError("%s: batch of %d meshes exceeds the grid's 65535"
+                         % (name, n_b))
+    return n_b, n_q, cols.shape[-1]
+
+
 def argmin_faces(pts, planes, tile_variant="fast", degenerate_tail=True):
     """Index of the closest face per query: the ``closest_faces`` CUDA
     kernel for CUDA tensors, its plain version for CPU tensors."""
@@ -398,7 +408,8 @@ def argmin_faces(pts, planes, tile_variant="fast", degenerate_tail=True):
     from .. import _build
 
     out = torch.empty(pts.shape[:2], dtype=torch.int32, device=pts.device)
-    _build.launch("closest_faces", pts, planes, out,
+    _build.launch("closest_faces", pts.device, pts, planes, out,
+                  *_grid(pts, planes, "closest_faces"),
                   TILE_VARIANTS.index(tile_variant), int(bool(degenerate_tail)))
     LAUNCHES["closest_faces"] += 1
     return out
@@ -428,7 +439,8 @@ def argmin_vertices(pts, vplanes):
     from .. import _build
 
     out = torch.empty(pts.shape[:2], dtype=torch.int32, device=pts.device)
-    _build.launch("nearest_vertices", pts, vplanes, out)
+    _build.launch("nearest_vertices", pts.device, pts, vplanes, out,
+                  *_grid(pts, vplanes, "nearest_vertices"))
     LAUNCHES["nearest_vertices"] += 1
     return out
 

@@ -5,14 +5,17 @@ mesh_tpu/query/closest_point.py).
 reconstruction form (barycentric point per pair, then the argmin), kept as
 an independent oracle of the kernel path.  ``closest_vertices*`` run the
 ``nearest_vertices`` kernel on the card and its plain version on the CPU;
-``closest_point_dispatch`` is the closest-point body of the batched
-facades.
+``closest_point_dispatch`` is the batched facades' switch between the
+brute-force and the sphere-culled kernel.
 """
 
 import torch
 
 from ..utils.device import as_tensor
+from .autotune import crossover_faces
 from .closest_kernel import closest_point_kernel, nearest_vertices_kernel
+from .culled import record_strategy
+from .culled_kernel import closest_point_culled_kernel
 from .point_triangle import closest_point_barycentric, closest_point_on_triangle
 
 
@@ -68,13 +71,17 @@ def closest_vertices(v, points, device="cuda"):
     return closest_vertices_with_distance(v, points, device=device)[0]
 
 
-def closest_point_dispatch(v, f, pts, assume_nondegenerate=False,
+def closest_point_dispatch(v, f, pts, *, assume_nondegenerate=False,
                            tile_variant="fast"):
-    """The closest-point body shared by the batched facades, on tensors on
-    their own device: the ``closest_faces`` kernel path (its plain version
-    on the CPU) with the staging-derived ``assume_nondegenerate`` flag and
-    the ``MESH_TPU_SAFE_TILES`` ``tile_variant``.  Until the culled kernel
-    is ported, every face count takes this brute-force kernel."""
-    return closest_point_kernel(v, f, pts,
-                                assume_nondegenerate=assume_nondegenerate,
-                                tile_variant=tile_variant)
+    """The closest-point body of the batched facades, on tensors on their
+    own device (counterpart of ``_strategy`` in mesh_tpu/batch.py): the
+    sphere-culled kernel above ``crossover_faces()`` faces, the brute-force
+    ``closest_faces`` kernel up to it; both take ``v`` [B, V, 3] with
+    ``pts`` [B, Q, 3] in one launch.  Records the route in
+    ``culled.STRATEGY``."""
+    culled = f.shape[0] > crossover_faces()
+    record_strategy(("culled" if culled else "brute")
+                    + ("_safe" if tile_variant == "safe" else ""))
+    query = closest_point_culled_kernel if culled else closest_point_kernel
+    return query(v, f, pts, assume_nondegenerate=assume_nondegenerate,
+                 tile_variant=tile_variant)

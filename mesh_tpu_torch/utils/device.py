@@ -1,23 +1,13 @@
-"""Device choice, and the knob and constant the closest-point path reads.
+"""Device choice (counterpart of the device half of
+``mesh_tpu/utils/dispatch.py``; the knobs live in ``utils/knobs.py``).
 
-Counterpart of ``mesh_tpu/utils/dispatch.py``, with the one environment
-knob this slice reads (``MESH_TPU_SAFE_TILES``, mesh_tpu/utils/knobs.py)
-and the brute crossover constant (mesh_tpu/query/autotune.py).  Every
-public entry point of the port takes ``device="cuda"``: the card is the
-default, and only an explicit ``device="cpu"`` runs on the CPU.  Asking
+Every public entry point of the port takes ``device="cuda"``: the card is
+the default, and only an explicit ``device="cpu"`` runs on the CPU.  Asking
 for CUDA where there is none raises instead of quietly falling back.
 """
 
-import os
-
+import numpy as np
 import torch
-
-#: flag values that mean OFF (the reference's knob truthiness)
-OFF_VALUES = ("", "0", "false", "no", "off")
-
-#: face count above which the reference's auto ladder leaves the brute
-#: kernel for its culled kernel (mesh_tpu/query/autotune.py)
-DEFAULT_CROSSOVER = 32768
 
 
 def resolve_device(device="cuda"):
@@ -39,18 +29,8 @@ def as_tensor(x, device, dtype=None):
     return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
 
 
-def _flag(name):
-    value = os.environ.get(name)
-    return value is not None and value.strip().lower() not in OFF_VALUES
-
-
-def safe_tiles():
-    """True when ``MESH_TPU_SAFE_TILES`` pins the closest-point kernel to
-    its sliver-safe tile and forces the nondegeneracy check to False."""
-    return _flag("MESH_TPU_SAFE_TILES")
-
-
-def tile_variant():
-    """``"safe"`` under ``MESH_TPU_SAFE_TILES``, else ``"fast"``."""
-    return "safe" if safe_tiles() else "fast"
-
+def host_array(x, dtype):
+    """``x`` (tensor on any device, or array-like) as a numpy array of
+    ``dtype``, without a copy where none is needed."""
+    return (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)).astype(
+        dtype, copy=False)

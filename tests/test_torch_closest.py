@@ -335,7 +335,7 @@ def test_kernel_build_flags_and_sources(monkeypatch):
     for name, (source, entry, _) in _build.KERNELS.items():
         text = open(os.path.join(_build._CSRC, source)).read()
         assert 'extern "C" int %s(' % entry in text
-        assert "Replaces: mesh_tpu/query/pallas_closest.py" in text
+        assert "Replaces: mesh_tpu/" in text
         path = _build._library_path(name)
         assert path == _build._library_path(name)
         assert path.startswith(_build.BUILD_DIR)
