@@ -13,10 +13,13 @@ Phases (any failure raises and exits non-zero; none catches its own):
    body with 4096 queries (all variants; the degenerate-tail variants also
    on a mesh with planted zero-area and collinear faces); culled_faces in
    all four variants on the large batch of phase 5, and both rope_faces
-   entries on the scan of phase 6, each over all its query tiles.  Built
-   without FMA contraction, each kernel must pick exactly the faces
-   (vertices) its plain version picks, with the same tiles or leaves
-   tested;
+   entries on the scan of phase 6, each over all its query tiles;
+   ray_any_hit on every ray of phase 7 (64 bodies x 4 cameras x 6890
+   vertices), alongnormal_faces and normal_weighted_faces (with and without
+   the degenerate tail) at phase 8's shapes, the tail variant also on the
+   planted mesh.  Built without FMA contraction, each kernel must pick
+   exactly the faces (vertices, blocked flags) its plain version picks,
+   with the same tiles, leaves or pairs tested;
 3. main path at full width: lbs -> vertex normals -> batched closest point
    for 256 bodies x 1024 queries, median step time over 10 reps, the
    faces checked against the plain version on the same batch;
@@ -34,16 +37,32 @@ Phases (any failure raises and exits non-zero; none catches its own):
    the streamed entry by default (path ``scan``) and the resident one
    under ``MESH_TPU_BVH_STREAM_VMEM_MB=32`` (path ``scan_resident``); the
    two must be bit-identical, and both are held against the brute-force
-   kernel; the host BVH build is timed apart from the cached calls.
+   kernel; the host BVH build is timed apart from the cached calls;
+7. visibility: ``visibility_step`` on 64 posed bodies from four cameras
+   at (+-3, 0, 0) and (0, +-3, 0), vertex normals computed in the step,
+   median step time over 10 reps; body 0's flags against a float64
+   divided-form recompute (equal except on rays borderline at rounding
+   level); on the rest template, a closed surface without folds, every
+   back-facing vertex (n.dir < -0.2) must be blocked (the posed synthetic
+   bodies fold through themselves, so there the count is only reported);
+   then one body through ``Mesh.vertex_visibility`` (omnidirectional and
+   with a sensor) and ``visible_mesh``;
+8. registration: one posed body as a ``Mesh`` with 65,536 scan-like points
+   carrying noisy face normals, through ``compute_aabb_normals_tree()
+   .nearest`` and ``compute_aabb_tree().nearest_alongnormal`` (cold first
+   call and median of 5 warm calls each), held against float64 dense
+   recomputes; a planted miss must come back as 1e100.
 
-After phase 6, the four closest-point routes (brute, culled, resident and
-streamed rope) are timed at both drives' shapes: the crossover evidence.
+After phase 8, the four closest-point routes (brute, culled, resident and
+streamed rope) are timed at phases 5 and 6's shapes: the crossover
+evidence.
 
-Phases 3-6 are the driven paths (phase 6 twice).  Kernel launch counts are set to
-0 just before each and read just after it, and every kernel must have
-launched on each path of ``KERNEL_PATHS`` and on no other path.  The last lines are the card's
-name and power limit (nvidia-smi), one JSON line describing every kernel
-with its launches per path, and ``{"ok": true, "device": ...}``.
+Phases 3-8 are the driven paths (phase 6 twice).  Kernel launch counts
+are set to 0 just before each and read just after it, and every kernel
+must have launched on each path of ``KERNEL_PATHS`` and on no other
+path.  The last lines are the card's name and power limit (nvidia-smi),
+one JSON line describing every kernel with its launches per path, and
+``{"ok": true, "device": ...}``.
 
 Imports neither JAX nor mesh_tpu.  Needs one CUDA card.
 """
@@ -79,6 +98,24 @@ SCAN_NOISE = 0.005
 SCAN_FACES = 210000
 SCAN_QUERIES = 65536
 
+#: phase 7: the main path's first bodies seen from four cameras around them
+VIS_BATCH = 64
+VIS_CAMERAS = ((3.0, 0.0, 0.0), (-3.0, 0.0, 0.0), (0.0, 3.0, 0.0),
+               (0.0, -3.0, 0.0))
+VIS_MIN_DIST = 1e-3
+#: n.dir below this: a back-facing vertex, which a closed mesh must block
+BACKFACING = -0.2
+#: the facade's sensor for camera 0: x and y half-axes (0.05 along y, 0.2
+#: along z) on a plane 1 in front of the camera, z axis towards the camera
+FACADE_SENSOR = (0.0, 0.05, 0.0, 0.0, 0.0, 0.2, 1.0, 0.0, 0.0)
+
+#: phase 8: scan registration of one posed body
+REG_QUERIES = 65536
+REG_EPS = 0.1
+REG_NORMAL_NOISE = 0.1
+#: queries held against the float64 dense blended minimum
+REG_CHECK = 1024
+
 #: H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 #: and HBM3 bandwidth
 PEAK_FP32_OPS = 67e12
@@ -95,13 +132,25 @@ VARIANTS = [("fast", False), ("fast", True), ("safe", False), ("safe", True)]
 #: operations per pair of the rope kernels: the fast tile with its tail
 ROPE_PAIR_OPS = FACE_PAIR_OPS[("fast", True)]
 
+#: operations per pair counted in csrc/ray_cost.cuh and the kernels over
+#: it: any-hit (line_hit, the t_lo test, the exit test), along-normal
+#: (line_hit, |tn|, the guard, the division, the miss select, the argmin),
+#: normal-weighted (the fast tile + normal dot, sqrt, 1 - dot, times eps)
+RAY_PAIR_OPS = 64
+ALONG_PAIR_OPS = 67
+NW_PAIR_OPS = {False: FACE_PAIR_OPS[("fast", False)] + 8,
+               True: FACE_PAIR_OPS[("fast", True)] + 8}
+
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade"),
                 "nearest_vertices": ("facade",),
                 "culled_faces": ("large_batch",),
                 "rope_faces_stream": ("scan",),
-                "rope_faces_resident": ("scan_resident",)}
+                "rope_faces_resident": ("scan_resident",),
+                "ray_any_hit": ("visibility",),
+                "alongnormal_faces": ("registration",),
+                "normal_weighted_faces": ("registration",)}
 
 
 def log(*args):
@@ -262,13 +311,23 @@ def check_facade_against_scan(v, f, q, faces, points):
         "differ, all at ties (max gap %.3g)" % (gap, n_diff, tie))
 
 
+class _Camera(object):
+    """A camera as the facade reads one: an origin and a sensor's axes."""
+
+    def __init__(self, origin, sensor_axis):
+        self.origin = np.asarray(origin)
+        self.sensor_axis = np.asarray(sensor_axis)
+
+
 def kernel_counters():
     """The launch-count dicts of every kernel wrapper."""
     from mesh_tpu_torch.accel import rope_kernel as rk
     from mesh_tpu_torch.query import closest_kernel as ck
     from mesh_tpu_torch.query import culled_kernel as qk
+    from mesh_tpu_torch.query import normal_weighted as nw
+    from mesh_tpu_torch.query import ray_kernel as ray
 
-    return ck.LAUNCHES, qk.LAUNCHES, rk.LAUNCHES
+    return ck.LAUNCHES, qk.LAUNCHES, rk.LAUNCHES, ray.LAUNCHES, nw.LAUNCHES
 
 
 def reset_launches():
@@ -298,7 +357,8 @@ def timed(fn):
 
 def surface_queries(verts, faces, n_q, rng):
     """Scan-like points on a batch ``verts`` [B, V, 3]: per body, n_q
-    random faces, random barycentric points and N(0, SCAN_NOISE) noise."""
+    random faces, random barycentric points and N(0, SCAN_NOISE) noise ->
+    (points [B, Q, 3], picked faces [B, Q])."""
     n_b = verts.shape[0]
     dev = verts.device
     pick = torch.as_tensor(rng.randint(0, faces.shape[0], (n_b, n_q)),
@@ -309,7 +369,8 @@ def surface_queries(verts, faces, n_q, rng):
                             dtype=torch.float32, device=dev)
     rows = torch.arange(n_b, device=dev)[:, None, None]
     tri = verts[rows, faces.long()[pick]]                 # [B, Q, 3, 3]
-    return (torch.einsum("bqk,bqkx->bqx", w, tri) + noise).contiguous()
+    points = torch.einsum("bqk,bqkx->bqx", w, tri) + noise
+    return points.contiguous(), pick
 
 
 def check_against_brute(name, v, f, q, faces, sqdist, brute):
@@ -427,7 +488,7 @@ def large_batch_inputs(dev):
     pose = torch.as_tensor(rng.randn(LARGE_BATCH, model.num_joints, 3) * 0.1,
                            dtype=torch.float32, device=dev)
     verts, _ = lbs(model, betas, pose, device=dev)
-    queries = surface_queries(verts, model.faces, LARGE_QUERIES, rng)
+    queries, _ = surface_queries(verts, model.faces, LARGE_QUERIES, rng)
     return model, betas, pose, verts, queries
 
 
@@ -538,6 +599,188 @@ def crossover(dev, large, scan):
     return rows
 
 
+def compare_any_hit(ray, origins, dirs, planes):
+    """Kernel vs plain for ray_any_hit on one operand set: identical blocked
+    flags and pairs tested per ray, both timed."""
+    kb, kt = ray.ray_any_hit(origins, dirs, planes, t_lo=0.0)
+    (pb, pt), plain_ms = timed(
+        lambda: ray.ray_any_hit_plain(origins, dirs, planes, t_lo=0.0))
+    check(torch.equal(kb, pb) and torch.equal(kt, pt),
+          "ray_any_hit: %d of %d blocked flags (and %d pair counts) differ "
+          "from the plain version" % (int((kb != pb).sum()), kb.numel(),
+                                      int((kt != pt).sum())))
+    n_b, n_r = origins.shape[:2]
+    tested = int(kt.sum())
+    pairs = n_b * n_r * planes.shape[-1]
+    out = {"shape": [n_b, n_r, planes.shape[-1]], "flags_identical": True,
+           "max_abs_err": float((kb.int() - pb.int()).abs().max()),
+           "blocked_share": float(kb.float().mean()),
+           "pairs_tested": tested, "pairs": pairs, "plain_ms": plain_ms,
+           "ms": cuda_ms(lambda: ray.ray_any_hit(origins, dirs, planes,
+                                                 t_lo=0.0), reps=REPS)}
+    n_bytes = 4 * (origins.numel() + dirs.numel() + planes.numel()
+                   + 2 * kb.numel())
+    out["bound_ms"], out["bound_by"] = bound_ms(tested, RAY_PAIR_OPS,
+                                                n_bytes)
+    log("  ray_any_hit %s: flags and pair counts identical, %.1f%% blocked, "
+        "%d of %d pairs tested (%.1f%%), %.3f ms (plain %.1f ms, bound %.3f "
+        "ms)" % (out["shape"], 100 * out["blocked_share"], tested, pairs,
+                 100.0 * tested / pairs, out["ms"], plain_ms, out["bound_ms"]))
+    return out
+
+
+def compare_alongnormal(ray, pts, nrm, tri):
+    """Kernel vs plain for alongnormal_faces: identical faces, and the
+    epilogue's distances and points after each."""
+    planes = ray.ray_planes(tri)
+    k = ray.argmin_alongnormal(pts, nrm, planes)
+    p, plain_ms = timed(lambda: ray.argmin_alongnormal_plain(pts, nrm,
+                                                             planes))
+    check(torch.equal(k, p), "alongnormal_faces: %d of %d faces differ from "
+          "the plain version" % (int((k != p).sum()), k.numel()))
+    dk = ray.alongnormal_epilogue(k, tri, pts, nrm)
+    dp = ray.alongnormal_epilogue(p, tri, pts, nrm)
+    check(torch.equal(dk[0], dp[0]), "alongnormal_faces: epilogue distances "
+          "differ on identical faces")
+    n_b, n_q = pts.shape[:2]
+    out = {"shape": [n_b, n_q, planes.shape[-1]], "faces_identical": True,
+           "max_abs_err": float((dk[2] - dp[2]).abs().max()),
+           "hit_share": float(torch.isfinite(dk[0]).float().mean()),
+           "plain_ms": plain_ms,
+           "ms": cuda_ms(lambda: ray.argmin_alongnormal(pts, nrm, planes),
+                         reps=REPS)}
+    n_bytes = 4 * (pts.numel() + nrm.numel() + planes.numel() + k.numel())
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        n_b * n_q * planes.shape[-1], ALONG_PAIR_OPS, n_bytes)
+    log("  alongnormal_faces %s: faces identical, %.1f%% hit, %.3f ms "
+        "(plain %.1f ms, bound %.3f ms)" % (
+            out["shape"], 100 * out["hit_share"], out["ms"], plain_ms,
+            out["bound_ms"]))
+    return out
+
+
+def compare_normal_weighted(nw, ops, tail, timing):
+    """Kernel vs plain for normal_weighted_faces on one operand set:
+    identical faces, and the epilogue's points after each."""
+    pts, nrm, planes, tri, center = ops
+    k = nw.argmin_normal_weighted(pts, nrm, planes, REG_EPS, tail)
+    p, plain_ms = timed(lambda: nw.argmin_normal_weighted_plain(
+        pts, nrm, planes, REG_EPS, tail))
+    check(torch.equal(k, p), "normal_weighted_faces[tail=%s]: %d of %d "
+          "faces differ from the plain version"
+          % (tail, int((k != p).sum()), k.numel()))
+    pk = nw.normal_weighted_epilogue(k, tri, pts, center)[1]
+    pp = nw.normal_weighted_epilogue(p, tri, pts, center)[1]
+    n_b, n_q = pts.shape[:2]
+    out = {"degenerate_tail": tail, "shape": [n_b, n_q, planes.shape[-1]],
+           "faces_identical": True,
+           "max_abs_err": float((pk - pp).abs().max()), "plain_ms": plain_ms}
+    if timing:
+        out["ms"] = cuda_ms(lambda: nw.argmin_normal_weighted(
+            pts, nrm, planes, REG_EPS, tail), reps=REPS)
+        n_bytes = 4 * (pts.numel() + nrm.numel() + planes.numel()
+                       + k.numel())
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            n_b * n_q * planes.shape[-1], NW_PAIR_OPS[tail], n_bytes)
+    log("  normal_weighted_faces[tail=%s] %s: faces identical, plain %.1f "
+        "ms%s" % (tail, out["shape"], plain_ms, "" if not timing else
+                  ", %.3f ms (bound %.3f ms)" % (out["ms"], out["bound_ms"])))
+    return out
+
+
+def registration_inputs(verts0, faces, rng):
+    """Phase 8's queries on one posed body ``verts0`` [V, 3]: scan-like
+    points, each with its face's unit normal perturbed by
+    N(0, REG_NORMAL_NOISE) and renormalized; the last query is a planted
+    miss: the line through (50, 0, 0) along y passes far from the body."""
+    from mesh_tpu_torch.geometry.tri_normals import normalize_rows
+    from mesh_tpu_torch.geometry.tri_normals import tri_normals_scaled_t
+
+    pts, pick = surface_queries(verts0[None], faces, REG_QUERIES, rng)
+    fn = normalize_rows(tri_normals_scaled_t(verts0, faces))[pick[0]]
+    noise = torch.as_tensor(rng.randn(REG_QUERIES, 3) * REG_NORMAL_NOISE,
+                            dtype=torch.float32, device=verts0.device)
+    nrm = normalize_rows(fn + noise)
+    pts, nrm = pts[0].clone(), nrm.contiguous()
+    pts[-1] = torch.tensor([50.0, 0.0, 0.0])
+    nrm[-1] = torch.tensor([0.0, 1.0, 0.0])
+    return pts.contiguous(), nrm.contiguous()
+
+
+def blended_min64(v, f, pts, nrm, faces):
+    """Float64 dense check of the normal-weighted search: per query, the
+    blended cost of the given face and the least over every face."""
+    from mesh_tpu_torch.geometry.cross_product import cross3
+    from mesh_tpu_torch.query.point_triangle import closest_point_on_triangle
+
+    tri = v.double()[f.long()]
+    a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+    fn = cross3(b - a, c - a)
+    fn = fn / (fn * fn).sum(-1, keepdim=True).sqrt().clamp_min(1e-300)
+    q, n = pts.double(), nrm.double()
+
+    def cost(qq, nn, aa, bb, cc, ff):
+        _, sq, _ = closest_point_on_triangle(qq, aa, bb, cc)
+        return sq.sqrt() + REG_EPS * (1.0 - (nn * ff).sum(-1))
+
+    fl = faces.long()
+    mine = cost(q, n, a[fl], b[fl], c[fl], fn[fl])
+    least = torch.cat([
+        cost(q[i:i + 64, None], n[i:i + 64, None], a[None], b[None],
+             c[None], fn[None]).min(dim=-1).values
+        for i in range(0, q.shape[0], 64)])
+    return mine, least
+
+
+def any_hit64(origins, dirs, tri, t_lo=0.0, near=1e-5):
+    """Float64 divided-form recompute of the any-hit test: per ray [R],
+    whether some face is hit with t >= t_lo, and whether some face sits
+    within ``near`` of the predicate's boundary (its tightest barycentric
+    or ray-parameter slack), where float32 rounding may decide either
+    way."""
+    from mesh_tpu_torch.geometry.cross_product import cross3
+
+    tri = tri.double()
+    a = tri[None, :, 0]
+    e1, e2 = tri[None, :, 1] - a, tri[None, :, 2] - a
+    blocked, border = [], []
+    for i in range(0, origins.shape[0], 256):
+        o = origins[i:i + 256].double()[:, None]
+        d = dirs[i:i + 256].double()[:, None]
+        pvec = cross3(d, e2)
+        det = (e1 * pvec).sum(-1)
+        valid = det.abs() >= 1e-9
+        inv = 1.0 / torch.where(valid, det, torch.ones_like(det))
+        s = o - a
+        u = (s * pvec).sum(-1) * inv
+        qvec = cross3(s, e1)
+        v = (d * qvec).sum(-1) * inv
+        t = (e2 * qvec).sum(-1) * inv
+        slack = torch.minimum(torch.minimum(u + 1e-6, v + 1e-6),
+                              torch.minimum(1.0 + 1e-6 - u - v, t - t_lo))
+        blocked.append((valid & (slack >= 0)).any(dim=-1))
+        border.append((valid & (slack.abs() <= near)).any(dim=-1))
+    return torch.cat(blocked), torch.cat(border)
+
+
+def alongnormal_hits64(v, f, pts, nrm):
+    """Float64 dense recompute of the along-normal search in the divided
+    form: (whether any face is hit [Q], least |t| |n| over the hits)."""
+    from mesh_tpu_torch.query.ray import ray_triangle_hits
+
+    tri = v.double()[f.long()]
+    a, b, c = tri[None, :, 0], tri[None, :, 1], tri[None, :, 2]
+    any_hit, least = [], []
+    for i in range(0, pts.shape[0], 256):
+        p = pts[i:i + 256].double()[:, None]
+        n = nrm[i:i + 256].double()[:, None]
+        t, hit = ray_triangle_hits(p, n, a, b, c)
+        d = torch.where(hit, t.abs() * n.norm(dim=-1), float("inf"))
+        any_hit.append(hit.any(dim=-1))
+        least.append(d.min(dim=-1).values)
+    return torch.cat(any_hit), torch.cat(least)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -547,13 +790,17 @@ def main():
     from mesh_tpu_torch import Mesh, _build
     from mesh_tpu_torch.accel import rope_kernel as rk
     from mesh_tpu_torch.accel.build import build_bvh, clear_index_cache
-    from mesh_tpu_torch.batch import batch_step
+    from mesh_tpu_torch.batch import batch_step, visibility_step
+    from mesh_tpu_torch.geometry.cross_product import cross3
     from mesh_tpu_torch.models import lbs, synthetic_body_model
     from mesh_tpu_torch.query import closest_kernel as ck
     from mesh_tpu_torch.query import culled as auto
     from mesh_tpu_torch.query import culled_kernel as qk
+    from mesh_tpu_torch.query import normal_weighted as nw
+    from mesh_tpu_torch.query import ray_kernel as ray
     from mesh_tpu_torch.query.autotune import stream_tile_params
     from mesh_tpu_torch.query.closest_point import closest_faces_and_points_t
+    from mesh_tpu_torch.query.visibility import visibility_rays
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -606,6 +853,18 @@ def main():
         "tail=%s]; scan mesh %d faces, %d queries; inputs %.1f s"
         % (tuple(verts_l.shape), f_l.shape[0], nondegen_l, *variant_l,
            f_s.shape[0], SCAN_QUERIES, time.perf_counter() - t0))
+
+    # -- inputs of the visibility and registration drives (phases 7 and 8) --
+    cams = torch.tensor(VIS_CAMERAS, dtype=torch.float32, device=dev)
+    betas_v, pose_v = betas[:VIS_BATCH], pose[:VIS_BATCH]
+    verts_v = verts[:VIS_BATCH]
+    reg_pts, reg_nrm = registration_inputs(verts[0], f,
+                                           np.random.RandomState(1))
+    nondegen_r = ck.mesh_is_nondegenerate(posed[0], f_np)
+    log("visibility: %d bodies x %d cameras; registration: body 0, %d "
+        "queries, nondegenerate %s -> normal_weighted_faces[tail=%s]"
+        % (VIS_BATCH, len(VIS_CAMERAS), REG_QUERIES, nondegen_r,
+           not nondegen_r))
 
     # -- 2. kernels vs plain on the card -------------------------------------
     log("== kernels vs plain")
@@ -666,6 +925,28 @@ def main():
           "bit-identical to the resident one, or tests fewer leaves")
     log("  rope_faces: streamed and resident entries bit-identical; %d vs "
         "%d leaves tested" % (int(sl.sum()), int(rl.sum())))
+    # ray_any_hit at phase 7's shapes: every ray of every body and camera
+    origins_v, dirs_v = visibility_rays(verts_v, cams, VIS_MIN_DIST)
+    any_hit_run = compare_any_hit(
+        ray, origins_v, dirs_v.reshape(origins_v.shape).contiguous(),
+        ray.ray_planes(verts_v[..., f.long(), :]))
+    del origins_v, dirs_v
+    # alongnormal_faces and normal_weighted_faces at phase 8's shapes
+    along_run = compare_alongnormal(ray, reg_pts[None], reg_nrm[None],
+                                    verts[:1][..., f.long(), :])
+    nw_ops = nw.normal_weighted_operands(verts[:1], f, reg_pts[None],
+                                         reg_nrm[None])
+    nw_runs = [compare_normal_weighted(nw, nw_ops, tail, timing=True)
+               for tail in (False, True)]
+    del nw_ops
+    n2 = rng.randn(1, q2.shape[0], 3)
+    n2t = torch.as_tensor(n2 / np.linalg.norm(n2, axis=-1, keepdims=True),
+                          dtype=torch.float32, device=dev)
+    planted = compare_normal_weighted(
+        nw, nw.normal_weighted_operands(v2t, f2t, q2t, n2t), True,
+        timing=False)
+    planted["mesh"] = "planted degenerate"
+    nw_runs.append(planted)
 
     # -- 3. main path at full width ------------------------------------------
     log("== main path: %d bodies x %d queries, %d faces each"
@@ -850,6 +1131,158 @@ def main():
         torch.as_tensor(res_s["sqdist"], device=dev)[None], brute_s)
     del brute_s
 
+    # -- 7. visibility: visibility_step on the batch, then the facade ------
+    log("== visibility: %d bodies x %d cameras x %d vertices, %d faces each"
+        % (VIS_BATCH, len(VIS_CAMERAS), verts.shape[1], f.shape[0]))
+    reset_launches()
+
+    def step_v():
+        v, _ = lbs(model, betas_v, pose_v, device=dev)
+        vis, ndc = visibility_step(v, f, cams, min_dist=VIS_MIN_DIST)
+        return vis, ndc, vis.sum().to(torch.float32) + ndc.sum()
+
+    vis_v, ndc_v, checksum_v = step_v()             # warm-up
+    float(checksum_v)
+    times_v = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        vis_v, ndc_v, checksum_v = step_v()
+        end.record()
+        float(checksum_v)
+        times_v.append(start.elapsed_time(end))
+    step_v_ms = statistics.median(times_v)
+    rest_vis, rest_ndc = visibility_step(model.v_template[None], f, cams,
+                                         min_dist=VIS_MIN_DIST)
+    m_v = Mesh(posed[0], f_np, device=dev)
+    omni = m_v.vertex_visibility(VIS_CAMERAS[0])
+    sensed = m_v.vertex_visibility(_Camera(VIS_CAMERAS[0], FACADE_SENSOR))
+    sub = m_v.visible_mesh(VIS_CAMERAS[0])
+    launches["visibility"] = read_launches()
+    n_v = verts.shape[1]
+    check(tuple(vis_v.shape) == (VIS_BATCH, len(VIS_CAMERAS), n_v)
+          and vis_v.dtype == torch.bool and ndc_v.shape == vis_v.shape
+          and ndc_v.dtype == torch.float32, "visibility shapes/dtypes")
+    check(bool(torch.isfinite(ndc_v).all()), "visibility n.dir not finite")
+    share = vis_v.float().mean(dim=(0, 2)).tolist()
+    rest_back = rest_ndc < BACKFACING
+    rest_back_visible = int((rest_back & rest_vis).sum())
+    check(rest_back_visible == 0, "visibility: %d back-facing vertices of "
+          "the closed rest template are visible" % rest_back_visible)
+    backfacing = ndc_v < BACKFACING
+    backfacing_visible = int((backfacing & vis_v).sum())
+    tri0 = verts_v[0][f.long()]
+    fn0 = cross3(tri0[:, 1] - tri0[:, 0], tri0[:, 2] - tri0[:, 0])
+    inward = int(((fn0 * (tri0.mean(dim=1) - verts_v[0].mean(dim=0))).sum(-1)
+                  < 0).sum())
+    origins0, dirs0 = visibility_rays(verts_v[:1], cams, VIS_MIN_DIST)
+    blocked64, border64 = any_hit64(origins0[0], dirs0[0].reshape(-1, 3),
+                                    tri0)
+    differ64 = vis_v[0].reshape(-1) == blocked64
+    check(not bool((differ64 & ~border64).any()),
+          "visibility: %d of body 0's flags differ from the float64 "
+          "recompute away from the boundary"
+          % int((differ64 & ~border64).sum()))
+    log("  visible share per camera %s; body 0 against float64: %d of %d "
+        "flags differ, all on borderline rays; rest template: 0 of %d "
+        "back-facing (n.dir < %g) vertices visible; posed batch: %d of %d "
+        "back-facing vertices visible (body 0 has %d of %d faces turned "
+        "towards its centroid: the posed surface folds)"
+        % (["%.4f" % x for x in share], int(differ64.sum()),
+           differ64.numel(), int(rest_back.sum()), BACKFACING,
+           backfacing_visible, int(backfacing.sum()), inward, f.shape[0]))
+    check(omni.dtype == np.uint32 and omni.shape == (n_v,),
+          "facade visibility dtype/shape %s %s" % (omni.dtype, omni.shape))
+    check(np.array_equal(omni.astype(bool), vis_v[0, 0].cpu().numpy()),
+          "facade visibility differs from visibility_step on body 0")
+    check(0 < int(sensed.sum()) < int(omni.sum())
+          and not (sensed.astype(bool) & ~omni.astype(bool)).any(),
+          "sensor visibility is not a proper subset of the omnidirectional")
+    check(sub.v.shape[0] == int(omni.sum()) and sub.f.shape[0] > 0
+          and int(sub.f.max()) < sub.v.shape[0], "visible_mesh")
+    log("visibility step: median %.3f ms over %d reps (min %.3f, max %.3f), "
+        "%.0f rays/s, on %s; facade: %d visible from camera 0, %d within the "
+        "sensor, visible_mesh %d vertices / %d faces"
+        % (step_v_ms, REPS, min(times_v), max(times_v),
+           vis_v.numel() / (step_v_ms / 1e3), smi, int(omni.sum()),
+           int(sensed.sum()), sub.v.shape[0], sub.f.shape[0]))
+
+    # -- 8. registration: the normal-weighted and along-normal trees --------
+    log("== registration: Mesh on body 0, %d scan points with normals"
+        % REG_QUERIES)
+    pts_np, nrm_np = reg_pts.cpu().numpy(), reg_nrm.cpu().numpy()
+    m_r = Mesh(posed[0], f_np, device=dev)
+    reset_launches()
+    reg_calls = {}
+
+    def timed_calls(name, first):
+        """The first call (tree made inside it), then 5 warm calls."""
+        t0 = time.perf_counter()
+        query, out = first()
+        reg_calls[name + "_first_call_s"] = time.perf_counter() - t0
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            again = query(pts_np, nrm_np)
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(all(np.array_equal(x, y) for x, y in zip(out, again)),
+                  "%s: repeated calls disagree" % name)
+        reg_calls[name + "_warm_call_ms"] = statistics.median(times)
+        reg_calls[name + "_warm_call_ms_min"] = min(times)
+        reg_calls[name + "_warm_call_ms_max"] = max(times)
+        return out
+
+    def first_nw():
+        tree = m_r.compute_aabb_normals_tree()
+        return tree.nearest, tree.nearest(pts_np, nrm_np)
+
+    def first_along():
+        tree = m_r.compute_aabb_tree()
+        return tree.nearest_alongnormal, tree.nearest_alongnormal(pts_np,
+                                                                  nrm_np)
+
+    nw_face, nw_point = timed_calls("normal_weighted", first_nw)
+    an_d, an_f, an_p = timed_calls("alongnormal", first_along)
+    launches["registration"] = read_launches()
+    check(nw_face.dtype == np.uint32 and nw_face.shape == (REG_QUERIES, 1)
+          and nw_point.dtype == np.float64
+          and nw_point.shape == (REG_QUERIES, 3)
+          and an_d.dtype == np.float64 and an_d.shape == (REG_QUERIES,)
+          and an_f.dtype == np.uint32 and an_f.shape == (REG_QUERIES,)
+          and an_p.dtype == np.float64 and an_p.shape == (REG_QUERIES, 3),
+          "registration dtypes/shapes")
+    check(bool(np.isfinite(nw_point).all()), "normal-weighted points")
+    mine, least = blended_min64(
+        verts[0], f, reg_pts[:REG_CHECK], reg_nrm[:REG_CHECK],
+        torch.as_tensor(nw_face[:REG_CHECK, 0].astype(np.int64), device=dev))
+    nw_gap = float((mine - least).max())
+    check(nw_gap <= 1e-5, "normal-weighted winners' blended cost %.3g above "
+          "the float64 dense minimum" % nw_gap)
+    hit64, least64 = alongnormal_hits64(verts[0], f, reg_pts, reg_nrm)
+    finite = torch.as_tensor(an_d < 1e100, device=dev)
+    lost = int((hit64 & ~finite).sum())
+    check(lost == 0, "along-normal: %d queries hit in float64 come back as "
+          "misses" % lost)
+    check(an_d[-1] == 1e100 and an_f[-1] == 0 and not an_p[-1].any(),
+          "along-normal: the planted miss is not reported as 1e100")
+    both = finite & hit64
+    an_gap = float((torch.as_tensor(an_d, device=dev)[both]
+                    - least64[both]).abs().max())
+    registration = dict(
+        reg_calls, nw_cost_gap64=nw_gap, along_hits=int(finite.sum()),
+        along_hits64=int(hit64.sum()), along_dist_gap64=an_gap,
+        nondegenerate=nondegen_r)
+    log("  normal-weighted: winners within %.3g of the float64 dense "
+        "blended minimum (first %d queries); along-normal: %d of %d hit "
+        "(float64 dense: %d), none lost, distance within %.3g of the "
+        "float64 nearest hit; planted miss -> 1e100"
+        % (nw_gap, REG_CHECK, int(finite.sum()), REG_QUERIES,
+           int(hit64.sum()), an_gap))
+    log("registration calls (host clock, ms): %s" % ", ".join(
+        "%s %.3f" % (k, v * (1e3 if k.endswith("_s") else 1.0))
+        for k, v in reg_calls.items()))
+
     for name, paths in KERNEL_PATHS.items():
         for path, counts in launches.items():
             if path in paths:
@@ -912,6 +1345,15 @@ def main():
     log("scan stage breakdown (ms; build on the host clock, median of 3; "
         "the rest separate CUDA-event runs): " + ", ".join(
             "%s %.3f" % kv for kv in stages_s.items()))
+    stages_v = {
+        "lbs": cuda_ms(lambda: lbs(model, betas_v, pose_v, device=dev), 3),
+        "vert_normals": cuda_ms(lambda: batch_step(verts_v, f, None), 3),
+        "rays_and_planes": cuda_ms(lambda: (
+            visibility_rays(verts_v, cams, VIS_MIN_DIST),
+            ray.ray_planes(verts_v[..., f.long(), :])), 3),
+        "ray_any_hit_kernel": any_hit_run["ms"]}
+    log("visibility stage breakdown (ms, separate runs): " + ", ".join(
+        "%s %.3f" % kv for kv in stages_v.items()))
 
     # -- kernels line, card line, result ---------------------------------------
     main = next(r for r in face_runs
@@ -972,6 +1414,26 @@ def main():
              "ms": run["ms"], "plain_ms": run["plain_ms"],
              "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
              "library_ms": None, "detail": run})
+    main_nw = nw_runs[0 if nondegen_r else 1]
+    for name, run, path, source, replaces in (
+            ("ray_any_hit", any_hit_run, "visibility", "ray_any_hit.cu",
+             "mesh_tpu/query/pallas_ray.py:178"),
+            ("alongnormal_faces", along_run, "registration",
+             "alongnormal_faces.cu", "mesh_tpu/query/pallas_ray.py:231"),
+            ("normal_weighted_faces", main_nw, "registration",
+             "normal_weighted_faces.cu",
+             "mesh_tpu/query/pallas_normal_weighted.py:78")):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "mesh_tpu_torch/csrc/" + source, "replaces": replaces,
+             "launches": launches[path][name],
+             "launches_by_path": {p: launches[p][name] for p in launches},
+             "max_abs_err": (max(r["max_abs_err"] for r in nw_runs)
+                             if run is main_nw else run["max_abs_err"]),
+             "ms": run["ms"], "plain_ms": run["plain_ms"],
+             "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
+             "library_ms": None,
+             "detail": nw_runs if run is main_nw else run})
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(smi, flush=True)
     print(json.dumps({
@@ -983,7 +1445,15 @@ def main():
         "scan": {"stream": dict(stats_s, **scan_calls),
                  "resident": dict(stats_r, **resident_calls),
                  "stages_ms": stages_s, "vs_brute": scan_vs_brute},
-        "crossover_ms": crossover_rows}), flush=True)
+        "crossover_ms": crossover_rows,
+        "visibility": {"step_ms": step_v_ms, "step_ms_min": min(times_v),
+                       "step_ms_max": max(times_v),
+                       "visible_share_per_camera": share,
+                       "backfacing_visible": backfacing_visible,
+                       "rest_backfacing_visible": rest_back_visible,
+                       "body0_flags_differ64": int(differ64.sum()),
+                       "stages_ms": stages_v},
+        "registration": registration}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)

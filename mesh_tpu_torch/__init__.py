@@ -11,12 +11,23 @@ Ported so far: the posed-body -> normals -> closest-point path (the
 synthetic body model and ``lbs``, vertex normals, the brute-force
 closest-face and nearest-vertex kernels behind the batched and ``Mesh``
 facades), and closest point on large meshes (the auto ladder's
-sphere-culled kernel and BVH rope walks, ``accel``).
+sphere-culled kernel and BVH rope walks, ``accel``), and ray-cast vertex
+visibility with the search trees (the any-hit, along-normal and
+normal-weighted kernels behind ``Mesh.vertex_visibility``,
+``batched_vertex_visibility`` and ``search``'s ``AabbTree`` and
+``AabbNormalsTree``).
 """
 
 from .batch import (  # noqa: F401
     batched_closest_faces_and_points,
     batched_vertex_normals,
+    batched_vertex_visibility,
     fused_normals_and_closest_points,
 )
 from .mesh import Mesh  # noqa: F401
+from .search import (  # noqa: F401
+    AabbNormalsTree,
+    AabbTree,
+    CGALClosestPointTree,
+    ClosestPointTree,
+)

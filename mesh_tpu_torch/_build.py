@@ -6,9 +6,9 @@ happens at first use, all sources at once (one ``nvcc`` each, in parallel),
 into ``build/mesh_tpu_torch/`` beside the package, under a name keyed by
 the sources' and flags' digest, so an edited source never loads a stale
 library.  Each kernel declares its C argument types; a launch passes
-tensors as device pointers and ints as ints, on PyTorch's current stream,
-and every launch's ``cudaGetLastError()`` is checked: a non-zero code
-raises.
+tensors as device pointers, ints as ints and floats as C floats, on
+PyTorch's current stream, and every launch's ``cudaGetLastError()`` is
+checked: a non-zero code raises.
 """
 
 import ctypes
@@ -26,7 +26,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "build", "mesh_tpu_torch")
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: kernel name -> (source file, C entry point, argument types before the
 #: trailing stream)
@@ -39,6 +39,13 @@ KERNELS = {
                      [_PTR] * 7 + [_INT] * 7),
     "rope_faces": ("rope_faces.cu", "mt_rope_faces",
                    [_PTR] * 8 + [_INT] * 6),
+    "ray_any_hit": ("ray_any_hit.cu", "mt_ray_any_hit",
+                    [_PTR] * 5 + [_INT] * 4 + [_FLOAT, _INT, _FLOAT]),
+    "alongnormal_faces": ("alongnormal_faces.cu", "mt_alongnormal_faces",
+                          [_PTR] * 4 + [_INT] * 3),
+    "normal_weighted_faces": ("normal_weighted_faces.cu",
+                              "mt_normal_weighted_faces",
+                              [_PTR] * 4 + [_INT] * 4 + [_FLOAT]),
 }
 
 #: no FMA contraction and no fast math: the kernels round like the plain
@@ -133,10 +140,12 @@ def load(name):
 def launch(name, device, *args):
     """Launch kernel ``name`` on the current stream of CUDA ``device``:
     each of ``args`` is a tensor (passed as its data pointer; the caller
-    checks device, dtype, shape and contiguity) or an int, in the order of
-    the kernel's C entry point."""
+    checks device, dtype, shape and contiguity), an int or a float, in the
+    order of the kernel's C entry point."""
     lib = load(name)
-    values = [a.data_ptr() if torch.is_tensor(a) else int(a) for a in args]
+    values = [a.data_ptr() if torch.is_tensor(a)
+              else float(a) if isinstance(a, float) else int(a)
+              for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, KERNELS[name][1])(*values, stream)

@@ -3,9 +3,10 @@
 
 The batch is a leading tensor dimension: ``batch_step`` hands all B meshes
 to one closest-point kernel launch (brute force up to the crossover, the
-sphere-culled kernel above it) and one ``vert_normals`` pass, not a Python
-loop over meshes.  Numpy goes in and out with the reference's dtypes
-and shapes.
+sphere-culled kernel above it) and one ``vert_normals`` pass, and
+``visibility_step`` hands every (mesh, camera, vertex) ray to one
+``ray_any_hit`` launch, not a Python loop over meshes.  Numpy goes in and
+out with the reference's dtypes and shapes.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import numpy as np
 from .geometry.vert_normals import vert_normals_t
 from .query.closest_kernel import mesh_is_nondegenerate
 from .query.closest_point import closest_point_dispatch
+from .query.visibility import visibility_local
 from .utils.device import as_tensor
 from .utils.knobs import tile_variant
 
@@ -20,8 +22,10 @@ __all__ = [
     "stack_mesh_batch",
     "batched_vertex_normals",
     "batched_closest_faces_and_points",
+    "batched_vertex_visibility",
     "fused_normals_and_closest_points",
     "batch_step",
+    "visibility_step",
 ]
 
 
@@ -69,6 +73,18 @@ def batch_step(vs, f, pts, with_normals=True, assume_nondegenerate=False,
     return normals, res
 
 
+def visibility_step(vs, f, cams, normals=None, min_dist=1e-3):
+    """One batched visibility step on tensors on their own device: every
+    mesh of ``vs`` [B, V, 3], self-occluded by its own faces ``f`` [F, 3],
+    from every camera of ``cams`` [C, 3], in one ``ray_any_hit`` launch.
+    ``normals`` [B, V, 3] for n.dir; None computes vertex normals in the
+    step.  Returns (visible [B, C, V] bool, n_dot_cam [B, C, V])."""
+    if normals is None:
+        normals = vert_normals_t(vs, f)
+    return visibility_local(vs, vs[..., f.long(), :], cams, normals,
+                            min_dist=min_dist)
+
+
 def _broadcast_points(points, batch):
     pts = np.asarray(points, np.float32)
     if pts.ndim == 2:
@@ -103,6 +119,32 @@ def batched_closest_faces_and_points(meshes, points, device="cuda"):
         tile_variant=tile_variant())
     faces = res["face"].cpu().numpy().astype(np.uint32)[:, None, :]
     return faces, res["point"].cpu().numpy().astype(np.float64)
+
+
+def batched_vertex_visibility(meshes, cams, min_dist=1e-3, device="cuda"):
+    """Per-vertex visibility of every mesh from the same cameras, each mesh
+    self-occluded by its own faces, in one kernel launch.
+
+    Normals for the n.dir output come from each mesh's stored ``vn`` when
+    EVERY mesh has one; otherwise vertex normals are computed in the step.
+
+    :param cams: [C, 3] camera centers shared across the batch.
+    :returns: (vis [B, C, V] uint32, n_dot_cam [B, C, V] f64).
+    """
+    v, f = stack_mesh_batch(meshes)
+    # a (v_stack, f) tuple carries no stored normals
+    is_array_tuple = (isinstance(meshes, tuple) and len(meshes) == 2
+                      and not hasattr(meshes[0], "v"))
+    normals = None
+    if not is_array_tuple and all(getattr(m, "vn", None) is not None
+                                  for m in meshes):
+        normals = as_tensor(np.stack([np.asarray(m.vn, np.float32)
+                                      for m in meshes]), device)
+    cams = as_tensor(np.atleast_2d(np.asarray(cams, np.float32)), device)
+    vis, ndc = visibility_step(as_tensor(v, device), as_tensor(f, device),
+                               cams, normals, min_dist)
+    return (vis.cpu().numpy().astype(np.uint32),
+            ndc.cpu().numpy().astype(np.float64))
 
 
 def fused_normals_and_closest_points(meshes, points, device="cuda"):

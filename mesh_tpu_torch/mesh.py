@@ -1,5 +1,5 @@
-"""Triangle mesh facade, the subset on the closest-point path (counterpart
-of mesh_tpu/mesh.py ``Mesh``).
+"""Triangle mesh facade, the subset on the closest-point, visibility and
+search-tree paths (counterpart of mesh_tpu/mesh.py ``Mesh``).
 
 Numpy goes in and out with ``mesh_tpu.Mesh``'s dtypes and shapes: ``v``
 [V, 3] float64, ``f`` [F, 3] uint32, faces of a query [1, Q] uint32 and its
@@ -16,6 +16,13 @@ from .batch import fused_normals_and_closest_points
 from .geometry.vert_normals import vert_normals_t
 from .query.closest_kernel import nearest_vertices_kernel
 from .query.culled import closest_faces_and_points_auto
+from .query.visibility import visibility_compute
+from .search import (
+    AabbNormalsTree,
+    AabbTree,
+    CGALClosestPointTree,
+    ClosestPointTree,
+)
 from .utils.device import resolve_device
 
 
@@ -80,3 +87,64 @@ class Mesh(object):
         (normals [V, 3] f64, faces [1, Q] uint32, points [Q, 3] f64)."""
         return fused_normals_and_closest_points(self, vertices,
                                                 device=self.device)
+
+    # ------------------------------------------------------------------
+    # Visibility
+
+    def vertex_visibility(self, camera, normal_threshold=None,
+                          omni_directional_camera=False,
+                          binary_visiblity=True):
+        """Per-vertex visibility from ``camera``; optionally gated on the
+        normal-to-camera dot product.  ``binary_visiblity`` keeps the
+        reference's spelling (mesh.py:282); when False the visibility is
+        weighted by n.dir."""
+        vis, n_dot_cam = self.vertex_visibility_and_normals(
+            camera, omni_directional_camera)
+        if normal_threshold is not None:
+            vis = vis.astype(bool) & (n_dot_cam > normal_threshold)
+        return np.squeeze(vis if binary_visiblity else vis * n_dot_cam)
+
+    def vertex_visibility_and_normals(self, camera,
+                                      omni_directional_camera=False):
+        """(visibility [1, V] uint32, n_dot_cam [1, V] float64) from a
+        camera object (``origin`` and, unless omnidirectional,
+        ``sensor_axis``) or a bare position (omnidirectional)."""
+        if hasattr(camera, "origin"):
+            origin = np.asarray(camera.origin).flatten()
+        else:
+            origin = np.asarray(camera, dtype=np.float64).flatten()
+            omni_directional_camera = True
+        sensors = None
+        if not omni_directional_camera:
+            sensors = np.array([np.asarray(camera.sensor_axis).flatten()])
+        n = getattr(self, "vn", None)
+        if n is None:
+            n = self.estimate_vertex_normals()
+        return visibility_compute(self.v, self.f, np.array([origin]), n=n,
+                                  sensors=sensors, device=self.device)
+
+    def visible_mesh(self, camera=[0.0, 0.0, 0.0]):
+        """Submesh of the vertices visible from ``camera``; a face survives
+        only if all three corners are visible (reference mesh.py:330-342,
+        spelled ``visibile_mesh`` there: kept below as an alias)."""
+        vis = np.asarray(self.vertex_visibility(camera)).astype(bool).ravel()
+        f = self.f.astype(np.int64)
+        surviving = f[vis[f].all(axis=1)]
+        renumber = np.cumsum(vis) - 1      # old id -> new id where visible
+        return Mesh(v=self.v[vis], f=renumber[surviving], device=self.device)
+
+    #: the reference's spelling
+    visibile_mesh = visible_mesh
+
+    # ------------------------------------------------------------------
+    # Search trees (reference mesh.py:439-455)
+
+    def compute_aabb_tree(self, strategy="auto"):
+        return AabbTree(self, strategy=strategy)
+
+    def compute_aabb_normals_tree(self):
+        return AabbNormalsTree(self)
+
+    def compute_closest_point_tree(self, use_cgal=False):
+        return (CGALClosestPointTree(self) if use_cgal
+                else ClosestPointTree(self))
