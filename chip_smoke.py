@@ -17,9 +17,13 @@ Phases (any failure raises and exits non-zero; none catches its own):
    ray_any_hit on every ray of phase 7 (64 bodies x 4 cameras x 6890
    vertices), alongnormal_faces and normal_weighted_faces (with and without
    the degenerate tail) at phase 8's shapes, the tail variant also on the
-   planted mesh.  Built without FMA contraction, each kernel must pick
-   exactly the faces (vertices, blocked flags) its plain version picks,
-   with the same tiles, leaves or pairs tested;
+   planted mesh; tri_tri_any_hit in both tiles at phase 9's shapes (1,552
+   hand faces x 13,776 body faces), the segment tile also with the planted
+   mesh's faces as queries against body 0; self_intersect in both tiles on
+   every face of body 0 and of phase 5's body 0 (98,304 faces), and on a
+   query range of each.  Built without FMA contraction, each kernel must
+   pick exactly the faces (vertices, blocked flags, counts) its plain
+   version picks, with the same tiles, leaves or pairs tested;
 3. main path at full width: lbs -> vertex normals -> batched closest point
    for 256 bodies x 1024 queries, median step time over 10 reps, the
    faces checked against the plain version on the same batch;
@@ -51,13 +55,28 @@ Phases (any failure raises and exits non-zero; none catches its own):
    carrying noisy face normals, through ``compute_aabb_normals_tree()
    .nearest`` and ``compute_aabb_tree().nearest_alongnormal`` (cold first
    call and median of 5 warm calls each), held against float64 dense
-   recomputes; a planted miss must come back as 1e100.
+   recomputes; a planted miss must come back as 1e100;
+9. contact: examples/hand_body_contact.py through the port: an SMPL-sized
+   body and a MANO-sized hand (``synthetic_family_model``) posed by its
+   recipe, ``compute_aabb_tree().intersections_indices`` (the gate's tile,
+   and the segment tile under ``MESH_TPU_SAFE_TILES=1``: the same faces),
+   ``tree.nearest`` and the signed gap from ``tri_normals``; the cold first
+   call and the median of 5 warm calls of the step and of
+   ``intersections_indices``; each tile's mask against a float64
+   recompute of its own predicate (``decide64``: equal except on faces
+   borderline within TOL_MOVE);
+10. self_intersect: ``query.self_intersection_count`` on phase 3's and
+   phase 5's posed body 0 (cold first call, median of 5 warm calls, the
+   kernel alone in both tiles): 0 on each rest template (a closed UV
+   sphere), above 0 posed; where the two tiles' involved faces differ,
+   and on 512 faces (half involved), each tile against a float64
+   recompute of its own predicate.
 
-After phase 8, the four closest-point routes (brute, culled, resident and
+After phase 10, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes: the crossover
 evidence.
 
-Phases 3-8 are the driven paths (phase 6 twice).  Kernel launch counts
+Phases 3-10 are the driven paths (phase 6 twice).  Kernel launch counts
 are set to 0 just before each and read just after it, and every kernel
 must have launched on each path of ``KERNEL_PATHS`` and on no other
 path.  The last lines are the card's name and power limit (nvidia-smi),
@@ -141,16 +160,34 @@ ALONG_PAIR_OPS = 67
 NW_PAIR_OPS = {False: FACE_PAIR_OPS[("fast", False)] + 8,
                True: FACE_PAIR_OPS[("fast", True)] + 8}
 
+#: operations per pair of the triangle-triangle tiles, counted in
+#: csrc/tri_tri_cost.cuh; the self-intersection kernel adds 21 of its own
+#: (9 vertex-id compares, 8 ors, the self test, two ands, the count's add)
+TRI_PAIR_OPS = {"segment": 428, "moller": 232}
+SELF_PAIR_OPS = {k: v + 21 for k, v in TRI_PAIR_OPS.items()}
+
+#: phase 9: examples/hand_body_contact.py's recipe (hand offset from the
+#: body axis, m; contact: a hand vertex within 1 cm of the body)
+CONTACT_OFFSET = (0.26, 0.0, 0.1)
+CONTACT_GAP = 0.01
+#: the float64 checks' borderline band: a face whose float64 decision
+#: flips when the segment tests' tolerances move by this much may differ
+TOL_MOVE = 1e-6
+#: phase 10: faces of each posed body held against float64 (half involved)
+SELF_CHECK_FACES = 512
+
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
-KERNEL_PATHS = {"closest_faces": ("main_path", "facade"),
+KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "nearest_vertices": ("facade",),
                 "culled_faces": ("large_batch",),
                 "rope_faces_stream": ("scan",),
                 "rope_faces_resident": ("scan_resident",),
                 "ray_any_hit": ("visibility",),
                 "alongnormal_faces": ("registration",),
-                "normal_weighted_faces": ("registration",)}
+                "normal_weighted_faces": ("registration",),
+                "tri_tri_any_hit": ("contact",),
+                "self_intersect": ("self_intersect",)}
 
 
 def log(*args):
@@ -326,8 +363,10 @@ def kernel_counters():
     from mesh_tpu_torch.query import culled_kernel as qk
     from mesh_tpu_torch.query import normal_weighted as nw
     from mesh_tpu_torch.query import ray_kernel as ray
+    from mesh_tpu_torch.query import tri_tri_kernel as tk
 
-    return ck.LAUNCHES, qk.LAUNCHES, rk.LAUNCHES, ray.LAUNCHES, nw.LAUNCHES
+    return (ck.LAUNCHES, qk.LAUNCHES, rk.LAUNCHES, ray.LAUNCHES, nw.LAUNCHES,
+            tk.LAUNCHES, tk.TILE_LAUNCHES)
 
 
 def reset_launches():
@@ -781,6 +820,209 @@ def alongnormal_hits64(v, f, pts, nrm):
     return torch.cat(any_hit), torch.cat(least)
 
 
+def compare_tri_tri(tk, qp, fp, algorithm, label, timing):
+    """Kernel vs plain for tri_tri_any_hit on one operand set: identical
+    flags and pairs tested per query, the plain version timed."""
+    k, kt = tk.tri_tri_any_hit(qp, fp, algorithm)
+    (p, pt), plain_ms = timed(
+        lambda: tk.tri_tri_any_hit_plain(qp, fp, algorithm))
+    check(torch.equal(k, p) and torch.equal(kt, pt),
+          "tri_tri_any_hit[%s] on %s: %d of %d flags (and %d pair counts) "
+          "differ from the plain version" % (
+              algorithm, label, int((k != p).sum()), k.numel(),
+              int((kt != pt).sum())))
+    n_q, n_f = qp.shape[-1], fp.shape[-1]
+    tested = int(kt.sum())
+    out = {"tile": algorithm, "on": label, "shape": [n_q, n_f],
+           "flags_identical": True, "max_abs_err": 0.0,
+           "hit": int(k.sum()), "pairs_tested": tested, "pairs": n_q * n_f,
+           "plain_ms": plain_ms}
+    if timing:
+        out["ms"] = cuda_ms(lambda: tk.tri_tri_any_hit(qp, fp, algorithm),
+                            reps=REPS)
+        n_bytes = 4 * (qp.numel() + fp.numel() + 2 * n_q)
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            tested, TRI_PAIR_OPS[algorithm], n_bytes)
+    log("  tri_tri_any_hit[%s] on %s %s: flags and pair counts identical, "
+        "%d hit, %d of %d pairs tested, plain %.1f ms%s" % (
+            algorithm, label, out["shape"], out["hit"], tested, n_q * n_f,
+            plain_ms, "" if not timing else ", %.3f ms (bound %.4f ms)"
+            % (out["ms"], out["bound_ms"])))
+    return out
+
+
+def compare_self(tk, tri, ids, algorithm, label):
+    """Kernel vs plain for self_intersect on every face of a mesh against
+    all its faces: identical per-face counts, both timed; the kernel on
+    the query range [F / 4, F / 2) must give that slice of the counts."""
+    qp, fp = tk.self_planes(tri, algorithm)
+    n_f = tri.shape[0]
+    k = tk.self_intersect_counts(qp, fp, ids, algorithm)
+    p, plain_ms = timed(lambda: tk.self_intersect_counts_plain(
+        qp, fp, ids, algorithm))
+    check(torch.equal(k, p), "self_intersect[%s] on %s: %d of %d counts "
+          "differ from the plain version" % (algorithm, label,
+                                             int((k != p).sum()), k.numel()))
+    r0, r1 = n_f // 4, n_f // 2
+    check(torch.equal(tk.self_intersect_counts(qp, fp, ids, algorithm, r0,
+                                               r1), k[r0:r1]),
+          "self_intersect[%s] on %s: the query range [%d, %d) differs from "
+          "the whole mesh's counts" % (algorithm, label, r0, r1))
+    out = {"tile": algorithm, "on": label, "shape": [n_f, n_f],
+           "counts_identical": True, "max_abs_err": 0.0,
+           "involved": int((k > 0).sum()), "partners": int(k.sum()),
+           "pairs": n_f * n_f, "plain_ms": plain_ms,
+           "ms": cuda_ms(lambda: tk.self_intersect_counts(
+               qp, fp, ids, algorithm), reps=3)}
+    n_bytes = 4 * (qp.numel() + fp.numel() + ids.numel() + n_f)
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        n_f * n_f, SELF_PAIR_OPS[algorithm], n_bytes)
+    log("  self_intersect[%s] on %s %s: counts identical, %d faces "
+        "involved, %d partners, %.3f ms (plain %.1f ms, bound %.4f ms)" % (
+            algorithm, label, out["shape"], out["involved"], out["partners"],
+            out["ms"], plain_ms, out["bound_ms"]))
+    return out
+
+
+def decide64(tile, q_tri, tri, q_ids=None, f_ids=None, q_index=None):
+    """Float64 decision of ``tile``'s predicate for each query triangle
+    [Q, 3, 3] against every face [F, 3, 3]: (any hit [Q], borderline [Q]),
+    bool on the CPU.
+
+    - segment: the divided segment form (query/ray.py tri_tri_intersects):
+      a pair's slack is the best of its six segment tests' least margin
+      (u, v, 1 - u - v, t, 1 - t, each with the 1e-9 tolerance; a test
+      with |det| under 1e-9 counts -inf); a query hits iff its largest
+      slack is >= 0, and moving every tolerance by TOL_MOVE flips that
+      only where |slack| < TOL_MOVE: borderline.
+    - moller: Moller's interval test on the triangles prescaled together
+      into the unit box, as the tile's prologue does
+      (tri_tri_intersects_moller); borderline where moving the plane
+      thickening from 1e-9 to 0 or to 1e-9 + TOL_MOVE changes the
+      decision.
+
+    With ``q_ids`` / ``f_ids`` (vertex ids) and ``q_index`` (the queries'
+    face indices), faces sharing a vertex with the query, or the query
+    itself, are left out, as the self-intersection count does."""
+    from mesh_tpu_torch.geometry.cross_product import cross3
+    from mesh_tpu_torch.query import tri_tri_kernel as tk
+
+    eps = 1e-9
+    q_all, tri = q_tri.double(), tri.double()
+    if tile == "moller":
+        q_all, tri = tk.moller_prescale(q_all, tri)
+        planes = tk.tri_planes(tri[None])
+    hits, borders = [], []
+    chunk = max(1, (1 << 22) // max(1, tri.shape[0]))
+    for i in range(0, q_all.shape[0], chunk):
+        q = q_all[i:i + chunk][:, None]                     # [c, 1, 3, 3]
+        excluded = torch.zeros((q.shape[0], tri.shape[0]), dtype=torch.bool,
+                               device=tri.device)
+        if q_ids is not None:
+            qi = q_ids[i:i + chunk].long()
+            excluded = (qi[:, :, None, None] == f_ids.long()[None, None]).any(
+                dim=1).any(dim=-1)
+            excluded |= (q_index[i:i + chunk, None].long()
+                         == torch.arange(tri.shape[0], device=tri.device))
+        if tile == "moller":
+            qp = tk.tri_planes(q)
+            flags = [((tk.moller_hit(*(tuple(x[..., k] for k in range(3))
+                                       for x in qp[:4]), qp[4],
+                                     *(tuple(x[..., k] for k in range(3))
+                                       for x in planes[:4]), planes[4], e)
+                       & ~excluded).any(dim=-1))
+                     for e in (eps, 0.0, eps + TOL_MOVE)]
+            hits.append(flags[0])
+            borders.append((flags[1] != flags[0]) | (flags[2] != flags[0]))
+            continue
+        m = tri[None]                                       # [1, F, 3, 3]
+        pair = None
+        for src, dst in ((q, m), (m, q)):
+            a = dst[..., 0, :]
+            e1, e2 = dst[..., 1, :] - a, dst[..., 2, :] - a
+            for c in range(3):
+                s0 = src[..., c, :]
+                d = src[..., (c + 1) % 3, :] - s0
+                pvec = cross3(d, e2)
+                det = (e1 * pvec).sum(-1)
+                valid = det.abs() >= eps
+                inv = 1.0 / torch.where(valid, det, torch.ones_like(det))
+                sv = s0 - a
+                u = (sv * pvec).sum(-1) * inv
+                qvec = cross3(sv, e1)
+                v = (d * qvec).sum(-1) * inv
+                t = (e2 * qvec).sum(-1) * inv
+                slack = torch.minimum(
+                    torch.minimum(torch.minimum(u + eps, v + eps),
+                                  1.0 + eps - (u + v)),
+                    torch.minimum(t + eps, 1.0 + eps - t))
+                slack = torch.where(valid, slack,
+                                    torch.full_like(slack, -float("inf")))
+                pair = slack if pair is None else torch.maximum(pair, slack)
+        best = torch.where(excluded, torch.full_like(pair, -float("inf")),
+                           pair).max(dim=-1).values
+        hits.append(best >= 0)
+        borders.append(best.abs() < TOL_MOVE)
+    return torch.cat(hits).cpu(), torch.cat(borders).cpu()
+
+
+def check_against64(name, flags, decided):
+    """Per-query flags [Q] against a float64 decision (any hit [Q],
+    borderline [Q]) of ``decide64``: equal except on borderline queries.
+    Returns (flags that differ, borderline queries)."""
+    exact, border = decided
+    differ = flags.cpu() != exact
+    off = differ & ~border
+    check(not bool(off.any()), "%s: %d of %d flags differ from the float64 "
+          "recompute away from the borderline band (queries %s)" % (
+              name, int(off.sum()), flags.numel(),
+              off.nonzero()[:5, 0].tolist()))
+    return int(differ.sum()), int(border.sum())
+
+
+def contact_inputs(dev):
+    """Phase 9's meshes, as examples/hand_body_contact.py makes them: an
+    SMPL-sized body (betas N(0, 0.3), rest pose) and a MANO-sized hand
+    (pose N(0, 0.05)) offset against its flank -> (body_v, body_f, hand_v,
+    hand_f) numpy, float32 vertices and uint32 faces."""
+    from mesh_tpu_torch.models import lbs, synthetic_family_model
+
+    body_model = synthetic_family_model("smpl", device=dev)
+    hand_model = synthetic_family_model("mano", device=dev)
+    rng = np.random.RandomState(0)
+    body_v = lbs(body_model,
+                 torch.as_tensor(rng.randn(1, body_model.num_betas) * 0.3,
+                                 dtype=torch.float32, device=dev),
+                 torch.zeros((1, body_model.num_joints, 3), device=dev),
+                 device=dev)[0][0].cpu().numpy()
+    hand_v = lbs(hand_model,
+                 torch.zeros((1, hand_model.num_betas), device=dev),
+                 torch.as_tensor(rng.randn(1, hand_model.num_joints, 3)
+                                 * 0.05, dtype=torch.float32, device=dev),
+                 device=dev)[0][0].cpu().numpy()
+    hand_v = hand_v + np.array(CONTACT_OFFSET)
+    return (body_v, body_model.faces.cpu().numpy().astype(np.uint32),
+            hand_v, hand_model.faces.cpu().numpy().astype(np.uint32))
+
+
+def contact_step(body, hand, dev):
+    """examples/hand_body_contact.py steps 1-2 through the port: the
+    intersecting hand faces, then the signed gap of every hand vertex to
+    the body (closest point, signed by the closest face's normal)."""
+    from mesh_tpu_torch.geometry import tri_normals
+
+    tree = body.compute_aabb_tree()
+    hit_faces = tree.intersections_indices(hand.v, hand.f)
+    f_idx, points = tree.nearest(hand.v)
+    gap = np.linalg.norm(np.asarray(hand.v) - points, axis=1)
+    face_normals = tri_normals(body.v, body.f.astype(np.int32),
+                               device=dev).cpu().numpy()
+    inside = np.sum((np.asarray(hand.v) - points)
+                    * face_normals[np.asarray(f_idx).ravel()], axis=1) < 0
+    signed = np.where(inside, -gap, gap)
+    return hit_faces, signed
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -798,6 +1040,7 @@ def main():
     from mesh_tpu_torch.query import culled_kernel as qk
     from mesh_tpu_torch.query import normal_weighted as nw
     from mesh_tpu_torch.query import ray_kernel as ray
+    from mesh_tpu_torch.query import tri_tri_kernel as tk
     from mesh_tpu_torch.query.autotune import stream_tile_params
     from mesh_tpu_torch.query.closest_point import closest_faces_and_points_t
     from mesh_tpu_torch.query.visibility import visibility_rays
@@ -865,6 +1108,27 @@ def main():
         "queries, nondegenerate %s -> normal_weighted_faces[tail=%s]"
         % (VIS_BATCH, len(VIS_CAMERAS), REG_QUERIES, nondegen_r,
            not nondegen_r))
+
+    # -- inputs of the contact and self-intersection drives (9 and 10) ------
+    body_v, body_f, hand_v, hand_f = contact_inputs(dev)
+    contact_tile = tk.ALGORITHMS[int(
+        ck.mesh_is_nondegenerate(body_v, body_f)
+        and ck.mesh_is_nondegenerate(hand_v, hand_f))]
+    # float32, as the facade hands them to the kernels (hand_v is float64
+    # after the offset, as in the example)
+    hand_tri = torch.as_tensor(hand_v.astype(np.float32), device=dev)[
+        torch.as_tensor(hand_f.astype(np.int64), device=dev)]
+    body_tri = torch.as_tensor(body_v, device=dev)[
+        torch.as_tensor(body_f.astype(np.int64), device=dev)]
+    self_bodies = {
+        "smpl_body0": (posed[0], f_np, model.v_template.cpu().numpy()),
+        "large_body0": (verts_l[0].cpu().numpy(), f_l.cpu().numpy(),
+                        model_l.v_template.cpu().numpy())}
+    self_tiles = {k: tk.ALGORITHMS[int(ck.mesh_is_nondegenerate(v, f_))]
+                  for k, (v, f_, _) in self_bodies.items()}
+    log("contact: hand %d faces vs body %d faces -> tri_tri_any_hit[%s]; "
+        "self-intersection tiles %s" % (hand_f.shape[0], body_f.shape[0],
+                                        contact_tile, self_tiles))
 
     # -- 2. kernels vs plain on the card -------------------------------------
     log("== kernels vs plain")
@@ -947,6 +1211,25 @@ def main():
         timing=False)
     planted["mesh"] = "planted degenerate"
     nw_runs.append(planted)
+    # tri_tri_any_hit at phase 9's shapes in both tiles, and the segment
+    # tile with the planted mesh's faces as the queries against body 0
+    tri_runs = {alg: compare_tri_tri(tk, *tk.tri_tri_planes(
+        hand_tri, body_tri, alg), alg, "hand vs body", timing=True)
+        for alg in tk.ALGORITHMS}
+    tri_runs["segment_planted"] = compare_tri_tri(
+        tk, *tk.segment_planes(v2t[0][f2t.long()], verts[0][f.long()]),
+        "segment", "planted mesh vs body 0", timing=False)
+    # self_intersect on every face of phase 3's and phase 5's body 0, both
+    # tiles
+    self_runs = {}
+    for key, (v_np, f_np_, _) in self_bodies.items():
+        tri_b = torch.as_tensor(v_np, device=dev)[
+            torch.as_tensor(f_np_.astype(np.int64), device=dev)]
+        ids_b = torch.as_tensor(f_np_.astype(np.int32), device=dev)
+        for alg in tk.ALGORITHMS:
+            self_runs["%s[%s]" % (key, alg)] = compare_self(
+                tk, tri_b, ids_b, alg, key)
+        del tri_b, ids_b
 
     # -- 3. main path at full width ------------------------------------------
     log("== main path: %d bodies x %d queries, %d faces each"
@@ -1283,6 +1566,181 @@ def main():
         "%s %.3f" % (k, v * (1e3 if k.endswith("_s") else 1.0))
         for k, v in reg_calls.items()))
 
+    # -- 9. contact: examples/hand_body_contact.py through the port ---------
+    log("== contact: hand %d faces vs body %d faces" % (hand_f.shape[0],
+                                                       body_f.shape[0]))
+    from mesh_tpu_torch.query import closest_kernel as ck_mod
+
+    reset_launches()
+    contact = {"tile": contact_tile}
+
+    def host_ms(fn, first_key, warm_key):
+        """The first call (cold), then the median of 5 warm calls, on the
+        host clock."""
+        t0 = time.perf_counter()
+        out = fn()
+        contact[first_key] = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            again = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(all(np.array_equal(x, y) for x, y in zip(out, again)),
+                  "contact: repeated calls disagree")
+        contact[warm_key] = statistics.median(times)
+        return out
+
+    body = Mesh(body_v, body_f, device=dev)
+    hand = Mesh(hand_v, hand_f, device=dev)
+    hit_faces, signed = host_ms(lambda: contact_step(body, hand, dev),
+                                "step_first_ms", "step_warm_ms")
+    ck_mod._NONDEGEN_CACHE.clear()
+    tree_c = Mesh(body_v, body_f, device=dev).compute_aabb_tree()
+    (hit_again,) = host_ms(lambda: (tree_c.intersections_indices(
+        hand_v, hand_f),), "intersections_first_ms", "intersections_warm_ms")
+    check(np.array_equal(hit_again, hit_faces),
+          "contact: intersections_indices differs between trees")
+    safe = os.environ.get("MESH_TPU_SAFE_TILES")
+    os.environ["MESH_TPU_SAFE_TILES"] = "1"
+    try:
+        hit_safe = tree_c.intersections_indices(hand_v, hand_f)
+    finally:
+        if safe is None:
+            del os.environ["MESH_TPU_SAFE_TILES"]
+        else:
+            os.environ["MESH_TPU_SAFE_TILES"] = safe
+    launches["contact"] = read_launches()
+    n_hand = hand_f.shape[0]
+    check(hit_faces.dtype == np.int64 and 0 < hit_faces.size < n_hand,
+          "contact: %d of %d hand faces intersect: want some, not all"
+          % (hit_faces.size, n_hand))
+    check(np.array_equal(hit_safe, hit_faces), "contact: the segment tile "
+          "(MESH_TPU_SAFE_TILES=1) finds %d faces, the %s tile %d"
+          % (hit_safe.size, contact_tile, hit_faces.size))
+    check(signed.shape == (hand_v.shape[0],) and bool(
+        np.isfinite(signed).all()), "contact: signed gaps")
+    masks, decided = {}, {}
+    for name, idx in ((contact_tile, hit_faces), ("segment", hit_safe)):
+        mask = torch.zeros(n_hand, dtype=torch.bool)
+        mask[torch.as_tensor(idx)] = True
+        masks[name] = mask
+        decided[name] = decide64(name, hand_tri, body_tri)
+    differ_c, border_c = check_against64("contact", masks[contact_tile],
+                                         decided[contact_tile])
+    check_against64("contact, segment tile", masks["segment"],
+                    decided["segment"])
+    in_contact = np.abs(signed) < CONTACT_GAP
+    contact.update(
+        intersecting=int(hit_faces.size), hand_faces=n_hand,
+        intersecting64=int(decided[contact_tile][0].sum()),
+        differ64=differ_c,
+        borderline64=border_c, contact_vertices=int(in_contact.sum()),
+        deepest_mm=float(-1000.0 * signed.min()) if (signed < 0).any()
+        else 0.0,
+        kernel_ms={alg: tri_runs[alg]["ms"] for alg in tk.ALGORITHMS})
+    log("  gate -> %s tile; %d of %d hand faces intersect (segment tile "
+        "the same; float64: %d, %d differ, %d borderline); %d contact "
+        "vertices (< %g m), deepest penetration %.1f mm" % (
+            contact_tile, hit_faces.size, n_hand, contact["intersecting64"],
+            differ_c, border_c, contact["contact_vertices"], CONTACT_GAP,
+            contact["deepest_mm"]))
+    log("contact calls (host clock, ms): step first %.3f, warm %.3f; "
+        "intersections_indices first %.3f, warm %.3f; kernel alone (phase "
+        "2, CUDA events) %s, on %s" % (
+            contact["step_first_ms"], contact["step_warm_ms"],
+            contact["intersections_first_ms"],
+            contact["intersections_warm_ms"],
+            ", ".join("%s %.3f" % kv for kv in contact["kernel_ms"].items()),
+            smi))
+
+    # -- 10. self-intersection of the posed bodies ----------------------------
+    log("== self_intersect: phase 3's and phase 5's posed body 0")
+    from mesh_tpu_torch.query.ray import self_intersection_count
+
+    reset_launches()
+    self_int = {}
+    for key, (v_np, f_np_, rest_np) in self_bodies.items():
+        rec = {"faces": int(f_np_.shape[0]), "tile": self_tiles[key]}
+        ck_mod._NONDEGEN_CACHE.clear()
+        t0 = time.perf_counter()
+        count = int(self_intersection_count(v_np, f_np_, device=dev))
+        rec["first_ms"] = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            again = int(self_intersection_count(v_np, f_np_, device=dev))
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(again == count, "%s: repeated counts disagree" % key)
+        rec["warm_ms"] = statistics.median(times)
+        rec["count"] = count
+        rec["rest_count"] = int(self_intersection_count(rest_np, f_np_,
+                                                        device=dev))
+        vt_b = torch.as_tensor(v_np, device=dev)
+        ft_b = torch.as_tensor(f_np_.astype(np.int64), device=dev)
+        per_tile = {alg: tk.self_intersection_counts_kernel(vt_b, ft_b, alg)
+                    for alg in tk.ALGORITHMS}
+        tri_b = vt_b[ft_b]
+        ids_b = ft_b.to(torch.int32).contiguous()
+        rec["kernel_ms"] = {}
+        for alg in tk.ALGORITHMS:
+            qp_b, fp_b = tk.self_planes(tri_b, alg)
+            rec["kernel_ms"][alg] = cuda_ms(lambda: tk.self_intersect_counts(
+                qp_b, fp_b, ids_b, alg), reps=3)
+            del qp_b, fp_b
+        involved = {alg: c > 0 for alg, c in per_tile.items()}
+        check(rec["rest_count"] == 0, "%s: the rest template (a closed UV "
+              "sphere) has %d self-intersecting faces" % (key,
+                                                          rec["rest_count"]))
+        check(count > 0, "%s: the posed body does not self-intersect" % key)
+        check(count == int(involved[self_tiles[key]].sum()),
+              "%s: the facade's count is not its tile's" % key)
+        tile_differ = (involved["moller"] != involved["segment"]).nonzero()[
+            :, 0]
+        rec["tile_counts"] = {alg: int(x.sum()) for alg, x in
+                              involved.items()}
+        rec["tiles_differ"] = int(tile_differ.numel())
+        # each tile against its own float64 predicate, on the faces the
+        # tiles disagree on and on 256 involved and 256 free faces
+        rng_s = np.random.RandomState(2)
+        inv_idx = involved[self_tiles[key]].nonzero()[:, 0].cpu().numpy()
+        free_idx = (~involved[self_tiles[key]]).nonzero()[:, 0].cpu().numpy()
+        half = SELF_CHECK_FACES // 2
+        pick = torch.as_tensor(np.concatenate([
+            rng_s.choice(inv_idx, min(half, inv_idx.size), replace=False),
+            rng_s.choice(free_idx, min(half, free_idx.size), replace=False)]),
+            device=dev)
+        rec["checked64"] = int(pick.numel())
+        rec["tiles_differ64"] = 0
+        for label, faces in (("tiles differ", tile_differ), ("sample", pick)):
+            if not faces.numel():
+                continue
+            dec = {alg: decide64(alg, tri_b[faces], tri_b, ids_b[faces], ids_b,
+                                 faces) for alg in tk.ALGORITHMS}
+            for alg in tk.ALGORITHMS:
+                got = check_against64("%s, %s tile, %s" % (key, alg, label),
+                                      involved[alg][faces], dec[alg])
+                if label == "sample" and alg == self_tiles[key]:
+                    rec["differ64"], rec["borderline64"] = got
+            if label == "tiles differ":
+                # the float64 predicates themselves disagree on these
+                rec["tiles_differ64"] = int((dec["moller"][0]
+                                             != dec["segment"][0]).sum())
+        self_int[key] = rec
+        log("  %s (%d faces): %d self-intersecting faces (%s tile; moller "
+            "%d, segment %d, %d differ, the float64 predicates on %d of "
+            "them), rest template 0; "
+            "%d faces vs float64: %d differ, %d borderline; first call %.3f "
+            "ms, warm %.3f ms (host clock), kernel alone %s ms, on %s" % (
+                key, rec["faces"], count, self_tiles[key],
+                rec["tile_counts"]["moller"], rec["tile_counts"]["segment"],
+                rec["tiles_differ"], rec["tiles_differ64"], rec["checked64"],
+                rec["differ64"],
+                rec["borderline64"], rec["first_ms"], rec["warm_ms"],
+                ", ".join("%s %.3f" % kv for kv in rec["kernel_ms"].items()),
+                smi))
+        del vt_b, ft_b, tri_b, ids_b, per_tile
+    launches["self_intersect"] = read_launches()
+
     for name, paths in KERNEL_PATHS.items():
         for path, counts in launches.items():
             if path in paths:
@@ -1434,6 +1892,24 @@ def main():
              "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
              "library_ms": None,
              "detail": nw_runs if run is main_nw else run})
+    for name, runs, path, source, replaces, main_run in (
+            ("tri_tri_any_hit", tri_runs, "contact", "tri_tri_any_hit.cu",
+             "mesh_tpu/query/pallas_ray.py:754", tri_runs[contact_tile]),
+            ("self_intersect", self_runs, "self_intersect",
+             "self_intersect.cu", "mesh_tpu/query/pallas_ray.py:697",
+             self_runs["smpl_body0[%s]" % self_tiles["smpl_body0"]])):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "mesh_tpu_torch/csrc/" + source, "replaces": replaces,
+             "launches": launches[path][name],
+             "launches_by_path": {p: launches[p][name] for p in launches},
+             "launches_by_tile": {alg: launches[path]["%s[%s]" % (name, alg)]
+                                  for alg in tk.ALGORITHMS},
+             "max_abs_err": 0.0, "ms": main_run["ms"],
+             "plain_ms": main_run["plain_ms"],
+             "bound_ms": main_run["bound_ms"],
+             "bound_by": main_run["bound_by"], "library_ms": None,
+             "tile": main_run["tile"], "detail": runs})
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(smi, flush=True)
     print(json.dumps({
@@ -1453,7 +1929,8 @@ def main():
                        "rest_backfacing_visible": rest_back_visible,
                        "body0_flags_differ64": int(differ64.sum()),
                        "stages_ms": stages_v},
-        "registration": registration}), flush=True)
+        "registration": registration, "contact": contact,
+        "self_intersect": self_int}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)

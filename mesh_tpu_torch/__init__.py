@@ -15,7 +15,11 @@ sphere-culled kernel and BVH rope walks, ``accel``), and ray-cast vertex
 visibility with the search trees (the any-hit, along-normal and
 normal-weighted kernels behind ``Mesh.vertex_visibility``,
 ``batched_vertex_visibility`` and ``search``'s ``AabbTree`` and
-``AabbNormalsTree``).
+``AabbNormalsTree``), and triangle-triangle intersection (the any-hit and
+self-intersection kernels, each with a segment and a Moller tile, behind
+``AabbTree.intersections_indices``, ``query.intersections_mask`` and
+``query.self_intersection_count``, with the SMPL-family synthetic models of
+``models.synthetic_family_model``).
 """
 
 from .batch import (  # noqa: F401

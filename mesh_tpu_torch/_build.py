@@ -46,6 +46,10 @@ KERNELS = {
     "normal_weighted_faces": ("normal_weighted_faces.cu",
                               "mt_normal_weighted_faces",
                               [_PTR] * 4 + [_INT] * 4 + [_FLOAT]),
+    "tri_tri_any_hit": ("tri_tri_any_hit.cu", "mt_tri_tri_any_hit",
+                        [_PTR] * 3 + [_INT] * 3 + [_FLOAT] * 2),
+    "self_intersect": ("self_intersect.cu", "mt_self_intersect",
+                       [_PTR] * 4 + [_INT] * 4 + [_FLOAT] * 2),
 }
 
 #: no FMA contraction and no fast math: the kernels round like the plain

@@ -31,11 +31,14 @@ __device__ __forceinline__ float sign3(float x) {
 
 // Whether the line o + t d (t of either sign) meets the triangle with
 // corner a and edges e1, e2; also returns ad = |det| and the sign-carried
-// numerator tn of t.
+// numerator tn of t.  eps guards |det|, beps is the barycentric tolerance
+// (the ray kernels take the defaults; the segment tests of
+// tri_tri_cost.cuh pass 1e-9 for both).
 __device__ __forceinline__ bool line_hit(
     float ox, float oy, float oz, float dx, float dy, float dz, float ax,
     float ay, float az, float e1x, float e1y, float e1z, float e2x, float e2y,
-    float e2z, float& ad, float& tn) {
+    float e2z, float& ad, float& tn, float eps = kRayEps,
+    float beps = kBaryEps) {
   // pvec = d x e2
   const float px = dy * e2z - dz * e2y;
   const float py = dz * e2x - dx * e2z;
@@ -51,8 +54,8 @@ __device__ __forceinline__ bool line_hit(
   const float qz = sx * e1y - sy * e1x;
   const float vn = (dx * qx + dy * qy + dz * qz) * sd;
   tn = (e2x * qx + e2y * qy + e2z * qz) * sd;
-  const float tol = kBaryEps * ad;
-  return (ad >= kRayEps) & (un >= -tol) & (vn >= -tol) & (un + vn <= ad + tol);
+  const float tol = beps * ad;
+  return (ad >= eps) & (un >= -tol) & (vn >= -tol) & (un + vn <= ad + tol);
 }
 
 // Face planes of the ray kernels: a(3) e1(3) e2(3), staged as 3 float4

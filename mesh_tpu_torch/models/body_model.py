@@ -1,6 +1,7 @@
 """Linear-blend-skinning body model, SMPL architecture (counterpart of
 mesh_tpu/models/body_model.py: ``BodyModel``, ``lbs``, ``_uv_sphere``,
-``smpl_sized_sphere`` and ``synthetic_body_model``).
+``smpl_sized_sphere``, ``synthetic_body_model``, ``_parametric_sphere``,
+``MODEL_FAMILIES`` and ``synthetic_family_model``).
 
 ``BodyModel`` is an ``nn.Module`` whose weights are buffers, so ``.to()``
 moves them together.  ``synthetic_body_model`` draws its weights with the
@@ -243,3 +244,71 @@ def synthetic_body_model(seed=0, n_betas=10, n_joints=24, template=None,
     same weights as mesh_tpu's ``synthetic_body_model(seed)``."""
     arrays, parents = synthetic_body_arrays(seed, n_betas, n_joints, template)
     return body_model_from_arrays(arrays, parents, device=device, dtype=dtype)
+
+
+def _parametric_sphere(n_v_target):
+    """A UV-sphere with exactly ``n_v_target`` vertices, proportioned like
+    ``smpl_sized_sphere``: the near-square rings x segments + 2 grid not
+    above the target (n_seg closest to sqrt(target)), then the remainder,
+    at most n_seg - 1 vertices, by centroid face splits (1 face -> 3,
+    projected back to the sphere)."""
+    root = float(np.sqrt(max(n_v_target - 2, 1)))
+    best = None
+    for n_seg in range(3, 400):
+        n_ring = (n_v_target - 2) // n_seg
+        if n_ring >= 3:
+            if best is None or abs(n_seg - root) < abs(best[0] - root):
+                best = (n_seg, n_ring)
+    if best is None:
+        raise ValueError("n_v_target too small: %d" % n_v_target)
+    n_seg, n_ring = best
+    v, f = _uv_sphere(n_seg, n_ring)
+    faces = f.tolist()
+    v = list(v)
+    n_extra = n_v_target - len(v)
+    stride = max(1, len(faces) // max(n_extra, 1))
+    for k in range(n_extra):
+        fi = (k * stride) % len(faces)
+        a, b, c = faces[fi]
+        centroid = (np.asarray(v[a]) + v[b] + v[c]) / 3.0
+        centroid = centroid / np.linalg.norm(centroid)
+        new = len(v)
+        v.append(centroid)
+        faces[fi] = [a, b, new]
+        faces.append([b, c, new])
+        faces.append([c, a, new])
+    v = np.asarray(v)
+    assert len(v) == n_v_target
+    return v, np.array(faces, dtype=np.int32)
+
+
+#: (vertices, joints, betas) of the SMPL-family architectures that
+#: ``synthetic_family_model`` reproduces
+MODEL_FAMILIES = {
+    "smpl": (6890, 24, 10),
+    "smplx": (10475, 55, 10),
+    "flame": (5023, 5, 100),
+    "mano": (778, 16, 10),
+}
+
+#: template proportions (metres) of the families built on _parametric_sphere
+_FAMILY_SCALE = {"smplx": [0.3, 0.2, 0.9], "flame": [0.09, 0.12, 0.1],
+                 "mano": [0.04, 0.09, 0.02]}
+
+
+def synthetic_family_model(family, seed=0, dtype=torch.float32,
+                           device="cuda"):
+    """A synthetic model with the exact (V, J, B) architecture of a named
+    SMPL-family member ("smpl", "smplx", "flame", "mano"), with the same
+    weights as mesh_tpu's ``synthetic_family_model(family, seed)``."""
+    try:
+        n_v, n_joints, n_betas = MODEL_FAMILIES[family]
+    except KeyError:
+        raise ValueError("unknown family %r (have %s)"
+                         % (family, sorted(MODEL_FAMILIES))) from None
+    template = None    # smpl: smpl_sized_sphere, as synthetic_body_model
+    if family != "smpl":
+        v, f = _parametric_sphere(n_v)
+        template = (v * np.array(_FAMILY_SCALE[family]), f)
+    return synthetic_body_model(seed=seed, n_betas=n_betas, n_joints=n_joints,
+                                template=template, dtype=dtype, device=device)

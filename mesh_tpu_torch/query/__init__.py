@@ -1,5 +1,5 @@
-"""Closest-point, normal-weighted, ray and visibility queries of the
-PyTorch port."""
+"""Closest-point, normal-weighted, ray, visibility and
+triangle-triangle queries of the PyTorch port."""
 
 from .closest_kernel import (  # noqa: F401
     closest_point_kernel,
@@ -17,6 +17,17 @@ from .normal_weighted import (  # noqa: F401
     nearest_normal_weighted,
     nearest_normal_weighted_kernel,
 )
-from .ray import nearest_alongnormal, ray_triangle_hits  # noqa: F401
+from .ray import (  # noqa: F401
+    intersections_mask,
+    nearest_alongnormal,
+    ray_triangle_hits,
+    self_intersection_count,
+    tri_tri_intersects,
+    tri_tri_intersects_moller,
+)
 from .ray_kernel import nearest_alongnormal_kernel, ray_any_hit  # noqa: F401
+from .tri_tri_kernel import (  # noqa: F401
+    self_intersection_counts_kernel,
+    tri_tri_any_hit_kernel,
+)
 from .visibility import visibility_compute  # noqa: F401

@@ -14,6 +14,7 @@ import numpy as np
 from .query.closest_kernel import mesh_is_nondegenerate, nearest_vertices_kernel
 from .query.culled import closest_faces_and_points_auto
 from .query.normal_weighted import nearest_normal_weighted_kernel
+from .query.ray import intersections_mask
 from .query.ray_kernel import nearest_alongnormal_kernel
 from .utils.device import as_tensor, resolve_device
 
@@ -41,8 +42,8 @@ def _points(x, device):
 
 
 class AabbTree(object):
-    """Closest-point and along-normal queries against a mesh (reference
-    search.py:19-49)."""
+    """Closest-point, along-normal and mesh-vs-mesh intersection queries
+    against a mesh (reference search.py:19-49)."""
 
     def __init__(self, m, strategy="auto", device="cuda"):
         if strategy == "anchored":
@@ -79,9 +80,13 @@ class AabbTree(object):
                 v_out.cpu().numpy().astype(np.float64))
 
     def intersections_indices(self, q_v, q_f):
-        raise NotImplementedError(
-            "intersections_indices needs the triangle-triangle kernel "
-            "(PERF.md row 11), not ported yet: ROADMAP.md Queue 2")
+        """Indices into ``q_f`` of the query faces that intersect the mesh
+        (reference search.py:39-49): the fixed-shape mask of
+        ``intersections_mask`` and a host nonzero."""
+        mask = intersections_mask(self.v, self.f, np.asarray(q_v, np.float32),
+                                  np.asarray(q_f, np.int32),
+                                  device=self.device)
+        return np.nonzero(mask.cpu().numpy())[0]
 
 
 class ClosestPointTree(object):

@@ -127,7 +127,22 @@ def test_unported_queries_raise():
         m.compute_aabb_tree(strategy="anchored")
     with pytest.raises(ValueError):
         m.compute_aabb_tree(strategy="exact")
-    with pytest.raises(NotImplementedError, match="row 11"):
-        m.compute_aabb_tree().intersections_indices(v, f)
     # the reference's surface exists on the JAX side too
     assert hasattr(mesh_tpu.Mesh, "compute_aabb_tree")
+
+
+@pytest.mark.parametrize("shift", [0.05, 0.3, 5.0])
+def test_aabb_tree_intersections_indices_matches_reference(shift):
+    """Indices of the query faces intersecting the mesh, through the Mesh
+    facade's tree, against mesh_tpu's: a second posed body, shifted so the
+    two overlap partly (0.05, 0.3) or not at all (5.0)."""
+    v, f, _, _ = _mesh(seed=5)
+    qv, qf, _, _ = _mesh(seed=6)
+    qv = (qv + np.array([shift, 0.0, 0.0])).astype(np.float32)
+    ref = JaxAabbTree(_M(v, f)).intersections_indices(qv, qf)
+    out = mesh_tpu_torch.Mesh(v, f, device="cpu").compute_aabb_tree(
+        ).intersections_indices(qv, qf.astype(np.uint32))
+    assert out.dtype == ref.dtype == np.int64
+    np.testing.assert_array_equal(out, ref)
+    assert (out.size > 0) == (shift < 1.0)
+    assert out.size < len(qf)
