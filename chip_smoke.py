@@ -20,10 +20,19 @@ Phases (any failure raises and exits non-zero; none catches its own):
    planted mesh; tri_tri_any_hit in both tiles at phase 9's shapes (1,552
    hand faces x 13,776 body faces), the segment tile also with the planted
    mesh's faces as queries against body 0; self_intersect in both tiles on
-   every face of body 0 and of phase 5's body 0 (98,304 faces), and on a
-   query range of each.  Built without FMA contraction, each kernel must
-   pick exactly the faces (vertices, blocked flags, counts) its plain
-   version picks, with the same tiles, leaves or pairs tested;
+   every face of body 0 and of phase 5's body 0 (98,304 faces; there the
+   plain version of the tile the gate does not take runs on a query range
+   only), and on a query range of each; leaf_boxes on phase 11's two
+   keyframes at leaf 256, the 98,304-face keyframe at leaf 8 (16,384
+   leaves), phase 6's scan at leaves 256 and 8, a copy with planted NaN
+   corners and one with corners at +-0.0 (the 98,304-face keyframe at
+   leaves 256 and 8 timed with L2 flushed before each call, as the HBM
+   bound assumes; the row in the kernels line is leaf 256's).
+   Built without FMA contraction,
+   each kernel must pick exactly the faces (vertices, blocked flags,
+   counts, leaf boxes) its plain version picks, with the same tiles,
+   leaves or pairs tested; culled_faces' three variants other than phase
+   5's own are held on the first CULLED_CHECK_BODIES bodies;
 3. main path at full width: lbs -> vertex normals -> batched closest point
    for 256 bodies x 1024 queries, median step time over 10 reps, the
    faces checked against the plain version on the same batch;
@@ -70,13 +79,24 @@ Phases (any failure raises and exits non-zero; none catches its own):
    kernel alone in both tiles): 0 on each rest template (a closed UV
    sphere), above 0 posed; where the two tiles' involved faces differ,
    and on 512 faces (half involved), each tile against a float64
-   recompute of its own predicate.
+   recompute of its own predicate;
+11. anim: an ``AvatarSession(Mesh(rest), leaf_size=256)`` (the default
+   leaf-box route, the CUDA kernel) for phase 3's SMPL-sized model (13,776 faces) and one for phase 5's
+   (98,304 faces), each streaming 64 frames: lbs on the card along a
+   straight pose trajectory between two N(0, 0.2) poses, frame 40
+   stretched 20x (a rebuild), 4096 surface-proximal queries and a 1/30 s
+   deadline per frame, then 5 cold frames under ``MESH_TPU_ANIM=0``.  Each
+   frame's answers against the brute-force kernel (sqdist within 1e-5,
+   faces equal except at ties), its boxes against a ``kernel="host"``
+   refit, every face inside its leaf box, no index built on a refit frame,
+   and the actions and inflations of a ``kernel="host"`` session fed the
+   same frames.
 
-After phase 10, the four closest-point routes (brute, culled, resident and
+After phase 11, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes: the crossover
-evidence.
+evidence; then each drive's stages.
 
-Phases 3-10 are the driven paths (phase 6 twice).  Kernel launch counts
+Phases 3-11 are the driven paths (phase 6 twice).  Kernel launch counts
 are set to 0 just before each and read just after it, and every kernel
 must have launched on each path of ``KERNEL_PATHS`` and on no other
 path.  The last lines are the card's name and power limit (nvidia-smi),
@@ -139,6 +159,14 @@ REG_CHECK = 1024
 #: and HBM3 bandwidth
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+#: ``queued_ms``: the spin that the timed calls queue behind, and the SM
+#: clock that converts it to cycles (the H100 SXM's boost clock; a lower
+#: clock only spins longer)
+QUEUE_SPIN_MS = 50.0
+SPIN_CLOCK_HZ = 1.98e9
+#: ``cold_ms``: bytes written before each timed call, to evict its operands
+#: from the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
 
 #: operations per query-face pair of each closest_faces variant, counted in
 #: csrc/closest_faces.cu: (tile_variant, degenerate_tail) -> ops
@@ -176,18 +204,40 @@ TOL_MOVE = 1e-6
 #: phase 10: faces of each posed body held against float64 (half involved)
 SELF_CHECK_FACES = 512
 
+#: phase 2: culled_faces' variants other than the large batch's own are
+#: held to their plain versions on the first bodies only (the plain
+#: versions' seconds are most of the script's time)
+CULLED_CHECK_BODIES = 32
+
+#: phase 11: avatar sessions, each streaming ANIM_FRAMES posed bodies along
+#: a pose trajectory between two N(0, ANIM_POSE_SIGMA) poses, with
+#: ANIM_QUERIES surface-proximal queries and a 30 Hz deadline per frame;
+#: frame ANIM_STRETCH_FRAME is tests/test_anim.py's 20x stretch, which trips
+#: a rebuild; then ANIM_COLD_FRAMES frames under MESH_TPU_ANIM=0
+ANIM_FRAMES = 64
+ANIM_QUERIES = 4096
+ANIM_POSE_SIGMA = 0.2
+ANIM_DEADLINE_S = 1.0 / 30.0
+ANIM_STRETCH_FRAME = 40
+ANIM_STRETCH = 20.0
+ANIM_COLD_FRAMES = 5
+#: operations per float of the leaf-box kernel: a compare and a select
+#: each for the min and the max
+LEAF_BOX_OPS = 4
+
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "nearest_vertices": ("facade",),
                 "culled_faces": ("large_batch",),
                 "rope_faces_stream": ("scan",),
-                "rope_faces_resident": ("scan_resident",),
+                "rope_faces_resident": ("scan_resident", "anim"),
                 "ray_any_hit": ("visibility",),
                 "alongnormal_faces": ("registration",),
                 "normal_weighted_faces": ("registration",),
                 "tri_tri_any_hit": ("contact",),
-                "self_intersect": ("self_intersect",)}
+                "self_intersect": ("self_intersect",),
+                "leaf_boxes": ("anim",)}
 
 
 def log(*args):
@@ -220,6 +270,66 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps, warmup=1):
+    """Mean device milliseconds of ``fn`` over ``reps`` calls, for work
+    shorter than its host launch path (where ``cuda_ms`` would time the
+    host's launch rate): the calls are queued behind a spinning kernel of
+    QUEUE_SPIN_MS, so the events time the card's back-to-back runs.  Fails
+    if the host took longer to queue them than the spin lasted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin.record()
+    torch.cuda._sleep(int(QUEUE_SPIN_MS * 1e-3 * SPIN_CLOCK_HZ))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    spin_ms = spin.elapsed_time(start)
+    check(host_ms < spin_ms, "queued_ms: the host queued %d calls in %.2f ms, "
+          "longer than the %.2f ms spin" % (reps, host_ms, spin_ms))
+    return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps, warmup=1):
+    """Median device milliseconds of one call of ``fn`` with its operands
+    out of L2, for work that an HBM bound describes: before each call a
+    buffer of L2_FLUSH_BYTES is written, and events around the call alone
+    time it.  The calls queue behind a spin, as in ``queued_ms``, so the
+    events time the card's runs and not the host's launch path."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    spin = torch.cuda.Event(enable_timing=True)
+    spin_end = torch.cuda.Event(enable_timing=True)
+    spin.record()
+    torch.cuda._sleep(int(QUEUE_SPIN_MS * 1e-3 * SPIN_CLOCK_HZ))
+    spin_end.record()
+    t0 = time.perf_counter()
+    for start, end in events:
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = spin.elapsed_time(spin_end)
+    check(host_ms < spin_ms, "cold_ms: the host queued %d calls in %.2f ms, "
+          "longer than the %.2f ms spin" % (reps, host_ms, spin_ms))
+    return statistics.median(start.elapsed_time(end)
+                             for start, end in events)
 
 
 def bound_ms(pairs, ops_per_pair, n_bytes):
@@ -358,6 +468,7 @@ class _Camera(object):
 
 def kernel_counters():
     """The launch-count dicts of every kernel wrapper."""
+    from mesh_tpu_torch.accel import refit_kernel as fk
     from mesh_tpu_torch.accel import rope_kernel as rk
     from mesh_tpu_torch.query import closest_kernel as ck
     from mesh_tpu_torch.query import culled_kernel as qk
@@ -366,7 +477,7 @@ def kernel_counters():
     from mesh_tpu_torch.query import tri_tri_kernel as tk
 
     return (ck.LAUNCHES, qk.LAUNCHES, rk.LAUNCHES, ray.LAUNCHES, nw.LAUNCHES,
-            tk.LAUNCHES, tk.TILE_LAUNCHES)
+            tk.LAUNCHES, tk.TILE_LAUNCHES, fk.LAUNCHES)
 
 
 def reset_launches():
@@ -412,11 +523,12 @@ def surface_queries(verts, faces, n_q, rng):
     return points.contiguous(), pick
 
 
-def check_against_brute(name, v, f, q, faces, sqdist, brute):
+def check_against_brute(name, v, f, q, faces, sqdist, brute, quiet=False):
     """A drive's faces and sqdist [B, Q] against the brute-force kernel's
     result on the same inputs (v [B, V, 3], q [B, Q, 3]): sqdist within
     1e-5, faces equal except at ties, where the two faces' distances in
-    the brute kernel's frame are within 1e-6."""
+    the brute kernel's frame are within 1e-6.  ``quiet`` skips the log
+    line."""
     from mesh_tpu_torch.query.point_triangle import closest_point_on_triangle
 
     gap = float((sqdist - brute["sqdist"]).abs().max())
@@ -436,8 +548,10 @@ def check_against_brute(name, v, f, q, faces, sqdist, brute):
         tie = float((sqd(faces[b, qi]) - sqd(brute["face"][b, qi])).abs().max())
         check(tie <= 1e-6, "%s: %d faces differ from the brute kernel's and "
               "are %.3g apart, not a tie" % (name, n_diff, tie))
-    log("  %s vs brute kernel: sqdist within %.3g, %d of %d faces differ, "
-        "all at ties (max gap %.3g)" % (name, gap, n_diff, faces.numel(), tie))
+    if not quiet:
+        log("  %s vs brute kernel: sqdist within %.3g, %d of %d faces "
+            "differ, all at ties (max gap %.3g)" % (
+                name, gap, n_diff, faces.numel(), tie))
     return {"sqdist_gap": gap, "faces_differ": n_diff, "tie_gap": tie}
 
 
@@ -851,19 +965,21 @@ def compare_tri_tri(tk, qp, fp, algorithm, label, timing):
     return out
 
 
-def compare_self(tk, tri, ids, algorithm, label):
+def compare_self(tk, tri, ids, algorithm, label, plain_range=False):
     """Kernel vs plain for self_intersect on every face of a mesh against
     all its faces: identical per-face counts, both timed; the kernel on
-    the query range [F / 4, F / 2) must give that slice of the counts."""
+    the query range [F / 4, F / 2) must give that slice of the counts.
+    With ``plain_range`` the plain version runs on that range only."""
     qp, fp = tk.self_planes(tri, algorithm)
     n_f = tri.shape[0]
+    r0, r1 = n_f // 4, n_f // 2
+    p0, p1 = (r0, r1) if plain_range else (0, n_f)
     k = tk.self_intersect_counts(qp, fp, ids, algorithm)
     p, plain_ms = timed(lambda: tk.self_intersect_counts_plain(
-        qp, fp, ids, algorithm))
-    check(torch.equal(k, p), "self_intersect[%s] on %s: %d of %d counts "
-          "differ from the plain version" % (algorithm, label,
-                                             int((k != p).sum()), k.numel()))
-    r0, r1 = n_f // 4, n_f // 2
+        qp, fp, ids, algorithm, p0, p1))
+    check(torch.equal(k[p0:p1], p), "self_intersect[%s] on %s: %d of %d "
+          "counts differ from the plain version" % (
+              algorithm, label, int((k[p0:p1] != p).sum()), p.numel()))
     check(torch.equal(tk.self_intersect_counts(qp, fp, ids, algorithm, r0,
                                                r1), k[r0:r1]),
           "self_intersect[%s] on %s: the query range [%d, %d) differs from "
@@ -872,15 +988,17 @@ def compare_self(tk, tri, ids, algorithm, label):
            "counts_identical": True, "max_abs_err": 0.0,
            "involved": int((k > 0).sum()), "partners": int(k.sum()),
            "pairs": n_f * n_f, "plain_ms": plain_ms,
+           "plain_query_faces": p1 - p0,
            "ms": cuda_ms(lambda: tk.self_intersect_counts(
                qp, fp, ids, algorithm), reps=3)}
     n_bytes = 4 * (qp.numel() + fp.numel() + ids.numel() + n_f)
     out["bound_ms"], out["bound_by"] = bound_ms(
         n_f * n_f, SELF_PAIR_OPS[algorithm], n_bytes)
-    log("  self_intersect[%s] on %s %s: counts identical, %d faces "
-        "involved, %d partners, %.3f ms (plain %.1f ms, bound %.4f ms)" % (
-            algorithm, label, out["shape"], out["involved"], out["partners"],
-            out["ms"], plain_ms, out["bound_ms"]))
+    log("  self_intersect[%s] on %s %s: counts identical (plain on %d "
+        "query faces), %d faces involved, %d partners, %.3f ms (plain %.1f "
+        "ms, bound %.4f ms)" % (
+            algorithm, label, out["shape"], p1 - p0, out["involved"],
+            out["partners"], out["ms"], plain_ms, out["bound_ms"]))
     return out
 
 
@@ -1023,6 +1141,318 @@ def contact_step(body, hand, dev):
     return hit_faces, signed
 
 
+def refit_tri_s(v, f, index, dev):
+    """The leaf-box kernel's operand for vertices ``v`` and faces ``f``
+    (arrays or tensors) over ``index``'s layout: the corners in its
+    centered frame and Morton order, [Fp, 3, 3] float32 on ``dev``, as the
+    refit gathers them."""
+    arr = index.on(dev)
+    vc = torch.as_tensor(v, dtype=torch.float32, device=dev) - arr["center"]
+    f_t = torch.as_tensor(f, device=dev).long()
+    return vc[f_t[arr["order"].long()]].contiguous()
+
+
+def boxes_equal(a, b):
+    """Equal values (so -0.0 == 0.0) and NaN in the same places."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan], b[~nan]))
+
+
+def compare_leaf_boxes(tri_s, n_leaves, leaf, label, nan_leaves=None,
+                       timing=False):
+    """Kernel vs plain for leaf_boxes on one operand: every leaf's lo and
+    hi equal (NaN where the plain version has NaN; with ``nan_leaves``,
+    exactly those leaves), timed with the library call when ``timing``."""
+    from mesh_tpu_torch.accel import refit_kernel as fk
+
+    klo, khi = fk.leaf_boxes_kernel(tri_s, n_leaves, leaf)
+    (plo, phi), plain_ms = timed(
+        lambda: fk.leaf_boxes_plain(tri_s, n_leaves, leaf))
+    check(boxes_equal(klo, plo) and boxes_equal(khi, phi),
+          "leaf_boxes on %s: %d of %d leaves differ from the plain version"
+          % (label, int(((klo != plo) | (khi != phi)).any(dim=1).sum()),
+             n_leaves))
+    nan = (torch.isnan(klo) | torch.isnan(khi)).any(dim=1)
+    if nan_leaves is not None:
+        want = torch.zeros(n_leaves, dtype=torch.bool, device=nan.device)
+        want[nan_leaves] = True
+        check(torch.equal(nan, want), "leaf_boxes on %s: NaN in leaves %s, "
+              "planted in %s" % (label, nan.nonzero()[:, 0].tolist(),
+                                 sorted(nan_leaves)))
+    fin = ~nan
+    out = {"on": label, "shape": [tri_s.shape[0], n_leaves, leaf],
+           "leaves_identical": True, "nan_leaves": int(nan.sum()),
+           "max_abs_err": float(torch.maximum(
+               (klo[fin] - plo[fin]).abs().max(),
+               (khi[fin] - phi[fin]).abs().max())), "plain_ms": plain_ms}
+    if timing:
+        blocks = tri_s.view(n_leaves, leaf * 3, 3)
+        # microseconds of work each, timed with tri_s out of L2 (the HBM
+        # bound's regime); the kernel also back to back with tri_s left in
+        # L2, as a frame finds it just after the gather wrote it
+        out["ms"] = cold_ms(lambda: fk.leaf_boxes_kernel(
+            tri_s, n_leaves, leaf), reps=100)
+        out["plain_ms"] = cold_ms(lambda: fk.leaf_boxes_plain(
+            tri_s, n_leaves, leaf), reps=100)
+        out["library_ms"] = cold_ms(lambda: torch.aminmax(blocks, dim=1),
+                                    reps=100)
+        out["l2_warm_ms"] = queued_ms(lambda: fk.leaf_boxes_kernel(
+            tri_s, n_leaves, leaf), reps=100)
+        n_bytes = 4 * (tri_s.numel() + 6 * n_leaves)
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            tri_s.numel(), LEAF_BOX_OPS, n_bytes)
+    log("  leaf_boxes on %s %s: every leaf identical (%d NaN)%s" % (
+        label, out["shape"], out["nan_leaves"], "" if not timing else
+        ", L2 flushed: %.4f ms (plain %.4f ms, aminmax %.4f ms, HBM bound "
+        "%.4f ms); L2 warm, back to back: %.4f ms"
+        % (out["ms"], out["plain_ms"], out["library_ms"], out["bound_ms"],
+           out["l2_warm_ms"])))
+    return out
+
+
+def anim_stream(model, dev, seed):
+    """Phase 11's stream for one body model: the rest keyframe (betas
+    N(0, 0.3), zero pose; numpy [V, 3]) and a generator of ANIM_FRAMES
+    (posed vertices [V, 3], queries [Q, 3]) on the card: lbs along the
+    straight line between two N(0, ANIM_POSE_SIGMA) poses, frame
+    ANIM_STRETCH_FRAME stretched ANIM_STRETCH times, surface-proximal
+    queries on each frame's surface."""
+    from mesh_tpu_torch.models import lbs
+
+    rng = np.random.RandomState(seed)
+    betas = torch.as_tensor(rng.randn(1, model.num_betas) * 0.3,
+                            dtype=torch.float32, device=dev)
+    poses = [torch.as_tensor(rng.randn(1, model.num_joints, 3)
+                             * ANIM_POSE_SIGMA, dtype=torch.float32,
+                             device=dev) for _ in range(2)]
+    rest = lbs(model, betas, torch.zeros_like(poses[0]), device=dev)[0][0]
+
+    def pose(k):
+        t = k / float(ANIM_FRAMES - 1)
+        return (1.0 - t) * poses[0] + t * poses[1]
+
+    def frames():
+        for k in range(ANIM_FRAMES):
+            v = lbs(model, betas, pose(k), device=dev)[0][0]
+            if k == ANIM_STRETCH_FRAME:
+                v = v * ANIM_STRETCH
+            q, _ = surface_queries(v[None], model.faces, ANIM_QUERIES, rng)
+            yield v, q[0]
+
+    return rest.cpu().numpy(), frames, (betas, pose)
+
+
+def drive_anim(label, model, leaf, dev, seed):
+    """One avatar session (the default leaf-box route, leaves of ``leaf``) over
+    phase 11's stream, then ANIM_COLD_FRAMES cold frames (the first
+    frames again) under MESH_TPU_ANIM=0.  Returns the session's keyframe,
+    faces, the frames (vertices, queries, result, whether an index was
+    built during the frame) and the cold frames."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.accel.build import index_cache_info
+    from mesh_tpu_torch.anim import AvatarSession
+
+    rest, frames, _ = anim_stream(model, dev, seed)
+    f_np = model.faces.cpu().numpy()
+    sess = AvatarSession(Mesh(rest, f_np, device=dev), leaf_size=leaf,
+                         device=dev)
+    run = []
+    for v, q in frames():
+        keys = index_cache_info()["keys"]
+        out = sess.frame(vertices=v, points=q, deadline_s=ANIM_DEADLINE_S)
+        run.append({"v": v, "q": q, "out": out,
+                    "built": index_cache_info()["keys"] != keys})
+    anim = os.environ.get("MESH_TPU_ANIM")
+    os.environ["MESH_TPU_ANIM"] = "0"
+    try:
+        cold = [sess.frame(vertices=fr["v"], points=fr["q"],
+                           deadline_s=ANIM_DEADLINE_S)
+                for fr in run[:ANIM_COLD_FRAMES]]
+    finally:
+        if anim is None:
+            del os.environ["MESH_TPU_ANIM"]
+        else:
+            os.environ["MESH_TPU_ANIM"] = anim
+    sess.stop()
+    stats = sess.stats()
+    log("  %s: %d frames (%d refits, %d rebuilds) + %d cold, %d over the "
+        "deadline" % (label, len(run), stats["refits"], stats["rebuilds"],
+                      len(cold), stats["deadline_misses"]))
+    return rest, f_np, run, cold
+
+
+def leaf_boxes_of(index, dev):
+    """The leaf boxes of ``index``, (lo, hi) [n_leaves, 3] on ``dev``,
+    read from its node arrays in leaf order."""
+    arr = index.on(dev)
+    is_leaf = arr["node_leaf"] >= 0
+    order = torch.argsort(arr["node_leaf"][is_leaf])
+    return arr["node_lo"][is_leaf][order], arr["node_hi"][is_leaf][order]
+
+
+def check_anim(label, model, leaf, rest, f_np, run, cold, dev):
+    """Phase 11's checks of one session: every frame's answers against the
+    brute-force kernel, its boxes against a ``kernel="host"`` refit, every
+    face inside its leaf box, no index built on a refit frame, and the
+    actions and inflations of a ``kernel="host"`` session fed the same
+    frames.  Returns the session's summary."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.anim import AvatarSession, refit_bvh
+    from mesh_tpu_torch.query import closest_kernel as ck
+
+    f = model.faces
+    actions = [fr["out"]["action"] for fr in run]
+    check(actions.count("refit") and actions.count("rebuild"),
+          "%s: actions %s want both refit and rebuild" % (label, actions))
+    check(actions[ANIM_STRETCH_FRAME] == "rebuild",
+          "%s: the stretched frame %s" % (label, actions[ANIM_STRETCH_FRAME]))
+    check(all(c["action"] == "cold" for c in cold), "%s: cold frames" % label)
+    worst = {"sqdist_gap": 0.0, "faces_differ": 0, "tie_gap": 0.0}
+    for k, fr in enumerate(run + [dict(fr, out=c) for fr, c in
+                                  zip(run, cold)]):
+        v, q, out = fr["v"], fr["q"], fr["out"]
+        name = "%s frame %d (%s)" % (label, k, out["action"])
+        check(out["faces"].shape == (ANIM_QUERIES,)
+              and bool(np.isfinite(out["sqdist"]).all()), name + " result")
+        brute = ck.closest_point_kernel(v[None], f, q[None])
+        got = check_against_brute(
+            name, v[None], f, q[None],
+            torch.as_tensor(out["faces"], device=dev)[None],
+            torch.as_tensor(out["sqdist"], device=dev)[None], brute,
+            quiet=True)
+        worst["sqdist_gap"] = max(worst["sqdist_gap"], got["sqdist_gap"])
+        worst["tie_gap"] = max(worst["tie_gap"], got["tie_gap"])
+        worst["faces_differ"] += got["faces_differ"]
+        index = out["index"]
+        check(int(index.meta["leaf_size"]) == leaf, name + " leaf size")
+        if out["action"] == "refit":
+            check(not fr["built"], name + ": an index was built")
+            host, _ = refit_bvh(index, v.cpu().numpy(), f_np, kernel="host",
+                                device=dev)
+            check(all(np.array_equal(host.arrays[n], index.arrays[n])
+                      for n in ("node_lo", "node_hi")),
+                  name + ": boxes differ from the host refit")
+        lo, hi = leaf_boxes_of(index, dev)
+        corners = refit_tri_s(v, f_np, index, dev).view(
+            lo.shape[0], -1, 3)
+        check(bool(((corners >= lo[:, None]) & (corners <= hi[:, None]))
+                   .all()), name + ": a corner outside its leaf box")
+    host = AvatarSession(Mesh(rest, f_np, device=dev), leaf_size=leaf,
+                         kernel="host", device=dev)
+    for fr in run:
+        mine = fr["out"]
+        out = host.frame(vertices=fr["v"])
+        check(out["action"] == mine["action"]
+              and out["inflation"] == mine["inflation"],
+              "%s frame %d: host session %s %.17g, kernel session %s %.17g"
+              % (label, mine["frame"], out["action"], out["inflation"],
+                 mine["action"], mine["inflation"]))
+    host.stop()
+    lat = [fr["out"]["latency_s"] * 1e3 for fr in run]
+    refit_lat = [fr["out"]["latency_s"] * 1e3 for fr in run
+                 if fr["out"]["action"] == "refit"]
+    cold_lat = [c["latency_s"] * 1e3 for c in cold]
+    summary = {
+        "faces": int(f.shape[0]), "leaf_size": leaf,
+        "n_leaves": int(run[0]["out"]["index"].meta["n_leaves"]),
+        "frames": len(run), "refits": actions.count("refit"),
+        "rebuilds": actions.count("rebuild"),
+        "rebuild_frames": [k for k, a in enumerate(actions)
+                           if a == "rebuild"],
+        "inflation_max": max(fr["out"]["inflation"] for fr in run),
+        "frame_ms_median": statistics.median(lat),
+        "frame_ms_p95": float(np.percentile(lat, 95)),
+        "frame_ms_max": max(lat),
+        "refit_frame_ms_median": statistics.median(refit_lat),
+        "deadline_misses": sum(fr["out"]["deadline_missed"] for fr in run),
+        "deadline_miss_frames": [k for k, fr in enumerate(run)
+                                 if fr["out"]["deadline_missed"]],
+        "cold_frame_ms_median": statistics.median(cold_lat),
+        "cold_over_refit": statistics.median(cold_lat)
+        / statistics.median(refit_lat),
+        "vs_brute": worst}
+    log("  %s (%d faces, leaf %d): actions equal the host session's; all "
+        "%d frames + %d cold vs the brute kernel: sqdist within %.3g, %d "
+        "faces differ, all at ties (max gap %.3g); refit boxes equal the "
+        "host refit, every corner in its leaf box, no build on a refit "
+        "frame; rebuild at frames %s, max inflation %.4f" % (
+            label, summary["faces"], leaf, len(run), len(cold),
+            worst["sqdist_gap"], worst["faces_differ"], worst["tie_gap"],
+            summary["rebuild_frames"], summary["inflation_max"]))
+    log("  %s frames (host clock): median %.3f ms, p95 %.3f, max %.3f; "
+        "refit frames median %.3f; %d of %d over the %.1f ms deadline (frames "
+        "%s); cold frames (MESH_TPU_ANIM=0) median %.3f ms, %.2fx a refit "
+        "frame" % (label, summary["frame_ms_median"], summary["frame_ms_p95"],
+                   summary["frame_ms_max"], summary["refit_frame_ms_median"],
+                   summary["deadline_misses"], len(run), ANIM_DEADLINE_S * 1e3,
+                   summary["deadline_miss_frames"],
+                   summary["cold_frame_ms_median"],
+                   summary["cold_over_refit"]))
+    return summary
+
+
+def anim_stages(model, leaf, seed, dev):
+    """CUDA-event stages of one refit frame of phase 11's stream (frame
+    ANIM_STRETCH_FRAME // 2), each a separate run: lbs, the corner gather,
+    the leaf-box kernel alone, the host part of the refit (leaf boxes to
+    the host, levels, preorder scatter, box measure, node boxes back to
+    the card), the whole refit, and the traversal over the refit index;
+    and the host ``build_bvh`` a cold frame pays (host clock, median of
+    3).  ms."""
+    from mesh_tpu_torch.accel import refit_kernel as fk
+    from mesh_tpu_torch.accel.build import build_bvh, get_index
+    from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
+    from mesh_tpu_torch.anim import refit as anim_refit
+    from mesh_tpu_torch.models import lbs
+
+    rest, frames, (betas, pose) = anim_stream(model, dev, seed)
+    f_np = model.faces.cpu().numpy()
+    k = ANIM_STRETCH_FRAME // 2
+    for i, (v, q) in enumerate(frames()):
+        if i == k:
+            break
+    base = get_index(rest, f_np, kind="bvh", leaf_size=leaf)
+    n_leaves = int(base.meta["n_leaves"])
+    tri_s = refit_tri_s(v, f_np, base, dev)
+    lo, hi = fk.leaf_boxes_kernel(tri_s, n_leaves, leaf)
+    depth = int(base.meta["depth"])
+    n_nodes = int(base.meta["n_nodes"])
+
+    def host_part():
+        lo_l, hi_l = anim_refit._level_boxes(lo.cpu().numpy(),
+                                             hi.cpu().numpy())
+        node_lo = np.empty((n_nodes, 3), np.float32)
+        node_hi = np.empty((n_nodes, 3), np.float32)
+        for level, pre in enumerate(anim_refit._preorder_positions(depth)):
+            node_lo[pre] = lo_l[level]
+            node_hi[pre] = hi_l[level]
+        anim_refit.box_measure(node_lo, node_hi)
+        return (torch.as_tensor(node_lo, device=dev),
+                torch.as_tensor(node_hi, device=dev))
+
+    f_dev = model.faces.long()        # as the session holds them
+    refit, _ = anim_refit.refit_bvh(base, v, f_dev, device=dev)
+    stages = {
+        "lbs": cuda_ms(lambda: lbs(model, betas, pose(k), device=dev), 5),
+        "gather": cuda_ms(lambda: refit_tri_s(v, f_dev, base, dev), 5),
+        "leaf_boxes_kernel": queued_ms(lambda: fk.leaf_boxes_kernel(
+            tri_s, n_leaves, leaf), 100),
+        "levels_scatter_measure": cuda_ms(host_part, 5),
+        "refit_bvh": cuda_ms(lambda: anim_refit.refit_bvh(
+            base, v, f_dev, device=dev), 5),
+        "traversal": cuda_ms(lambda: closest_faces_and_points_accel(
+            v, f_dev, q, index=refit, device=dev), 5)}
+    builds = []
+    v_np = v.cpu().numpy()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        build_bvh(v_np, f_np, leaf_size=leaf)
+        builds.append((time.perf_counter() - t0) * 1e3)
+    stages["host_build_bvh"] = statistics.median(builds)
+    return stages
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1032,6 +1462,10 @@ def main():
     from mesh_tpu_torch import Mesh, _build
     from mesh_tpu_torch.accel import rope_kernel as rk
     from mesh_tpu_torch.accel.build import build_bvh, clear_index_cache
+    from mesh_tpu_torch.accel.traverse import (
+        RESIDENT_TILE_F as ANIM_LEAF,
+        pallas_bvh_variant,
+    )
     from mesh_tpu_torch.batch import batch_step, visibility_step
     from mesh_tpu_torch.geometry.cross_product import cross3
     from mesh_tpu_torch.models import lbs, synthetic_body_model
@@ -1130,6 +1564,20 @@ def main():
         "self-intersection tiles %s" % (hand_f.shape[0], body_f.shape[0],
                                         contact_tile, self_tiles))
 
+    # -- inputs of the avatar sessions (phase 11) ----------------------------
+    anim_models = {"smpl": (model, 11), "large": (model_l, 12)}
+    anim_keys = {}
+    for label, (m_, seed) in anim_models.items():
+        check(pallas_bvh_variant(m_.faces.shape[0]) == "resident",
+              "anim %s: %d faces do not take the resident walk"
+              % (label, m_.faces.shape[0]))
+        anim_keys[label] = (anim_stream(m_, dev, seed)[0],
+                            m_.faces.cpu().numpy())
+    log("anim: sessions of %s faces at leaf %d (the resident walk's tile_f), "
+        "%d frames of %d queries each" % (
+            [int(m_.faces.shape[0]) for m_, _ in anim_models.values()],
+            ANIM_LEAF, ANIM_FRAMES, ANIM_QUERIES))
+
     # -- 2. kernels vs plain on the card -------------------------------------
     log("== kernels vs plain")
     face_runs = []
@@ -1176,7 +1624,10 @@ def main():
     # culled_faces at phase 5's shapes (every query tile of all 64 bodies)
     culled_runs = []
     for variant, tail in VARIANTS:
-        ops_l = qk.culled_operands(verts_l, f_l, queries_l, variant)
+        n_b = (LARGE_BATCH if (variant, tail) == variant_l
+               else CULLED_CHECK_BODIES)
+        ops_l = qk.culled_operands(verts_l[:n_b], f_l, queries_l[:n_b],
+                                   variant)
         culled_runs.append(compare_culled(qk, ops_l, variant, tail,
                                           timing=(variant, tail) == variant_l))
         del ops_l
@@ -1228,8 +1679,44 @@ def main():
         ids_b = torch.as_tensor(f_np_.astype(np.int32), device=dev)
         for alg in tk.ALGORITHMS:
             self_runs["%s[%s]" % (key, alg)] = compare_self(
-                tk, tri_b, ids_b, alg, key)
+                tk, tri_b, ids_b, alg, key, plain_range=(
+                    key == "large_body0" and alg != self_tiles[key]))
         del tri_b, ids_b
+    # leaf_boxes at phase 11's shapes (both keyframes at the walk's leaf
+    # size), the large keyframe at leaf 8, the scan at leaves 256 and 8, a
+    # copy with planted NaN corners and one with corners at +-0.0
+    leaf_runs = []
+    operands = {}
+    for label, (v_np, f_np_), leaf in (
+            ("smpl keyframe", anim_keys["smpl"], ANIM_LEAF),
+            ("large keyframe", anim_keys["large"], ANIM_LEAF),
+            ("large keyframe", anim_keys["large"], 8),
+            ("scan", (v_s, f_s), ANIM_LEAF), ("scan", (v_s, f_s), 8)):
+        index = build_bvh(v_np, f_np_, leaf_size=leaf)
+        n_lv = int(index.meta["n_leaves"])
+        operands[label, leaf] = (refit_tri_s(v_np, f_np_, index, dev), n_lv)
+        leaf_runs.append(compare_leaf_boxes(
+            *operands[label, leaf], leaf, "%s, leaf %d" % (label, leaf),
+            timing=label == "large keyframe"))
+    planted_t, n_lv = operands["large keyframe", 8]
+    planted_t = planted_t.clone()
+    nan_leaves = [0, n_lv // 2 + 3, n_lv - 1]
+    for axis, leaf_id in enumerate(nan_leaves):
+        planted_t[leaf_id * 8 + axis, (axis + 1) % 3, axis] = float("nan")
+    leaf_runs.append(compare_leaf_boxes(
+        planted_t, n_lv, 8, "large keyframe with NaN corners, leaf 8",
+        nan_leaves=nan_leaves))
+    zeros_t, n_lv = operands["large keyframe", ANIM_LEAF]
+    zeros_t = zeros_t.clone()
+    zeros_t[:ANIM_LEAF, :, 0] = -0.0
+    zeros_t[:ANIM_LEAF // 2, :, 0] = 0.0
+    band = zeros_t[ANIM_LEAF:2 * ANIM_LEAF, :, 2]
+    zeros_t[ANIM_LEAF:2 * ANIM_LEAF, :, 2] = torch.where(
+        band > 0, torch.zeros_like(band), -torch.zeros_like(band))
+    leaf_runs.append(compare_leaf_boxes(
+        zeros_t, n_lv, ANIM_LEAF, "large keyframe with +-0.0 corners, leaf "
+        "256", nan_leaves=[]))
+    del operands, planted_t, zeros_t
 
     # -- 3. main path at full width ------------------------------------------
     log("== main path: %d bodies x %d queries, %d faces each"
@@ -1741,6 +2228,18 @@ def main():
         del vt_b, ft_b, tri_b, ids_b, per_tile
     launches["self_intersect"] = read_launches()
 
+    # -- 11. anim: avatar sessions streaming posed bodies ---------------------
+    log("== anim: %d frames through an AvatarSession per body model, leaf %d"
+        % (ANIM_FRAMES, ANIM_LEAF))
+    reset_launches()
+    anim_runs = {label: drive_anim(label, m_, ANIM_LEAF, dev, seed)
+                 for label, (m_, seed) in anim_models.items()}
+    launches["anim"] = read_launches()
+    anim = {label: check_anim(label, anim_models[label][0], ANIM_LEAF,
+                              *run, dev)
+            for label, run in anim_runs.items()}
+    del anim_runs
+
     for name, paths in KERNEL_PATHS.items():
         for path, counts in launches.items():
             if path in paths:
@@ -1812,6 +2311,12 @@ def main():
         "ray_any_hit_kernel": any_hit_run["ms"]}
     log("visibility stage breakdown (ms, separate runs): " + ", ".join(
         "%s %.3f" % kv for kv in stages_v.items()))
+    for label, (m_, seed) in anim_models.items():
+        anim[label]["stages_ms"] = anim_stages(m_, ANIM_LEAF, seed, dev)
+        log("anim %s stage breakdown of a refit frame (ms, separate "
+            "CUDA-event runs; host_build_bvh on the host clock): %s" % (
+                label, ", ".join("%s %.4f" % kv for kv in
+                                 anim[label]["stages_ms"].items())))
 
     # -- kernels line, card line, result ---------------------------------------
     main = next(r for r in face_runs
@@ -1910,6 +2415,19 @@ def main():
              "bound_ms": main_run["bound_ms"],
              "bound_by": main_run["bound_by"], "library_ms": None,
              "tile": main_run["tile"], "detail": runs})
+    main_lb = next(r for r in leaf_runs if "ms" in r)     # leaf 256
+    kernels.append(
+        {"name": "leaf_boxes", "route": "cuda",
+         "source": "mesh_tpu_torch/csrc/leaf_boxes.cu",
+         "replaces": "mesh_tpu/accel/pallas_refit.py:65",
+         "launches": launches["anim"]["leaf_boxes"],
+         "launches_by_path": {p: launches[p]["leaf_boxes"] for p in launches},
+         "max_abs_err": max(r["max_abs_err"] for r in leaf_runs),
+         "ms": main_lb["ms"], "plain_ms": main_lb["plain_ms"],
+         "bound_ms": main_lb["bound_ms"], "bound_by": main_lb["bound_by"],
+         "library_ms": main_lb["library_ms"],
+         "l2_warm_ms": main_lb["l2_warm_ms"], "on": main_lb["on"],
+         "detail": leaf_runs})
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(smi, flush=True)
     print(json.dumps({
@@ -1930,7 +2448,7 @@ def main():
                        "body0_flags_differ64": int(differ64.sum()),
                        "stages_ms": stages_v},
         "registration": registration, "contact": contact,
-        "self_intersect": self_int}), flush=True)
+        "self_intersect": self_int, "anim": anim}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)

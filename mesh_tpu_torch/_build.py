@@ -50,6 +50,7 @@ KERNELS = {
                         [_PTR] * 3 + [_INT] * 3 + [_FLOAT] * 2),
     "self_intersect": ("self_intersect.cu", "mt_self_intersect",
                        [_PTR] * 4 + [_INT] * 4 + [_FLOAT] * 2),
+    "leaf_boxes": ("leaf_boxes.cu", "mt_leaf_boxes", [_PTR] * 3 + [_INT] * 2),
 }
 
 #: no FMA contraction and no fast math: the kernels round like the plain

@@ -40,16 +40,19 @@ _MAX_CACHED = 8
 class AccelIndex(object):
     """Frozen spatial index: numpy ``arrays`` plus ``kind``, ``digest``
     and ``meta``.  ``on(device)`` gives the arrays as tensors on a device,
-    uploaded once per device."""
+    each uploaded once per device; ``tensors`` ({device string: {name:
+    tensor}}) hands in tensors that are already there, such as the frozen
+    arrays a refit index shares with its base."""
 
     __slots__ = ("kind", "digest", "arrays", "meta", "_tensors")
 
-    def __init__(self, kind, digest, arrays, meta):
+    def __init__(self, kind, digest, arrays, meta, tensors=None):
         object.__setattr__(self, "kind", str(kind))
         object.__setattr__(self, "digest", str(digest))
         object.__setattr__(self, "arrays", dict(arrays))
         object.__setattr__(self, "meta", dict(meta))
-        object.__setattr__(self, "_tensors", {})
+        object.__setattr__(self, "_tensors", {
+            key: dict(named) for key, named in (tensors or {}).items()})
 
     def __setattr__(self, name, value):
         raise AttributeError("AccelIndex is frozen")
@@ -61,12 +64,18 @@ class AccelIndex(object):
         """{name: tensor} of the arrays on ``device`` (a torch.device)."""
         key = str(device)
         with _CACHE_LOCK:
-            tensors = self._tensors.get(key)
-            if tensors is None:
-                tensors = self._tensors[key] = {
-                    name: torch.as_tensor(arr, device=device)
-                    for name, arr in self.arrays.items()}
+            tensors = self._tensors.setdefault(key, {})
+            for name, arr in self.arrays.items():
+                if name not in tensors:
+                    tensors[name] = torch.as_tensor(arr, device=device)
         return tensors
+
+    def uploaded(self, names):
+        """{device string: {name: tensor}} of the arrays ``names`` on every
+        device they were uploaded to so far."""
+        with _CACHE_LOCK:
+            return {key: {n: named[n] for n in names if n in named}
+                    for key, named in self._tensors.items()}
 
     def nbytes(self):
         return int(sum(np.asarray(a).nbytes for a in self.arrays.values()))

@@ -54,20 +54,20 @@ _SEED_SUB = 128     # sub-block size for the seed upper bound
 MAX_BUFFERS = 16
 
 
-def _coarse_index(v32, f32, tile_f, index, rebuild_mismatched):
+def _coarse_index(v, f, tile_f, index, rebuild_mismatched):
     """The coarse (``leaf_size == tile_f``) BVH the rope kernels walk:
-    from the cache when ``index`` is None or (with ``rebuild_mismatched``)
-    built at another leaf size; a passed index of another leaf size
-    raises otherwise."""
-    if index is None:
-        return get_index(v32, f32, kind="bvh", leaf_size=int(tile_f))
-    if int(index.meta["leaf_size"]) != int(tile_f):
-        if rebuild_mismatched:
-            return get_index(v32, f32, kind="bvh", leaf_size=int(tile_f))
+    ``index`` when its leaf size is ``tile_f``; from the cache when
+    ``index`` is None or (with ``rebuild_mismatched``) built at another
+    leaf size; a passed index of another leaf size raises otherwise.  Only
+    a cache lookup copies ``v`` and ``f`` to the host."""
+    if index is not None and int(index.meta["leaf_size"]) == int(tile_f):
+        return index
+    if index is not None and not rebuild_mismatched:
         raise ValueError(
             "rope kernel needs leaf_size == tile_f (index has %s, "
             "tile_f=%s)" % (index.meta["leaf_size"], tile_f))
-    return index
+    return get_index(host_array(v, "float32"), host_array(f, "int32"),
+                     kind="bvh", leaf_size=int(tile_f))
 
 
 def _rope_operands(v32, f, pts32, order_p, center_b, node_lo, node_hi,
@@ -274,8 +274,7 @@ def rope_operands(v, f, points, tile_q=128, tile_f=256, index=None,
     from the cache (or ``index``), its arrays uploaded once per device,
     and the shared prologue."""
     dev = resolve_device(device)
-    index = _coarse_index(host_array(v, "float32"), host_array(f, "int32"),
-                          tile_f, index, rebuild_mismatched)
+    index = _coarse_index(v, f, tile_f, index, rebuild_mismatched)
     arr = index.on(dev)
     return _rope_operands(
         as_tensor(v, dev, torch.float32), as_tensor(f, dev),

@@ -10,11 +10,17 @@ streamed walk above it or under ``MESH_TPU_BVH_STREAM_FORCE``, and with
 ``MESH_TPU_BVH_STREAM=0`` the resident walk up to ``PALLAS_BVH_MAX_FACES``
 and nothing (``None``) above.  Both walks are exact and bit-identical to
 each other, so the budget only decides how leaves reach the kernel.
+
+As in the reference, a traversal runs inside an ``accel.traverse`` span,
+counts its pair tests in ``mesh_tpu_accel_pair_tests_total{kind}`` and,
+given a ledger record, stamps its ``device`` stage and ``backend``.
 """
 
 import numpy as np
 import torch
 
+from ..obs.metrics import REGISTRY
+from ..obs.trace import span as obs_span
 from ..utils import knobs
 from ..utils.device import as_tensor, host_array, resolve_device
 from ..query.autotune import stream_tile_params
@@ -85,8 +91,17 @@ def check_kind(kind):
     return kind
 
 
+def _record_pair_tests(n, kind):
+    """Count the exact point-triangle pair tests the accel path ran."""
+    REGISTRY.counter(
+        "mesh_tpu_accel_pair_tests_total",
+        "exact pair tests run by the accel traversal (label: kind)",
+    ).inc(int(n), kind=kind)
+
+
 def closest_faces_and_points_accel(v, f, points, kind=None, index=None,
-                                   with_stats=False, device="cuda"):
+                                   with_stats=False, record=None,
+                                   device="cuda"):
     """Index-accelerated exact closest point, the accel rung of
     ``closest_faces_and_points_auto``: numpy in and out (``face``,
     ``part``, ``point``, ``sqdist``), exact up to distance ties.
@@ -102,6 +117,8 @@ def closest_faces_and_points_accel(v, f, points, kind=None, index=None,
     :param with_stats: also return ``{"pair_tests", "fallback",
         "tight_frac", "kind", "backend"}`` with ``backend``
         ``"rope_resident"`` or ``"rope_stream"``.
+    :param record: optional ``obs.ledger.RequestRecord``; the traversal
+        stamps its ``device`` stage and sets its ``backend``.
     """
     if kind is None:
         kind = index.kind if index is not None else knobs.accel_kind()
@@ -117,21 +134,29 @@ def closest_faces_and_points_accel(v, f, points, kind=None, index=None,
     v_t = as_tensor(v, dev)
     f_t = as_tensor(f if torch.is_tensor(f) else host_array(f, np.int64), dev)
     pts = as_tensor(points, dev).reshape(-1, 3)
-    if variant == "resident":
-        backend = "rope_resident"
-        res = closest_point_bvh_kernel(
-            v_t, f_t, pts, tile_f=RESIDENT_TILE_F, index=index,
-            rebuild_mismatched=True, device=dev)
-    else:
-        backend = "rope_stream"
-        tile_q, tile_f, n_buffers = stream_tile_params()
-        res = closest_point_bvh_stream_kernel(
-            v_t, f_t, pts, tile_q=tile_q, tile_f=tile_f, n_buffers=n_buffers,
-            index=index, rebuild_mismatched=True, device=dev)
-    out = {key: val.cpu().numpy() for key, val in res.items()}
-    tight = out.pop("tight")
-    pairs = int(out.pop("pair_tests").astype(np.int64).sum())
-    loose = np.nonzero(~tight)[0]
+    with obs_span("accel.traverse", kind=kind, faces=n_faces,
+                  queries=int(pts.shape[0])) as sp:
+        if variant == "resident":
+            backend = "rope_resident"
+            res = closest_point_bvh_kernel(
+                v_t, f_t, pts, tile_f=RESIDENT_TILE_F, index=index,
+                rebuild_mismatched=True, device=dev)
+        else:
+            backend = "rope_stream"
+            tile_q, tile_f, n_buffers = stream_tile_params()
+            res = closest_point_bvh_stream_kernel(
+                v_t, f_t, pts, tile_q=tile_q, tile_f=tile_f,
+                n_buffers=n_buffers, index=index, rebuild_mismatched=True,
+                device=dev)
+        out = {key: val.cpu().numpy() for key, val in res.items()}
+        tight = out.pop("tight")
+        pairs = int(out.pop("pair_tests").astype(np.int64).sum())
+        loose = np.nonzero(~tight)[0]
+        sp.set(backend=backend, pair_tests=pairs, fallback=int(loose.size))
+    if record is not None:
+        record.stamp("device")
+        record.set(backend=backend)
+    _record_pair_tests(pairs, kind)
     if loose.size:
         fix = closest_point_kernel(
             v_t.float(), f_t, pts.float()[torch.as_tensor(loose, device=dev)])

@@ -1,0 +1,264 @@
+"""Span tracer: nested, thread-aware spans over the serving hot path (a
+copy of mesh_tpu/obs/trace.py, with its JAX hooks replaced by PyTorch's).
+
+A span is one timed region with a name, attributes, and a parent — the
+enclosing span on the SAME thread, or, for a span opened with an empty
+stack under a bound request context, the request's root span.
+
+Spans record wall time and, separately, device-sync time: ``watch(out)``
+registers a tensor (or a dict, list or tuple of tensors) whose CUDA
+devices are synchronized (``torch.cuda.synchronize``) just before the span
+closes, with the sync cost reported as ``sync_elapsed``.
+
+Gate: ``MESH_TPU_OBS`` (obs/clock.enabled).  Off — the default — means
+``span()`` returns a shared no-op object: no allocation, no clock read,
+no buffer append.
+
+Finished spans land in a bounded in-memory ring (``TRACER.events()``)
+and fan out to sinks (the trace tail, obs/context.py).  Under
+``MESH_TPU_OBS_JAX_TRACE`` (the reference's knob name) each span also
+opens a ``torch.profiler.record_function``, so a ``torch.profiler`` trace
+shows the framework's phases on its timeline.
+
+The reference's ``timed_span``, ``traced`` decorator and JSON-lines sink
+(with its rotation knobs) have no caller in the port yet and are not
+copied (ROADMAP.md, Queue 1 item 12).
+"""
+
+import itertools
+import threading
+from collections import deque
+
+from .clock import enabled, env_flag, monotonic, wall
+from .context import TRACE_TAIL, current_context
+
+__all__ = ["Span", "Tracer", "TRACER", "span", "device_sync"]
+
+#: torch.profiler.record_function bridge gate (adds real per-span cost on
+#: the profiler timeline, so it is opt-in on top of MESH_TPU_OBS); the
+#: reference's knob name
+PROFILER_ENV = "MESH_TPU_OBS_JAX_TRACE"
+
+_span_ids = itertools.count(1)
+
+
+def _cuda_devices(out, found):
+    """The CUDA devices of the tensors in ``out`` (a tensor, or a dict,
+    list or tuple of them, nested), added to the set ``found``."""
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        for item in out:
+            _cuda_devices(item, found)
+    elif getattr(out, "is_cuda", False):
+        found.add(out.device)
+    return found
+
+
+def device_sync(out):
+    """Wait for the work that produces ``out``: ``torch.cuda.synchronize``
+    on each CUDA device holding one of its tensors (none for CPU tensors,
+    which are ready when they are returned)."""
+    devices = _cuda_devices(out, set())
+    if devices:
+        import torch
+
+        for device in devices:
+            torch.cuda.synchronize(device)
+
+
+class Span(object):
+    """One live traced region; use via ``with span("name", k=v) as sp:``."""
+
+    __slots__ = (
+        "name", "attrs", "span_id", "parent_id", "thread_name",
+        "t_start", "wall_start", "elapsed", "sync_elapsed", "status",
+        "_tracer", "_watched", "_prof_ctx",
+    )
+
+    def __init__(self, tracer, name, attrs):
+        self.name = name
+        self.attrs = attrs
+        self.span_id = next(_span_ids)
+        self.parent_id = None
+        self.thread_name = None
+        self.t_start = None
+        self.wall_start = None
+        self.elapsed = None
+        self.sync_elapsed = None
+        self.status = "ok"
+        self._tracer = tracer
+        self._watched = None
+        self._prof_ctx = None
+
+    def set(self, **attrs):
+        """Attach/update attributes mid-span; returns self for chaining."""
+        self.attrs.update(attrs)
+        return self
+
+    def watch(self, out):
+        """Register tensors whose devices are synchronized before the span
+        closes (the sync cost lands in ``sync_elapsed``).  Returns ``out`` unchanged
+        so call sites can wrap a computation inline."""
+        self._watched = out
+        return out
+
+    def __enter__(self):
+        tracer = self._tracer
+        stack = tracer._stack()
+        ctx = current_context()
+        if stack:
+            self.parent_id = stack[-1].span_id
+        elif ctx is not None and ctx.root_span_id is not None:
+            # cross-thread linkage: a span opening with an empty stack
+            # under a bound RequestContext parents under the request's
+            # root span instead of rooting a per-thread forest
+            self.parent_id = ctx.root_span_id
+        if ctx is not None and "request_id" not in self.attrs:
+            self.attrs["request_id"] = ctx.request_id
+        stack.append(self)
+        thread = threading.current_thread()
+        self.thread_name = thread.name
+        if env_flag(PROFILER_ENV):
+            try:
+                import torch
+
+                self._prof_ctx = torch.profiler.record_function(self.name)
+                self._prof_ctx.__enter__()
+            except Exception:   # the bridge must never break the workload
+                self._prof_ctx = None
+        self.wall_start = wall()
+        self.t_start = monotonic()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        t_end = monotonic()
+        self.elapsed = t_end - self.t_start
+        if exc_type is None and self._watched is not None:
+            try:
+                device_sync(self._watched)
+            finally:
+                t_sync = monotonic()
+                self.sync_elapsed = t_sync - t_end
+                self.elapsed = t_sync - self.t_start
+        if exc_type is not None:
+            self.status = "error"
+            self.attrs.setdefault("error", exc_type.__name__)
+        if self._prof_ctx is not None:
+            try:
+                self._prof_ctx.__exit__(exc_type, exc, tb)
+            except Exception:
+                pass
+        stack = self._tracer._stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:                  # unbalanced exit: be lenient
+            stack.remove(self)
+        self._tracer._finish(self)
+        return False
+
+    def to_dict(self):
+        return {
+            "kind": "span",
+            "name": self.name,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "thread": self.thread_name,
+            "ts": self.wall_start,
+            "t_mono": self.t_start,
+            "elapsed_s": self.elapsed,
+            "sync_elapsed_s": self.sync_elapsed,
+            "status": self.status,
+            "attrs": dict(self.attrs),
+        }
+
+
+class _NoopSpan(object):
+    """The shared do-nothing span handed out while MESH_TPU_OBS is off."""
+
+    __slots__ = ()
+    elapsed = None
+    sync_elapsed = None
+    attrs = {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        return self
+
+    def watch(self, out):
+        return out
+
+
+_NOOP = _NoopSpan()
+
+
+class Tracer(object):
+    """Per-process span collector: thread-local nesting stacks, a bounded
+    ring of finished spans, and push sinks."""
+
+    def __init__(self, max_events=4096):
+        self._events = deque(maxlen=max_events)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._sinks = []
+
+    # -- span lifecycle ------------------------------------------------
+
+    def span(self, name, **attrs):
+        return Span(self, name, attrs)
+
+    def _stack(self):
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _finish(self, span):
+        event = span.to_dict()
+        with self._lock:
+            self._events.append(event)
+            sinks = list(self._sinks)
+        for sink in sinks:
+            try:
+                sink(event)
+            except Exception:   # a broken sink must never break serving
+                pass
+
+    # -- consumption ---------------------------------------------------
+
+    def events(self):
+        """Finished spans, oldest first (bounded ring)."""
+        with self._lock:
+            return list(self._events)
+
+    def clear(self):
+        with self._lock:
+            self._events.clear()
+
+    def add_sink(self, sink):
+        with self._lock:
+            self._sinks.append(sink)
+        return sink
+
+
+#: the process-wide tracer (one request path, one tracer)
+TRACER = Tracer()
+
+# tail sampling: finished spans carrying a request_id buffer in the
+# trace tail until their ledger row closes and decides retention
+# (obs/context.py; a span with no request_id costs one dict lookup)
+TRACER.add_sink(TRACE_TAIL.record_span)
+
+
+def span(name, **attrs):
+    """A traced region — or THE no-op singleton while MESH_TPU_OBS is
+    off, which is the whole overhead story: one env read, no object."""
+    if not enabled():
+        return _NOOP
+    return TRACER.span(name, **attrs)
+

@@ -1,6 +1,7 @@
 """The ``MESH_TPU_*`` environment knobs the port reads, and the routing
 predicates built on them (counterpart of mesh_tpu/utils/knobs.py and
-mesh_tpu/utils/dispatch.py, for the knobs of the closest-point ladder).
+mesh_tpu/utils/dispatch.py, for the knobs of the closest-point ladder, the
+observability modules and the animated-mesh sessions).
 
 Every knob is declared in ``KNOBS`` with its type and default, and read
 through the accessors below, which re-read ``os.environ`` on every call so
@@ -27,6 +28,19 @@ KNOBS = {
     "MESH_TPU_BVH_STREAM_FORCE": False,
     "MESH_TPU_BVH_STREAM_BUFFERS": None,
     "MESH_TPU_BVH_STREAM_VMEM_MB": 12.0,
+    # observability (obs/)
+    "MESH_TPU_OBS": False,
+    "MESH_TPU_OBS_JAX_TRACE": False,
+    "MESH_TPU_RECORDER": True,
+    "MESH_TPU_RECORDER_EVENTS": 2048,
+    "MESH_TPU_LEDGER": True,
+    "MESH_TPU_LEDGER_CAPACITY": 512,
+    "MESH_TPU_REPLAY_TRACE": None,
+    "MESH_TPU_TRACE_CONTEXT": True,
+    "MESH_TPU_TRACE_TAIL": 64,
+    # animated meshes (anim/)
+    "MESH_TPU_ANIM": True,
+    "MESH_TPU_ANIM_REFIT_MAX_INFLATION": None,
 }
 
 _UNSET = object()
