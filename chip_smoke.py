@@ -27,7 +27,10 @@ Phases (any failure raises and exits non-zero; none catches its own):
    leaves), phase 6's scan at leaves 256 and 8, a copy with planted NaN
    corners and one with corners at +-0.0 (the 98,304-face keyframe at
    leaves 256 and 8 timed with L2 flushed before each call, as the HBM
-   bound assumes; the row in the kernels line is leaf 256's).
+   bound assumes; the row in the kernels line is leaf 256's); mxu_faces,
+   mxu_bound and mxu_repair at phase 12's shapes with and without the
+   degenerate tail, the tail also on the planted mesh (faces, ub, cert and
+   repaired tiles identical, and the repair's faces the dense scan's).
    Built without FMA contraction,
    each kernel must pick exactly the faces (vertices, blocked flags,
    counts, leaf boxes) its plain version picks, with the same tiles,
@@ -90,13 +93,24 @@ Phases (any failure raises and exits non-zero; none catches its own):
    faces equal except at ties), its boxes against a ``kernel="host"``
    refit, every face inside its leaf box, no index built on a refit frame,
    and the actions and inflations of a ``kernel="host"`` session fed the
-   same frames.
+   same frames;
+12. mxu: ``Mesh.closest_faces_and_points`` under ``MESH_TPU_MXU=1``, then
+   with ``MESH_TPU_MXU_BF16=1`` too, on posed body 0 with phase 4's 4096
+   queries and on a 32,512-face ``_sphere_mesh(32768)`` with 65,536
+   surface-proximal and 65,536 N(0, 0.4) queries (cold first call, median
+   of 5 warm calls; the surface queries in bench.py's patches of 256, one
+   per query tile): the MXU rung's dense scan, then the bf16 bound pass
+   and the f32 exact repair.  Each answer against the brute-force kernel
+   (sqdist within 1e-5, faces equal except at ties), the repair's answers
+   equal to the dense scan's, fewer face tiles repaired than screened on
+   the surface-proximal queries; the environment is restored afterwards.
 
-After phase 11, the four closest-point routes (brute, culled, resident and
-streamed rope) are timed at phases 5 and 6's shapes: the crossover
-evidence; then each drive's stages.
+After phase 12, the four closest-point routes (brute, culled, resident and
+streamed rope) are timed at phases 5 and 6's shapes, and
+``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
+brute-force kernel: the crossover evidence; then each drive's stages.
 
-Phases 3-11 are the driven paths (phase 6 twice).  Kernel launch counts
+Phases 3-12 are the driven paths (phase 6 twice).  Kernel launch counts
 are set to 0 just before each and read just after it, and every kernel
 must have launched on each path of ``KERNEL_PATHS`` and on no other
 path.  The last lines are the card's name and power limit (nvidia-smi),
@@ -225,6 +239,23 @@ ANIM_COLD_FRAMES = 5
 #: each for the min and the max
 LEAF_BOX_OPS = 4
 
+#: phase 12: the MXU rung under MESH_TPU_MXU (and MESH_TPU_MXU_BF16) on
+#: posed body 0 with phase 4's queries, and on bench.py's 32,768-face
+#: sphere (32,512 faces) with MXU_QUERIES surface-proximal and as many
+#: N(0, 0.4) queries; MXU_WARM warm calls after the cold one.  The
+#: surface-proximal queries are bench.py mxu_proxy's recipe: one compact
+#: patch per query tile of MXU_PATCH queries, 1.005 times a unit direction
+#: plus N(0, 0.002), the spatially coherent order of a scan whose tiles
+#: the bound pass can prune
+MXU_SPHERE_FACES = 32768
+MXU_QUERIES = 65536
+MXU_WARM = 5
+MXU_PATCH = 256
+#: operations per pair counted in csrc/mxu_cost.cuh (with and without the
+#: degenerate tail) and csrc/mxu_bound.cu
+MXU_PAIR_OPS = {False: 93, True: 124}
+MXU_BOUND_OPS = 26
+
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
@@ -237,7 +268,10 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "normal_weighted_faces": ("registration",),
                 "tri_tri_any_hit": ("contact",),
                 "self_intersect": ("self_intersect",),
-                "leaf_boxes": ("anim",)}
+                "leaf_boxes": ("anim",),
+                "mxu_faces": ("mxu",),
+                "mxu_bound": ("mxu",),
+                "mxu_repair": ("mxu",)}
 
 
 def log(*args):
@@ -472,12 +506,13 @@ def kernel_counters():
     from mesh_tpu_torch.accel import rope_kernel as rk
     from mesh_tpu_torch.query import closest_kernel as ck
     from mesh_tpu_torch.query import culled_kernel as qk
+    from mesh_tpu_torch.query import mxu_kernel as mk
     from mesh_tpu_torch.query import normal_weighted as nw
     from mesh_tpu_torch.query import ray_kernel as ray
     from mesh_tpu_torch.query import tri_tri_kernel as tk
 
     return (ck.LAUNCHES, qk.LAUNCHES, rk.LAUNCHES, ray.LAUNCHES, nw.LAUNCHES,
-            tk.LAUNCHES, tk.TILE_LAUNCHES, fk.LAUNCHES)
+            tk.LAUNCHES, tk.TILE_LAUNCHES, fk.LAUNCHES, mk.LAUNCHES)
 
 
 def reset_launches():
@@ -1453,6 +1488,209 @@ def anim_stages(model, leaf, seed, dev):
     return stages
 
 
+def surface_patches(n_q, rng):
+    """Phase 12's surface-proximal queries on the unit sphere: n_q /
+    MXU_PATCH patches of MXU_PATCH queries each (bench.py mxu_proxy_stage),
+    float32 [n_q, 3]."""
+    dirs = rng.randn(n_q // MXU_PATCH, 3)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    pts = np.repeat(dirs * 1.005, MXU_PATCH, axis=0)
+    return (pts + 0.002 * rng.randn(*pts.shape)).astype(np.float32)
+
+
+def compare_mxu(mk, ck, label, v, f, q, tail, timing):
+    """Kernel vs plain for the three MXU kernels on one mesh (``v`` [V, 3],
+    ``f`` [F, 3], ``q`` [Q, 3] on the card) at the reference's tiles:
+    identical faces, ub, cert and repaired tiles, and the repair's faces
+    identical to the dense scan's.  With ``timing``: each kernel's time,
+    its plain version's and its bound, and the ``closest_faces`` kernel's
+    time on the same inputs."""
+    tile_q, tile_f = mk.TILE_Q, mk.TILE_F
+    p, rec, tri, pts, center = mk.mxu_operands(v, f, q, device=v.device)
+    kf = mk.mxu_faces(p, rec, degenerate_tail=tail)
+    pf = mk.mxu_faces_plain(p, rec, degenerate_tail=tail)
+    kub, kcert = mk.mxu_bound(p, rec)
+    pub, pcert = mk.mxu_bound_plain(p, rec)
+    kr, krep = mk.mxu_repair(p, rec, kub, kcert, degenerate_tail=tail)
+    pr, prep = mk.mxu_repair_plain(p, rec, kub, kcert, degenerate_tail=tail)
+    check(torch.equal(kf, pf), "mxu_faces[%s, tail=%s]: %d of %d faces differ "
+          "from the plain version" % (label, tail, int((kf != pf).sum()),
+                                      kf.numel()))
+    check(torch.equal(kub, pub) and torch.equal(kcert, pcert),
+          "mxu_bound[%s]: %d ub and %d cert values differ from the plain "
+          "version" % (label, int((kub != pub).sum()),
+                       int((kcert != pcert).sum())))
+    check(torch.equal(kr, pr) and torch.equal(krep, prep),
+          "mxu_repair[%s, tail=%s]: %d faces and %d tile counts differ from "
+          "the plain version" % (label, tail, int((kr != pr).sum()),
+                                 int((krep != prep).sum())))
+    check(torch.equal(kr, kf), "mxu_repair[%s, tail=%s]: %d faces differ "
+          "from the dense scan's" % (label, tail, int((kr != kf).sum())))
+    rk_, rp = mk.mxu_epilogue(kf, tri, pts, center), mk.mxu_epilogue(
+        pf, tri, pts, center)
+    err = max(float((rk_["point"] - rp["point"]).abs().max()),
+              float((rk_["sqdist"] - rp["sqdist"]).abs().max()))
+    surv = mk.survivors(kub, kcert, tile_q)
+    n_f = rec.shape[0]
+    tile_faces = torch.tensor([min(n_f, (t + 1) * tile_f) - t * tile_f
+                               for t in range(surv.shape[1])],
+                              device=surv.device)
+    out = {"mesh": label, "degenerate_tail": tail,
+           "shape": [int(p.shape[0]), n_f], "queries": int(pts.shape[1]),
+           "identical": True, "max_abs_err": err,
+           "screened": int(surv.numel()), "repaired": int(krep.sum()),
+           "repaired_pairs": int((surv.sum(0) * tile_faces).sum()) * tile_q}
+    log("  mxu[%s, tail=%s] %s: faces, ub, cert and repaired tiles identical "
+        "to the plain versions, repair == dense; %d of %d tiles repaired"
+        % (label, tail, out["shape"], out["repaired"], out["screened"]))
+    if not timing:
+        return out
+    pairs = p.shape[0] * n_f
+    rec_bytes = 4 * (p.numel() + rec.numel())
+    screen_bytes = 4 * (kub.numel() + kcert.numel())
+    ops = ck.closest_point_operands(v[None], f, q[None], "fast")
+    out["faces"] = {
+        "ms": cuda_ms(lambda: mk.mxu_faces(p, rec, degenerate_tail=tail),
+                      REPS),
+        "plain_ms": cuda_ms(lambda: mk.mxu_faces_plain(
+            p, rec, degenerate_tail=tail), 1)}
+    out["faces"]["bound_ms"], out["faces"]["bound_by"] = bound_ms(
+        pairs, MXU_PAIR_OPS[tail], rec_bytes + 4 * p.shape[0])
+    out["bound"] = {
+        "ms": cuda_ms(lambda: mk.mxu_bound(p, rec), REPS),
+        "plain_ms": cuda_ms(lambda: mk.mxu_bound_plain(p, rec), 1)}
+    out["bound"]["bound_ms"], out["bound"]["bound_by"] = bound_ms(
+        pairs, MXU_BOUND_OPS, rec_bytes + screen_bytes)
+    out["repair"] = {
+        "ms": cuda_ms(lambda: mk.mxu_repair(p, rec, kub, kcert,
+                                            degenerate_tail=tail), REPS),
+        "plain_ms": cuda_ms(lambda: mk.mxu_repair_plain(
+            p, rec, kub, kcert, degenerate_tail=tail), 1)}
+    out["repair"]["bound_ms"], out["repair"]["bound_by"] = bound_ms(
+        out["repaired_pairs"], MXU_PAIR_OPS[tail],
+        rec_bytes + screen_bytes + 4 * (p.shape[0] + krep.numel()))
+    out["closest_faces_ms"] = cuda_ms(lambda: ck.argmin_faces(
+        ops[0], ops[1], "fast", tail), REPS)
+    out["closest_faces_bound_ms"] = bound_ms(
+        ops[0].shape[1] * n_f, FACE_PAIR_OPS[("fast", tail)],
+        4 * (ops[0].numel() + ops[1].numel() + ops[0].shape[1]))[0]
+    log("    %s: mxu_faces %.3f ms (plain %.1f, bound %.3f), mxu_bound %.3f "
+        "ms (plain %.1f, bound %.3f), mxu_repair %.3f ms (plain %.1f, bound "
+        "%.3f on %d pairs); closest_faces %.3f ms (bound %.3f)" % (
+            label, out["faces"]["ms"], out["faces"]["plain_ms"],
+            out["faces"]["bound_ms"], out["bound"]["ms"],
+            out["bound"]["plain_ms"], out["bound"]["bound_ms"],
+            out["repair"]["ms"], out["repair"]["plain_ms"],
+            out["repair"]["bound_ms"], out["repaired_pairs"],
+            out["closest_faces_ms"], out["closest_faces_bound_ms"]))
+    return out
+
+
+def drive_mxu(cases, dev):
+    """Phase 12's drive: ``Mesh.closest_faces_and_points`` on each case
+    (label, v, f, q as numpy) under MESH_TPU_MXU=1, then under
+    MESH_TPU_MXU_BF16=1 as well: a cold first call (staging cache emptied)
+    and MXU_WARM warm calls each, the repair series read around each
+    case.  The two knobs are restored afterwards.  Returns the runs by
+    (label, mode)."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.obs.metrics import REGISTRY
+    from mesh_tpu_torch.query import mxu_kernel as mk
+
+    series = REGISTRY.counter("mesh_tpu_query_mxu_repair_total")
+    saved = {k: os.environ.get(k) for k in ("MESH_TPU_MXU",
+                                            "MESH_TPU_MXU_BF16")}
+    runs = {}
+    try:
+        os.environ["MESH_TPU_MXU"] = "1"
+        for mode in ("dense", "repair"):
+            if mode == "repair":
+                os.environ["MESH_TPU_MXU_BF16"] = "1"
+            else:
+                os.environ.pop("MESH_TPU_MXU_BF16", None)
+            for label, v, f, q in cases:
+                before = {o: series.value(kind="dense", outcome=o)
+                          for o in ("repaired", "skipped")}
+                mk._MXU_FACE_CACHE.clear()
+                m = Mesh(v, f, device=dev)
+                t0 = time.perf_counter()
+                faces, points = m.closest_faces_and_points(q)
+                first_ms = (time.perf_counter() - t0) * 1e3
+                times = []
+                for _ in range(MXU_WARM):
+                    t0 = time.perf_counter()
+                    faces2, points2 = m.closest_faces_and_points(q)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                check(np.array_equal(faces, faces2)
+                      and np.array_equal(points, points2),
+                      "mxu %s %s: repeated calls disagree" % (label, mode))
+                tiles = {o: series.value(kind="dense", outcome=o) - before[o]
+                         for o in before}
+                runs[label, mode] = {
+                    "faces": faces, "points": points, "first_ms": first_ms,
+                    "warm_ms": statistics.median(times),
+                    "warm_ms_min": min(times), "warm_ms_max": max(times),
+                    "repaired": tiles["repaired"],
+                    "screened": tiles["repaired"] + tiles["skipped"]}
+                log("  %s, %s: first call %.3f ms, warm median %.3f ms (min "
+                    "%.3f, max %.3f)%s" % (
+                        label, mode, first_ms, statistics.median(times),
+                        min(times), max(times), "" if mode == "dense" else
+                        "; %d of %d face tiles repaired" % (
+                            tiles["repaired"],
+                            tiles["repaired"] + tiles["skipped"])))
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    return runs
+
+
+def check_mxu(cases, runs, dev):
+    """Phase 12's checks, after the counted window: every answer against
+    the brute-force kernel on the same inputs (sqdist within 1e-5, faces
+    equal except at ties), the repair's answers equal to the dense scan's
+    bit for bit, every face tile screened, and fewer tiles repaired than
+    screened on the surface-proximal queries."""
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import mxu_kernel as mk
+
+    summary = {}
+    for label, v, f, q in cases:
+        dense, rep = runs[label, "dense"], runs[label, "repair"]
+        check(np.array_equal(dense["faces"], rep["faces"])
+              and np.array_equal(dense["points"], rep["points"]),
+              "mxu %s: the repair's answers differ from the dense scan's"
+              % label)
+        vt = torch.as_tensor(v, device=dev)[None]
+        ft = torch.as_tensor(f, device=dev)
+        qt = torch.as_tensor(q, device=dev)[None]
+        brute = ck.closest_point_kernel(
+            vt, ft, qt, assume_nondegenerate=ck.mesh_is_nondegenerate(v, f))
+        sq = torch.as_tensor(((q.astype(np.float64) - dense["points"]) ** 2)
+                             .sum(-1)[None], dtype=torch.float32, device=dev)
+        faces = torch.as_tensor(dense["faces"].astype(np.int64), device=dev)
+        vs = check_against_brute("mxu " + label, vt, ft, qt, faces, sq, brute)
+        n_tiles = -(-f.shape[0] // mk.TILE_F) * -(-q.shape[0] // mk.TILE_Q)
+        check(rep["screened"] == (1 + MXU_WARM) * n_tiles,
+              "mxu %s: %d face tiles screened, not %d" % (
+                  label, rep["screened"], (1 + MXU_WARM) * n_tiles))
+        if label == "sphere_surface":
+            check(rep["repaired"] < rep["screened"], "mxu %s: the screen "
+                  "pruned no tile" % label)
+        summary[label] = {
+            "faces": int(f.shape[0]), "queries": int(q.shape[0]),
+            "vs_brute": vs, "repaired_over_screened":
+                rep["repaired"] / rep["screened"],
+            **{"%s_%s" % (mode, k): runs[label, mode][k]
+               for mode in ("dense", "repair")
+               for k in ("first_ms", "warm_ms", "warm_ms_min",
+                         "warm_ms_max")}}
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1472,10 +1710,16 @@ def main():
     from mesh_tpu_torch.query import closest_kernel as ck
     from mesh_tpu_torch.query import culled as auto
     from mesh_tpu_torch.query import culled_kernel as qk
+    from mesh_tpu_torch.query import mxu_kernel as mk
     from mesh_tpu_torch.query import normal_weighted as nw
     from mesh_tpu_torch.query import ray_kernel as ray
     from mesh_tpu_torch.query import tri_tri_kernel as tk
-    from mesh_tpu_torch.query.autotune import stream_tile_params
+    from mesh_tpu_torch.query.autotune import (
+        _sphere_mesh,
+        calibrate_mxu_crossover,
+        MXU_CALIBRATION,
+        stream_tile_params,
+    )
     from mesh_tpu_torch.query.closest_point import closest_faces_and_points_t
     from mesh_tpu_torch.query.visibility import visibility_rays
 
@@ -1512,6 +1756,9 @@ def main():
                               dtype=torch.float32, device=dev)
     verts, _ = lbs(model, betas, pose, device=dev)
     posed = verts.cpu().numpy()
+    q1 = torch.as_tensor(rng.randn(1, FACADE_QUERIES, 3) * 0.4,
+                         dtype=torch.float32, device=dev)
+    q1_np = q1[0].cpu().numpy()
     nondegen = ck.mesh_is_nondegenerate(posed, f_np)
     main_variant = ("fast", not nondegen)
     log("posed batch %s nondegenerate: %s -> main path runs closest_faces"
@@ -1578,6 +1825,20 @@ def main():
             [int(m_.faces.shape[0]) for m_, _ in anim_models.values()],
             ANIM_LEAF, ANIM_FRAMES, ANIM_QUERIES))
 
+    # -- inputs of the MXU drive (phase 12) ----------------------------------
+    v_m, f_m = _sphere_mesh(MXU_SPHERE_FACES)
+    rng_m = np.random.RandomState(12)
+    mxu_cases = [
+        ("body0", posed[0], f_np, q1_np),
+        ("sphere_surface", v_m, f_m, surface_patches(MXU_QUERIES, rng_m)),
+        ("sphere_randn", v_m, f_m,
+         (rng_m.randn(MXU_QUERIES, 3) * 0.4).astype(np.float32))]
+    mxu_tails = {label: not ck.mesh_is_nondegenerate(v_, f_)
+                 for label, v_, f_, _ in mxu_cases}
+    log("mxu: %s faces, %s queries; degenerate tail %s" % (
+        [c[2].shape[0] for c in mxu_cases], [c[3].shape[0] for c in mxu_cases],
+        mxu_tails))
+
     # -- 2. kernels vs plain on the card -------------------------------------
     log("== kernels vs plain")
     face_runs = []
@@ -1588,8 +1849,6 @@ def main():
                                        variant, tail, timing=True))
         del pts, planes, tri, center
     body = verts[:1]
-    q1 = torch.as_tensor(rng.randn(1, FACADE_QUERIES, 3) * 0.4,
-                         dtype=torch.float32, device=dev)
     for variant, tail in VARIANTS:
         ops = ck.closest_point_operands(body, f, q1, variant)
         compare_faces(ck, *ops, variant, tail, timing=False)
@@ -1717,6 +1976,19 @@ def main():
         zeros_t, n_lv, ANIM_LEAF, "large keyframe with +-0.0 corners, leaf "
         "256", nan_leaves=[]))
     del operands, planted_t, zeros_t
+    # the three MXU kernels at phase 12's shapes, with and without the
+    # degenerate tail (timed in the drive's own variant), and the tail on
+    # the planted mesh
+    mxu_runs = []
+    for label, v_np, f_np_, q_np in mxu_cases:
+        for tail in (False, True):
+            mxu_runs.append(compare_mxu(
+                mk, ck, label, torch.as_tensor(v_np, device=dev),
+                torch.as_tensor(f_np_, device=dev),
+                torch.as_tensor(q_np, device=dev), tail,
+                timing=tail == mxu_tails[label]))
+    mxu_runs.append(compare_mxu(mk, ck, "planted", v2t[0], f2t, q2t[0], True,
+                                timing=False))
 
     # -- 3. main path at full width ------------------------------------------
     log("== main path: %d bodies x %d queries, %d faces each"
@@ -2240,6 +2512,18 @@ def main():
             for label, run in anim_runs.items()}
     del anim_runs
 
+    # -- 12. mxu: the MXU rung through the Mesh facade ------------------------
+    log("== mxu: Mesh.closest_faces_and_points under MESH_TPU_MXU=1, then "
+        "MESH_TPU_MXU_BF16=1")
+    reset_launches()
+    auto.STRATEGY.clear()
+    mxu_drive = drive_mxu(mxu_cases, dev)
+    launches["mxu"] = read_launches()
+    check(dict(auto.STRATEGY) == {"mxu": 2 * len(mxu_cases) * (1 + MXU_WARM)},
+          "the mxu drive routes %s, not the MXU rung" % auto.STRATEGY)
+    mxu = check_mxu(mxu_cases, mxu_drive, dev)
+    del mxu_drive
+
     for name, paths in KERNEL_PATHS.items():
         for path, counts in launches.items():
             if path in paths:
@@ -2255,6 +2539,12 @@ def main():
     log("== crossover: every route at both drives' shapes")
     crossover_rows = crossover(dev, (verts_l, f_l, queries_l, nondegen_l),
                                (v_s, f_s, p_s))
+    mxu_crossover = calibrate_mxu_crossover(save=False)
+    log("  calibrate_mxu_crossover(save=False): %d faces (stable %s); ladder "
+        "%s" % (mxu_crossover, MXU_CALIBRATION["stable"], ", ".join(
+            "%d faces: brute %.3f ms, mxu %.3f ms" % (
+                row["faces"], row["t_brute"] * 1e3, row["t_mxu"] * 1e3)
+            for row in MXU_CALIBRATION["ladder"])))
 
     # per-stage breakdown of one main-path step, after the counted drive
     stages = {}
@@ -2428,6 +2718,32 @@ def main():
          "library_ms": main_lb["library_ms"],
          "l2_warm_ms": main_lb["l2_warm_ms"], "on": main_lb["on"],
          "detail": leaf_runs})
+    main_m = next(r for r in mxu_runs if r["mesh"] == "sphere_surface"
+                  and "faces" in r)
+    for name, key, source, replaces in (
+            ("mxu_faces", "faces", "mxu_faces.cu",
+             "mesh_tpu/query/pallas_closest.py:1015"),
+            ("mxu_bound", "bound", "mxu_bound.cu",
+             "mesh_tpu/query/pallas_closest.py:1091"),
+            ("mxu_repair", "repair", "mxu_repair.cu",
+             "mesh_tpu/query/pallas_closest.py:1115")):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "mesh_tpu_torch/csrc/" + source, "replaces": replaces,
+             "launches": launches["mxu"][name],
+             "launches_by_path": {p: launches[p][name] for p in launches},
+             "max_abs_err": max(r["max_abs_err"] for r in mxu_runs),
+             "ms": main_m[key]["ms"], "plain_ms": main_m[key]["plain_ms"],
+             "bound_ms": main_m[key]["bound_ms"],
+             "bound_by": main_m[key]["bound_by"], "library_ms": None,
+             "on": "sphere_surface, tail=%s" % main_m["degenerate_tail"],
+             "detail": [dict(r.get(key, {}), mesh=r["mesh"],
+                             degenerate_tail=r["degenerate_tail"],
+                             closest_faces_ms=r.get("closest_faces_ms"),
+                             repaired=r["repaired"], screened=r["screened"])
+                        for r in mxu_runs]})
+    check(len(kernels) == len(KERNEL_PATHS), "the kernels line lists %d "
+          "kernels, KERNEL_PATHS %d" % (len(kernels), len(KERNEL_PATHS)))
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(smi, flush=True)
     print(json.dumps({
@@ -2448,7 +2764,9 @@ def main():
                        "body0_flags_differ64": int(differ64.sum()),
                        "stages_ms": stages_v},
         "registration": registration, "contact": contact,
-        "self_intersect": self_int, "anim": anim}), flush=True)
+        "self_intersect": self_int, "anim": anim,
+        "mxu": {"calls": mxu, "crossover": dict(MXU_CALIBRATION)}}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)

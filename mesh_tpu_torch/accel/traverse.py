@@ -23,7 +23,7 @@ from ..obs.metrics import REGISTRY
 from ..obs.trace import span as obs_span
 from ..utils import knobs
 from ..utils.device import as_tensor, host_array, resolve_device
-from ..query.autotune import stream_tile_params
+from ..query.autotune import mxu_crossover_faces, stream_tile_params
 from ..query.closest_kernel import N_FACE_ROWS, closest_point_kernel
 from .rope_kernel import (
     closest_point_bvh_kernel,
@@ -131,6 +131,13 @@ def closest_faces_and_points_accel(v, f, points, kind=None, index=None,
             "MESH_TPU_BVH_STREAM=0 with %d faces (above %d): the reference "
             "takes its XLA rope traversal here, which is not ported "
             "(ROADMAP.md, Queue 1 item 10)" % (n_faces, PALLAS_BVH_MAX_FACES))
+    if knobs.mxu_enabled() and n_faces >= mxu_crossover_faces():
+        raise NotImplementedError(
+            "MESH_TPU_MXU=1 with %d faces (from %d): the reference walks the "
+            "BVH with its MXU leaf visit here (closest_point_pallas_bvh_mxu, "
+            "closest_point_pallas_bvh_stream_mxu), which is not ported "
+            "(ROADMAP.md, Queue 2 item 1); unset MESH_TPU_MXU"
+            % (n_faces, mxu_crossover_faces()))
     v_t = as_tensor(v, dev)
     f_t = as_tensor(f if torch.is_tensor(f) else host_array(f, np.int64), dev)
     pts = as_tensor(points, dev).reshape(-1, 3)

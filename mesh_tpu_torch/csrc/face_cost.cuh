@@ -1,5 +1,6 @@
 // Per-pair squared-distance functors shared by every closest-face kernel of
-// mesh_tpu_torch (closest_faces.cu, culled_faces.cu, rope_faces.cu), so
+// mesh_tpu_torch (closest_faces.cu, culled_faces.cu, rope_faces.cu, and
+// through ericson_tail the MXU kernels of mxu_cost.cuh), so
 // that all of them round alike: the Hopper counterparts of
 // _sqdist_tile_fast (-> _ericson_tail -> _region_select) and
 // _sqdist_tile_safe in mesh_tpu/query/pallas_closest.py.  The plain
@@ -54,6 +55,25 @@ __device__ __forceinline__ float region_select(
   return fmaxf(d, 0.0f);
 }
 
+// _ericson_tail: the squared distance from the four query-dependent scalars
+// d1 = ab.ap, d2 = ac.ap, ap2 = |ap|^2 and n_ap = n.ap, deriving the b/c-corner
+// terms from the corner-a ones and the hoisted per-face constants.  The fast
+// tile and the MXU tile (mxu_cost.cuh) differ only in how they form the four.
+template <bool kTail>
+__device__ __forceinline__ float ericson_tail(
+    float d1, float d2, float ap2, float n_ap, float ab2, float ac2,
+    float abac, float inv_ab2, float inv_ac2, float inv_bc2, float inv_n2) {
+  const float d3 = d1 - ab2;
+  const float d4 = d2 - abac;
+  const float d5 = d1 - abac;
+  const float d6 = d2 - ac2;
+  const float bp2 = ap2 - (d1 + d1) + ab2;
+  const float cp2 = ap2 - (d2 + d2) + ac2;
+  return region_select<kTail>(d1, d2, d3, d4, d5, d6, ap2, bp2, cp2, n_ap,
+                              ab2, ac2, abac, inv_ab2, inv_ac2, inv_bc2,
+                              inv_n2);
+}
+
 // The fast tile's squared distance from the 19 plane values of one face, in
 // fast_tile_rows order: corner a, edges ab and ac, the unnormalized normal,
 // ab2 ac2 abac and the reciprocals inv_ab2 inv_ac2 inv_bc2 inv_n2.
@@ -68,16 +88,8 @@ __device__ __forceinline__ float fast_pair(
   const float d2 = acx * apx + acy * apy + acz * apz;
   const float ap2 = apx * apx + apy * apy + apz * apz;
   const float n_ap = nx * apx + ny * apy + nz * apz;
-  // _ericson_tail: the b/c-corner terms from the corner-a ones
-  const float d3 = d1 - ab2;
-  const float d4 = d2 - abac;
-  const float d5 = d1 - abac;
-  const float d6 = d2 - ac2;
-  const float bp2 = ap2 - (d1 + d1) + ab2;
-  const float cp2 = ap2 - (d2 + d2) + ac2;
-  return region_select<kTail>(d1, d2, d3, d4, d5, d6, ap2, bp2, cp2, n_ap,
-                              ab2, ac2, abac, inv_ab2, inv_ac2, inv_bc2,
-                              inv_n2);
+  return ericson_tail<kTail>(d1, d2, ap2, n_ap, ab2, ac2, abac, inv_ab2,
+                             inv_ac2, inv_bc2, inv_n2);
 }
 
 // Fast tile: planes a(3) ab(3) ac(3) n(3) ab2 ac2 abac inv_ab2 inv_ac2

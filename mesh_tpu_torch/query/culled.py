@@ -5,20 +5,34 @@ kernel route the reference takes on its chip).
 The ladder, by face count F: the BVH rope kernels at
 ``F >= accel_crossover_faces()`` unless ``MESH_TPU_NO_ACCEL`` is set
 (``accel/traverse.py``); else the brute-force ``closest_faces`` kernel at
-``F <= crossover_faces()``; else the sphere-culled kernel.  Every rung is
-exact up to distance ties, and the ``MESH_TPU_SAFE_TILES`` tile variant is
-threaded through all of them.  ``STRATEGY`` counts the rung each call took,
-once per call.
+``F <= crossover_faces()``; else the sphere-culled kernel.  Under
+``MESH_TPU_MXU`` with the fast tile, the brute-force rung from
+``mxu_crossover_faces()`` faces is the MXU rung instead
+(``query/mxu_kernel.py``): its dense scan, or under ``MESH_TPU_MXU_BF16``
+the bf16 bound pass and the f32 exact repair, whose screening outcomes
+feed ``mesh_tpu_query_mxu_repair_total{kind="dense", outcome}``.  Every
+rung is exact up to distance ties, and the ``MESH_TPU_SAFE_TILES`` tile
+variant is threaded through all of them.  ``STRATEGY`` counts the rung
+each call took, once per call.
 """
 
 import numpy as np
 import torch
 
+from ..obs.metrics import REGISTRY
 from ..utils import knobs
 from ..utils.device import as_tensor, host_array
-from .autotune import accel_crossover_faces, crossover_faces
+from .autotune import (
+    accel_crossover_faces,
+    crossover_faces,
+    mxu_crossover_faces,
+)
 from .closest_kernel import closest_point_kernel, mesh_is_nondegenerate
 from .culled_kernel import closest_point_culled_kernel
+from .mxu_kernel import (
+    closest_point_mxu_kernel,
+    closest_point_mxu_repair_kernel,
+)
 
 #: calls per route since the counts were last cleared
 STRATEGY = {}
@@ -26,6 +40,17 @@ STRATEGY = {}
 
 def record_strategy(path):
     STRATEGY[path] = STRATEGY.get(path, 0) + 1
+
+
+def _record_mxu_repair(screened, repaired, kind):
+    """Count the bf16 bound pass's outcomes per face tile: ``repaired``
+    tiles ran the f32 exact repair, ``skipped`` tiles were certified empty
+    (``mesh_tpu_query_mxu_repair_total{kind, outcome}``)."""
+    counter = REGISTRY.counter(
+        "mesh_tpu_query_mxu_repair_total",
+        "bf16-screened MXU face tiles by repair outcome.")
+    counter.inc(int(repaired), kind=kind, outcome="repaired")
+    counter.inc(int(screened) - int(repaired), kind=kind, outcome="skipped")
 
 
 def closest_faces_and_points_auto(v, f, points, brute_force_max_faces=None,
@@ -55,6 +80,18 @@ def closest_faces_and_points_auto(v, f, points, brute_force_max_faces=None,
     f_host = host_array(f, np.int64)
     nondegen = mesh_is_nondegenerate(host_array(v, np.float32), f_host)
     variant = knobs.tile_variant()
+    if (knobs.mxu_enabled() and variant == "fast"
+            and mxu_crossover_faces() <= n_faces <= brute_force_max_faces):
+        record_strategy("mxu")
+        if knobs.mxu_bf16_enabled():
+            res, stats = closest_point_mxu_repair_kernel(
+                v, f, points, assume_nondegenerate=nondegen, with_stats=True,
+                device=device)
+            _record_mxu_repair(stats["screened"], stats["repaired"], "dense")
+        else:
+            res = closest_point_mxu_kernel(
+                v, f, points, assume_nondegenerate=nondegen, device=device)
+        return {key: val.cpu().numpy() for key, val in res.items()}
     suffix = "_safe" if variant == "safe" else ""
     if n_faces <= brute_force_max_faces:
         record_strategy("brute" + suffix)

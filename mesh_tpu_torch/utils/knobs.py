@@ -1,7 +1,7 @@
 """The ``MESH_TPU_*`` environment knobs the port reads, and the routing
 predicates built on them (counterpart of mesh_tpu/utils/knobs.py and
-mesh_tpu/utils/dispatch.py, for the knobs of the closest-point ladder, the
-observability modules and the animated-mesh sessions).
+mesh_tpu/utils/dispatch.py, for the knobs of the closest-point ladder and
+its MXU rung, the observability modules and the animated-mesh sessions).
 
 Every knob is declared in ``KNOBS`` with its type and default, and read
 through the accessors below, which re-read ``os.environ`` on every call so
@@ -28,6 +28,10 @@ KNOBS = {
     "MESH_TPU_BVH_STREAM_FORCE": False,
     "MESH_TPU_BVH_STREAM_BUFFERS": None,
     "MESH_TPU_BVH_STREAM_VMEM_MB": 12.0,
+    # the MXU rung of the closest-point ladder (query/mxu_kernel.py)
+    "MESH_TPU_MXU": False,
+    "MESH_TPU_MXU_BF16": False,
+    "MESH_TPU_MXU_CROSSOVER_FACES": None,
     # observability (obs/)
     "MESH_TPU_OBS": False,
     "MESH_TPU_OBS_JAX_TRACE": False,
@@ -135,3 +139,17 @@ def bvh_stream_vmem_budget():
     """The byte budget (``MESH_TPU_BVH_STREAM_VMEM_MB``, MiB) that the
     resident rope kernel's face planes are measured against."""
     return int(float(get_float("MESH_TPU_BVH_STREAM_VMEM_MB")) * 1024 * 1024)
+
+
+def mxu_enabled():
+    """True when ``MESH_TPU_MXU`` opts the closest-point ladder into the
+    MXU rung (the dot-product form of the tile, ``query/mxu_kernel.py``).
+    Off by default: with the knob unset every route is the pre-MXU one."""
+    return flag("MESH_TPU_MXU")
+
+
+def mxu_bf16_enabled():
+    """True when ``MESH_TPU_MXU_BF16`` puts the bf16 bound pass and the
+    f32 exact repair in front of the MXU rung's scan; only consulted on
+    calls already routed to the MXU rung."""
+    return flag("MESH_TPU_MXU_BF16")
