@@ -9,11 +9,15 @@ Phases (any failure raises and exits non-zero; none catches its own):
    build of every CUDA kernel from ``mesh_tpu_torch/csrc`` (nvcc, sm_90a);
 2. kernels vs plain: each kernel against its plain PyTorch version on the
    same card tensors, at the main path's shapes (256 posed SMPL-sized
-   bodies x 1024 queries; closest_faces in all four variants) and on one
-   body with 4096 queries (all variants; the degenerate-tail variants also
-   on a mesh with planted zero-area and collinear faces); culled_faces in
-   all four variants on the large batch of phase 5, and both rope_faces
-   entries on the scan of phase 6, each over all its query tiles;
+   bodies x 1024 queries; closest_faces in all four variants, with the
+   exact and the fused reduction) and on one body with 4096 queries (all
+   variants; the fused reduction also with NaN planted in three faces and
+   two queries; the degenerate-tail variants also on a mesh with planted
+   zero-area and collinear faces); culled_faces in all four variants on
+   the large batch of phase 5, both rope_faces entries on the scan of phase
+   6, and both rope_mxu_faces entries, f32 and bf16, on that scan and on
+   8,192 mixed-radius queries around its sphere (where the bf16 screen must
+   skip visits), each over all its query tiles;
    ray_any_hit on every ray of phase 7 (64 bodies x 4 cameras x 6890
    vertices), alongnormal_faces and normal_weighted_faces (with and without
    the degenerate tail) at phase 8's shapes, the tail variant also on the
@@ -39,6 +43,10 @@ Phases (any failure raises and exits non-zero; none catches its own):
 3. main path at full width: lbs -> vertex normals -> batched closest point
    for 256 bodies x 1024 queries, median step time over 10 reps, the
    faces checked against the plain version on the same batch;
+3b. main_path_fused: the same step with ``closest_point_kernel(reduction=
+   "fused")`` (bench.py's MESH_TPU_BENCH_REDUCTION=fused step), median step
+   time over 10 reps; every winner's exact sqdist within (1 + 4 x 2^-12) of
+   phase 3's;
 4. facade: ``mesh_tpu_torch.Mesh`` closest faces/points, nearest vertices,
    vertex normals and the fused call on one body, with the reference's
    dtypes and shapes; the closest faces/points against the plain
@@ -103,17 +111,27 @@ Phases (any failure raises and exits non-zero; none catches its own):
    and the f32 exact repair.  Each answer against the brute-force kernel
    (sqdist within 1e-5, faces equal except at ties), the repair's answers
    equal to the dense scan's, fewer face tiles repaired than screened on
-   the surface-proximal queries; the environment is restored afterwards.
+   the surface-proximal queries; the environment is restored afterwards;
+13. mxu_bvh: ``Mesh.closest_faces_and_points`` on phase 6's scan under
+   ``MESH_TPU_MXU=1`` with ``MESH_TPU_MXU_CROSSOVER_FACES=8192`` (the
+   card's saved calibration puts the crossover past this mesh), streamed
+   (path ``mxu_bvh``) and resident under ``MESH_TPU_BVH_STREAM_VMEM_MB=32``
+   (path ``mxu_bvh_resident``), each f32 and then under
+   ``MESH_TPU_MXU_BF16=1`` (cold first call, median of 5 warm calls): the
+   MXU rope walks.  The four answers bit-identical, against the brute-force
+   kernel and phase 6's VPU walk under the tie contract, and the repair
+   series moved by the screen's skipped visits; the environment is
+   restored afterwards.
 
-After phase 12, the four closest-point routes (brute, culled, resident and
+After phase 13, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
 brute-force kernel: the crossover evidence; then each drive's stages.
 
-Phases 3-12 are the driven paths (phase 6 twice).  Kernel launch counts
-are set to 0 just before each and read just after it, and every kernel
-must have launched on each path of ``KERNEL_PATHS`` and on no other
-path.  The last lines are the card's name and power limit (nvidia-smi),
+Phases 3-13 and 3b are the driven paths (phases 6 and 13 twice).  Kernel
+launch counts are set to 0 just before each and read just after it, and
+every kernel must have launched on each path of ``KERNEL_PATHS`` and on no
+other path.  The last lines are the card's name and power limit (nvidia-smi),
 one JSON line describing every kernel with its launches per path, and
 ``{"ok": true, "device": ...}``.
 
@@ -256,13 +274,35 @@ MXU_PATCH = 256
 MXU_PAIR_OPS = {False: 93, True: 124}
 MXU_BOUND_OPS = 26
 
+#: phase 3b: the fused reduction's operations per pair, the tile's plus the
+#: key's two ands, its or and the tile's shift (csrc/argmin.cuh)
+FUSED_PAIR_OPS = {k: v + 4 for k, v in FACE_PAIR_OPS.items()}
+
+#: phase 13: the MXU rope walks through the Mesh facade on phase 6's scan
+#: under MESH_TPU_MXU, with the MXU crossover pinned at MXU_BVH_CROSSOVER
+#: faces (the card's saved calibration puts it past the scan's mesh), a
+#: cold call and MXU_BVH_WARM warm calls per mode
+MXU_BVH_CROSSOVER = 8192
+MXU_BVH_WARM = 5
+#: operations per pair of the MXU walk's full visit (the MXU tile with its
+#: tail) and of its bf16 screen, counted in csrc/rope_mxu_faces.cu
+ROPE_MXU_PAIR_OPS = MXU_PAIR_OPS[True]
+SCREEN_PAIR_OPS = 25
+#: phase 2: MIXED_QUERIES queries on phase 6's sphere, half surface-proximal
+#: and half at radius MIXED_RADIUS, where the bf16 screen skips leaf visits
+MIXED_QUERIES = 8192
+MIXED_RADIUS = 1.6
+
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
+                "closest_faces_fused": ("main_path_fused",),
                 "nearest_vertices": ("facade",),
                 "culled_faces": ("large_batch",),
                 "rope_faces_stream": ("scan",),
                 "rope_faces_resident": ("scan_resident", "anim"),
+                "rope_mxu_stream": ("mxu_bvh",),
+                "rope_mxu_resident": ("mxu_bvh_resident",),
                 "ray_any_hit": ("visibility",),
                 "alongnormal_faces": ("registration",),
                 "normal_weighted_faces": ("registration",),
@@ -389,34 +429,40 @@ def planted_degenerate(v, f, rng, n=64):
     return v2, f2.astype(np.int32), np.vstack([near, far]).astype(np.float32)
 
 
-def compare_faces(ck, pts, planes, tri, center, variant, tail, timing):
-    """Kernel vs plain for closest_faces on one operand set: identical
-    faces, and the max abs point/sqdist difference after the epilogue."""
-    k = ck.argmin_faces(pts, planes, variant, tail)
-    p = ck.argmin_faces_plain(pts, planes, variant, tail)
+def compare_faces(ck, pts, planes, tri, center, variant, tail, timing,
+                  reduction="exact"):
+    """Kernel vs plain for closest_faces on one operand set (the fused
+    reduction at the reference's tile_f with ``reduction="fused"``):
+    identical faces, and the max abs point/sqdist difference after the
+    epilogue (NaN where both are NaN counts as equal)."""
+    kw = {"reduction": reduction, "tile_f": ck.FUSED_TILE_F}
+    name = "closest_faces" + ("_fused" if reduction == "fused" else "")
+    k = ck.argmin_faces(pts, planes, variant, tail, **kw)
+    p = ck.argmin_faces_plain(pts, planes, variant, tail, **kw)
     mism = int((k != p).sum())
-    check(mism == 0, "closest_faces[%s, tail=%s]: %d of %d faces differ "
-          "from the plain version" % (variant, tail, mism, k.numel()))
+    check(mism == 0, "%s[%s, tail=%s]: %d of %d faces differ from the "
+          "plain version" % (name, variant, tail, mism, k.numel()))
     rk = ck.winner_epilogue(k, tri, pts, center)
     rp = ck.winner_epilogue(p, tri, pts, center)
-    err = max(float((rk["point"] - rp["point"]).abs().max()),
-              float((rk["sqdist"] - rp["sqdist"]).abs().max()))
+    err = max(float((rk["point"] - rp["point"]).abs().nan_to_num().max()),
+              float((rk["sqdist"] - rp["sqdist"]).abs().nan_to_num().max()))
     out = {"variant": variant, "degenerate_tail": tail,
            "shape": list(pts.shape[:2]) + [planes.shape[-1]],
            "faces_identical": True, "max_abs_err": err}
     if timing:
         out["ms"] = cuda_ms(lambda: ck.argmin_faces(pts, planes, variant,
-                                                    tail), reps=REPS)
+                                                    tail, **kw), reps=REPS)
         out["plain_ms"] = cuda_ms(lambda: ck.argmin_faces_plain(
-            pts, planes, variant, tail), reps=1)
+            pts, planes, variant, tail, **kw), reps=1)
         n_b, n_q = pts.shape[:2]
         pairs = n_b * n_q * planes.shape[-1]
         n_bytes = 4 * (pts.numel() + planes.numel() + n_b * n_q)
+        ops = FUSED_PAIR_OPS if reduction == "fused" else FACE_PAIR_OPS
         out["bound_ms"], out["bound_by"] = bound_ms(
-            pairs, FACE_PAIR_OPS[(variant, tail)], n_bytes)
-    log("  closest_faces[%s, tail=%s] %s: faces identical, max abs "
-        "point/sqdist diff %.3g%s" % (
-            variant, tail, out["shape"], err,
+            pairs, ops[(variant, tail)], n_bytes)
+    log("  %s[%s, tail=%s] %s: faces identical, max abs point/sqdist diff "
+        "%.3g%s" % (
+            name, variant, tail, out["shape"], err,
             "" if not timing else ", %.3f ms (plain %.1f ms, bound %.3f ms)"
             % (out["ms"], out["plain_ms"], out["bound_ms"])))
     return out
@@ -558,16 +604,17 @@ def surface_queries(verts, faces, n_q, rng):
     return points.contiguous(), pick
 
 
-def check_against_brute(name, v, f, q, faces, sqdist, brute, quiet=False):
+def check_against_brute(name, v, f, q, faces, sqdist, brute, quiet=False,
+                        against="the brute kernel"):
     """A drive's faces and sqdist [B, Q] against the brute-force kernel's
-    result on the same inputs (v [B, V, 3], q [B, Q, 3]): sqdist within
-    1e-5, faces equal except at ties, where the two faces' distances in
-    the brute kernel's frame are within 1e-6.  ``quiet`` skips the log
-    line."""
+    result on the same inputs (v [B, V, 3], q [B, Q, 3]), or another
+    route's (``against`` names it): sqdist within 1e-5, faces equal except
+    at ties, where the two faces' distances in the brute kernel's frame
+    are within 1e-6.  ``quiet`` skips the log line."""
     from mesh_tpu_torch.query.point_triangle import closest_point_on_triangle
 
     gap = float((sqdist - brute["sqdist"]).abs().max())
-    check(gap <= 1e-5, "%s: sqdist %.3g from the brute kernel" % (name, gap))
+    check(gap <= 1e-5, "%s: sqdist %.3g from %s" % (name, gap, against))
     differ = faces.long() != brute["face"].long()
     n_diff, tie = int(differ.sum()), 0.0
     if n_diff:
@@ -581,12 +628,12 @@ def check_against_brute(name, v, f, q, faces, sqdist, brute, quiet=False):
             return closest_point_on_triangle(qc, t[:, 0], t[:, 1], t[:, 2])[1]
 
         tie = float((sqd(faces[b, qi]) - sqd(brute["face"][b, qi])).abs().max())
-        check(tie <= 1e-6, "%s: %d faces differ from the brute kernel's and "
-              "are %.3g apart, not a tie" % (name, n_diff, tie))
+        check(tie <= 1e-6, "%s: %d faces differ from %s and are %.3g apart, "
+              "not a tie" % (name, n_diff, against, tie))
     if not quiet:
-        log("  %s vs brute kernel: sqdist within %.3g, %d of %d faces "
-            "differ, all at ties (max gap %.3g)" % (
-                name, gap, n_diff, faces.numel(), tie))
+        log("  %s vs %s: sqdist within %.3g, %d of %d faces differ, all at "
+            "ties (max gap %.3g)" % (
+                name, against, gap, n_diff, faces.numel(), tie))
     return {"sqdist_gap": gap, "faces_differ": n_diff, "tie_gap": tie}
 
 
@@ -659,6 +706,89 @@ def compare_rope(rk, ops, n_buffers):
             name, out["shape"], leaves, out["leaves"], out["ms"], plain_ms,
             out["bound_ms"]))
     return out, (kd, ki, kl)
+
+
+def compare_fused_nan(ck, body, f, q, variant, tail):
+    """The fused kernel vs its plain version on one body with NaN planted
+    in corner a's x plane of three faces and in two queries: identical
+    faces; on the card a NaN key (0x7fffffff) loses to every finite cost,
+    so no finite query names a planted face and a NaN query names face
+    0."""
+    pts, planes, tri, center = ck.closest_point_operands(body, f, q, variant)
+    nan_faces = [5, f.shape[0] // 2, f.shape[0] - 1]
+    nan_queries = [3, q.shape[1] // 2]
+    planes[0, 0, nan_faces] = float("nan")
+    pts[0, nan_queries, 0] = float("nan")
+    out = compare_faces(ck, pts, planes, tri, center, variant, tail,
+                        timing=False, reduction="fused")
+    faces = ck.argmin_faces(pts, planes, variant, tail, reduction="fused")[0]
+    finite = torch.ones(faces.shape[0], dtype=torch.bool, device=faces.device)
+    finite[nan_queries] = False
+    planted = torch.isin(faces[finite].long(),
+                         torch.as_tensor(nan_faces, device=faces.device))
+    check(not bool(planted.any()) and bool((faces[~finite] == 0).all()),
+          "closest_faces_fused[%s, tail=%s] with planted NaN: %d finite "
+          "queries name a NaN face, NaN queries name %s" % (
+              variant, tail, int(planted.sum()), faces[~finite].tolist()))
+    out["planted_nan"] = {"faces": nan_faces, "queries": nan_queries}
+    return out
+
+
+def compare_rope_mxu(rk, ops, n_buffers, use_bf16, label, timing):
+    """Kernel vs plain for one rope_mxu_faces entry (f32 or bf16) on one
+    operand set: identical distances, faces, leaves taken and full visits
+    over every query tile.  The bound counts the full visits' pairs at
+    ROPE_MXU_PAIR_OPS and the screen's pairs, each query up to its first
+    survivor, at SCREEN_PAIR_OPS."""
+    name = "rope_mxu_stream" if n_buffers else "rope_mxu_resident"
+    kd, ki, kl, kr = rk.rope_mxu_argmin(ops, n_buffers, use_bf16)
+    counts = {}
+    (pd, pi, pl, pr), plain_ms = timed(lambda: rk.rope_mxu_argmin_plain(
+        ops, n_buffers, use_bf16, counts))
+    check(torch.equal(ki, pi) and torch.equal(kd, pd) and torch.equal(kl, pl)
+          and torch.equal(kr, pr),
+          "%s[%s, bf16=%s]: %d of %d faces, %d leaf counts and %d visit "
+          "counts differ from the plain version" % (
+              name, label, use_bf16, int((ki != pi).sum()), ki.numel(),
+              int((kl != pl).sum()), int((kr != pr).sum())))
+    tile_q, tile_f = ops["tile_q"], ops["tile_f"]
+    out = {"on": label, "shape": [ops["seed"].shape[0], ops["rec"].shape[0]],
+           "n_buffers": n_buffers, "use_bf16": use_bf16, "identical": True,
+           "max_abs_err": float((kd - pd).abs().max()),
+           "leaves_tested": int(kl.sum()), "full_visits": int(kr.sum()),
+           "screen_pairs": counts.get("screen_pairs", 0),
+           "leaves": kl.numel() * (ops["rec"].shape[0] // tile_f),
+           "pair_tests": int(kl.long().repeat_interleave(tile_q)[
+               :ops["qorder"].shape[0]].sum()) * tile_f,
+           "plain_ms": plain_ms}
+    if timing:
+        out["ms"] = cuda_ms(lambda: rk.rope_mxu_argmin(ops, n_buffers,
+                                                       use_bf16), reps=REPS)
+        n_bytes = 4 * (sum(ops[key].numel() for key in (
+            "pts_s", "p2", "seed", "boxes", "topo", "rec"))
+            + 2 * kd.numel() + 2 * kl.numel())
+        n_ops = (out["full_visits"] * tile_q * tile_f * ROPE_MXU_PAIR_OPS
+                 + out["screen_pairs"] * SCREEN_PAIR_OPS)
+        out["bound_ms"], out["bound_by"] = bound_ms(n_ops, 1, n_bytes)
+    log("  %s[%s, bf16=%s] %s: faces, distances, leaf and visit counts "
+        "identical; %d leaves taken, %d full visits, %d screen pairs; plain "
+        "%.1f ms%s" % (
+            name, label, use_bf16, out["shape"], out["leaves_tested"],
+            out["full_visits"], out["screen_pairs"], plain_ms,
+            "" if not timing else ", %.3f ms (bound %.3f ms)"
+            % (out["ms"], out["bound_ms"])))
+    return out, (kd, ki, kl, kr)
+
+
+def mixed_queries(rng):
+    """MIXED_QUERIES points around phase 6's unit sphere: half at radius
+    1 + N(0, 0.002), half at MIXED_RADIUS, float32 [n, 3]."""
+    d = rng.randn(MIXED_QUERIES, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    half = MIXED_QUERIES // 2
+    r = np.concatenate([1.0 + 0.002 * rng.randn(half),
+                        np.full(MIXED_QUERIES - half, MIXED_RADIUS)])
+    return (d * r[:, None]).astype(np.float32)
 
 
 def large_batch_inputs(dev):
@@ -1691,6 +1821,150 @@ def check_mxu(cases, runs, dev):
     return summary
 
 
+def drive_mxu_bvh(v, f, pts, dev):
+    """Phase 13's drive: ``Mesh.closest_faces_and_points`` on phase 6's
+    scan under MESH_TPU_MXU=1 with the crossover pinned at
+    MXU_BVH_CROSSOVER, streamed (path ``mxu_bvh``) and resident under
+    MESH_TPU_BVH_STREAM_VMEM_MB=32 (path ``mxu_bvh_resident``), each f32
+    and then under MESH_TPU_MXU_BF16=1: per mode a cold call (index cache
+    emptied), MXU_BVH_WARM warm calls and one accel-rung call with its
+    stats, the repair series read around them.  Launch counts are reset
+    just before each path and read just after it; the knobs are restored
+    afterwards.  Returns (runs by (path, mode), launches by path)."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.accel.build import clear_index_cache
+    from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
+    from mesh_tpu_torch.obs.metrics import REGISTRY
+    from mesh_tpu_torch.query import culled as auto
+
+    series = REGISTRY.counter("mesh_tpu_query_mxu_repair_total")
+    names = ("MESH_TPU_MXU", "MESH_TPU_MXU_BF16",
+             "MESH_TPU_MXU_CROSSOVER_FACES", "MESH_TPU_BVH_STREAM_VMEM_MB")
+    saved = {k: os.environ.get(k) for k in names}
+    runs, launches = {}, {}
+    try:
+        os.environ["MESH_TPU_MXU"] = "1"
+        os.environ["MESH_TPU_MXU_CROSSOVER_FACES"] = str(MXU_BVH_CROSSOVER)
+        for path, kind in (("mxu_bvh", "stream"), ("mxu_bvh_resident", "bvh")):
+            if kind == "bvh":
+                os.environ["MESH_TPU_BVH_STREAM_VMEM_MB"] = "32"
+            reset_launches()
+            auto.STRATEGY.clear()
+            for mode in ("f32", "bf16"):
+                if mode == "bf16":
+                    os.environ["MESH_TPU_MXU_BF16"] = "1"
+                else:
+                    os.environ.pop("MESH_TPU_MXU_BF16", None)
+                before = {o: series.value(kind=kind, outcome=o)
+                          for o in ("repaired", "skipped")}
+                clear_index_cache()
+                m = Mesh(v, f, device=dev)
+                t0 = time.perf_counter()
+                faces, points = m.closest_faces_and_points(pts)
+                first_ms = (time.perf_counter() - t0) * 1e3
+                times = []
+                for _ in range(MXU_BVH_WARM):
+                    t0 = time.perf_counter()
+                    faces2, points2 = m.closest_faces_and_points(pts)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                vt, ft = m.device_arrays()
+                res, stats = closest_faces_and_points_accel(
+                    vt, ft, pts, with_stats=True, device=dev)
+                check(np.array_equal(faces, faces2)
+                      and np.array_equal(points, points2),
+                      "%s %s: repeated calls disagree" % (path, mode))
+                runs[path, mode] = {
+                    "faces": faces, "points": points, "res": res,
+                    "stats": stats, "first_ms": first_ms,
+                    "warm_ms": statistics.median(times),
+                    "warm_ms_min": min(times), "warm_ms_max": max(times),
+                    "series": {o: series.value(kind=kind, outcome=o)
+                               - before[o] for o in before}}
+                log("  %s, %s: backend %s, first call %.3f ms (with the host "
+                    "BVH build), warm median %.3f ms (min %.3f, max %.3f); "
+                    "repair series moved %s" % (
+                        path, mode, stats["backend"], first_ms,
+                        statistics.median(times), min(times), max(times),
+                        runs[path, mode]["series"]))
+            launches[path] = read_launches()
+            check(dict(auto.STRATEGY) == {"accel_bvh": 2 * (1 + MXU_BVH_WARM)},
+                  "%s routes %s, not the BVH" % (path, auto.STRATEGY))
+            if kind == "bvh":
+                if saved["MESH_TPU_BVH_STREAM_VMEM_MB"] is None:
+                    del os.environ["MESH_TPU_BVH_STREAM_VMEM_MB"]
+                else:
+                    os.environ["MESH_TPU_BVH_STREAM_VMEM_MB"] = \
+                        saved["MESH_TPU_BVH_STREAM_VMEM_MB"]
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    return runs, launches
+
+
+def check_mxu_bvh(runs, v, f, pts, vpu, walks, dev):
+    """Phase 13's checks, after the counted window: the backends, the four
+    answers (streamed or resident, f32 or bf16) bit-identical, each against
+    the brute-force kernel and phase 6's VPU walk (``vpu``, its result
+    dict) under the tie contract; the pair tests and the repair series
+    against phase 2's runs of the same walks on the same scan (``walks``,
+    by (walk, use_bf16)): every call moves the series by that run's full
+    visits and skipped visits under bf16, and not at all under f32."""
+    from mesh_tpu_torch.query import closest_kernel as ck
+
+    calls = 2 + MXU_BVH_WARM      # cold, warm and the accel-rung call
+    base = runs["mxu_bvh", "f32"]
+    summary = {}
+    for (path, mode), run in runs.items():
+        stats = run["stats"]
+        walk = "stream" if path == "mxu_bvh" else "resident"
+        check(stats["backend"] == "rope_%s_mxu" % walk
+              and stats["fallback"] == 0,
+              "%s %s: backend %s, %d fallbacks" % (
+                  path, mode, stats["backend"], stats["fallback"]))
+        check(np.array_equal(run["faces"], base["faces"])
+              and np.array_equal(run["points"], base["points"])
+              and all(np.array_equal(run["res"][k], base["res"][k])
+                      for k in ("face", "part", "point", "sqdist")),
+              "%s %s: answers differ from mxu_bvh f32's" % (path, mode))
+        ref = walks[walk, mode == "bf16"]
+        check(stats["pair_tests"] == ref["pair_tests"], "%s %s: %d pair "
+              "tests, phase 2's walk tested %d" % (
+                  path, mode, stats["pair_tests"], ref["pair_tests"]))
+        want_series = ({"repaired": calls * ref["full_visits"],
+                        "skipped": calls * (ref["leaves_tested"]
+                                            - ref["full_visits"])}
+                       if mode == "bf16" else {"repaired": 0, "skipped": 0})
+        check(run["series"] == want_series,
+              "%s %s: repair series moved %s, not %s" % (
+                  path, mode, run["series"], want_series))
+        summary["%s_%s" % (path, mode)] = dict(
+            {k: run[k] for k in ("first_ms", "warm_ms", "warm_ms_min",
+                                 "warm_ms_max", "series")},
+            backend=stats["backend"], pair_tests=stats["pair_tests"],
+            screened=ref["leaves_tested"], repaired=ref["full_visits"])
+    check(runs["mxu_bvh", "f32"]["stats"]["pair_tests"]
+          >= runs["mxu_bvh_resident", "f32"]["stats"]["pair_tests"],
+          "mxu_bvh: streamed pair tests below the resident walk's")
+    vt = torch.as_tensor(v, device=dev)[None]
+    ft = torch.as_tensor(f, device=dev)
+    qt = torch.as_tensor(pts, device=dev)[None]
+    faces = torch.as_tensor(base["res"]["face"], device=dev)[None]
+    sqdist = torch.as_tensor(base["res"]["sqdist"], device=dev)[None]
+    brute = ck.closest_point_kernel(
+        vt, ft, qt, assume_nondegenerate=ck.mesh_is_nondegenerate(v, f))
+    summary["vs_brute"] = check_against_brute("mxu_bvh", vt, ft, qt, faces,
+                                              sqdist, brute)
+    summary["vs_vpu_walk"] = check_against_brute(
+        "mxu_bvh", vt, ft, qt, faces, sqdist,
+        {"face": torch.as_tensor(vpu["face"], device=dev)[None],
+         "sqdist": torch.as_tensor(vpu["sqdist"], device=dev)[None]},
+        against="phase 6's VPU walk")
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1706,6 +1980,7 @@ def main():
     )
     from mesh_tpu_torch.batch import batch_step, visibility_step
     from mesh_tpu_torch.geometry.cross_product import cross3
+    from mesh_tpu_torch.geometry.vert_normals import vert_normals_t
     from mesh_tpu_torch.models import lbs, synthetic_body_model
     from mesh_tpu_torch.query import closest_kernel as ck
     from mesh_tpu_torch.query import culled as auto
@@ -1848,10 +2123,21 @@ def main():
         face_runs.append(compare_faces(ck, pts, planes, tri, center,
                                        variant, tail, timing=True))
         del pts, planes, tri, center
+    # the fused reduction at the main path's shapes, and on one body with
+    # planted NaN
+    fused_runs = []
+    for variant, tail in VARIANTS:
+        pts, planes, tri, center = ck.closest_point_operands(
+            verts, f, queries, variant)
+        fused_runs.append(compare_faces(ck, pts, planes, tri, center,
+                                        variant, tail, timing=True,
+                                        reduction="fused"))
+        del pts, planes, tri, center
     body = verts[:1]
     for variant, tail in VARIANTS:
         ops = ck.closest_point_operands(body, f, q1, variant)
         compare_faces(ck, *ops, variant, tail, timing=False)
+        fused_runs.append(compare_fused_nan(ck, body, f, q1, variant, tail))
     v2, f2, q2 = planted_degenerate(posed[0], f_np, rng)
     check(not ck.mesh_is_nondegenerate(v2, f2),
           "the planted mesh must fail the nondegeneracy check")
@@ -1899,6 +2185,38 @@ def main():
           "bit-identical to the resident one, or tests fewer leaves")
     log("  rope_faces: streamed and resident entries bit-identical; %d vs "
         "%d leaves tested" % (int(sl.sum()), int(rl.sum())))
+    # both rope_mxu_faces entries, f32 and bf16, on phase 6's scan (timed)
+    # and on a mixed-radius set on its sphere, where the screen must skip
+    # visits
+    rope_mxu_runs = {}
+    for label, q_m in (("scan", p_s),
+                       ("mixed", mixed_queries(np.random.RandomState(13)))):
+        ops_m = rk.rope_operands(v_s, f_s, q_m, device=dev, mxu=True)
+        outs = {}
+        for walk, nb in (("stream", n_buffers), ("resident", None)):
+            for use_bf16 in (False, True):
+                run, outs[walk, use_bf16] = compare_rope_mxu(
+                    rk, ops_m, nb, use_bf16, label, timing=label == "scan")
+                rope_mxu_runs[label, walk, use_bf16] = run
+        kd, ki, _, _ = outs["resident", False]
+        check(all(torch.equal(o[0], kd) and torch.equal(o[1], ki)
+                  for o in outs.values()), "rope_mxu_faces on %s: the four "
+              "walks are not bit-identical" % label)
+        check(all(torch.equal(outs[w, True][2], outs[w, False][2])
+                  and torch.equal(outs[w, False][3], outs[w, False][2])
+                  for w in ("stream", "resident"))
+              and bool((outs["stream", False][2]
+                        >= outs["resident", False][2]).all()),
+              "rope_mxu_faces on %s: leaf or visit counts out of order"
+              % label)
+        skipped = {w: int(outs[w, False][3].sum() - outs[w, True][3].sum())
+                   for w in ("stream", "resident")}
+        if label == "mixed":
+            check(min(skipped.values()) > 0, "rope_mxu_faces on %s: the "
+                  "bf16 screen skipped %s visits" % (label, skipped))
+        log("  rope_mxu_faces on %s: the four walks bit-identical; the bf16 "
+            "screen skips %s full visits" % (label, skipped))
+        del ops_m, outs
     # ray_any_hit at phase 7's shapes: every ray of every body and camera
     origins_v, dirs_v = visibility_rays(verts_v, cams, VIS_MIN_DIST)
     any_hit_run = compare_any_hit(
@@ -2049,6 +2367,57 @@ def main():
         "%.0f queries/s, checksum %.6g, on %s"
         % (step_ms, REPS, min(times), max(times),
            n_queries / (step_ms / 1e3), float(checksum), smi))
+
+    # -- 3b. main path with the fused reduction -------------------------------
+    log("== main_path_fused: %d bodies x %d queries, lbs -> normals -> "
+        "closest_point_kernel(reduction='fused', tile_f=%d)"
+        % (BATCH, QUERIES_PER_MESH, ck.FUSED_TILE_F))
+    reset_launches()
+
+    def step_fused():
+        v, _ = lbs(model, betas, pose, device=dev)
+        normals = vert_normals_t(v, f)
+        res = ck.closest_point_kernel(
+            v, f, queries, assume_nondegenerate=nondegen,
+            tile_variant=main_variant[0], reduction="fused")
+        checksum = (normals.sum() + res["point"].sum() + res["sqdist"].sum()
+                    + res["face"].sum().to(torch.float32))
+        return normals, res, checksum
+
+    _, res_fused, checksum_fused = step_fused()         # warm-up
+    float(checksum_fused)
+    times_fused = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        normals_fused, res_fused, checksum_fused = step_fused()
+        end.record()
+        float(checksum_fused)
+        times_fused.append(start.elapsed_time(end))
+    step_fused_ms = statistics.median(times_fused)
+    launches["main_path_fused"] = read_launches()
+    check(tuple(res_fused["face"].shape) == (BATCH, QUERIES_PER_MESH)
+          and res_fused["face"].dtype == torch.int32
+          and tuple(normals_fused.shape) == tuple(verts.shape),
+          "main_path_fused shapes/dtypes")
+    for name, t in (("point", res_fused["point"]),
+                    ("sqdist", res_fused["sqdist"])):
+        check(bool(torch.isfinite(t).all()), "main_path_fused %s not finite"
+              % name)
+    radius = 2.0 ** -(23 - int(np.log2(ck.FUSED_TILE_F)))
+    sq_f = res_fused["sqdist"].double()
+    sq_e = res["sqdist"].double()
+    check(bool((sq_f <= sq_e * (1 + 4 * radius) + 1e-12).all()),
+          "main_path_fused: a winner %.3g above the exact one, past the tie "
+          "radius %.3g" % (float(((sq_f - sq_e) / sq_e.clamp_min(1e-30))
+                                 .max()), radius))
+    fused_same = float((res_fused["face"] == res["face"]).double().mean())
+    log("main_path_fused step: median %.3f ms over %d reps (min %.3f, max "
+        "%.3f); faces equal to phase 3's for %.4f of the queries, every "
+        "winner within (1 + 4 x %.3g) of the exact sqdist, on %s"
+        % (step_fused_ms, REPS, min(times_fused), max(times_fused),
+           fused_same, radius, smi))
 
     # -- 4. facade ---------------------------------------------------------
     log("== facade: Mesh on one body, %d queries" % FACADE_QUERIES)
@@ -2524,6 +2893,18 @@ def main():
     mxu = check_mxu(mxu_cases, mxu_drive, dev)
     del mxu_drive
 
+    # -- 13. mxu_bvh: the MXU rope walks through the Mesh facade ---------------
+    log("== mxu_bvh: Mesh on the %d-face scan sphere, %d queries, under "
+        "MESH_TPU_MXU=1 with the crossover pinned at %d faces, streamed and "
+        "resident, f32 and bf16" % (f_s.shape[0], SCAN_QUERIES,
+                                    MXU_BVH_CROSSOVER))
+    mxu_bvh_runs, mxu_bvh_launches = drive_mxu_bvh(v_s, f_s, p_s, dev)
+    launches.update(mxu_bvh_launches)
+    mxu_bvh = check_mxu_bvh(
+        mxu_bvh_runs, v_s, f_s, p_s, res_s,
+        {k[1:]: r for k, r in rope_mxu_runs.items() if k[0] == "scan"}, dev)
+    del mxu_bvh_runs
+
     for name, paths in KERNEL_PATHS.items():
         for path, counts in launches.items():
             if path in paths:
@@ -2742,12 +3123,52 @@ def main():
                              closest_faces_ms=r.get("closest_faces_ms"),
                              repaired=r["repaired"], screened=r["screened"])
                         for r in mxu_runs]})
+    main_fused = next(r for r in fused_runs if "ms" in r and (
+        r["variant"], r["degenerate_tail"]) == main_variant)
+    kernels.append(
+        {"name": "closest_faces_fused", "route": "cuda",
+         "source": "mesh_tpu_torch/csrc/closest_faces.cu",
+         "replaces": "mesh_tpu/query/pallas_closest.py:277",
+         "launches": launches["main_path_fused"]["closest_faces_fused"],
+         "launches_by_path": {p: launches[p]["closest_faces_fused"]
+                              for p in launches},
+         "max_abs_err": max(r["max_abs_err"] for r in fused_runs),
+         "ms": main_fused["ms"], "plain_ms": main_fused["plain_ms"],
+         "bound_ms": main_fused["bound_ms"],
+         "bound_by": main_fused["bound_by"], "library_ms": None,
+         "variant": "%s, tail=%s, tile_f=%d" % (*main_variant,
+                                                ck.FUSED_TILE_F),
+         "variants": fused_runs})
+    for name, walk, path, replaces in (
+            ("rope_mxu_stream", "stream", "mxu_bvh",
+             "mesh_tpu/accel/pallas_stream.py:432"),
+            ("rope_mxu_resident", "resident", "mxu_bvh_resident",
+             "mesh_tpu/accel/pallas_bvh.py:406")):
+        run = rope_mxu_runs["scan", walk, False]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "mesh_tpu_torch/csrc/rope_mxu_faces.cu",
+             "replaces": replaces,
+             "launches": launches[path][name],
+             "launches_by_path": {p: launches[p][name] for p in launches},
+             "max_abs_err": max(r["max_abs_err"]
+                                for k, r in rope_mxu_runs.items()
+                                if k[1] == walk),
+             "ms": run["ms"], "plain_ms": run["plain_ms"],
+             "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
+             "library_ms": None, "on": "scan, f32",
+             "detail": [r for k, r in rope_mxu_runs.items()
+                        if k[1] == walk]})
     check(len(kernels) == len(KERNEL_PATHS), "the kernels line lists %d "
           "kernels, KERNEL_PATHS %d" % (len(kernels), len(KERNEL_PATHS)))
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(smi, flush=True)
     print(json.dumps({
         "kernels": kernels, "main_path_step_ms": step_ms,
+        "main_path_fused": {"step_ms": step_fused_ms,
+                            "step_ms_min": min(times_fused),
+                            "step_ms_max": max(times_fused),
+                            "faces_equal_to_exact": fused_same},
         "stages_ms": stages, "build_s": build_s,
         "large_batch": {"step_ms": step_l_ms, "step_ms_min": min(times_l),
                         "step_ms_max": max(times_l), "stages_ms": stages_l,
@@ -2765,7 +3186,8 @@ def main():
                        "stages_ms": stages_v},
         "registration": registration, "contact": contact,
         "self_intersect": self_int, "anim": anim,
-        "mxu": {"calls": mxu, "crossover": dict(MXU_CALIBRATION)}}),
+        "mxu": {"calls": mxu, "crossover": dict(MXU_CALIBRATION)},
+        "mxu_bvh": mxu_bvh}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

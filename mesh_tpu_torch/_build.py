@@ -32,13 +32,15 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: trailing stream)
 KERNELS = {
     "closest_faces": ("closest_faces.cu", "mt_closest_faces",
-                      [_PTR] * 3 + [_INT] * 5),
+                      [_PTR] * 3 + [_INT] * 6),
     "nearest_vertices": ("nearest_vertices.cu", "mt_nearest_vertices",
                          [_PTR] * 3 + [_INT] * 3),
     "culled_faces": ("culled_faces.cu", "mt_culled_faces",
                      [_PTR] * 7 + [_INT] * 7),
     "rope_faces": ("rope_faces.cu", "mt_rope_faces",
                    [_PTR] * 8 + [_INT] * 6),
+    "rope_mxu_faces": ("rope_mxu_faces.cu", "mt_rope_mxu_faces",
+                       [_PTR] * 10 + [_INT] * 7),
     "ray_any_hit": ("ray_any_hit.cu", "mt_ray_any_hit",
                     [_PTR] * 5 + [_INT] * 4 + [_FLOAT, _INT, _FLOAT]),
     "alongnormal_faces": ("alongnormal_faces.cu", "mt_alongnormal_faces",

@@ -10,6 +10,11 @@ streamed walk above it or under ``MESH_TPU_BVH_STREAM_FORCE``, and with
 ``MESH_TPU_BVH_STREAM=0`` the resident walk up to ``PALLAS_BVH_MAX_FACES``
 and nothing (``None``) above.  Both walks are exact and bit-identical to
 each other, so the budget only decides how leaves reach the kernel.
+Under ``MESH_TPU_MXU`` from ``mxu_crossover_faces()`` faces on, the chosen
+walk visits its leaves with the MXU tile (``rope_mxu_faces``), behind the
+bf16 screen under ``MESH_TPU_MXU_BF16``, whose outcomes feed
+``mesh_tpu_query_mxu_repair_total{kind="bvh"|"stream"}``, as in the
+reference (mesh_tpu/accel/traverse.py:383-470).
 
 As in the reference, a traversal runs inside an ``accel.traverse`` span,
 counts its pair tests in ``mesh_tpu_accel_pair_tests_total{kind}`` and,
@@ -27,7 +32,9 @@ from ..query.autotune import mxu_crossover_faces, stream_tile_params
 from ..query.closest_kernel import N_FACE_ROWS, closest_point_kernel
 from .rope_kernel import (
     closest_point_bvh_kernel,
+    closest_point_bvh_mxu_kernel,
     closest_point_bvh_stream_kernel,
+    closest_point_bvh_stream_mxu_kernel,
 )
 
 __all__ = [
@@ -86,8 +93,9 @@ def check_kind(kind):
     if kind != "bvh":
         raise NotImplementedError(
             "MESH_TPU_ACCEL_KIND=%s: the uniform grid index and its "
-            "traversal are not ported (ROADMAP.md, Queue 1 item 10); unset "
-            "the knob or set MESH_TPU_NO_ACCEL=1" % kind)
+            "traversal (build_grid, grid_closest_point) are not ported "
+            "(ROADMAP.md, Queue 1); unset the knob or set MESH_TPU_NO_ACCEL=1"
+            % kind)
     return kind
 
 
@@ -116,7 +124,8 @@ def closest_faces_and_points_accel(v, f, points, kind=None, index=None,
         ``grid`` raises NotImplementedError.
     :param with_stats: also return ``{"pair_tests", "fallback",
         "tight_frac", "kind", "backend"}`` with ``backend``
-        ``"rope_resident"`` or ``"rope_stream"``.
+        ``"rope_resident"`` or ``"rope_stream"``, or their MXU leaf-visit
+        forms ``"rope_resident_mxu"`` / ``"rope_stream_mxu"``.
     :param record: optional ``obs.ledger.RequestRecord``; the traversal
         stamps its ``device`` stage and sets its ``backend``.
     """
@@ -129,32 +138,41 @@ def closest_faces_and_points_accel(v, f, points, kind=None, index=None,
     if variant is None:
         raise NotImplementedError(
             "MESH_TPU_BVH_STREAM=0 with %d faces (above %d): the reference "
-            "takes its XLA rope traversal here, which is not ported "
-            "(ROADMAP.md, Queue 1 item 10)" % (n_faces, PALLAS_BVH_MAX_FACES))
-    if knobs.mxu_enabled() and n_faces >= mxu_crossover_faces():
-        raise NotImplementedError(
-            "MESH_TPU_MXU=1 with %d faces (from %d): the reference walks the "
-            "BVH with its MXU leaf visit here (closest_point_pallas_bvh_mxu, "
-            "closest_point_pallas_bvh_stream_mxu), which is not ported "
-            "(ROADMAP.md, Queue 2 item 1); unset MESH_TPU_MXU"
-            % (n_faces, mxu_crossover_faces()))
+            "takes its XLA rope traversal here (bvh_closest_point), which is "
+            "not ported (ROADMAP.md, Queue 1)"
+            % (n_faces, PALLAS_BVH_MAX_FACES))
+    use_mxu = knobs.mxu_enabled() and n_faces >= mxu_crossover_faces()
+    use_bf16 = use_mxu and knobs.mxu_bf16_enabled()
     v_t = as_tensor(v, dev)
     f_t = as_tensor(f if torch.is_tensor(f) else host_array(f, np.int64), dev)
     pts = as_tensor(points, dev).reshape(-1, 3)
     with obs_span("accel.traverse", kind=kind, faces=n_faces,
                   queries=int(pts.shape[0])) as sp:
-        if variant == "resident":
+        if variant == "resident" and use_mxu:
+            backend = "rope_resident_mxu"
+            res, mxu_stats = closest_point_bvh_mxu_kernel(
+                v_t, f_t, pts, tile_f=RESIDENT_TILE_F, index=index,
+                rebuild_mismatched=True, use_bf16=use_bf16, with_stats=True,
+                device=dev)
+        elif variant == "resident":
             backend = "rope_resident"
             res = closest_point_bvh_kernel(
                 v_t, f_t, pts, tile_f=RESIDENT_TILE_F, index=index,
                 rebuild_mismatched=True, device=dev)
         else:
-            backend = "rope_stream"
+            backend = "rope_stream_mxu" if use_mxu else "rope_stream"
             tile_q, tile_f, n_buffers = stream_tile_params()
-            res = closest_point_bvh_stream_kernel(
-                v_t, f_t, pts, tile_q=tile_q, tile_f=tile_f,
-                n_buffers=n_buffers, index=index, rebuild_mismatched=True,
-                device=dev)
+            if use_mxu:
+                res, mxu_stats = closest_point_bvh_stream_mxu_kernel(
+                    v_t, f_t, pts, tile_q=tile_q, tile_f=tile_f,
+                    n_buffers=n_buffers, index=index,
+                    rebuild_mismatched=True, use_bf16=use_bf16,
+                    with_stats=True, device=dev)
+            else:
+                res = closest_point_bvh_stream_kernel(
+                    v_t, f_t, pts, tile_q=tile_q, tile_f=tile_f,
+                    n_buffers=n_buffers, index=index,
+                    rebuild_mismatched=True, device=dev)
         out = {key: val.cpu().numpy() for key, val in res.items()}
         tight = out.pop("tight")
         pairs = int(out.pop("pair_tests").astype(np.int64).sum())
@@ -164,6 +182,11 @@ def closest_faces_and_points_accel(v, f, points, kind=None, index=None,
         record.stamp("device")
         record.set(backend=backend)
     _record_pair_tests(pairs, kind)
+    if use_bf16:
+        from ..query.culled import _record_mxu_repair
+
+        _record_mxu_repair(mxu_stats["screened"], mxu_stats["repaired"],
+                           "stream" if variant == "stream" else "bvh")
     if loose.size:
         fix = closest_point_kernel(
             v_t.float(), f_t, pts.float()[torch.as_tensor(loose, device=dev)])

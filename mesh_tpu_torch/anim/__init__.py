@@ -16,7 +16,7 @@ frame: the faces never change, only the vertices.
 
 ``MESH_TPU_ANIM=0`` is the kill switch: sessions build the index cold per
 frame through ``get_index``.  The reference's vertex-delta store tier
-(``store/deltas.py``) is not ported (ROADMAP.md, Queue 1 item 13).
+(``store/deltas.py``) is not ported (ROADMAP.md, Queue 1).
 """
 
 from .refit import RefitState, box_measure, refit_bvh, refit_max_inflation

@@ -20,8 +20,8 @@ Kill switch: ``MESH_TPU_ANIM=0`` makes every frame rebuild cold through
 the digest-keyed ``get_index`` (no refit stage, no refit arrays).
 
 The reference's store-keyed sessions (``AvatarSession(digest=...)``, the
-keyframe paged in through its store) are not ported (ROADMAP.md, Queue 1
-item 13).
+keyframe paged in through its ``MeshStore``) are not ported (ROADMAP.md,
+Queue 1).
 """
 
 import itertools
@@ -96,8 +96,9 @@ class AvatarSession(object):
                 raise ValueError("AvatarSession needs a keyframe mesh "
                                  "or a store digest")
             raise NotImplementedError(
-                "AvatarSession(digest=...): the mesh store is not ported "
-                "(ROADMAP.md, Queue 1 item 13); pass the keyframe mesh")
+                "AvatarSession(digest=...): the mesh store (MeshStore, "
+                "store/store.py) is not ported (ROADMAP.md, Queue 1); pass "
+                "the keyframe mesh")
         self.device = resolve_device(device)
         v_key = np.asarray(mesh.v, np.float32)
         faces = np.asarray(mesh.f, np.int32)

@@ -18,6 +18,9 @@ __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
+// max(x, 0) that keeps NaN, as torch.clamp_min and jnp.maximum do
+__device__ __forceinline__ float max0(float x) { return x < 0.0f ? 0.0f : x; }
+
 struct MinOp {
   __device__ static float apply(float a, float b) { return fminf(a, b); }
 };

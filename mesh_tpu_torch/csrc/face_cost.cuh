@@ -18,7 +18,15 @@
 
 namespace mt {
 
-template <bool kTail>
+// The cost's final clamp at 0.  The exact kernels take fmaxf, which maps a
+// NaN cost to 0; the fused reduction (kKeepNan) keeps NaN, as
+// torch.clamp_min does, because its packed key reads the cost's bits.
+template <bool kKeepNan>
+__device__ __forceinline__ float clamp_cost(float d) {
+  return kKeepNan ? max0(d) : fmaxf(d, 0.0f);
+}
+
+template <bool kTail, bool kKeepNan = false>
 __device__ __forceinline__ float region_select(
     float d1, float d2, float d3, float d4, float d5, float d6, float ap2,
     float bp2, float cp2, float n_ap, float ab2, float ac2, float abac,
@@ -52,14 +60,14 @@ __device__ __forceinline__ float region_select(
     if (!(inv_n2 > 0.0f)) d = fminf(e_ab, fminf(e_ca, e_bc));
   }
   // the edge forms subtract two nearly-equal squares; clamp the rounding
-  return fmaxf(d, 0.0f);
+  return clamp_cost<kKeepNan>(d);
 }
 
 // _ericson_tail: the squared distance from the four query-dependent scalars
 // d1 = ab.ap, d2 = ac.ap, ap2 = |ap|^2 and n_ap = n.ap, deriving the b/c-corner
 // terms from the corner-a ones and the hoisted per-face constants.  The fast
 // tile and the MXU tile (mxu_cost.cuh) differ only in how they form the four.
-template <bool kTail>
+template <bool kTail, bool kKeepNan = false>
 __device__ __forceinline__ float ericson_tail(
     float d1, float d2, float ap2, float n_ap, float ab2, float ac2,
     float abac, float inv_ab2, float inv_ac2, float inv_bc2, float inv_n2) {
@@ -69,15 +77,15 @@ __device__ __forceinline__ float ericson_tail(
   const float d6 = d2 - ac2;
   const float bp2 = ap2 - (d1 + d1) + ab2;
   const float cp2 = ap2 - (d2 + d2) + ac2;
-  return region_select<kTail>(d1, d2, d3, d4, d5, d6, ap2, bp2, cp2, n_ap,
-                              ab2, ac2, abac, inv_ab2, inv_ac2, inv_bc2,
-                              inv_n2);
+  return region_select<kTail, kKeepNan>(d1, d2, d3, d4, d5, d6, ap2, bp2,
+                                        cp2, n_ap, ab2, ac2, abac, inv_ab2,
+                                        inv_ac2, inv_bc2, inv_n2);
 }
 
 // The fast tile's squared distance from the 19 plane values of one face, in
 // fast_tile_rows order: corner a, edges ab and ac, the unnormalized normal,
 // ab2 ac2 abac and the reciprocals inv_ab2 inv_ac2 inv_bc2 inv_n2.
-template <bool kTail>
+template <bool kTail, bool kKeepNan = false>
 __device__ __forceinline__ float fast_pair(
     float px, float py, float pz, float ax, float ay, float az, float abx,
     float aby, float abz, float acx, float acy, float acz, float nx, float ny,
@@ -88,13 +96,13 @@ __device__ __forceinline__ float fast_pair(
   const float d2 = acx * apx + acy * apy + acz * apz;
   const float ap2 = apx * apx + apy * apy + apz * apz;
   const float n_ap = nx * apx + ny * apy + nz * apz;
-  return ericson_tail<kTail>(d1, d2, ap2, n_ap, ab2, ac2, abac, inv_ab2,
-                             inv_ac2, inv_bc2, inv_n2);
+  return ericson_tail<kTail, kKeepNan>(d1, d2, ap2, n_ap, ab2, ac2, abac,
+                                       inv_ab2, inv_ac2, inv_bc2, inv_n2);
 }
 
 // Fast tile: planes a(3) ab(3) ac(3) n(3) ab2 ac2 abac inv_ab2 inv_ac2
 // inv_bc2 inv_n2, staged as 5 float4 (one pad).
-template <bool kTail>
+template <bool kTail, bool kKeepNan = false>
 struct FastCost {
   static constexpr int kRows = 19;
   static constexpr int kVec = 5;
@@ -108,9 +116,10 @@ struct FastCost {
   __device__ static float cost(float px, float py, float pz,
                                const float4* t) {
     const float4 r0 = t[0], r1 = t[1], r2 = t[2], r3 = t[3], r4 = t[4];
-    return fast_pair<kTail>(px, py, pz, r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
-                            r1.z, r1.w, r2.x, r2.y, r2.z, r2.w, r3.x, r3.y,
-                            r3.z, r3.w, r4.x, r4.y, r4.z);
+    return fast_pair<kTail, kKeepNan>(px, py, pz, r0.x, r0.y, r0.z, r0.w,
+                                      r1.x, r1.y, r1.z, r1.w, r2.x, r2.y,
+                                      r2.z, r2.w, r3.x, r3.y, r3.z, r3.w,
+                                      r4.x, r4.y, r4.z);
   }
 };
 
@@ -127,7 +136,7 @@ __device__ __forceinline__ float seg_sqdist(float t, float ox, float oy,
 // inv_ac2 inv_bc2 inv_n2; staged as a b c n, the edges ab ac bc (derived
 // here once per face, the same float32 subtractions the plain version
 // makes) and the four reciprocals: 25 floats in 7 float4.
-template <bool kTail>
+template <bool kTail, bool kKeepNan = false>
 struct SafeCost {
   static constexpr int kRows = 19;
   static constexpr int kVec = 7;
@@ -196,7 +205,7 @@ struct SafeCost {
     if ((d3 >= 0.0f) & (d4 <= d3)) d = bp2;
     if ((d1 <= 0.0f) & (d2 <= 0.0f)) d = ap2;
     if (kTail && !(inv_n2 > 0.0f)) d = fminf(e_ab, fminf(e_ca, e_bc));
-    return fmaxf(d, 0.0f);
+    return clamp_cost<kKeepNan>(d);
   }
 };
 

@@ -40,10 +40,6 @@ namespace mt {
 
 constexpr int kBoundThreads = 128;
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __global__ void __launch_bounds__(kBoundThreads)
 mxu_bound_kernel(const float* __restrict__ pts, const float* __restrict__ rec,
                  float* __restrict__ ub, float* __restrict__ cert, int n_q,

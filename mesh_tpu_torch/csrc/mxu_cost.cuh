@@ -32,8 +32,11 @@ constexpr int kMxuMaxTileQ = 256;
 // MXU_BF16_EPS of the reference: the certified envelope of the bf16 screen
 constexpr float kMxuBf16Eps = 0.015625f;  // 2^-6
 
-// max(x, 0) that keeps NaN, as torch.clamp_min and jnp.maximum do
-__device__ __forceinline__ float max0(float x) { return x < 0.0f ? 0.0f : x; }
+// x rounded to bfloat16 to nearest even (as torch.bfloat16 rounds), back in
+// float32
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // min that propagates NaN, as torch.amin and jnp.min do (fminf drops it)
 __device__ __forceinline__ float min_nan(float x, float acc) {

@@ -6,7 +6,7 @@ ring of replicas by this key, the same identity its plan cache and store
 key on, so a replica keeps seeing the meshes it has warm.  The port's
 avatar session pins its key on its first queried frame, as the
 reference's does; the ring and the router are not ported (ROADMAP.md,
-Queue 1 item 13).
+Queue 1).
 """
 
 import zlib

@@ -13,7 +13,7 @@ names.
 
 The rest of the reference's obs (exporters, perf harness, profiler
 CLI, replay, windowed series, SLOs, the controller, the JAX bridge) is not
-ported (ROADMAP.md, Queue 1 item 12).
+ported (ROADMAP.md, Queue 1).
 """
 
 from .clock import enabled, monotonic, wall  # noqa: F401

@@ -12,7 +12,7 @@ one admission that mints a context so far).
   spilled request — in a bounded ring, joining ledger row + span tree by
   request_id.  The reference's reservoir of the slowest ``ok`` requests
   (``MESH_TPU_TRACE_RESERVOIR``) and the incident dumps that embed the
-  ring are not copied (ROADMAP.md, Queue 1 item 12).
+  ring are not copied (ROADMAP.md, Queue 1).
 
 ``request_id`` is a seeded CRC of ``(tenant, seq, admit)``: cheap to mint
 per request and carrying no request payload.  It belongs in ledger meta

@@ -38,7 +38,7 @@ goes through the injected ``clock`` for fake-clock tests.
 
 The reference's close listeners, incident tail (``MESH_TPU_LEDGER_TAIL``),
 ``dump_jsonl`` and thread-bound current record have no caller in the port
-yet and are not copied (ROADMAP.md, Queue 1 item 12).
+yet and are not copied (ROADMAP.md, Queue 1).
 """
 
 import threading
@@ -211,8 +211,8 @@ class LatencyLedger(object):
         if knobs.get_str(REPLAY_TRACE_ENV):
             raise NotImplementedError(
                 "MESH_TPU_REPLAY_TRACE: traffic capture (the reference's "
-                "obs/replay.py) is not ported (ROADMAP.md, Queue 1 item 12); "
-                "unset the knob")
+                "capture_row, obs/replay.py) is not ported (ROADMAP.md, "
+                "Queue 1); unset the knob")
         return row
 
     def _observer_error(self, where):

@@ -10,7 +10,7 @@ Unlike spans (gated by MESH_TPU_OBS), metrics are ALWAYS on: they are
 plain locked dict updates.  ``Registry.snapshot()`` is the JSON-able
 export.  The reference's Prometheus text and CLI exporters, its histogram
 exemplars and the readers no port code calls yet (``set_max``, ``total``,
-``stat``) are not copied (ROADMAP.md, Queue 1 item 12).
+``stat``) are not copied (ROADMAP.md, Queue 1).
 """
 
 import threading

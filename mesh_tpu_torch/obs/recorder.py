@@ -9,7 +9,7 @@ append per event.  ``MESH_TPU_RECORDER=0`` disables recording;
 The reference's incident dumps (``trigger``: the ring, a registry snapshot,
 the ledger tail and the environment, written as JSON under
 ``MESH_TPU_INCIDENT_DIR``), its periodic metric samples and its span sink
-are not ported (ROADMAP.md, Queue 1 item 12).
+are not ported (ROADMAP.md, Queue 1).
 """
 
 import threading

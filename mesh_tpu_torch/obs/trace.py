@@ -22,7 +22,7 @@ shows the framework's phases on its timeline.
 
 The reference's ``timed_span``, ``traced`` decorator and JSON-lines sink
 (with its rotation knobs) have no caller in the port yet and are not
-copied (ROADMAP.md, Queue 1 item 12).
+copied (ROADMAP.md, Queue 1).
 """
 
 import itertools

@@ -16,6 +16,18 @@ Both keep a running (distance, index) pair per query and take a face only
 when it is strictly closer, walking faces in increasing order, so the
 lowest index wins an exact tie, as the reference's argmin does.
 
+``closest_faces`` also has the reference's fused reduction
+(``reduction="fused"``, counted apart as ``closest_faces_fused``): one
+int32 min over packed keys, the cost's float32 bits with the low
+log2(``tile_f``) bits replaced by the column within its face tile
+(``tile_f`` a power of two).  Its tie group is "lowest column within its
+tile, then earliest tile", with a relative tie radius of
+2^-(23 - log2(tile_f)), about 2.4e-4 at the default 2048; the epilogue
+still recomputes the winner exactly.  A NaN cost keeps its bits, so it
+compares alike only on one device: on the card a NaN key (0x7fffffff)
+loses to every finite cost, on x86 the NaN of 0 * inf has its sign set and
+its key wins.
+
 The wrappers ``closest_point_kernel`` and ``nearest_vertices_kernel`` take
 the kernel's path for CUDA tensors and the plain version
 (``closest_point_plain`` / ``nearest_vertices_plain``, same signatures) for
@@ -38,9 +50,14 @@ from .point_triangle import closest_point_on_triangle
 N_FACE_ROWS = 19
 
 #: launches of each CUDA kernel since the counts were last set to 0
-LAUNCHES = {"closest_faces": 0, "nearest_vertices": 0}
+LAUNCHES = {"closest_faces": 0, "closest_faces_fused": 0,
+            "nearest_vertices": 0}
 
 TILE_VARIANTS = ("fast", "safe")
+REDUCTIONS = ("exact", "fused")
+
+#: the fused reduction's default face tile (the reference's tile_f)
+FUSED_TILE_F = 2048
 
 #: query-face pairs one plain-version chunk evaluates at once, per device
 #: type: each of the tile's ~40 live temporaries is this many floats
@@ -337,6 +354,18 @@ def _check_variant(tile_variant):
                          % (tile_variant,))
 
 
+def _check_reduction(reduction, tile_f):
+    """The reference's checks (mesh_tpu/query/pallas_closest.py:675-682):
+    the fused key masks the low log2(tile_f) bits, so a tile that is not a
+    power of two would corrupt the cost bits with the column."""
+    if reduction not in REDUCTIONS:
+        raise ValueError("reduction must be 'exact' or 'fused', got %r"
+                         % (reduction,))
+    if reduction == "fused" and (tile_f <= 0 or tile_f & (tile_f - 1)):
+        raise ValueError("reduction='fused' requires a power-of-two tile_f, "
+                         "got %d" % tile_f)
+
+
 # ---------------------------------------------------------------------------
 # The argmin steps: plain version, and the wrapper that launches the kernel.
 
@@ -352,12 +381,27 @@ def _chunks(n_b, n_q, n_cols, device):
             yield b0, min(n_b, b0 + nb), q0, min(n_q, q0 + nq)
 
 
+def fused_keys(cost, tile_f):
+    """The fused reduction's packed keys of ``cost`` [..., F] float32:
+    ``(bits & ~(tile_f - 1)) | (col & (tile_f - 1))`` as int32."""
+    mask = tile_f - 1
+    col = torch.arange(cost.shape[-1], dtype=torch.int32, device=cost.device)
+    return (cost.contiguous().view(torch.int32) & ~mask) | (col & mask)
+
+
 def argmin_faces_plain(pts, planes, tile_variant="fast",
-                       degenerate_tail=True):
+                       degenerate_tail=True, reduction="exact",
+                       tile_f=FUSED_TILE_F):
     """Plain PyTorch version of the ``closest_faces`` kernel: index of the
     closest face per query, [B, Q] int32, lowest index on exact ties.
-    ``pts`` [B, Q, 3] and ``planes`` [B, 19, F] float32, centered."""
+    ``pts`` [B, Q, 3] and ``planes`` [B, 19, F] float32, centered.
+
+    ``reduction="fused"``: the first least packed key (``fused_keys``)
+    over the whole face axis, which the chunks never cut.  The first least
+    key is the kernel's fold: keys within a tile differ, and among equal
+    keys the earliest tile wins."""
     _check_variant(tile_variant)
+    _check_reduction(reduction, tile_f)
     tile = {"fast": _sqdist_tile_fast, "safe": _sqdist_tile_safe}[
         tile_variant]
     n_b, n_q = pts.shape[:2]
@@ -367,6 +411,8 @@ def argmin_faces_plain(pts, planes, tile_variant="fast",
         rows = [planes[b0:b1, k, None, :] for k in range(N_FACE_ROWS)]
         cost = tile(p[..., 0:1], p[..., 1:2], p[..., 2:3], *rows,
                     degenerate_tail=degenerate_tail)
+        if reduction == "fused":
+            cost = fused_keys(cost, tile_f)
         out[b0:b1, q0:q1] = torch.argmin(cost, dim=-1).to(torch.int32)
     return out
 
@@ -398,20 +444,25 @@ def _grid(pts, cols, name):
     return n_b, n_q, cols.shape[-1]
 
 
-def argmin_faces(pts, planes, tile_variant="fast", degenerate_tail=True):
+def argmin_faces(pts, planes, tile_variant="fast", degenerate_tail=True,
+                 reduction="exact", tile_f=FUSED_TILE_F):
     """Index of the closest face per query: the ``closest_faces`` CUDA
     kernel for CUDA tensors, its plain version for CPU tensors."""
     _check_variant(tile_variant)
+    _check_reduction(reduction, tile_f)
     _check_operands(pts, planes, N_FACE_ROWS, "closest_faces")
     if pts.device.type == "cpu":
-        return argmin_faces_plain(pts, planes, tile_variant, degenerate_tail)
+        return argmin_faces_plain(pts, planes, tile_variant, degenerate_tail,
+                                  reduction, tile_f)
     from .. import _build
 
+    fused = reduction == "fused"
     out = torch.empty(pts.shape[:2], dtype=torch.int32, device=pts.device)
     _build.launch("closest_faces", pts.device, pts, planes, out,
                   *_grid(pts, planes, "closest_faces"),
-                  TILE_VARIANTS.index(tile_variant), int(bool(degenerate_tail)))
-    LAUNCHES["closest_faces"] += 1
+                  TILE_VARIANTS.index(tile_variant), int(bool(degenerate_tail)),
+                  int(tile_f) if fused else 0)
+    LAUNCHES["closest_faces_fused" if fused else "closest_faces"] += 1
     return out
 
 
@@ -458,10 +509,12 @@ def closest_point_operands(v, f, points, tile_variant="fast"):
 
 
 def _closest_point(v, f, points, assume_nondegenerate, tile_variant,
-                   argmin):
+                   reduction, tile_f, argmin):
+    _check_reduction(reduction, tile_f)
     vb, pb, unbatch = _batched(v, points)
     pts, planes, tri, center = closest_point_operands(vb, f, pb, tile_variant)
-    best = argmin(pts, planes, tile_variant, not assume_nondegenerate)
+    best = argmin(pts, planes, tile_variant, not assume_nondegenerate,
+                  reduction, tile_f)
     res = winner_epilogue(best, tri, pts, center)
     if unbatch:
         res = {key: val[0] for key, val in res.items()}
@@ -469,7 +522,8 @@ def _closest_point(v, f, points, assume_nondegenerate, tile_variant,
 
 
 def closest_point_kernel(v, f, points, *, assume_nondegenerate=False,
-                         tile_variant="fast"):
+                         tile_variant="fast", reduction="exact",
+                         tile_f=FUSED_TILE_F):
     """Closest face, part code, point and squared distance per query.
 
     ``v`` [V, 3] with ``points`` [Q, 3], or a batch ``v`` [B, V, 3] with
@@ -479,19 +533,23 @@ def closest_point_kernel(v, f, points, *, assume_nondegenerate=False,
 
     ``assume_nondegenerate=True`` drops the degenerate-face tail; it is
     valid only when ``mesh_is_nondegenerate`` says so.
-    ``tile_variant="safe"`` selects the sliver-safe tile.  The tensors'
+    ``tile_variant="safe"`` selects the sliver-safe tile.
+    ``reduction="fused"`` selects the fused packed-key reduction over face
+    tiles of ``tile_f`` (a power of two; module docstring), as the
+    reference's ``closest_point_pallas(reduction="fused")``.  The tensors'
     device chooses: the CUDA kernel on the card, its plain version on the
     CPU.
     """
     return _closest_point(v, f, points, assume_nondegenerate, tile_variant,
-                          argmin_faces)
+                          reduction, tile_f, argmin_faces)
 
 
 def closest_point_plain(v, f, points, *, assume_nondegenerate=False,
-                        tile_variant="fast"):
+                        tile_variant="fast", reduction="exact",
+                        tile_f=FUSED_TILE_F):
     """``closest_point_kernel`` with the plain argmin on any device."""
     return _closest_point(v, f, points, assume_nondegenerate, tile_variant,
-                          argmin_faces_plain)
+                          reduction, tile_f, argmin_faces_plain)
 
 
 def _nearest_vertices(v, points, argmin):

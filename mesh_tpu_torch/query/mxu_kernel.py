@@ -147,12 +147,12 @@ def _mxu_staged_inputs(v, f, device):
 
 
 # ---------------------------------------------------------------------------
-# Per-pair costs: the plain versions' tiles.  p is [n, 3] and each record
-# column [1, TF]; each returns [n, TF].  csrc/mxu_cost.cuh and
-# csrc/mxu_bound.cu do the same operations in the same order.
+# Per-pair costs: the plain versions' tiles.  p is [..., n, 3] and each
+# record column [..., 1, TF]; each returns [..., n, TF].  csrc/mxu_cost.cuh
+# and csrc/mxu_bound.cu do the same operations in the same order.
 
 def _query_planes(p):
-    px, py, pz = p[:, 0:1], p[:, 1:2], p[:, 2:3]
+    px, py, pz = p[..., 0:1], p[..., 1:2], p[..., 2:3]
     return px, py, pz, px * px + py * py + pz * pz
 
 

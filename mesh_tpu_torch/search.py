@@ -48,8 +48,8 @@ class AabbTree(object):
     def __init__(self, m, strategy="auto", device="cuda"):
         if strategy == "anchored":
             raise NotImplementedError(
-                "strategy='anchored' (query/anchored.py) is not ported yet: "
-                "ROADMAP.md Queue 1 item 9")
+                "strategy='anchored' (closest_point_anchored_auto, "
+                "query/anchored.py) is not ported yet (ROADMAP.md, Queue 1)")
         if strategy != "auto":
             raise ValueError("strategy must be 'auto' or 'anchored', got %r"
                              % (strategy,))

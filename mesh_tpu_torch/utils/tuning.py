@@ -5,7 +5,7 @@ A tunable is declared once with its default, bounds, step and the
 environment variable that hard-pins it.  ``get`` reads the pin when it is
 set and the default otherwise.  The reference's closed-loop controller,
 which may move a tunable at run time (``actuate``, the change history and
-``MESH_TPU_TUNER``), is not ported (ROADMAP.md, Queue 1 item 12), so
+``MESH_TPU_TUNER``), is not ported (ROADMAP.md, Queue 1), so
 nothing here changes a value.
 """
 

@@ -39,6 +39,8 @@ from mesh_tpu_torch.query.closest_point import (
 )
 from mesh_tpu_torch.query.culled import closest_faces_and_points_auto
 
+from .test_tile_variants import _clean_mesh, _separated_queries
+
 torch.set_num_threads(2)
 
 #: the tie contract's bounds (module docstring)
@@ -241,6 +243,134 @@ def test_auto_matches_pallas():
     assert set(out) == {"face", "part", "point", "sqdist"}
     assert all(isinstance(x, np.ndarray) for x in out.values())
     assert_tie_contract(ref, out, v, f, q)
+
+
+# -- the fused reduction ---------------------------------------------------------
+
+#: the reference's fused fixtures (tests/test_tile_variants.py:79-112):
+#: name -> (mesh seed, face count or None, tile_q, tile_f)
+FUSED_FIXTURES = {"tie_radius": (3, None, 64, 256), "padded": (5, 101, 16, 32)}
+
+
+def _fused_fixture(name):
+    seed, n_faces, _, _ = FUSED_FIXTURES[name]
+    v, f = _clean_mesh(seed=seed)
+    if name == "tie_radius":
+        return v, f, _separated_queries(300, seed=4)
+    return v, f[:n_faces], (np.random.RandomState(6).randn(65, 3)
+                            .astype(np.float32))
+
+
+def tie_radius(tile_f):
+    """The fused reduction's relative tie radius, 2^-(23 - log2 tile_f)."""
+    return 2.0 ** -(23 - int(np.log2(tile_f)))
+
+
+@pytest.mark.parametrize("fixture", sorted(FUSED_FIXTURES))
+@pytest.mark.parametrize("variant", ["fast", "safe"])
+def test_fused_plain_matches_pallas(variant, fixture):
+    """The plain fused reduction against the reference's in interpret mode:
+    faces equal except where the two winners' exact distances agree
+    within the tie radius; the fused winner at most 4 radii above the
+    exact reduction's."""
+    v, f, q = _fused_fixture(fixture)
+    _, _, tile_q, tile_f = FUSED_FIXTURES[fixture]
+    ref = closest_point_pallas(v, f, q, tile_q=tile_q, tile_f=tile_f,
+                               interpret=True, tile_variant=variant,
+                               reduction="fused")
+    args = (torch.from_numpy(v), torch.from_numpy(f), torch.from_numpy(q))
+    out = _np(ck.closest_point_kernel(*args, tile_variant=variant,
+                                      reduction="fused", tile_f=tile_f))
+    exact = _np(ck.closest_point_kernel(*args, tile_variant=variant))
+    radius = tie_radius(tile_f)
+    sq_o = out["sqdist"].astype(np.float64)
+    sq_r = np.asarray(ref["sqdist"], np.float64)
+    assert out["face"].max() < f.shape[0]
+    np.testing.assert_allclose(sq_o, sq_r, atol=VALUE_TOL)
+    differ = out["face"] != np.asarray(ref["face"])
+    hi = np.maximum(sq_o, sq_r)[differ]
+    assert np.all(np.abs(sq_o - sq_r)[differ] <= 4 * radius * hi + 1e-12)
+    assert np.all(sq_o <= exact["sqdist"].astype(np.float64)
+                  * (1 + 4 * radius) + 1e-12)
+    assert (out["face"] == exact["face"]).mean() > 0.6
+
+
+def test_fused_all_inf_costs_name_face_0():
+    """Every cost +inf: the +inf keys 0x7f800000 | col lie below the
+    INT_MAX init, so column 0 of tile 0 wins, in the reference too."""
+    v, f = small_body(seed=11)
+    q = np.full((5, 3), 2e19, np.float32)
+    pts, planes, _, _ = ck.closest_point_operands(
+        torch.from_numpy(v)[None], torch.from_numpy(f),
+        torch.from_numpy(q)[None])
+    cost = ck._sqdist_tile_fast(
+        pts[..., 0:1], pts[..., 1:2], pts[..., 2:3],
+        *[planes[:, k, None, :] for k in range(ck.N_FACE_ROWS)])
+    assert bool((cost == float("inf")).all())
+    for tile_f in (32, 2048):
+        out = ck.closest_point_kernel(
+            torch.from_numpy(v), torch.from_numpy(f), torch.from_numpy(q),
+            reduction="fused", tile_f=tile_f)
+        assert out["face"].tolist() == [0] * 5
+        ref = closest_point_pallas(v, f, q, tile_q=8, tile_f=tile_f,
+                                   interpret=True, reduction="fused")
+        assert np.asarray(ref["face"]).tolist() == [0] * 5
+
+
+def test_fused_keys_order_tiles_then_columns():
+    """The tie group of equal quantized costs: the lowest column within its
+    tile first, then the earliest tile, not the lowest face."""
+    cost = torch.tensor([[3.0, 2.0, 2.0, 5.0, 2.0, 2.0, 9.0, 9.0]])
+    assert int(torch.argmin(ck.fused_keys(cost, 4))) == 4
+    cost = torch.tensor([[2.0, 9.0, 9.0, 9.0, 2.0, 9.0, 9.0, 9.0]])
+    assert int(torch.argmin(ck.fused_keys(cost, 4))) == 0
+    # costs an ulp apart share a quantized cost once the mask covers the
+    # ulp: then the lower column wins, though its cost is the larger
+    hi = float(np.nextafter(np.float32(1.0), np.float32(2.0)))
+    cost = torch.tensor([[hi, 1.0]])
+    assert int(torch.argmin(ck.fused_keys(cost, 1))) == 1
+    assert int(torch.argmin(ck.fused_keys(cost, 4))) == 0
+
+
+def test_fused_reduction_rejects_bad_options():
+    v, f = small_body()
+    args = (torch.from_numpy(v), torch.from_numpy(f), torch.zeros(4, 3))
+    pts, planes, _, _ = ck.closest_point_operands(
+        args[0][None], args[1], args[2][None])
+    for fn, fn_args in ((ck.closest_point_kernel, args),
+                        (ck.closest_point_plain, args)):
+        with pytest.raises(ValueError, match="reduction"):
+            fn(*fn_args, reduction="bogus")
+        with pytest.raises(ValueError, match="power-of-two tile_f"):
+            fn(*fn_args, reduction="fused", tile_f=100)
+    for fn in (ck.argmin_faces, ck.argmin_faces_plain):
+        with pytest.raises(ValueError, match="reduction"):
+            fn(pts, planes, reduction="bogus")
+        with pytest.raises(ValueError, match="power-of-two tile_f"):
+            fn(pts, planes, reduction="fused", tile_f=0)
+    # the reference raises alike
+    with pytest.raises(ValueError, match="power-of-two tile_f"):
+        closest_point_pallas(v, f, np.zeros((4, 3), np.float32),
+                             interpret=True, reduction="fused", tile_f=100)
+    # a non-power-of-two tile is fine for the exact reduction
+    ck.closest_point_kernel(*args, tile_f=100)
+
+
+def test_fused_plain_chunking_and_cpu_route(monkeypatch):
+    """Chunking the plain fused version over queries and meshes changes
+    nothing, and a CPU tensor takes it without a launch."""
+    rng = np.random.RandomState(12)
+    vs = np.stack([small_body(seed=s)[0] for s in range(2)])
+    f = small_body()[1]
+    qs = (rng.randn(2, 50, 3) * 0.4).astype(np.float32)
+    pts, planes, _, _ = ck.closest_point_operands(
+        torch.from_numpy(vs), torch.from_numpy(f), torch.from_numpy(qs))
+    before = dict(ck.LAUNCHES)
+    whole = ck.argmin_faces(pts, planes, reduction="fused", tile_f=64)
+    assert ck.LAUNCHES == before
+    monkeypatch.setitem(ck._PLAIN_PAIRS, "cpu", 7 * f.shape[0] + 3)
+    assert torch.equal(ck.argmin_faces_plain(pts, planes, reduction="fused",
+                                             tile_f=64), whole)
 
 
 # -- nearest vertices ------------------------------------------------------------

@@ -543,7 +543,8 @@ def test_auto_keeps_pre_mxu_path(clean_knobs, setting):
 @pytest.mark.parametrize("setting", ["mxu", "off", "below_crossover"])
 def test_bvh_rung_under_mxu(clean_knobs, setting):
     """Under the reference's condition for its MXU leaf visit (the knob on,
-    F >= the MXU crossover) the BVH rung raises; otherwise it serves."""
+    F >= the MXU crossover) the BVH rung walks the rope with the MXU leaf
+    visit; otherwise with the fast tile's.  Both meet the tie contract."""
     v, f = icosphere(3)
     q = scattered(32, seed=8)
     clean_knobs.setenv("MESH_TPU_ACCEL_MIN_FACES", "1000")
@@ -552,15 +553,13 @@ def test_bvh_rung_under_mxu(clean_knobs, setting):
     if setting != "off":
         clean_knobs.setenv("MESH_TPU_MXU", "1")
     tculled.STRATEGY.clear()
-    if setting == "mxu":
-        with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-            tculled.closest_faces_and_points_auto(v, f, q, device="cpu")
-        with pytest.raises(NotImplementedError, match="MESH_TPU_MXU"):
-            closest_faces_and_points_accel(v, f, q, device="cpu")
-        return
     out = tculled.closest_faces_and_points_auto(v, f, q, device="cpu")
     assert tculled.STRATEGY == {"accel_bvh": 1}
     assert_mxu_contract(jax_scan(v, f, q), out, v, f, q)
+    _, stats = closest_faces_and_points_accel(v, f, q, with_stats=True,
+                                              device="cpu")
+    assert stats["backend"] == ("rope_resident_mxu" if setting == "mxu"
+                                else "rope_resident")
 
 
 @pytest.mark.parametrize("bf16", [False, True])

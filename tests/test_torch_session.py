@@ -219,7 +219,7 @@ def test_trace_tail_keeps_the_missed_frame_with_its_spans(monkeypatch):
 
 
 def test_store_keyed_sessions_are_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match=r"MeshStore.*Queue 1\)"):
         AvatarSession(digest="3df8caaa-28ce129a-v642-f1280", device="cpu")
     with pytest.raises(ValueError, match="keyframe mesh"):
         AvatarSession(device="cpu")
@@ -318,7 +318,7 @@ def test_ledger_stages_outcomes_and_kill_switch(monkeypatch):
     assert led.open(tenant="t") is None and led.close(None) is None
     monkeypatch.setenv("MESH_TPU_LEDGER", "1")
     monkeypatch.setenv("MESH_TPU_REPLAY_TRACE", "trace.jsonl")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match=r"capture_row.*Queue 1\)"):
         led.close(led.open(tenant="t"))
 
 
