@@ -14,7 +14,11 @@ Phases (any failure raises and exits non-zero; none catches its own):
    variants; the fused reduction also with NaN planted in three faces and
    two queries; the degenerate-tail variants also on a mesh with planted
    zero-area and collinear faces); culled_faces in all four variants on
-   the large batch of phase 5, both rope_faces entries on the scan of phase
+   the large batch of phase 5 (faces, face tiles and warp chunks tested
+   and faces each query folded against its plain version, faces and face
+   tiles against every face of each tested tile, with the fractions of
+   tiles, chunks and pairs tested), both rope_faces entries on the scan of
+   phase
    6, and both rope_mxu_faces entries, f32 and bf16, on that scan and on
    8,192 mixed-radius queries around its sphere (where the bf16 screen must
    skip visits), each over all its query tiles;
@@ -24,10 +28,15 @@ Phases (any failure raises and exits non-zero; none catches its own):
    planted mesh; tri_tri_any_hit in both tiles at phase 9's shapes (1,552
    hand faces x 13,776 body faces), the segment tile also with the planted
    mesh's faces as queries against body 0; self_intersect in both tiles on
-   every face of body 0 and of phase 5's body 0 (98,304 faces; there the
-   plain version of the tile the gate does not take runs on a query range
-   only), and on a query range of each; leaf_boxes on phase 11's two
-   keyframes at leaf 256, the 98,304-face keyframe at leaf 8 (16,384
+   every face of body 0 and of phase 5's body 0 (98,304 faces) and of
+   their rest templates in the kernel's Morton face order, against the
+   plain version of its design (counts, warp tiles tested, each face's
+   work) and the every-pair plain version (counts; at 98,304 faces the
+   plain versions of the tile the gate does not take run on a query range
+   of whole warps only), and on the query range [F / 4, F / 2) of each,
+   with the fractions of warp-tiles tested and of pairs each lane tested
+   and sent to the interval part; leaf_boxes on phase
+   11's two keyframes at leaf 256, the 98,304-face keyframe at leaf 8 (16,384
    leaves), phase 6's scan at leaves 256 and 8, a copy with planted NaN
    corners and one with corners at +-0.0 (the 98,304-face keyframe at
    leaves 256 and 8 timed with L2 flushed before each call, as the HBM
@@ -88,7 +97,9 @@ Phases (any failure raises and exits non-zero; none catches its own):
 10. self_intersect: ``query.self_intersection_count`` on phase 3's and
    phase 5's posed body 0 (cold first call, median of 5 warm calls, the
    kernel alone in both tiles): 0 on each rest template (a closed UV
-   sphere), above 0 posed; where the two tiles' involved faces differ,
+   sphere), above 0 posed, each tile's involved faces those the
+   every-pair kernel counted (SELF_EXPECTED) and its per-face counts phase
+   2's; where the two tiles' involved faces differ,
    and on 512 faces (half involved), each tile against a float64
    recompute of its own predicate;
 11. anim: an ``AvatarSession(Mesh(rest), leaf_size=256)`` (the default
@@ -126,7 +137,9 @@ Phases (any failure raises and exits non-zero; none catches its own):
 After phase 13, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
-brute-force kernel: the crossover evidence; then each drive's stages.
+brute-force kernel: the crossover evidence; then each drive's stages (the
+large batch's culled prologue in its parts, each anim session's resident
+rope kernel alone).
 
 Phases 3-13 and 3b are the driven paths (phases 6 and 13 twice).  Kernel
 launch counts are set to 0 just before each and read just after it, and
@@ -222,9 +235,29 @@ NW_PAIR_OPS = {False: FACE_PAIR_OPS[("fast", False)] + 8,
 
 #: operations per pair of the triangle-triangle tiles, counted in
 #: csrc/tri_tri_cost.cuh; the self-intersection kernel adds 21 of its own
-#: (9 vertex-id compares, 8 ors, the self test, two ands, the count's add)
+#: (9 vertex-id compares, 8 ors, the self test's add, compare and or, the
+#: count's add)
 TRI_PAIR_OPS = {"segment": 428, "moller": 232}
 SELF_PAIR_OPS = {k: v + 21 for k, v in TRI_PAIR_OPS.items()}
+#: the work of the redesigned self_intersect (csrc/self_intersect.cu) per
+#: query lane: the Moller box test of each tile (plane_needs_box: 3 sign
+#: tests, 2 x (3 selects, 3 products, 3 sums), 8 for X, 2 for M, 7 for
+#: the skip), the 20 of the vertex-id and self tests on each pair of the
+#: tiles it takes, the plane sides (Moller, 64) or the whole segment test
+#: on each pair past them, and the interval part (Moller, 168) on each pair
+#: on neither side of the other's plane; the count's add on each pair that
+#: reaches the test that decides it
+SELF_BOX_OPS = 38
+SELF_ID_OPS = 20
+MOLLER_SIDES_OPS = 64
+MOLLER_INTERVAL_OPS = TRI_PAIR_OPS["moller"] - MOLLER_SIDES_OPS
+#: the culled_faces cull tests (csrc/culled_faces.cu): a lane's chunk bound
+#: and its compare (3 differences, 3 products, 2 sums, sqrt, difference,
+#: max, 2 products, compare), once per chunk of each tile its block takes;
+#: the block's sphere-to-sphere tile test, once per (query tile, face
+#: tile)
+CHUNK_BOUND_OPS = 14
+TILE_TEST_OPS = 15
 
 #: phase 9: examples/hand_body_contact.py's recipe (hand offset from the
 #: body axis, m; contact: a hand vertex within 1 cm of the body)
@@ -235,6 +268,10 @@ CONTACT_GAP = 0.01
 TOL_MOVE = 1e-6
 #: phase 10: faces of each posed body held against float64 (half involved)
 SELF_CHECK_FACES = 512
+#: phase 10: the self-intersecting faces of each posed body per tile, as
+#: the every-pair kernel counted them before the tile cull
+SELF_EXPECTED = {"smpl_body0": {"moller": 223},
+                 "large_body0": {"moller": 610, "segment": 608}}
 
 #: phase 2: culled_faces' variants other than the large batch's own are
 #: held to their plain versions on the first bodies only (the plain
@@ -323,12 +360,16 @@ def check(cond, what):
         raise RuntimeError("check failed: " + what)
 
 
-def nvidia_smi():
+def nvidia_smi(query="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", "--query-gpu=" + query, "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+#: the card's state beside a run's times: a card that slows under load
+#: shows its SM clock below the maximum here
+CARD_STATE = "clocks.sm,clocks.max.sm,temperature.gpu,power.draw"
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -638,42 +679,124 @@ def check_against_brute(name, v, f, q, faces, sqdist, brute, quiet=False,
 
 
 def compare_culled(qk, ops, variant, tail, timing):
-    """Kernel vs plain for culled_faces on one operand set: identical faces
-    and tested tiles over every query tile."""
-    k, kv = qk.argmin_culled(ops, variant, tail)
-    (p, pv), plain_ms = timed(
+    """Kernel vs plain for culled_faces on one operand set: identical
+    faces, tested tiles, tested chunks and faces folded per query over
+    every query tile, and the faces and tiles of the reference's design
+    (every face of each tested tile, ``argmin_culled_tile_plain``).
+
+    The bound counts the work these inputs need under the chunk cull:
+    each real query's chunk bounds (every chunk of each tile its block
+    takes) and the real faces its own lane folded in, and the block tile
+    tests; padded query rows and faces are left out.  What the warps issue
+    (every lane of a warp runs a chunk one lane needs) is reported beside
+    it, and so is the reference's design (every pair of each tested
+    tile)."""
+    k, kv, kc, kp = qk.argmin_culled(ops, variant, tail, with_stats=True)
+    (p, pv, pc, pp), plain_ms = timed(
         lambda: qk.argmin_culled_plain(ops, variant, tail))
-    mism = int((k != p).sum())
-    check(mism == 0 and bool((kv == pv).all()),
+    check(torch.equal(k, p) and torch.equal(kv, pv) and torch.equal(kc, pc)
+          and torch.equal(kp, pp),
+          "culled_faces[%s, tail=%s]: %d of %d faces (and %d tile, %d chunk, "
+          "%d folded-face counts) differ from the plain version" % (
+              variant, tail, int((k != p).sum()), k.numel(),
+              int((kv != pv).sum()), int((kc != pc).sum()),
+              int((kp != pp).sum())))
+    (t, tv), tile_plain_ms = timed(
+        lambda: qk.argmin_culled_tile_plain(ops, variant, tail))
+    check(torch.equal(k, t) and torch.equal(kv, tv),
           "culled_faces[%s, tail=%s]: %d of %d faces (and %d tile counts) "
-          "differ from the plain version" % (
-              variant, tail, mism, k.numel(), int((kv != pv).sum())))
+          "differ from every face of each tested tile" % (
+              variant, tail, int((k != t).sum()), k.numel(),
+              int((kv != tv).sum())))
     rk_, rp = qk.culled_epilogue(ops, k), qk.culled_epilogue(ops, p)
     err = max(float((rk_["point"] - rp["point"]).abs().max()),
               float((rk_["sqdist"] - rp["sqdist"]).abs().max()))
     tile_q, tile_f = ops["tile_q"], ops["tile_f"]
+    chunk = qk.chunk_faces(tile_f)
     n_ft = ops["fsph"].shape[1]
-    tested = int(kv.sum())
+    tested, chunks = int(kv.sum()), int(kc.sum())
+    n_b, q_pad = ops["seed"].shape
+    n_q, n_f = ops["qorder"].shape[1], ops["n_faces"]
+    f_pad = ops["planes"].shape[-1]
+    # per real query: the visits of its query tile, and its folded faces
+    real_visits = kv.repeat_interleave(tile_q, dim=1)[:, :n_q]
+    folded = int(kp[:, :n_q].sum())
+    lane_bounds = int(real_visits.sum()) * (tile_f // chunk)
     out = {"variant": variant, "degenerate_tail": tail,
-           "shape": list(ops["seed"].shape) + [ops["planes"].shape[-1]],
+           "shape": [n_b, q_pad, f_pad], "real": [n_b, n_q, n_f],
            "faces_identical": True, "max_abs_err": err,
            "face_tiles_tested": tested, "face_tiles": kv.numel() * n_ft,
-           "plain_ms": plain_ms}
+           "warp_chunks_tested": chunks,
+           "warp_chunks_of_tested_tiles": tested * (tile_f // chunk)
+           * kc.shape[-1],
+           "pairs_folded": folded, "lane_chunk_bounds": lane_bounds,
+           "pairs_issued": chunks * qk.WARP * chunk,
+           "pairs": n_b * n_q * n_f,
+           "plain_ms": plain_ms, "tile_plain_ms": tile_plain_ms}
+    out["tile_fraction"] = tested / out["face_tiles"]
+    out["chunk_fraction"] = chunks / max(1, out["warp_chunks_of_tested_tiles"])
+    out["pair_fraction"] = folded / out["pairs"]
+    out["issued_fraction"] = out["pairs_issued"] / (n_b * q_pad * f_pad)
     if timing:
         out["ms"] = cuda_ms(lambda: qk.argmin_culled(ops, variant, tail),
                             reps=REPS)
         n_bytes = 4 * (sum(ops[key].numel() for key in (
-            "pts_s", "seed", "qsph", "fsph", "planes")) + k.numel()
+            "pts_s", "seed", "qsph", "fsph", "csph", "planes")) + k.numel()
             + kv.numel())
+        # the work these inputs need under the chunk cull, and the
+        # reference's design's (every pair of each tested tile)
         out["bound_ms"], out["bound_by"] = bound_ms(
+            folded * FACE_PAIR_OPS[(variant, tail)]
+            + lane_bounds * CHUNK_BOUND_OPS
+            + kv.numel() * n_ft * TILE_TEST_OPS, 1, n_bytes)
+        out["bound_tiles_ms"], _ = bound_ms(
             tested * tile_q * tile_f, FACE_PAIR_OPS[(variant, tail)], n_bytes)
-    log("  culled_faces[%s, tail=%s] %s: faces and tile counts identical, "
-        "%d of %d face tiles tested, max abs point/sqdist diff %.3g, plain "
-        "%.1f ms%s" % (variant, tail, out["shape"], tested, out["face_tiles"],
-                       err, plain_ms, "" if not timing else
-                       ", %.3f ms (bound %.3f ms)"
-                       % (out["ms"], out["bound_ms"])))
+    log("  culled_faces[%s, tail=%s] %s: faces, tile, chunk and folded-face "
+        "counts identical (faces and tiles also to every face of each "
+        "tested tile), face tiles tested %d of %d (%.4f), warp-chunks %d of "
+        "the tested tiles' %d (%.4f); real pairs folded by their own lanes "
+        "%d (%.4f of %d), issued by the warps %.4f; max abs point/sqdist "
+        "diff %.3g, plain %.1f ms, tile plain %.1f ms%s" % (
+            variant, tail, out["shape"], tested, out["face_tiles"],
+            out["tile_fraction"], chunks, out["warp_chunks_of_tested_tiles"],
+            out["chunk_fraction"], folded, out["pair_fraction"],
+            out["pairs"], out["issued_fraction"], err, plain_ms,
+            tile_plain_ms, "" if not timing else
+            ", %.3f ms (bound %.4f ms; every pair of the tested tiles %.3f "
+            "ms)" % (out["ms"], out["bound_ms"], out["bound_tiles_ms"])))
     return out
+
+
+def culled_prologue_parts(qk, v, f, points, variant):
+    """CUDA-event ms of the steps of ``culled_operands`` (each a separate
+    run of 3 after a warm-up, on the same inputs, each the function the
+    rung calls): centering, the corner gather, ``prologue_orders`` (the
+    Morton sorts), ``prologue_gathers``, ``prologue_spheres``, ``_seeds``
+    and ``face_planes``; "rest" is the whole prologue less their sum (the
+    sphere packing, host gaps)."""
+    from mesh_tpu_torch.query import closest_kernel as ck
+
+    tile_q, tile_f = 256, 1024
+    pts, center, _ = ck._center_inputs(v, f, points)
+    vc = v.to(torch.float32) - center
+    tri = vc[:, f.long()]
+    forder, qorder = qk.prologue_orders(tri, pts)
+    tri_s, _, pts_s = qk.prologue_gathers(tri, pts, forder, qorder, tile_q,
+                                          tile_f)
+    _, (sc, sr), _ = qk.prologue_spheres(tri_s, pts_s, tile_q, tile_f)
+    parts = {
+        "centering": cuda_ms(lambda: ck._center_inputs(v, f, points), 3),
+        "corner_gather": cuda_ms(lambda: vc[:, f.long()], 3),
+        "morton_sorts": cuda_ms(lambda: qk.prologue_orders(tri, pts), 3),
+        "sorted_gathers": cuda_ms(lambda: qk.prologue_gathers(
+            tri, pts, forder, qorder, tile_q, tile_f), 3),
+        "spheres": cuda_ms(lambda: qk.prologue_spheres(
+            tri_s, pts_s, tile_q, tile_f), 3),
+        "seeds": cuda_ms(lambda: qk._seeds(pts_s, sc, sr), 3),
+        "face_planes": cuda_ms(lambda: ck.face_planes(tri_s, variant), 3)}
+    whole = cuda_ms(lambda: qk.culled_operands(v, f, points, variant), 3)
+    parts["rest"] = whole - sum(parts.values())
+    return parts
 
 
 def compare_rope(rk, ops, n_buffers):
@@ -898,7 +1021,7 @@ def crossover(dev, large, scan):
                    v, f, q, assume_nondegenerate=nd), 3)}
         vb, qb = (v[None], q[None]) if single else (v, q)
         ops = qk.culled_operands(vb, f, qb)
-        _, tested = qk.argmin_culled(ops, "fast", not nd)
+        tested = qk.argmin_culled(ops, "fast", not nd)[1]
         row["culled_face_tiles_tested"] = float(tested.sum()) / (
             tested.numel() * ops["fsph"].shape[1])
         del ops
@@ -1132,39 +1255,95 @@ def compare_tri_tri(tk, qp, fp, algorithm, label, timing):
 
 def compare_self(tk, tri, ids, algorithm, label, plain_range=False):
     """Kernel vs plain for self_intersect on every face of a mesh against
-    all its faces: identical per-face counts, both timed; the kernel on
-    the query range [F / 4, F / 2) must give that slice of the counts.
-    With ``plain_range`` the plain version runs on that range only."""
+    all its faces, in the kernel's (Morton) face order: identical per-face
+    counts, warp tiles and work per face to the plain version of its
+    design, and identical counts to the every-pair plain version; the
+    kernel on the query range [F / 4, F / 2) (not whole warps) must give
+    that slice of the counts.  With ``plain_range`` the plain versions run
+    on that range rounded to whole warps only, so that their warps line up
+    with the kernel's.
+
+    The bound counts the work these inputs need under the cull, per query
+    lane: the Moller box test of every tile, the id tests of the pairs of
+    the tiles it takes, the plane sides (or the whole segment test) of the
+    pairs past them and the interval part of those on neither side.  The
+    warp-tiles the warps issue are reported beside it, and so is every
+    pair of the reference's design.  Returns (the run's record, the counts
+    in the mesh's face order)."""
+    order = tk.morton_face_order(tri)
+    tri, ids = tri[order], ids[order].contiguous()
     qp, fp = tk.self_planes(tri, algorithm)
     n_f = tri.shape[0]
     r0, r1 = n_f // 4, n_f // 2
-    p0, p1 = (r0, r1) if plain_range else (0, n_f)
-    k = tk.self_intersect_counts(qp, fp, ids, algorithm)
-    p, plain_ms = timed(lambda: tk.self_intersect_counts_plain(
+    p0, p1 = ((r0 // tk.WARP * tk.WARP, r1 // tk.WARP * tk.WARP)
+              if plain_range else (0, n_f))
+    k, kt, kw = tk.self_intersect_counts(qp, fp, ids, algorithm,
+                                         with_stats=True)
+    (p, pt, pw), plain_ms = timed(lambda: tk.self_intersect_culled_plain(
         qp, fp, ids, algorithm, p0, p1))
-    check(torch.equal(k[p0:p1], p), "self_intersect[%s] on %s: %d of %d "
-          "counts differ from the plain version" % (
-              algorithm, label, int((k[p0:p1] != p).sum()), p.numel()))
-    check(torch.equal(tk.self_intersect_counts(qp, fp, ids, algorithm, r0,
-                                               r1), k[r0:r1]),
-          "self_intersect[%s] on %s: the query range [%d, %d) differs from "
-          "the whole mesh's counts" % (algorithm, label, r0, r1))
+    e, every_ms = timed(lambda: tk.self_intersect_counts_plain(
+        qp, fp, ids, algorithm, p0, p1))
+    w0 = p0 // tk.WARP
+    check(torch.equal(k[p0:p1], p)
+          and torch.equal(kw[p0:p1], pw)
+          and torch.equal(kt[w0:w0 + pt.numel()], pt),
+          "self_intersect[%s] on %s: %d of %d counts (%d work, %d "
+          "warp-tile counts) differ from the plain version" % (
+              algorithm, label, int((k[p0:p1] != p).sum()), p.numel(),
+              int((kw[p0:p1] != pw).any(dim=1).sum()),
+              int((kt[w0:w0 + pt.numel()] != pt).sum())))
+    check(torch.equal(k[p0:p1], e), "self_intersect[%s] on %s: %d of %d "
+          "counts differ from the every-pair plain version" % (
+              algorithm, label, int((k[p0:p1] != e).sum()), e.numel()))
+    for q0, q1 in {(r0, r1), (p0, p1)} - {(0, n_f)}:
+        check(torch.equal(tk.self_intersect_counts(qp, fp, ids, algorithm,
+                                                   q0, q1), k[q0:q1]),
+              "self_intersect[%s] on %s: the query range [%d, %d) differs "
+              "from the whole mesh's counts" % (algorithm, label, q0, q1))
+    n_tiles = -(-n_f // tk.SELF_TILE)
+    warp_tiles = int(kt.sum())
+    taken, reached, deep = (int(x) for x in kw.sum(dim=0))
     out = {"tile": algorithm, "on": label, "shape": [n_f, n_f],
            "counts_identical": True, "max_abs_err": 0.0,
            "involved": int((k > 0).sum()), "partners": int(k.sum()),
            "pairs": n_f * n_f, "plain_ms": plain_ms,
-           "plain_query_faces": p1 - p0,
+           "every_pair_plain_ms": every_ms, "plain_query_faces": p1 - p0,
+           "query_range": [r0, r1],
+           "warp_tiles_tested": warp_tiles,
+           "warp_tiles": kt.numel() * n_tiles,
+           "pairs_issued": warp_tiles * tk.WARP * tk.SELF_TILE,
+           "pairs_taken": taken, "pairs_reached": reached,
+           "deep_pairs": deep,
            "ms": cuda_ms(lambda: tk.self_intersect_counts(
                qp, fp, ids, algorithm), reps=3)}
+    out["tile_fraction"] = warp_tiles / out["warp_tiles"]
+    out["pair_fraction"] = taken / out["pairs"]
+    out["deep_fraction"] = deep / out["pairs"]
     n_bytes = 4 * (qp.numel() + fp.numel() + ids.numel() + n_f)
-    out["bound_ms"], out["bound_by"] = bound_ms(
+    out["bound_every_pair_ms"], _ = bound_ms(
         n_f * n_f, SELF_PAIR_OPS[algorithm], n_bytes)
-    log("  self_intersect[%s] on %s %s: counts identical (plain on %d "
-        "query faces), %d faces involved, %d partners, %.3f ms (plain %.1f "
-        "ms, bound %.4f ms)" % (
-            algorithm, label, out["shape"], p1 - p0, out["involved"],
-            out["partners"], out["ms"], plain_ms, out["bound_ms"]))
-    return out
+    if algorithm == "moller":
+        work = (n_f * n_tiles * SELF_BOX_OPS + taken * SELF_ID_OPS
+                + reached * MOLLER_SIDES_OPS
+                + deep * (MOLLER_INTERVAL_OPS + 1))
+    else:
+        work = (taken * SELF_ID_OPS
+                + reached * (TRI_PAIR_OPS["segment"] + 1))
+    out["bound_ms"], out["bound_by"] = bound_ms(work, 1, n_bytes)
+    log("  self_intersect[%s] on %s %s: counts, warp tiles and work "
+        "identical (plain on %d query faces; counts also to every pair; "
+        "query range [%d, %d)), %d faces involved, %d partners; warp-tiles "
+        "tested %d of %d (%.4f); pairs per lane taken %d (%.4f), past the "
+        "exclusion %d, to the interval part %d (%.3g); %.3f ms (plain %.1f "
+        "ms, every-pair plain %.1f ms, bound %.4f ms, every pair %.4f ms)"
+        % (algorithm, label, out["shape"], p1 - p0, r0, r1, out["involved"],
+           out["partners"], warp_tiles, out["warp_tiles"],
+           out["tile_fraction"], taken, out["pair_fraction"], reached, deep,
+           out["deep_fraction"], out["ms"], plain_ms, every_ms,
+           out["bound_ms"], out["bound_every_pair_ms"]))
+    counts = torch.empty_like(k)
+    counts[order] = k
+    return out, counts
 
 
 def decide64(tile, q_tri, tri, q_ids=None, f_ids=None, q_index=None):
@@ -1562,10 +1741,13 @@ def anim_stages(model, leaf, seed, dev):
     ANIM_STRETCH_FRAME // 2), each a separate run: lbs, the corner gather,
     the leaf-box kernel alone, the host part of the refit (leaf boxes to
     the host, levels, preorder scatter, box measure, node boxes back to
-    the card), the whole refit, and the traversal over the refit index;
-    and the host ``build_bvh`` a cold frame pays (host clock, median of
-    3).  ms."""
+    the card), the whole refit, the traversal over the refit index, and
+    the resident rope kernel alone on the operands that traversal builds
+    (with the leaves it tests and its bound); and the host ``build_bvh`` a
+    cold frame pays (host clock, median of 3).  ms."""
     from mesh_tpu_torch.accel import refit_kernel as fk
+    from mesh_tpu_torch.accel import rope_kernel as rk
+    from mesh_tpu_torch.accel.traverse import RESIDENT_TILE_F
     from mesh_tpu_torch.accel.build import build_bvh, get_index
     from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
     from mesh_tpu_torch.anim import refit as anim_refit
@@ -1608,6 +1790,18 @@ def anim_stages(model, leaf, seed, dev):
             base, v, f_dev, device=dev), 5),
         "traversal": cuda_ms(lambda: closest_faces_and_points_accel(
             v, f_dev, q, index=refit, device=dev), 5)}
+    ops_r = rk.rope_operands(v, f_dev, q, tile_f=RESIDENT_TILE_F,
+                             index=refit, rebuild_mismatched=True,
+                             device=dev)
+    kd, _, kl = rk.rope_argmin(ops_r, None)
+    stages["rope_kernel"] = cuda_ms(lambda: rk.rope_argmin(ops_r, None), 5)
+    stages["rope_leaves_tested"] = int(kl.sum())
+    n_bytes = 4 * (sum(ops_r[key].numel() for key in (
+        "pts_s", "seed", "boxes", "topo", "rows")) + 2 * kd.numel()
+        + kl.numel())
+    stages["rope_bound"], _ = bound_ms(
+        int(kl.sum()) * ops_r["tile_q"] * ops_r["tile_f"], ROPE_PAIR_OPS,
+        n_bytes)
     builds = []
     v_np = v.cpu().numpy()
     for _ in range(3):
@@ -2247,18 +2441,22 @@ def main():
     tri_runs["segment_planted"] = compare_tri_tri(
         tk, *tk.segment_planes(v2t[0][f2t.long()], verts[0][f.long()]),
         "segment", "planted mesh vs body 0", timing=False)
-    # self_intersect on every face of phase 3's and phase 5's body 0, both
-    # tiles
-    self_runs = {}
-    for key, (v_np, f_np_, _) in self_bodies.items():
-        tri_b = torch.as_tensor(v_np, device=dev)[
-            torch.as_tensor(f_np_.astype(np.int64), device=dev)]
+    # self_intersect on every face of phase 3's and phase 5's body 0 and of
+    # their rest templates, both tiles
+    self_runs, self_counts = {}, {}
+    for key, (v_np, f_np_, rest_np) in self_bodies.items():
         ids_b = torch.as_tensor(f_np_.astype(np.int32), device=dev)
-        for alg in tk.ALGORITHMS:
-            self_runs["%s[%s]" % (key, alg)] = compare_self(
-                tk, tri_b, ids_b, alg, key, plain_range=(
-                    key == "large_body0" and alg != self_tiles[key]))
-        del tri_b, ids_b
+        for label, verts_np in ((key, v_np),
+                                (key.replace("body0", "rest"), rest_np)):
+            tri_b = torch.as_tensor(verts_np, device=dev)[
+                torch.as_tensor(f_np_.astype(np.int64), device=dev)]
+            for alg in tk.ALGORITHMS:
+                run, self_counts[label, alg] = compare_self(
+                    tk, tri_b, ids_b, alg, label, plain_range=(
+                        key == "large_body0" and alg != self_tiles[key]))
+                self_runs["%s[%s]" % (label, alg)] = run
+            del tri_b
+        del ids_b
     # leaf_boxes at phase 11's shapes (both keyframes at the walk's leaf
     # size), the large keyframe at leaf 8, the scan at leaves 256 and 8, a
     # copy with planted NaN corners and one with corners at +-0.0
@@ -2309,6 +2507,9 @@ def main():
                                 timing=False))
 
     # -- 3. main path at full width ------------------------------------------
+    card_state = {"after_phase_2": nvidia_smi(CARD_STATE)}
+    log("card state after phase 2 (%s): %s" % (CARD_STATE,
+                                              card_state["after_phase_2"]))
     log("== main path: %d bodies x %d queries, %d faces each"
         % (BATCH, QUERIES_PER_MESH, f.shape[0]))
     reset_launches()
@@ -2810,12 +3011,34 @@ def main():
         tri_b = vt_b[ft_b]
         ids_b = ft_b.to(torch.int32).contiguous()
         rec["kernel_ms"] = {}
+        order_b = tk.morton_face_order(tri_b)   # the facade's face order
+        # the facade's device work around the kernel, in the gate's tile:
+        # the steps of self_intersection_counts_kernel (separate runs, none
+        # launching the kernel)
+        qp_b, fp_b, ids_s = tk.self_sorted_operands(tri_b, ft_b, order_b,
+                                                    self_tiles[key])
+        rec["stages_ms"] = {
+            "triangles": cuda_ms(lambda: vt_b.to(torch.float32)[ft_b], 3),
+            "morton_order": cuda_ms(lambda: tk.morton_face_order(tri_b), 3),
+            "sorted_operands": cuda_ms(lambda: tk.self_sorted_operands(
+                tri_b, ft_b, order_b, self_tiles[key]), 3),
+            "records_and_boxes": cuda_ms(lambda: tk.self_kernel_operands(
+                fp_b, ids_s, self_tiles[key]), 3)}
         for alg in tk.ALGORITHMS:
-            qp_b, fp_b = tk.self_planes(tri_b, alg)
+            qp_b, fp_b, ids_s = tk.self_sorted_operands(tri_b, ft_b, order_b,
+                                                        alg)
             rec["kernel_ms"][alg] = cuda_ms(lambda: tk.self_intersect_counts(
-                qp_b, fp_b, ids_b, alg), reps=3)
-            del qp_b, fp_b
+                qp_b, fp_b, ids_s, alg), reps=3)
+        del qp_b, fp_b, ids_s
+        check(all(torch.equal(per_tile[alg], self_counts[key, alg])
+                  for alg in tk.ALGORITHMS),
+              "%s: the facade's per-face counts differ from phase 2's "
+              "kernel run" % key)
         involved = {alg: c > 0 for alg, c in per_tile.items()}
+        for alg, expect in SELF_EXPECTED[key].items():
+            check(int(involved[alg].sum()) == expect, "%s, %s tile: %d "
+                  "self-intersecting faces, %d before the tile cull" % (
+                      key, alg, int(involved[alg].sum()), expect))
         check(rec["rest_count"] == 0, "%s: the rest template (a closed UV "
               "sphere) has %d self-intersecting faces" % (key,
                                                           rec["rest_count"]))
@@ -2858,13 +3081,15 @@ def main():
             "%d, segment %d, %d differ, the float64 predicates on %d of "
             "them), rest template 0; "
             "%d faces vs float64: %d differ, %d borderline; first call %.3f "
-            "ms, warm %.3f ms (host clock), kernel alone %s ms, on %s" % (
+            "ms, warm %.3f ms (host clock), kernel alone (with its records "
+            "and boxes) %s ms; around it %s ms; on %s" % (
                 key, rec["faces"], count, self_tiles[key],
                 rec["tile_counts"]["moller"], rec["tile_counts"]["segment"],
                 rec["tiles_differ"], rec["tiles_differ64"], rec["checked64"],
                 rec["differ64"],
                 rec["borderline64"], rec["first_ms"], rec["warm_ms"],
                 ", ".join("%s %.3f" % kv for kv in rec["kernel_ms"].items()),
+                ", ".join("%s %.3f" % kv for kv in rec["stages_ms"].items()),
                 smi))
         del vt_b, ft_b, tri_b, ids_b, per_tile
     launches["self_intersect"] = read_launches()
@@ -2949,15 +3174,19 @@ def main():
                                        3)
     stages_l["culled_prologue"] = cuda_ms(lambda: qk.culled_operands(
         verts_l, f_l, queries_l, variant_l[0]), 3)
+    stages_l["culled_prologue_parts"] = culled_prologue_parts(
+        qk, verts_l, f_l, queries_l, variant_l[0])
     ops_l = qk.culled_operands(verts_l, f_l, queries_l, variant_l[0])
     stages_l["culled_kernel"] = cuda_ms(lambda: qk.argmin_culled(
         ops_l, *variant_l), 3)
-    best_l, _ = qk.argmin_culled(ops_l, *variant_l)
+    best_l = qk.argmin_culled(ops_l, *variant_l)[0]
     stages_l["culled_epilogue"] = cuda_ms(
         lambda: qk.culled_epilogue(ops_l, best_l), 3)
     del ops_l
     log("large batch stage breakdown (ms, separate runs): " + ", ".join(
-        "%s %.3f" % kv for kv in stages_l.items()))
+        "%s %s" % (k_, "%.3f" % v_ if isinstance(v_, float) else ", ".join(
+            "%s %.3f" % kv for kv in v_.items()))
+        for k_, v_ in stages_l.items()))
     builds = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3030,6 +3259,11 @@ def main():
          "max_abs_err": max(r["max_abs_err"] for r in culled_runs),
          "ms": main_l["ms"], "plain_ms": main_l["plain_ms"],
          "bound_ms": main_l["bound_ms"], "bound_by": main_l["bound_by"],
+         "bound_tiles_ms": main_l["bound_tiles_ms"],
+         "tile_fraction": main_l["tile_fraction"],
+         "chunk_fraction": main_l["chunk_fraction"],
+         "pair_fraction": main_l["pair_fraction"],
+         "issued_fraction": main_l["issued_fraction"],
          "library_ms": None,
          "variant": "%s, tail=%s" % variant_l,
          "variants": culled_runs})
@@ -3086,6 +3320,10 @@ def main():
              "bound_ms": main_run["bound_ms"],
              "bound_by": main_run["bound_by"], "library_ms": None,
              "tile": main_run["tile"], "detail": runs})
+        for key in ("bound_every_pair_ms", "tile_fraction", "pair_fraction",
+                    "deep_fraction", "pairs_issued"):
+            if key in main_run:
+                kernels[-1][key] = main_run[key]
     main_lb = next(r for r in leaf_runs if "ms" in r)     # leaf 256
     kernels.append(
         {"name": "leaf_boxes", "route": "cuda",
@@ -3161,6 +3399,8 @@ def main():
                         if k[1] == walk]})
     check(len(kernels) == len(KERNEL_PATHS), "the kernels line lists %d "
           "kernels, KERNEL_PATHS %d" % (len(kernels), len(KERNEL_PATHS)))
+    card_state["end"] = nvidia_smi(CARD_STATE)
+    log("card state at the end (%s): %s" % (CARD_STATE, card_state["end"]))
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(smi, flush=True)
     print(json.dumps({
@@ -3169,7 +3409,7 @@ def main():
                             "step_ms_min": min(times_fused),
                             "step_ms_max": max(times_fused),
                             "faces_equal_to_exact": fused_same},
-        "stages_ms": stages, "build_s": build_s,
+        "stages_ms": stages, "build_s": build_s, "card_state": card_state,
         "large_batch": {"step_ms": step_l_ms, "step_ms_min": min(times_l),
                         "step_ms_max": max(times_l), "stages_ms": stages_l,
                         "vs_brute": large_vs_brute},

@@ -36,7 +36,7 @@ KERNELS = {
     "nearest_vertices": ("nearest_vertices.cu", "mt_nearest_vertices",
                          [_PTR] * 3 + [_INT] * 3),
     "culled_faces": ("culled_faces.cu", "mt_culled_faces",
-                     [_PTR] * 7 + [_INT] * 7),
+                     [_PTR] * 10 + [_INT] * 9),
     "rope_faces": ("rope_faces.cu", "mt_rope_faces",
                    [_PTR] * 8 + [_INT] * 6),
     "rope_mxu_faces": ("rope_mxu_faces.cu", "mt_rope_mxu_faces",
@@ -51,7 +51,7 @@ KERNELS = {
     "tri_tri_any_hit": ("tri_tri_any_hit.cu", "mt_tri_tri_any_hit",
                         [_PTR] * 3 + [_INT] * 3 + [_FLOAT] * 2),
     "self_intersect": ("self_intersect.cu", "mt_self_intersect",
-                       [_PTR] * 4 + [_INT] * 4 + [_FLOAT] * 2),
+                       [_PTR] * 6 + [_INT] * 4 + [_FLOAT] * 2),
     "leaf_boxes": ("leaf_boxes.cu", "mt_leaf_boxes", [_PTR] * 3 + [_INT] * 2),
     "mxu_faces": ("mxu_faces.cu", "mt_mxu_faces", [_PTR] * 3 + [_INT] * 5),
     "mxu_bound": ("mxu_bound.cu", "mt_mxu_bound", [_PTR] * 4 + [_INT] * 3),
@@ -151,10 +151,10 @@ def load(name):
 def launch(name, device, *args):
     """Launch kernel ``name`` on the current stream of CUDA ``device``:
     each of ``args`` is a tensor (passed as its data pointer; the caller
-    checks device, dtype, shape and contiguity), an int or a float, in the
-    order of the kernel's C entry point."""
+    checks device, dtype, shape and contiguity), None (a null pointer), an
+    int or a float, in the order of the kernel's C entry point."""
     lib = load(name)
-    values = [a.data_ptr() if torch.is_tensor(a)
+    values = [a.data_ptr() if torch.is_tensor(a) else a if a is None
               else float(a) if isinstance(a, float) else int(a)
               for a in args]
     with torch.cuda.device(device):

@@ -28,6 +28,32 @@ struct MaxOp {
   __device__ static float apply(float a, float b) { return fmaxf(a, b); }
 };
 
+// Asynchronous copies from global to shared memory (cp.async): a copy of
+// 16 bytes (both addresses 16-byte aligned) or of 4, each thread's copies
+// since its last commit forming one group; cp_async_wait<N> returns when at
+// most N of the thread's groups are still in flight.  A __syncthreads after
+// the wait makes every thread's landed copies visible to the block.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // The block-wide reduction of v, returned to every thread.  `scratch`
 // holds one float per warp (32 suffice for any block).  The leading
 // __syncthreads also orders this call after every thread's earlier reads

@@ -60,21 +60,6 @@ constexpr size_t kMaxRingBytes = 226 * 1024;
 // (1 - _MARGIN) in float32, the reference's lower-bound shrink
 constexpr float kShrink = static_cast<float>(1.0 - 1e-3);
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Wait until at most n of this thread's copy groups are pending (at most
 // 7 for n >= 7, which waits for more than is needed, never less).
 __device__ __forceinline__ void cp_async_wait_at_most(int n) {

@@ -34,7 +34,8 @@
 // and its magnitudes (3), the axis choice (3), six projections (12), two
 // interval set-ups of 54 (108: 8 case tests, 17 select masks, 18 formula
 // operations, 10 picks, and the coplanar flag), the interval ends (17),
-// their min and max (4), the overlap (4) and the final mask (8): 232.
+// their min and max (4), the overlap (4) and the final mask (8): 232, of
+// which the plane sides (the distances, products and rejects) are 64.
 
 #pragma once
 
@@ -50,11 +51,12 @@ constexpr int kTargetBlocks = 4 * 132;
 
 // How a launch of q_blocks query blocks splits the n_f faces across
 // blockIdx.y: into *n_split ranges of *per_split faces (a whole number of
-// staging tiles each; the last range may be short).
+// staging tiles each; the last range may be short), for about `target`
+// blocks in all.
 inline void face_splits(int q_blocks, int n_f, int tile, int* n_split,
-                        int* per_split) {
+                        int* per_split, int target = kTargetBlocks) {
   const int tiles = (n_f + tile - 1) / tile;
-  int s = (kTargetBlocks + q_blocks - 1) / q_blocks;
+  int s = (target + q_blocks - 1) / q_blocks;
   s = s < 1 ? 1 : s;
   s = s > tiles ? tiles : s;
   s = s > 65535 ? 65535 : s;
@@ -161,36 +163,58 @@ __device__ __forceinline__ Interval moller_interval(float vp0, float vp1,
   return out;
 }
 
+// The Moller tile's plane sides of one pair: each triangle's corners
+// against the other's plane, and whether either lies strictly on one side
+// (reject_q: the query against the mesh face's plane; reject_m: the mesh
+// face against the query's).
+struct MollerSides {
+  float dv0, dv1, dv2, dv0dv1, dv0dv2;
+  float du0, du1, du2, du0du1, du0du2;
+  bool reject;  // reject_q | reject_m: the pair cannot hit
+};
+
 struct MollerTile {
   static constexpr int kQuery = 13;  // corners (9), unit normal (3), offset
   static constexpr int kFace = 13;
 
-  __device__ static bool hit(const float* q, const float* m, float /*t_lo*/,
-                             float /*t_hi*/) {
+  // The plane distances and the two one-side rejects: 64 of the tile's 232
+  // operations, the first ones hit makes.
+  __device__ static MollerSides sides(const float* q, const float* m) {
+    const float* n1 = q + 9;
+    const float d1 = q[12];
+    const float* n2 = m + 9;
+    const float d2 = m[12];
+    MollerSides s;
+    s.dv0 = plane_dist(n2, d2, q);
+    s.dv1 = plane_dist(n2, d2, q + 3);
+    s.dv2 = plane_dist(n2, d2, q + 6);
+    s.dv0dv1 = s.dv0 * s.dv1;
+    s.dv0dv2 = s.dv0 * s.dv2;
+    const bool reject_q = (s.dv0dv1 > 0.0f) & (s.dv0dv2 > 0.0f);
+
+    s.du0 = plane_dist(n1, d1, m);
+    s.du1 = plane_dist(n1, d1, m + 3);
+    s.du2 = plane_dist(n1, d1, m + 6);
+    s.du0du1 = s.du0 * s.du1;
+    s.du0du2 = s.du0 * s.du2;
+    const bool reject_m = (s.du0du1 > 0.0f) & (s.du0du2 > 0.0f);
+    s.reject = reject_q | reject_m;
+    return s;
+  }
+
+  // The interval part (the other 168 operations): whether the two
+  // triangles' intervals on the intersection line overlap, neither being
+  // coplanar.  hit is this and not s.reject.
+  __device__ static bool intervals(const float* q, const float* m,
+                                   const MollerSides& s) {
     const float* q0 = q;
     const float* q1 = q + 3;
     const float* q2 = q + 6;
     const float* n1 = q + 9;
-    const float d1 = q[12];
     const float* m0 = m;
     const float* m1 = m + 3;
     const float* m2 = m + 6;
     const float* n2 = m + 9;
-    const float d2 = m[12];
-
-    const float dv0 = plane_dist(n2, d2, q0);
-    const float dv1 = plane_dist(n2, d2, q1);
-    const float dv2 = plane_dist(n2, d2, q2);
-    const float dv0dv1 = dv0 * dv1;
-    const float dv0dv2 = dv0 * dv2;
-    const bool reject_q = (dv0dv1 > 0.0f) & (dv0dv2 > 0.0f);
-
-    const float du0 = plane_dist(n1, d1, m0);
-    const float du1 = plane_dist(n1, d1, m1);
-    const float du2 = plane_dist(n1, d1, m2);
-    const float du0du1 = du0 * du1;
-    const float du0du2 = du0 * du2;
-    const bool reject_m = (du0du1 > 0.0f) & (du0du2 > 0.0f);
 
     // the intersection line's direction and its dominant axis
     const float dx = n1[1] * n2[2] - n1[2] * n2[1];
@@ -204,10 +228,10 @@ struct MollerTile {
       return use_z ? p[2] : (use_y ? p[1] : p[0]);
     };
 
-    const Interval i1 = moller_interval(proj(q0), proj(q1), proj(q2), dv0,
-                                        dv1, dv2, dv0dv1, dv0dv2);
-    const Interval i2 = moller_interval(proj(m0), proj(m1), proj(m2), du0,
-                                        du1, du2, du0du1, du0du2);
+    const Interval i1 = moller_interval(proj(q0), proj(q1), proj(q2), s.dv0,
+                                        s.dv1, s.dv2, s.dv0dv1, s.dv0dv2);
+    const Interval i2 = moller_interval(proj(m0), proj(m1), proj(m2), s.du0,
+                                        s.du1, s.du2, s.du0du1, s.du0du2);
 
     const float xx = i1.x0 * i1.x1;
     const float yy = i2.x0 * i2.x1;
@@ -221,7 +245,13 @@ struct MollerTile {
     const float lo1 = nan_min(i1a, i1b), hi1 = nan_max(i1a, i1b);
     const float lo2 = nan_min(i2a, i2b), hi2 = nan_max(i2a, i2b);
     const bool overlap = !((hi1 < lo2) | (hi2 < lo1));
-    return overlap & !reject_q & !reject_m & !i1.coplanar & !i2.coplanar;
+    return overlap & !i1.coplanar & !i2.coplanar;
+  }
+
+  __device__ static bool hit(const float* q, const float* m, float /*t_lo*/,
+                             float /*t_hi*/) {
+    const MollerSides s = sides(q, m);
+    return intervals(q, m, s) & !s.reject;
   }
 };
 

@@ -24,8 +24,15 @@ Two kernels over two pair tests (``csrc/tri_tri_cost.cuh``, here
   minimum, so the index is the same whatever order the blocks run in.
 - ``self_intersect_counts`` (``csrc/self_intersect.cu``): per face of a
   query range, the number of other faces sharing no vertex index with it
-  that it meets; every pair is tested, the partial counts of the face
-  ranges summed with integer atomics.
+  that it meets, the partial counts of the face ranges summed with integer
+  atomics.  The faces are staged in tiles of ``SELF_TILE``; in the Moller
+  tile a query skips a tile whose corner box lies beyond a margin on one
+  side of its plane (``moller_tile_needs``), which the pair test would
+  reject pair by pair, and a pair on one side of either plane skips the
+  interval part.  ``self_intersection_counts_kernel`` sorts the faces by
+  the Morton code of their centroid first, so tiles are compact patches.
+  The plain version of this design is ``self_intersect_culled_plain``;
+  ``self_intersect_counts_plain`` tests every pair.
 
 The wrappers take the kernel's path for CUDA tensors and the plain version
 for CPU tensors; any other device raises.  ``LAUNCHES`` counts each
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from ..geometry.cross_product import cross3
+from .culled_kernel import WARP, _morton_codes, _pad_rows_edge, _warp_any
 from .ray import _EPS
 from .ray_kernel import mt_line_hit, ray_planes
 
@@ -56,6 +64,17 @@ T_HI = 1.0 + _EPS
 LAUNCHES = {"tri_tri_any_hit": 0, "self_intersect": 0}
 #: the same launches, per tile
 TILE_LAUNCHES = {"%s[%s]" % (k, a): 0 for k in LAUNCHES for a in ALGORITHMS}
+
+#: faces per staged tile of the self_intersect kernel
+#: (csrc/self_intersect.cu kSelfTile)
+SELF_TILE = 128
+
+#: the Moller tile cull's margin M = MARGIN_FLOOR + MARGIN_REL * X, with
+#: X = |n|_1 P + |d|, taken only where X < MARGIN_CAP; powers of two, so
+#: float32 holds them exactly (derivation: csrc/self_intersect.cu)
+MARGIN_FLOOR = 2.0 ** -28
+MARGIN_REL = 2.0 ** -20
+MARGIN_CAP = 2.0 ** 100
 
 #: query-face pairs one plain-version chunk evaluates at once, per device
 #: type: each of the Moller tile's live temporaries is this many values
@@ -142,10 +161,12 @@ def _moller_intervals(vp0, vp1, vp2, dv0, dv1, dv2, dv0dv1, dv0dv2):
             coplanar)
 
 
-def moller_hit(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps=_EPS):
-    """Moller's interval test on broadcastable (x, y, z) corner triples,
-    unit normals and plane offsets of the query (q*, n1, d1) and mesh (m*,
-    n2, d2) triangles (reference _moller_hit)."""
+def moller_sides(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps=_EPS):
+    """The plane sides of Moller's test: ((dv0, dv1, dv2, dv0dv1, dv0dv2),
+    (du0, du1, du2, du0du1, du0du2), reject), the query's corners against
+    the mesh face's plane and the other way round; ``reject`` where either
+    triangle lies strictly on one side of the other's plane, a pair the
+    test cannot count."""
     dv0 = _plane_dist(n2, d2, q0, eps)
     dv1 = _plane_dist(n2, d2, q1, eps)
     dv2 = _plane_dist(n2, d2, q2, eps)
@@ -159,6 +180,16 @@ def moller_hit(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps=_EPS):
     du0du1 = du0 * du1
     du0du2 = du0 * du2
     reject_m = (du0du1 > 0) & (du0du2 > 0)
+    return ((dv0, dv1, dv2, dv0dv1, dv0dv2), (du0, du1, du2, du0du1, du0du2),
+            reject_q | reject_m)
+
+
+def moller_hit(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps=_EPS):
+    """Moller's interval test on broadcastable (x, y, z) corner triples,
+    unit normals and plane offsets of the query (q*, n1, d1) and mesh (m*,
+    n2, d2) triangles (reference _moller_hit)."""
+    (dv0, dv1, dv2, dv0dv1, dv0dv2), (du0, du1, du2, du0du1, du0du2), \
+        reject = moller_sides(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps)
 
     # the intersection line's direction and its dominant axis
     dx = n1[1] * n2[2] - n1[2] * n2[1]
@@ -190,7 +221,7 @@ def moller_hit(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps=_EPS):
     lo2 = torch.minimum(i2a, i2b)
     hi2 = torch.maximum(i2a, i2b)
     overlap = ~((hi1 < lo2) | (hi2 < lo1))
-    return overlap & ~reject_q & ~reject_m & ~cop1 & ~cop2
+    return overlap & ~cop1 & ~cop2 & ~reject
 
 
 def moller_hit_tile(q, m, t_lo=None, t_hi=None):
@@ -390,39 +421,157 @@ def _check_ids(ids, fplanes):
                             tuple(ids.shape), ids.device))
 
 
+def _excluded(ids, q0, q1, dev):
+    """[q1 - q0, F] bool: the pairs the count leaves out, the query face
+    itself and the faces sharing a vertex index with it."""
+    qi = ids[q0:q1]
+    mi = ids.t()
+    shares = None
+    for r in range(3):
+        for c in range(3):
+            eq = qi[:, r:r + 1] == mi[c:c + 1, :]
+            shares = eq if shares is None else shares | eq
+    row_id = torch.arange(q0, q1, device=dev)[:, None]
+    return shares | (row_id == torch.arange(ids.shape[0], device=dev)[None])
+
+
 def self_intersect_counts_plain(qplanes, fplanes, ids, algorithm, q0=0,
                                 q1=None):
-    """Plain PyTorch version of the ``self_intersect`` kernel: for the
-    query faces q0 .. q1 - 1 (all by default), the number of faces j != i
-    sharing no vertex index with face i that it meets, [q1 - q0] int32.
-    ``qplanes`` and ``fplanes`` [K, F] are ``algorithm``'s operands over
-    the mesh's own faces, ``ids`` [F, 3] int32 its faces."""
+    """The every-pair count: for the query faces q0 .. q1 - 1 (all by
+    default), the number of faces j != i sharing no vertex index with face
+    i that it meets, [q1 - q0] int32, testing every pair (the reference's
+    design).  ``qplanes`` and ``fplanes`` [K, F] are ``algorithm``'s
+    operands over the mesh's own faces, ``ids`` [F, 3] int32 its faces."""
     tile = _TILES[algorithm]
     n_f = fplanes.shape[-1]
     q1 = _query_range(n_f, q0, q1)
     dev = qplanes.device
     out = torch.zeros(q1 - q0, dtype=torch.int32, device=dev)
     rows = _rows(fplanes)
-    mi = ids.t()
-    col_id = torch.arange(n_f, device=dev)[None, :]
     for a, b in _chunks(q1 - q0, n_f, dev):
         hit = tile(_cols(qplanes, q0 + a, q0 + b), rows)
-        qi = ids[q0 + a:q0 + b]
-        shares = None
-        for r in range(3):
-            for c in range(3):
-                eq = qi[:, r:r + 1] == mi[c:c + 1, :]
-                shares = eq if shares is None else shares | eq
-        row_id = torch.arange(q0 + a, q0 + b, device=dev)[:, None]
-        counted = hit & ~shares & (row_id != col_id)
+        counted = hit & ~_excluded(ids, q0 + a, q0 + b, dev)
         out[a:b] = counted.sum(dim=-1, dtype=torch.int32)
     return out
 
 
-def self_intersect_counts(qplanes, fplanes, ids, algorithm, q0=0, q1=None):
+def moller_tile_boxes(fplanes):
+    """The Moller cull's tile boxes [ceil(F / SELF_TILE), 8] float32 of the
+    face operand [13, F]: per tile of SELF_TILE faces (the last one padded
+    with its last face) the least and the largest corner coordinates, the
+    largest corner magnitude P and a pad.  ``amin`` / ``amax`` propagate
+    NaN, so a tile holding a NaN corner gets a NaN box, which no query
+    skips."""
+    corners = _pad_rows_edge(fplanes[0:9].t().reshape(-1, 3, 3), SELF_TILE)
+    tiles = corners.reshape(-1, SELF_TILE * 3, 3)
+    lo, hi = tiles.amin(dim=1), tiles.amax(dim=1)
+    p = torch.maximum(lo.abs(), hi.abs()).amax(dim=1, keepdim=True)
+    return torch.cat([lo, hi, p, torch.zeros_like(p)], dim=1).contiguous()
+
+
+def moller_tile_needs(qplanes, boxes, q0, q1):
+    """[q1 - q0, T] bool: whether each query face's plane (n, d) passes
+    within the margin of each tile box, the negation of the cull's skip
+    (csrc/self_intersect.cu plane_needs_box, the same float32 operations).
+    A tile is skipped where its box's corner nearest the plane's positive
+    side is above M, or its farthest corner below -M, with
+    M = MARGIN_FLOOR + MARGIN_REL * (|n|_1 P + |d|)."""
+    n = [qplanes[9 + a, q0:q1, None] for a in range(3)]
+    d = qplanes[12, q0:q1, None]
+    lo = [boxes[None, :, a] for a in range(3)]
+    hi = [boxes[None, :, 3 + a] for a in range(3)]
+    pos = [x >= 0 for x in n]
+    near = [torch.where(pos[a], lo[a], hi[a]) for a in range(3)]
+    far = [torch.where(pos[a], hi[a], lo[a]) for a in range(3)]
+    s_min = n[0] * near[0] + n[1] * near[1] + n[2] * near[2] + d
+    s_max = n[0] * far[0] + n[1] * far[1] + n[2] * far[2] + d
+    x = (n[0].abs() + n[1].abs() + n[2].abs()) * boxes[None, :, 6] + d.abs()
+    margin = MARGIN_FLOOR + MARGIN_REL * x
+    skip = (x < MARGIN_CAP) & ((s_min > margin) | (s_max < -margin))
+    return ~skip
+
+
+def self_intersect_culled_plain(qplanes, fplanes, ids, algorithm, q0=0,
+                                q1=None):
+    """Plain PyTorch version of the ``self_intersect`` kernel's design:
+    (counts [Q] int32, tiles [ceil(Q / WARP)] int32, work [Q, 3] int32)
+    for the query faces q0 .. q1 - 1 (Q of them, all by default).
+
+    A query face counts the pairs of the tiles its own cull keeps (the
+    Moller tile: ``moller_tile_needs``; the segment tile: every tile);
+    ``tiles`` is the face tiles each warp of WARP query faces (from q0)
+    tested, those some lane of it kept; ``work`` per query face the pairs
+    of the tiles it kept (each through the vertex-id test), those of them
+    not left out (each through the Moller plane sides or the whole segment
+    test), and those that reached the Moller interval part, on neither
+    side of the other's plane (the segment tile: 0).  The counts equal
+    ``self_intersect_counts_plain``'s, since a skipped pair is one the
+    test rejects."""
+    tile = _TILES[algorithm]
+    n_f = fplanes.shape[-1]
+    q1 = _query_range(n_f, q0, q1)
+    dev = qplanes.device
+    n_q, n_t = q1 - q0, -(-n_f // SELF_TILE)
+    counts = torch.zeros(n_q, dtype=torch.int32, device=dev)
+    work = torch.zeros((n_q, 3), dtype=torch.int32, device=dev)
+    tiles = torch.zeros(-(-n_q // WARP), dtype=torch.int32, device=dev)
+    rows = _rows(fplanes)
+    moller = algorithm == "moller"
+    boxes = moller_tile_boxes(fplanes) if moller else None
+    tile_faces = torch.clamp(
+        n_f - SELF_TILE * torch.arange(n_t, device=dev), max=SELF_TILE)
+    step = max(WARP, _PLAIN_PAIRS[dev.type] // max(1, n_f) // WARP * WARP)
+    for a in range(0, n_q, step):
+        b = min(n_q, a + step)
+        if moller:
+            need = moller_tile_needs(qplanes, boxes, q0 + a, q0 + b)
+        else:
+            need = torch.ones((b - a, n_t), dtype=torch.bool, device=dev)
+        tiles[a // WARP:-(-b // WARP)] = _warp_any(need, 0).sum(
+            dim=-1, dtype=torch.int32)
+        kept = (need.repeat_interleave(SELF_TILE, dim=1)[:, :n_f]
+                & ~_excluded(ids, q0 + a, q0 + b, dev))
+        q = _cols(qplanes, q0 + a, q0 + b)
+        hit = tile(q, rows)
+        counts[a:b] = (hit & kept).sum(dim=-1, dtype=torch.int32)
+        work[a:b, 0] = (need * tile_faces).sum(dim=-1, dtype=torch.int32)
+        work[a:b, 1] = kept.sum(dim=-1, dtype=torch.int32)
+        if moller:
+            work[a:b, 2] = (kept & ~moller_sides(
+                q[0:3], q[3:6], q[6:9], q[9:12], q[12], rows[0:3],
+                rows[3:6], rows[6:9], rows[9:12], rows[12])[2]).sum(
+                    dim=-1, dtype=torch.int32)
+    return counts, tiles, work
+
+
+def self_face_records(fplanes, ids):
+    """The kernel's face operand [F, W] float32: each face's rows of
+    ``fplanes`` [K, F] then the bits of its three vertex ids, zero-padded
+    to W = a multiple of 4 words (built as int32, so the ids' bits are
+    copied, never rounded)."""
+    k, n_f = fplanes.shape
+    rec = torch.zeros((n_f, (k + 3 + 3) // 4 * 4), dtype=torch.int32,
+                      device=fplanes.device)
+    rec[:, :k] = fplanes.t().view(torch.int32)
+    rec[:, k:k + 3] = ids
+    return rec.view(torch.float32)
+
+
+def self_kernel_operands(fplanes, ids, algorithm):
+    """The kernel's face records (``self_face_records``) and its tile
+    boxes (``moller_tile_boxes``; the segment tile: None)."""
+    return (self_face_records(fplanes, ids),
+            moller_tile_boxes(fplanes) if algorithm == "moller" else None)
+
+
+def self_intersect_counts(qplanes, fplanes, ids, algorithm, q0=0, q1=None,
+                          with_stats=False):
     """Per-face counts of intersecting faces that share no vertex, for the
     query faces q0 .. q1 - 1: the ``self_intersect`` CUDA kernel for CUDA
-    tensors, its plain version for CPU tensors."""
+    tensors, its plain version (``self_intersect_culled_plain``) for CPU
+    tensors.  The operands may come in any face order.  ``with_stats``
+    returns (counts, tiles per warp, work per query face) as
+    ``self_intersect_culled_plain`` does."""
     _check_planes(qplanes, fplanes, algorithm, "self_intersect")
     if qplanes.shape[-1] != fplanes.shape[-1]:
         raise ValueError("self_intersect: query and face operands cover "
@@ -431,20 +580,26 @@ def self_intersect_counts(qplanes, fplanes, ids, algorithm, q0=0, q1=None):
     _check_ids(ids, fplanes)
     n_f = fplanes.shape[-1]
     q1 = _query_range(n_f, q0, q1)
-    if qplanes.device.type == "cpu":
-        return self_intersect_counts_plain(qplanes, fplanes, ids, algorithm,
-                                           q0, q1)
-    if q1 == q0:
-        return torch.zeros(0, dtype=torch.int32, device=qplanes.device)
-    from .. import _build
+    dev = qplanes.device
+    if dev.type == "cpu":
+        out = self_intersect_culled_plain(qplanes, fplanes, ids, algorithm,
+                                          q0, q1)
+        return out if with_stats else out[0]
+    n_q = q1 - q0
+    counts = torch.zeros(n_q, dtype=torch.int32, device=dev)
+    stats = ((torch.zeros(-(-n_q // WARP), dtype=torch.int32, device=dev),
+              torch.zeros((n_q, 3), dtype=torch.int32, device=dev))
+             if with_stats else (None, None))
+    if n_q:
+        from .. import _build
 
-    counts = torch.zeros(q1 - q0, dtype=torch.int32, device=qplanes.device)
-    _build.launch("self_intersect", qplanes.device, qplanes, fplanes, ids,
-                  counts, n_f, q0, q1 - q0, ALGORITHMS.index(algorithm),
-                  T_LO, T_HI)
-    LAUNCHES["self_intersect"] += 1
-    TILE_LAUNCHES["self_intersect[%s]" % algorithm] += 1
-    return counts
+        _build.launch("self_intersect", dev, qplanes,
+                      *self_kernel_operands(fplanes, ids, algorithm), counts,
+                      *stats, n_f, q0, n_q, ALGORITHMS.index(algorithm),
+                      T_LO, T_HI)
+        LAUNCHES["self_intersect"] += 1
+        TILE_LAUNCHES["self_intersect[%s]" % algorithm] += 1
+    return (counts,) + stats if with_stats else counts
 
 
 # ---------------------------------------------------------------------------
@@ -459,10 +614,31 @@ def tri_tri_any_hit_kernel(q_tri, tri, algorithm="segment"):
     return tri_tri_any_hit(qp, fp, algorithm)
 
 
+def morton_face_order(tri):
+    """The order of triangles ``tri`` [F, 3, 3] (F > 0) by the Morton code
+    of their centroids (stable): the self_intersect kernel's face order."""
+    return torch.argsort(_morton_codes(tri.mean(dim=1)), stable=True)
+
+
+def self_sorted_operands(tri, f, order, algorithm):
+    """``algorithm``'s operands (query and face planes) and the vertex ids
+    [F, 3] int32 of the triangles ``tri`` [F, 3, 3] of faces ``f``, in
+    ``order``."""
+    qp, fp = self_planes(tri[order], algorithm)
+    return qp, fp, f.to(torch.int32)[order].contiguous()
+
+
 def self_intersection_counts_kernel(v, f, algorithm="segment"):
     """Per face of the mesh (``v`` [V, 3], ``f`` [F, 3]), the number of
-    faces sharing no vertex with it that it meets, [F] int32."""
+    faces sharing no vertex with it that it meets, [F] int32.  The faces go
+    to the kernel in the Morton order of their centroids, and the counts
+    come back in the mesh's order."""
     tri = v.to(torch.float32)[f.long()]
-    qp, fp = self_planes(tri, algorithm)
-    return self_intersect_counts(qp, fp, f.to(torch.int32).contiguous(),
-                                 algorithm)
+    if not tri.shape[0]:
+        return torch.zeros(0, dtype=torch.int32, device=tri.device)
+    order = morton_face_order(tri)
+    sorted_counts = self_intersect_counts(
+        *self_sorted_operands(tri, f, order, algorithm), algorithm)
+    counts = torch.empty_like(sorted_counts)
+    counts[order] = sorted_counts
+    return counts

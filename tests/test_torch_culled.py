@@ -158,10 +158,17 @@ def test_culled_skips_tiles_and_stays_exact():
     q = surface_queries(v, f, 1024, seed=4)
     vt, ft, qt = _t(v, f, q)
     ops = qk.culled_operands(vt[None], ft, qt[None], "fast", **TILES)
-    best, visits = qk.argmin_culled(ops, "fast", False)
+    best, visits, chunks, _ = qk.argmin_culled(ops, "fast", False,
+                                               with_stats=True)
     n_tiles = ops["fsph"].shape[1]
     assert visits.shape == (1, ops["qsph"].shape[1])
     assert 0 < int(visits.max()) and int(visits.sum()) < visits.numel() * n_tiles
+    # each warp tests at most its tile's visits x chunks per tile, and some
+    # fewer
+    per_tile = TILES["tile_f"] // qk.chunk_faces(TILES["tile_f"])
+    assert chunks.shape == visits.shape + (TILES["tile_q"] // 32,)
+    assert bool((chunks <= visits[..., None] * per_tile).all())
+    assert int(chunks.sum()) < int(visits.sum()) * per_tile * chunks.shape[-1]
     res = _np(qk.culled_epilogue(ops, best))
     res = {k: x[0] for k, x in res.items()}
     brute = _np(ck.closest_point_kernel(vt, ft, qt, assume_nondegenerate=True))
