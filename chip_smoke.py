@@ -18,8 +18,8 @@ Phases (any failure raises and exits non-zero; none catches its own):
    and faces each query folded against its plain version, faces and face
    tiles against every face of each tested tile, with the fractions of
    tiles, chunks and pairs tested), both rope_faces entries on the scan of
-   phase
-   6, and both rope_mxu_faces entries, f32 and bf16, on that scan and on
+   phase 6 (the resident one at every sub-lane count of ``rk.LANES`` and at
+   the one it picks, each timed), and both rope_mxu_faces entries, f32 and bf16, on that scan and on
    8,192 mixed-radius queries around its sphere (where the bf16 screen must
    skip visits), each over all its query tiles;
    ray_any_hit on every ray of phase 7 (64 bodies x 4 cameras x 6890
@@ -139,7 +139,8 @@ streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
 brute-force kernel: the crossover evidence; then each drive's stages (the
 large batch's culled prologue in its parts, each anim session's resident
-rope kernel alone).
+rope kernel alone, held to its plain version at every sub-lane count
+as on the scan).
 
 Phases 3-13 and 3b are the driven paths (phases 6 and 13 twice).  Kernel
 launch counts are set to 0 just before each and read just after it, and
@@ -223,6 +224,9 @@ VARIANTS = [("fast", False), ("fast", True), ("safe", False), ("safe", True)]
 
 #: operations per pair of the rope kernels: the fast tile with its tail
 ROPE_PAIR_OPS = FACE_PAIR_OPS[("fast", True)]
+#: phase 2: a resident rope leaf size that is no multiple of 4, which the
+#: kernel stages 4 bytes at a time
+RESIDENT_ODD_TILE_F = 30
 
 #: operations per pair counted in csrc/ray_cost.cuh and the kernels over
 #: it: any-hit (line_hit, the t_lo test, the exit test), along-normal
@@ -799,35 +803,78 @@ def culled_prologue_parts(qk, v, f, points, variant):
     return parts
 
 
-def compare_rope(rk, ops, n_buffers):
+def compare_rope(rk, ops, n_buffers, label="scan", reps=REPS):
     """Kernel vs plain for one rope_faces entry on one operand set:
-    identical distances, faces and leaf counts over every query tile."""
+    identical distances, faces and leaf counts over every query tile.  The
+    resident entry is held at every sub-lane count of ``rk.LANES`` and at
+    the one ``rope_argmin`` picks (``rk.resident_lanes``),
+    each timed; ``ms`` is the picked one's."""
     name = "rope_faces_stream" if n_buffers else "rope_faces_resident"
-    kd, ki, kl = rk.rope_argmin(ops, n_buffers)
     (pd, pi, pl), plain_ms = timed(lambda: rk.rope_argmin_plain(ops,
                                                                 n_buffers))
-    check(torch.equal(ki, pi) and torch.equal(kl, pl) and torch.equal(kd, pd),
-          "%s: %d of %d faces (and %d leaf counts) differ from the plain "
-          "version" % (name, int((ki != pi).sum()), ki.numel(),
-                       int((kl != pl).sum())))
-    leaves = int(kl.sum())
     tile_q, tile_f = ops["tile_q"], ops["tile_f"]
+    n_tiles = ops["seed"].shape[0] // tile_q
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = None if n_buffers else rk.resident_lanes(tile_q, tile_f)
+    ms_by_lanes = {}
+    fit = [s for s in rk.LANES
+           if tile_f % s == 0 and tile_q * s <= rk.MAX_LANE_THREADS]
+    for lanes in ([None] if n_buffers else fit + [None]):
+        kd, ki, kl = rk.rope_argmin(ops, n_buffers, lanes=lanes)
+        check(torch.equal(ki, pi) and torch.equal(kl, pl)
+              and torch.equal(kd, pd),
+              "%s on %s (lanes %s): %d of %d faces (and %d leaf counts) "
+              "differ from the plain version" % (
+                  name, label, lanes, int((ki != pi).sum()), ki.numel(),
+                  int((kl != pl).sum())))
+        if lanes is not None:
+            ms_by_lanes[lanes] = cuda_ms(
+                lambda: rk.rope_argmin(ops, n_buffers, lanes=lanes),
+                reps=reps)
+    leaves = int(kl.sum())
     n_leaves = ops["rows"].shape[-1] // tile_f
-    out = {"shape": [ops["seed"].shape[0], ops["rows"].shape[-1]],
+    out = {"operands": label,
+           "shape": [ops["seed"].shape[0], ops["rows"].shape[-1]],
            "n_buffers": n_buffers, "faces_identical": True,
            "max_abs_err": float((kd - pd).abs().max()),
            "leaves_tested": leaves, "leaves": kl.numel() * n_leaves,
            "plain_ms": plain_ms,
-           "ms": cuda_ms(lambda: rk.rope_argmin(ops, n_buffers), reps=REPS)}
+           "ms": (ms_by_lanes[chosen] if chosen else cuda_ms(
+               lambda: rk.rope_argmin(ops, n_buffers), reps=reps))}
     n_bytes = 4 * (sum(ops[key].numel() for key in (
         "pts_s", "seed", "boxes", "topo", "rows")) + 2 * kd.numel()
         + kl.numel())
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        leaves * tile_q * tile_f, ROPE_PAIR_OPS, n_bytes)
-    log("  %s %s: faces, distances and leaf counts identical, %d of %d "
-        "leaves tested, %.3f ms (plain %.1f ms, bound %.3f ms)" % (
-            name, out["shape"], leaves, out["leaves"], out["ms"], plain_ms,
-            out["bound_ms"]))
+    pairs = leaves * tile_q * tile_f
+    out["bound_ms"], out["bound_by"] = bound_ms(pairs, ROPE_PAIR_OPS, n_bytes)
+    if chosen:
+        # a block per query tile: a grid of fewer tiles than SMs can use
+        # only that many SMs' share of the card's float32 rate, and no
+        # launch ends before its heaviest tile, folded on one SM
+        sm_ops = PEAK_FP32_OPS / n_sms
+        out["lanes"], out["ms_by_lanes"] = chosen, ms_by_lanes
+        out["grid_sms"] = min(n_tiles, n_sms)
+        out["bound_grid_sms_ms"] = max(
+            out["bound_ms"], pairs * ROPE_PAIR_OPS / PEAK_FP32_OPS * 1e3
+            * n_sms / out["grid_sms"])
+        out["leaves_per_tile_max"] = int(kl.max())
+        out["leaves_per_tile_mean"] = leaves / n_tiles
+        out["bound_heaviest_tile_ms"] = (
+            out["leaves_per_tile_max"] * tile_q * tile_f * ROPE_PAIR_OPS
+            / sm_ops * 1e3)
+    log("  %s on %s %s: faces, distances and leaf counts identical to the "
+        "plain version%s, %d of %d leaves tested, %.3f ms (plain %.1f ms, "
+        "bound %.4f ms%s)" % (
+            name, label, out["shape"],
+            " at lanes %s" % fit if chosen else "", leaves,
+            out["leaves"], out["ms"], plain_ms, out["bound_ms"],
+            "; lanes %d picked; by lanes %s; bound over the grid's %d SMs "
+            "%.4f ms; leaves per tile mean %.1f, max %d, the heaviest "
+            "tile's bound on one SM %.4f ms" % (
+                chosen, ", ".join("%d: %.3f" % kv
+                                  for kv in ms_by_lanes.items()),
+                out["grid_sms"], out["bound_grid_sms_ms"],
+                out["leaves_per_tile_mean"], out["leaves_per_tile_max"],
+                out["bound_heaviest_tile_ms"]) if chosen else ""))
     return out, (kd, ki, kl)
 
 
@@ -1736,22 +1783,12 @@ def check_anim(label, model, leaf, rest, f_np, run, cold, dev):
     return summary
 
 
-def anim_stages(model, leaf, seed, dev):
-    """CUDA-event stages of one refit frame of phase 11's stream (frame
-    ANIM_STRETCH_FRAME // 2), each a separate run: lbs, the corner gather,
-    the leaf-box kernel alone, the host part of the refit (leaf boxes to
-    the host, levels, preorder scatter, box measure, node boxes back to
-    the card), the whole refit, the traversal over the refit index, and
-    the resident rope kernel alone on the operands that traversal builds
-    (with the leaves it tests and its bound); and the host ``build_bvh`` a
-    cold frame pays (host clock, median of 3).  ms."""
-    from mesh_tpu_torch.accel import refit_kernel as fk
-    from mesh_tpu_torch.accel import rope_kernel as rk
-    from mesh_tpu_torch.accel.traverse import RESIDENT_TILE_F
-    from mesh_tpu_torch.accel.build import build_bvh, get_index
-    from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
-    from mesh_tpu_torch.anim import refit as anim_refit
-    from mesh_tpu_torch.models import lbs
+def anim_frame(model, leaf, seed, dev):
+    """Phase 11's refit frame ANIM_STRETCH_FRAME // 2 of one body model's
+    stream: (frame index, posed vertices, queries, the rest keyframe
+    (numpy), its index at ``leaf``, faces numpy, betas, pose
+    trajectory)."""
+    from mesh_tpu_torch.accel.build import get_index
 
     rest, frames, (betas, pose) = anim_stream(model, dev, seed)
     f_np = model.faces.cpu().numpy()
@@ -1760,6 +1797,40 @@ def anim_stages(model, leaf, seed, dev):
         if i == k:
             break
     base = get_index(rest, f_np, kind="bvh", leaf_size=leaf)
+    return k, v, q, rest, base, f_np, betas, pose
+
+
+def anim_rope_operands(v, faces, q, refit, dev):
+    """The resident rope walk's operands on one frame (posed vertices
+    ``v``, ``faces`` as the session holds them, queries ``q``), as the
+    traversal builds them over the frame's refit index ``refit``."""
+    from mesh_tpu_torch.accel import rope_kernel as rk
+    from mesh_tpu_torch.accel.traverse import RESIDENT_TILE_F
+
+    return rk.rope_operands(v, faces, q, tile_f=RESIDENT_TILE_F, index=refit,
+                            rebuild_mismatched=True, device=dev)
+
+
+def anim_stages(model, leaf, seed, dev, label):
+    """CUDA-event stages of one refit frame of phase 11's stream (frame
+    ANIM_STRETCH_FRAME // 2), each a separate run: lbs, the corner gather,
+    the leaf-box kernel alone, the host part of the refit (leaf boxes to
+    the host, levels, preorder scatter, box measure, node boxes back to
+    the card), the whole refit, the traversal over the refit index, and
+    the resident rope kernel alone on the operands that traversal builds,
+    held to its plain version at every sub-lane count (``compare_rope``,
+    with the leaves it tests and its bounds); and the host ``build_bvh`` a
+    cold frame pays (host clock, median of 3).  Returns (stages in ms,
+    compare_rope's run)."""
+    from mesh_tpu_torch.accel import refit_kernel as fk
+    from mesh_tpu_torch.accel import rope_kernel as rk
+    from mesh_tpu_torch.accel.build import build_bvh
+    from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
+    from mesh_tpu_torch.anim import refit as anim_refit
+    from mesh_tpu_torch.models import lbs
+
+    k, v, q, _, base, f_np, betas, pose = anim_frame(model, leaf, seed,
+                                                     dev)
     n_leaves = int(base.meta["n_leaves"])
     tri_s = refit_tri_s(v, f_np, base, dev)
     lo, hi = fk.leaf_boxes_kernel(tri_s, n_leaves, leaf)
@@ -1790,18 +1861,11 @@ def anim_stages(model, leaf, seed, dev):
             base, v, f_dev, device=dev), 5),
         "traversal": cuda_ms(lambda: closest_faces_and_points_accel(
             v, f_dev, q, index=refit, device=dev), 5)}
-    ops_r = rk.rope_operands(v, f_dev, q, tile_f=RESIDENT_TILE_F,
-                             index=refit, rebuild_mismatched=True,
-                             device=dev)
-    kd, _, kl = rk.rope_argmin(ops_r, None)
-    stages["rope_kernel"] = cuda_ms(lambda: rk.rope_argmin(ops_r, None), 5)
-    stages["rope_leaves_tested"] = int(kl.sum())
-    n_bytes = 4 * (sum(ops_r[key].numel() for key in (
-        "pts_s", "seed", "boxes", "topo", "rows")) + 2 * kd.numel()
-        + kl.numel())
-    stages["rope_bound"], _ = bound_ms(
-        int(kl.sum()) * ops_r["tile_q"] * ops_r["tile_f"], ROPE_PAIR_OPS,
-        n_bytes)
+    ops_r = anim_rope_operands(v, f_dev, q, refit, dev)
+    run, _ = compare_rope(rk, ops_r, None, label="anim " + label, reps=5)
+    stages["rope_kernel"] = run["ms"]
+    stages["rope_leaves_tested"] = run["leaves_tested"]
+    stages["rope_bound"] = run["bound_ms"]
     builds = []
     v_np = v.cpu().numpy()
     for _ in range(3):
@@ -1809,7 +1873,7 @@ def anim_stages(model, leaf, seed, dev):
         build_bvh(v_np, f_np, leaf_size=leaf)
         builds.append((time.perf_counter() - t0) * 1e3)
     stages["host_build_bvh"] = statistics.median(builds)
-    return stages
+    return stages, run
 
 
 def surface_patches(n_q, rng):
@@ -2379,6 +2443,11 @@ def main():
           "bit-identical to the resident one, or tests fewer leaves")
     log("  rope_faces: streamed and resident entries bit-identical; %d vs "
         "%d leaves tested" % (int(sl.sum()), int(rl.sum())))
+    # the resident entry's scalar staging: a leaf size that is no multiple
+    # of 4 (body 0, phase 4's queries)
+    compare_rope(rk, rk.rope_operands(posed[0], f_np, q1_np, tile_q=64,
+                                      tile_f=RESIDENT_ODD_TILE_F, device=dev),
+                 None, label="body 0, leaf %d" % RESIDENT_ODD_TILE_F, reps=1)
     # both rope_mxu_faces entries, f32 and bf16, on phase 6's scan (timed)
     # and on a mixed-radius set on its sphere, where the screen must skip
     # visits
@@ -3211,8 +3280,10 @@ def main():
         "ray_any_hit_kernel": any_hit_run["ms"]}
     log("visibility stage breakdown (ms, separate runs): " + ", ".join(
         "%s %.3f" % kv for kv in stages_v.items()))
+    rope_anim = {}
     for label, (m_, seed) in anim_models.items():
-        anim[label]["stages_ms"] = anim_stages(m_, ANIM_LEAF, seed, dev)
+        anim[label]["stages_ms"], rope_anim[label] = anim_stages(
+            m_, ANIM_LEAF, seed, dev, label)
         log("anim %s stage breakdown of a refit frame (ms, separate "
             "CUDA-event runs; host_build_bvh on the host clock): %s" % (
                 label, ", ".join("%s %.4f" % kv for kv in
@@ -3282,6 +3353,7 @@ def main():
              "ms": run["ms"], "plain_ms": run["plain_ms"],
              "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
              "library_ms": None, "detail": run})
+    kernels[-1].update(lanes=rope_resident["lanes"], anim=rope_anim)
     main_nw = nw_runs[0 if nondegen_r else 1]
     for name, run, path, source, replaces in (
             ("ray_any_hit", any_hit_run, "visibility", "ray_any_hit.cu",

@@ -38,7 +38,7 @@ KERNELS = {
     "culled_faces": ("culled_faces.cu", "mt_culled_faces",
                      [_PTR] * 10 + [_INT] * 9),
     "rope_faces": ("rope_faces.cu", "mt_rope_faces",
-                   [_PTR] * 8 + [_INT] * 6),
+                   [_PTR] * 8 + [_INT] * 7),
     "rope_mxu_faces": ("rope_mxu_faces.cu", "mt_rope_mxu_faces",
                        [_PTR] * 10 + [_INT] * 7),
     "ray_any_hit": ("ray_any_hit.cu", "mt_ray_any_hit",

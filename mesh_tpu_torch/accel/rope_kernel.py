@@ -33,6 +33,14 @@ screen skips only visits that cannot change a face, so its answers are the
 f32 walk's bit for bit, and it counts leaves taken ("screened") and full
 visits ("repaired") per query tile.
 
+The resident ``rope_faces`` entry splits each query's leaf visit over
+``lanes`` threads (S in ``LANES``): each folds a contiguous run of
+``tile_f / S`` faces to a (minimum, lowest position) pair, the S pairs
+merge by (distance, position), and one strict ``<`` applies the result,
+which gives the faces, distances and leaf counts of the whole-leaf fold
+bit for bit.  ``rope_lanes_plain`` is that design in plain PyTorch;
+``resident_lanes`` picks S from the tile shape.
+
 ``rope_argmin`` / ``rope_mxu_argmin`` launch the kernel for CUDA operands
 and take their plain versions (``rope_argmin_plain`` /
 ``rope_mxu_argmin_plain``, which replay the streamed ring's refill exactly)
@@ -76,6 +84,19 @@ MAX_BUFFERS = 16
 #: shared memory the CUDA walks may stage leaves in (csrc/rope_walk.cuh):
 #: the MXU walk's ring of n_buffers x 96 * tile_f bytes must fit it
 MAX_RING_BYTES = 226 * 1024
+
+#: sub-lanes per query the resident rope_faces entry takes, and the threads
+#: (tile_q x lanes) its block may have (csrc/rope_walk.cuh rope_lanes_kernel)
+LANES = (1, 2, 4, 8)
+MAX_LANE_THREADS = 1024
+
+#: the most sub-lanes ``resident_lanes`` picks: S = 4 was the fastest on
+#: every grid measured on the H100, from 32 query tiles to 1088 (PERF.md
+#: section 6); S = 8 adds merge work and ran slower
+PICKED_LANES_MAX = 4
+
+#: a sub-lane's face position when its run beat nothing (kNoFace)
+_NO_FACE = 2 ** 31 - 1
 
 
 def _coarse_index(v, f, tile_f, index, rebuild_mismatched):
@@ -195,10 +216,33 @@ def _check_rope(ops, n_buffers, mxu=False):
         raise ValueError("%s: no kernel for device %s" % (name, dev))
 
 
-def _walk_plain(ops, n_buffers, leaf_cost, screen=None):
+def _leaf_min(cost, lanes):
+    """(minimum, position) of each query's leaf costs [n, TQ, TF]: the
+    first argmin for ``lanes=None``; else the sub-lane fold, ``lanes``
+    contiguous runs each reduced to (minimum, lowest position, or
+    ``_NO_FACE`` where the run holds only +inf), merged by (distance,
+    position)."""
+    if lanes is None:
+        arg = torch.argmin(cost, dim=-1)
+        return torch.gather(cost, -1, arg[..., None])[..., 0], arg
+    runs = cost.unflatten(-1, (lanes, -1))                # [n, TQ, S, R]
+    r_arg = torch.argmin(runs, dim=-1)
+    r_min = torch.gather(runs, -1, r_arg[..., None])[..., 0]
+    first = torch.arange(lanes, device=cost.device) * runs.shape[-1]
+    r_pos = torch.where(r_min < float("inf"), r_arg + first, _NO_FACE)
+    md, mi = r_min[..., 0], r_pos[..., 0]
+    for s in range(1, lanes):
+        d, i = r_min[..., s], r_pos[..., s]
+        take = (d < md) | ((d == md) & (i < mi))
+        md, mi = torch.where(take, d, md), torch.where(take, i, mi)
+    return md, mi
+
+
+def _walk_plain(ops, n_buffers, leaf_cost, screen=None, lanes=None):
     """The rope walk of ``ops`` in plain PyTorch: the resident walk for
     ``n_buffers=None``, else the streamed one with a ring of ``n_buffers``.
-    All tiles advance together, each through its own walk.
+    All tiles advance together, each through its own walk; ``lanes``
+    reduces each leaf as the sub-lane fold (``_leaf_min``).
 
     ``leaf_cost(q [n, TQ, 3], leaf_start [n])`` -> [n, TQ, TF] costs of
     each tile's queries against its leaf; ``screen(q, leaf_start, best
@@ -245,9 +289,7 @@ def _walk_plain(ops, n_buffers, leaf_cost, screen=None):
                 keep = screen(q, ls, acc_d[ti])
                 ti, ls, q = ti[keep], ls[keep], q[keep]
             full[ti] += 1
-            cost = leaf_cost(q, ls)
-            arg = torch.argmin(cost, dim=-1)
-            tile_min = torch.gather(cost, -1, arg[..., None])[..., 0]
+            tile_min, arg = _leaf_min(leaf_cost(q, ls), lanes)
             cur_d, cur_i = acc_d[ti], acc_i[ti]
             better = tile_min < cur_d
             acc_d[ti] = torch.where(better, tile_min, cur_d)
@@ -292,12 +334,7 @@ def _walk_plain(ops, n_buffers, leaf_cost, screen=None):
     return acc_d.view(-1), acc_i.view(-1), leaves, full
 
 
-def rope_argmin_plain(ops, n_buffers=None):
-    """Plain PyTorch version of the ``rope_faces`` kernel on the operand
-    dict of ``_rope_operands``: the resident walk for ``n_buffers=None``,
-    else the streamed one with a ring of ``n_buffers``.  Returns (best
-    squared distance [Qp] float32, sorted face position [Qp] int32, leaves
-    tested per query tile [Qp/tile_q] int32)."""
+def _fast_leaf_cost(ops):
     rows = ops["rows"]
     span = torch.arange(ops["tile_f"], device=rows.device)
 
@@ -307,30 +344,79 @@ def rope_argmin_plain(ops, n_buffers=None):
             q[..., 0:1], q[..., 1:2], q[..., 2:3],
             *[planes[k][:, None, :] for k in range(N_FACE_ROWS)])
 
-    d, i, leaves, _ = _walk_plain(ops, n_buffers, leaf_cost)
+    return leaf_cost
+
+
+def rope_argmin_plain(ops, n_buffers=None):
+    """Plain PyTorch version of the ``rope_faces`` kernel on the operand
+    dict of ``_rope_operands``: the resident walk for ``n_buffers=None``,
+    else the streamed one with a ring of ``n_buffers``.  Returns (best
+    squared distance [Qp] float32, sorted face position [Qp] int32, leaves
+    tested per query tile [Qp/tile_q] int32)."""
+    d, i, leaves, _ = _walk_plain(ops, n_buffers, _fast_leaf_cost(ops))
     return d, i, leaves
 
 
-def rope_argmin(ops, n_buffers=None):
+def rope_lanes_plain(ops, lanes):
+    """Plain PyTorch version of the resident ``rope_faces`` entry's design
+    at ``lanes`` sub-lanes per query: the resident walk with each leaf's
+    costs split into ``lanes`` runs, a (minimum, first argmin) per run and
+    a merge by (distance, position).  Returns what ``rope_argmin_plain``
+    returns, and equals it bit for bit."""
+    _check_lanes(ops, None, lanes)
+    d, i, leaves, _ = _walk_plain(ops, None, _fast_leaf_cost(ops),
+                                  lanes=lanes)
+    return d, i, leaves
+
+
+def _check_lanes(ops, n_buffers, lanes):
+    tile_q, tile_f = ops["tile_q"], ops["tile_f"]
+    if n_buffers is not None and lanes != 1:
+        raise ValueError("the streamed rope_faces entry runs one lane per "
+                         "query (got lanes=%s)" % lanes)
+    if lanes not in LANES or tile_f % lanes or \
+            tile_q * lanes > MAX_LANE_THREADS:
+        raise ValueError(
+            "rope_faces: lanes must be one of %s, divide tile_f (%d) and "
+            "keep tile_q x lanes (%d x %s) within %d threads"
+            % (LANES, tile_f, tile_q, lanes, MAX_LANE_THREADS))
+
+
+def resident_lanes(tile_q, tile_f):
+    """Sub-lanes per query of the resident ``rope_faces`` launch: the most
+    of ``LANES`` up to ``PICKED_LANES_MAX`` that divide ``tile_f`` and keep
+    ``tile_q x S`` within ``MAX_LANE_THREADS``."""
+    return max(s for s in LANES if s <= PICKED_LANES_MAX and tile_f % s == 0
+               and tile_q * s <= MAX_LANE_THREADS)
+
+
+def rope_argmin(ops, n_buffers=None, lanes=None):
     """(best squared distance, sorted face position, leaves per query
     tile): the ``rope_faces`` CUDA kernel for CUDA operands (the resident
-    entry for ``n_buffers=None``, else the streamed one), its plain
-    version for CPU operands."""
+    entry for ``n_buffers=None``, at ``lanes`` sub-lanes per query, by
+    default ``resident_lanes``; else the streamed one, one lane per
+    query), the plain walk (``rope_argmin_plain``) for CPU operands."""
     _check_rope(ops, n_buffers)
+    if lanes is not None:
+        _check_lanes(ops, n_buffers, lanes)
     dev = ops["seed"].device
     if dev.type == "cpu":
         return rope_argmin_plain(ops, n_buffers)
     from .. import _build
 
     q_pad = ops["seed"].shape[0]
+    n_tiles = q_pad // ops["tile_q"]
+    if n_buffers:
+        lanes = 1
+    elif lanes is None:
+        lanes = resident_lanes(ops["tile_q"], ops["tile_f"])
     out_d = torch.empty(q_pad, dtype=torch.float32, device=dev)
     out_i = torch.empty(q_pad, dtype=torch.int32, device=dev)
-    out_lv = torch.empty(q_pad // ops["tile_q"], dtype=torch.int32,
-                         device=dev)
+    out_lv = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     _build.launch("rope_faces", dev, ops["pts_s"], ops["seed"], ops["boxes"],
                   ops["topo"], ops["rows"], out_d, out_i, out_lv, q_pad,
                   ops["boxes"].shape[0], ops["rows"].shape[-1], ops["tile_q"],
-                  ops["tile_f"], n_buffers or 0)
+                  ops["tile_f"], n_buffers or 0, lanes)
     LAUNCHES["rope_faces_stream" if n_buffers else "rope_faces_resident"] += 1
     return out_d, out_i, out_lv
 

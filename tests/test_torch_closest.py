@@ -481,7 +481,8 @@ def root_dir():
 
 def test_port_imports_neither_jax_nor_mesh_tpu():
     root = root_dir()
-    files = [os.path.join(root, "chip_smoke.py")]
+    files = [os.path.join(root, "chip_smoke.py"),
+             os.path.join(root, "tools", "ab_rope.py")]
     for dirpath, _, names in os.walk(os.path.join(root, "mesh_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
