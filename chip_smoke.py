@@ -22,8 +22,13 @@ Phases (any failure raises and exits non-zero; none catches its own):
    the one it picks, each timed), and both rope_mxu_faces entries, f32 and bf16, on that scan and on
    8,192 mixed-radius queries around its sphere (where the bf16 screen must
    skip visits), each over all its query tiles;
-   ray_any_hit on every ray of phase 7 (64 bodies x 4 cameras x 6890
-   vertices), alongnormal_faces and normal_weighted_faces (with and without
+   ray_any_hit (every face) and ray_any_hit_culled on every ray of phase 7
+   (64 bodies x 4 cameras x 6890 vertices; the culled kernel on each
+   body's vertices in Morton order, its flags the every-face kernel's, its
+   flags, pairs per ray, chunks per warp and blocking faces its plain
+   version's) and the culled kernel on planted sets (grazing rays within
+   1e-6 rad of a flat grid's plane, NaN and inf corners, t in [0, 1.5]),
+   alongnormal_faces and normal_weighted_faces (with and without
    the degenerate tail) at phase 8's shapes, the tail variant also on the
    planted mesh; tri_tri_any_hit in both tiles at phase 9's shapes (1,552
    hand faces x 13,776 body faces), the segment tile also with the planted
@@ -72,7 +77,9 @@ Phases (any failure raises and exits non-zero; none catches its own):
    two must be bit-identical, and both are held against the brute-force
    kernel; the host BVH build is timed apart from the cached calls;
 7. visibility: ``visibility_step`` on 64 posed bodies from four cameras
-   at (+-3, 0, 0) and (0, +-3, 0), vertex normals computed in the step,
+   at (+-3, 0, 0) and (0, +-3, 0) (the culled any-hit kernel; the
+   every-face one launches on no driven path), vertex normals computed in
+   the step,
    median step time over 10 reps; body 0's flags against a float64
    divided-form recompute (equal except on rays borderline at rounding
    level); on the rest template, a closed surface without folds, every
@@ -188,6 +195,13 @@ VIS_BATCH = 64
 VIS_CAMERAS = ((3.0, 0.0, 0.0), (-3.0, 0.0, 0.0), (0.0, 3.0, 0.0),
                (0.0, -3.0, 0.0))
 VIS_MIN_DIST = 1e-3
+#: phase 2's planted sets for the culled any-hit kernel: GRAZE_RAYS rays
+#: within GRAZE_TILT rad of a flat GRAZE_GRID x GRAZE_GRID grid's plane,
+#: and the rest template's rays bounded to t in [0, VIS_T_HI]
+GRAZE_RAYS = 65536
+GRAZE_TILT = 1e-6
+GRAZE_GRID = 16
+VIS_T_HI = 1.5
 #: n.dir below this: a back-facing vertex, which a closed mesh must block
 BACKFACING = -0.2
 #: the facade's sensor for camera 0: x and y half-axes (0.05 along y, 0.2
@@ -233,6 +247,13 @@ RESIDENT_ODD_TILE_F = 30
 #: (line_hit, |tn|, the guard, the division, the miss select, the argmin),
 #: normal-weighted (the fast tile + normal dot, sqrt, 1 - dot, times eps)
 RAY_PAIR_OPS = 64
+#: the culled any-hit kernel's chunk test per lane and chunk
+#: (csrc/ray_any_hit_culled.cu chunk_needed): the cone bound and the guard
+#: (16), the margin (19), the slab test and its decision (32) and the vote
+#: (2); and when the cone fails the guard, the faces' normals (7 a face: 3
+#: products, 2 sums, |.|, min; then the pad and the guard: 2)
+CULL_TEST_OPS = 69
+CULL_FACE_OPS = 7 * 32 + 2
 ALONG_PAIR_OPS = 67
 NW_PAIR_OPS = {False: FACE_PAIR_OPS[("fast", False)] + 8,
                True: FACE_PAIR_OPS[("fast", True)] + 8}
@@ -336,6 +357,7 @@ MIXED_RADIUS = 1.6
 
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
+#: (a kernel with no path has its row in its successor's)
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "closest_faces_fused": ("main_path_fused",),
                 "nearest_vertices": ("facade",),
@@ -344,7 +366,9 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "rope_faces_resident": ("scan_resident", "anim"),
                 "rope_mxu_stream": ("mxu_bvh",),
                 "rope_mxu_resident": ("mxu_bvh_resident",),
-                "ray_any_hit": ("visibility",),
+                "ray_any_hit_culled": ("visibility",),
+                # the every-face kernel, phase 2's flag oracle
+                "ray_any_hit": (),
                 "alongnormal_faces": ("registration",),
                 "normal_weighted_faces": ("registration",),
                 "tri_tri_any_hit": ("contact",),
@@ -1088,8 +1112,9 @@ def crossover(dev, large, scan):
 
 
 def compare_any_hit(ray, origins, dirs, planes):
-    """Kernel vs plain for ray_any_hit on one operand set: identical blocked
-    flags and pairs tested per ray, both timed."""
+    """Kernel vs plain for the every-face ray_any_hit on one operand set:
+    identical blocked flags and pairs tested per ray, both timed.  Returns
+    (the run, the kernel's flags)."""
     kb, kt = ray.ray_any_hit(origins, dirs, planes, t_lo=0.0)
     (pb, pt), plain_ms = timed(
         lambda: ray.ray_any_hit_plain(origins, dirs, planes, t_lo=0.0))
@@ -1114,7 +1139,117 @@ def compare_any_hit(ray, origins, dirs, planes):
         "%d of %d pairs tested (%.1f%%), %.3f ms (plain %.1f ms, bound %.3f "
         "ms)" % (out["shape"], 100 * out["blocked_share"], tested, pairs,
                  100.0 * tested / pairs, out["ms"], plain_ms, out["bound_ms"]))
+    return out, kb
+
+
+def compare_any_hit_culled(ray, vis, ops, dense, label, t_lo=0.0, t_hi=None,
+                           order=None, timing=False):
+    """ray_any_hit_culled on one operand set against its plain version
+    (blocked flags, pairs per ray, chunks per warp and blocking faces
+    identical) and against the every-face kernel's flags ``dense`` (the
+    rays in each mesh's vertex order when ``order`` [B, V], the vertex
+    Morton order of ``ops``' rays, is given; else in ``ops``' order).
+    The bound counts each lane's own work: the pairs it evaluated, a chunk
+    test per chunk while it was unblocked, and the normals fallbacks among
+    them."""
+    kb = ray.ray_any_hit_culled(ops, t_lo, t_hi, with_stats=True)
+    plain, plain_ms = timed(lambda: ray.ray_any_hit_culled_plain(
+        ops, t_lo, t_hi, with_tests=True))
+    for name, a, b in zip(("blocked flags", "pairs per ray", "warp chunks",
+                           "blocking faces"), kb, plain):
+        check(torch.equal(a, b), "ray_any_hit_culled on %s: %d of %d %s "
+              "differ from the plain version" % (label, int((a != b).sum()),
+                                                 a.numel(), name))
+    flags = kb[0]
+    if order is not None:
+        flags = vis.unsort_flags(flags, order, flags.shape[1]
+                                 // order.shape[1]).reshape(flags.shape)
+    check(torch.equal(flags, dense), "ray_any_hit_culled on %s: %d of %d "
+          "blocked flags differ from the every-face kernel's"
+          % (label, int((flags != dense).sum()), flags.numel()))
+    n_b, n_r = flags.shape
+    n_f, n_c = ops["n_faces"], ops["chunks"].shape[1]
+    pairs, warp, tests, by_face = (int(x.sum()) for x in (
+        kb[1], kb[2], plain[4], plain[5]))
+    out = {"on": label, "shape": [n_b, n_r, n_f], "flags_identical": True,
+           "max_abs_err": 0.0, "blocked_share": float(flags.float().mean()),
+           "pairs": pairs, "pairs_all": n_b * n_r * n_f,
+           "pair_fraction": pairs / max(1, n_b * n_r * n_f),
+           "warp_chunks": warp, "warp_chunks_all": kb[2].numel() * n_c,
+           "chunk_fraction": warp / max(1, kb[2].numel() * n_c),
+           "chunk_tests": tests, "normal_fallbacks": by_face,
+           "fallback_fraction": by_face / max(1, tests),
+           "plain_ms": plain_ms}
+    n_bytes = 4 * (ops["origins"].numel() + ops["dirs"].numel()
+                   + ops["faces"].numel() + ops["chunks"].numel()
+                   + 2 * flags.numel())
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        pairs * RAY_PAIR_OPS + tests * CULL_TEST_OPS
+        + by_face * CULL_FACE_OPS, 1, n_bytes)
+    out["bound_issued_ms"] = bound_ms(
+        warp * 32 * ray.ANY_HIT_CHUNK, RAY_PAIR_OPS, n_bytes)[0]
+    out["bound_all_pairs_ms"] = bound_ms(n_b * n_r * n_f, RAY_PAIR_OPS,
+                                         n_bytes)[0]
+    if timing:
+        out["ms"] = cuda_ms(lambda: ray.ray_any_hit_culled(ops, t_lo, t_hi),
+                            reps=REPS)
+    log("  ray_any_hit_culled on %s %s: flags identical to the every-face "
+        "kernel's and, with the counts, to the plain version's; %.1f%% "
+        "blocked; lanes evaluated %d pairs (%.4f of all), warps tested %d of "
+        "%d chunks (%.4f), %d chunk tests, %.4f of them by the faces' "
+        "normals; %s ms (plain %.1f ms, bound %.3f ms per lane, %.3f "
+        "issued, %.3f every pair)"
+        % (label, out["shape"], 100 * out["blocked_share"], pairs,
+           out["pair_fraction"], warp, out["warp_chunks_all"],
+           out["chunk_fraction"], tests, out["fallback_fraction"],
+           "%.3f" % out["ms"] if timing else "-", plain_ms, out["bound_ms"],
+           out["bound_issued_ms"], out["bound_all_pairs_ms"]))
     return out
+
+
+def any_hit_planted(ray, vis, template, faces, dev):
+    """The sets the culled any-hit kernel must also get right, as (label,
+    operands, t_lo, t_hi, the every-face kernel's flags): GRAZE_RAYS rays
+    within GRAZE_TILT rad of a flat grid's plane (turned off the axes and
+    moved off the origin), starting 5 to 60 units before it; the rest
+    ``template`` [V, 3] with one NaN and one inf corner, from camera 0; and
+    the template from camera 0 with t in [0, VIS_T_HI]."""
+    rng = np.random.RandomState(7)
+    n = GRAZE_GRID
+    xs = np.linspace(0.0, 1.0, n + 1)
+    gv = np.array([(x, y, 0.0) for y in xs for x in xs])
+    gf = np.array([q for j in range(n) for i in range(n) for q in (
+        (j * (n + 1) + i, j * (n + 1) + i + 1, (j + 1) * (n + 1) + i + 1),
+        (j * (n + 1) + i, (j + 1) * (n + 1) + i + 1, (j + 1) * (n + 1) + i))])
+    rot, _ = np.linalg.qr(rng.randn(3, 3))
+    shift = np.array([3.0, -2.0, 5.0])
+    far = rng.uniform(5.0, 60.0, GRAZE_RAYS)
+    tilt = rng.uniform(-GRAZE_TILT, GRAZE_TILT, GRAZE_RAYS)
+    local_o = np.stack([-far, rng.uniform(-1.0, 2.0, GRAZE_RAYS),
+                        -tilt * (far + rng.uniform(-40.0, 40.0, GRAZE_RAYS))],
+                       1)
+    local_d = np.stack([np.cos(tilt), rng.uniform(-0.05, 0.05, GRAZE_RAYS)
+                        * np.cos(tilt), np.sin(tilt)], 1)
+
+    def t32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    grid = t32((gv @ rot.T + shift)[gf])[None]
+    cam = torch.tensor(VIS_CAMERAS[:1], dtype=torch.float32, device=dev)
+    rest = template[None]
+    tri = rest[..., faces.long(), :]
+    bad = tri.clone()
+    bad[0, 100, 1, 0] = float("nan")
+    bad[0, 5000, 2, 2] = float("inf")
+    o, d = vis.visibility_rays(rest, cam, VIS_MIN_DIST)
+    o, d = vis.sort_rays(o, d, vis.vertex_order(rest))
+    sets = [("grazing rays on a flat grid", t32(local_o @ rot.T + shift)[None],
+             t32(local_d @ rot.T)[None], grid, 0.0, None),
+            ("NaN and inf corners", o, d, bad, 0.0, None),
+            ("t in [0, %g]" % VIS_T_HI, o, d, tri, 0.0, VIS_T_HI)]
+    return [(label, ray.any_hit_operands(o_, d_, tri_), t_lo, t_hi,
+             ray.ray_any_hit(o_, d_, ray.ray_planes(tri_), t_lo, t_hi)[0])
+            for label, o_, d_, tri_, t_lo, t_hi in sets]
 
 
 def compare_alongnormal(ray, pts, nrm, tri):
@@ -2247,6 +2382,7 @@ def main():
     from mesh_tpu_torch.query import normal_weighted as nw
     from mesh_tpu_torch.query import ray_kernel as ray
     from mesh_tpu_torch.query import tri_tri_kernel as tk
+    from mesh_tpu_torch.query import visibility as vis
     from mesh_tpu_torch.query.autotune import (
         _sphere_mesh,
         calibrate_mxu_crossover,
@@ -2480,12 +2616,25 @@ def main():
         log("  rope_mxu_faces on %s: the four walks bit-identical; the bf16 "
             "screen skips %s full visits" % (label, skipped))
         del ops_m, outs
-    # ray_any_hit at phase 7's shapes: every ray of every body and camera
+    # ray_any_hit and ray_any_hit_culled at phase 7's shapes: every ray of
+    # every body and camera, the culled kernel on each body's vertices in
+    # Morton order as visibility_local sorts them; then the planted sets
     origins_v, dirs_v = visibility_rays(verts_v, cams, VIS_MIN_DIST)
-    any_hit_run = compare_any_hit(
+    tri_v = verts_v[..., f.long(), :]
+    any_hit_run, dense_v = compare_any_hit(
         ray, origins_v, dirs_v.reshape(origins_v.shape).contiguous(),
-        ray.ray_planes(verts_v[..., f.long(), :]))
-    del origins_v, dirs_v
+        ray.ray_planes(tri_v))
+    order_v = vis.vertex_order(verts_v)
+    culled_hit_run = compare_any_hit_culled(
+        ray, vis, ray.any_hit_operands(
+            *vis.sort_rays(origins_v, dirs_v, order_v), tri_v),
+        dense_v, "phase 7's rays", order=order_v, timing=True)
+    culled_planted = [compare_any_hit_culled(ray, vis, ops_p, dense_p, label,
+                                             t_lo, t_hi)
+                      for label, ops_p, t_lo, t_hi, dense_p in any_hit_planted(
+                          ray, vis, model.v_template, f, dev)]
+    check(culled_planted[0]["blocked_share"] > 0, "no grazing ray is blocked")
+    del origins_v, dirs_v, tri_v, dense_v, order_v
     # alongnormal_faces and normal_weighted_faces at phase 8's shapes
     along_run = compare_alongnormal(ray, reg_pts[None], reg_nrm[None],
                                     verts[:1][..., f.long(), :])
@@ -3271,13 +3420,27 @@ def main():
     log("scan stage breakdown (ms; build on the host clock, median of 3; "
         "the rest separate CUDA-event runs): " + ", ".join(
             "%s %.3f" % kv for kv in stages_s.items()))
+    rays_v = visibility_rays(verts_v, cams, VIS_MIN_DIST)
+    order_v = vis.vertex_order(verts_v)
+    sorted_v = vis.sort_rays(*rays_v, order_v)
+    tri_v = verts_v[..., f.long(), :]
+    tri_s_v = ray.any_hit_sorted_faces(tri_v)[1]
+    ops_v = ray.any_hit_operands(*sorted_v, tri_v)
+    blocked_v = ray.ray_any_hit_culled(ops_v)[0]
     stages_v = {
         "lbs": cuda_ms(lambda: lbs(model, betas_v, pose_v, device=dev), 3),
         "vert_normals": cuda_ms(lambda: batch_step(verts_v, f, None), 3),
-        "rays_and_planes": cuda_ms(lambda: (
-            visibility_rays(verts_v, cams, VIS_MIN_DIST),
-            ray.ray_planes(verts_v[..., f.long(), :])), 3),
-        "ray_any_hit_kernel": any_hit_run["ms"]}
+        "rays": cuda_ms(lambda: visibility_rays(verts_v, cams,
+                                                VIS_MIN_DIST), 3),
+        "vertex_sort": cuda_ms(lambda: vis.sort_rays(
+            *rays_v, vis.vertex_order(verts_v)), 3),
+        "face_sort": cuda_ms(lambda: ray.any_hit_sorted_faces(tri_v), 3),
+        "face_and_chunk_records": cuda_ms(
+            lambda: ray.any_hit_records(tri_s_v), 3),
+        "ray_any_hit_culled_kernel": culled_hit_run["ms"],
+        "flags_back": cuda_ms(lambda: vis.unsort_flags(
+            blocked_v, order_v, len(VIS_CAMERAS)), 3)}
+    del rays_v, order_v, sorted_v, tri_v, tri_s_v, ops_v, blocked_v
     log("visibility stage breakdown (ms, separate runs): " + ", ".join(
         "%s %.3f" % kv for kv in stages_v.items()))
     rope_anim = {}
@@ -3355,9 +3518,30 @@ def main():
              "library_ms": None, "detail": run})
     kernels[-1].update(lanes=rope_resident["lanes"], anim=rope_anim)
     main_nw = nw_runs[0 if nondegen_r else 1]
+    kernels.append(
+        {"name": "ray_any_hit_culled", "route": "cuda",
+         "source": "mesh_tpu_torch/csrc/ray_any_hit_culled.cu",
+         "replaces": "mesh_tpu/query/pallas_ray.py:178",
+         "entries": ["ray_any_hit_culled (visibility's kernel)",
+                     "ray_any_hit (every face, the flag oracle)"],
+         "launches": launches["visibility"]["ray_any_hit_culled"],
+         "launches_by_path": {p: launches[p]["ray_any_hit_culled"]
+                              for p in launches},
+         "max_abs_err": 0.0, "ms": culled_hit_run["ms"],
+         "plain_ms": culled_hit_run["plain_ms"],
+         "bound_ms": culled_hit_run["bound_ms"],
+         "bound_by": culled_hit_run["bound_by"], "library_ms": None,
+         "bound_issued_ms": culled_hit_run["bound_issued_ms"],
+         "bound_all_pairs_ms": culled_hit_run["bound_all_pairs_ms"],
+         "pair_fraction": culled_hit_run["pair_fraction"],
+         "chunk_fraction": culled_hit_run["chunk_fraction"],
+         "fallback_fraction": culled_hit_run["fallback_fraction"],
+         "detail": [culled_hit_run] + culled_planted,
+         "dense": dict(any_hit_run, name="ray_any_hit",
+                       source="mesh_tpu_torch/csrc/ray_any_hit.cu",
+                       launches_by_path={p: launches[p]["ray_any_hit"]
+                                         for p in launches})})
     for name, run, path, source, replaces in (
-            ("ray_any_hit", any_hit_run, "visibility", "ray_any_hit.cu",
-             "mesh_tpu/query/pallas_ray.py:178"),
             ("alongnormal_faces", along_run, "registration",
              "alongnormal_faces.cu", "mesh_tpu/query/pallas_ray.py:231"),
             ("normal_weighted_faces", main_nw, "registration",
@@ -3469,8 +3653,10 @@ def main():
              "library_ms": None, "on": "scan, f32",
              "detail": [r for k, r in rope_mxu_runs.items()
                         if k[1] == walk]})
-    check(len(kernels) == len(KERNEL_PATHS), "the kernels line lists %d "
-          "kernels, KERNEL_PATHS %d" % (len(kernels), len(KERNEL_PATHS)))
+    driven = [k for k, paths in KERNEL_PATHS.items() if paths]
+    check(sorted(r["name"] for r in kernels) == sorted(driven),
+          "the kernels line lists %s, KERNEL_PATHS %s"
+          % (sorted(r["name"] for r in kernels), sorted(driven)))
     card_state["end"] = nvidia_smi(CARD_STATE)
     log("card state at the end (%s): %s" % (CARD_STATE, card_state["end"]))
     log("total %.1f s" % (time.perf_counter() - t_start))
@@ -3495,7 +3681,8 @@ def main():
                        "backfacing_visible": backfacing_visible,
                        "rest_backfacing_visible": rest_back_visible,
                        "body0_flags_differ64": int(differ64.sum()),
-                       "stages_ms": stages_v},
+                       "stages_ms": stages_v,
+                       "every_face_kernel_ms": any_hit_run["ms"]},
         "registration": registration, "contact": contact,
         "self_intersect": self_int, "anim": anim,
         "mxu": {"calls": mxu, "crossover": dict(MXU_CALIBRATION)},

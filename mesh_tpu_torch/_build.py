@@ -43,6 +43,9 @@ KERNELS = {
                        [_PTR] * 10 + [_INT] * 7),
     "ray_any_hit": ("ray_any_hit.cu", "mt_ray_any_hit",
                     [_PTR] * 5 + [_INT] * 4 + [_FLOAT, _INT, _FLOAT]),
+    "ray_any_hit_culled": ("ray_any_hit_culled.cu", "mt_ray_any_hit_culled",
+                           [_PTR] * 8 + [_INT] * 5
+                           + [_FLOAT, _INT, _FLOAT]),
     "alongnormal_faces": ("alongnormal_faces.cu", "mt_alongnormal_faces",
                           [_PTR] * 4 + [_INT] * 3),
     "normal_weighted_faces": ("normal_weighted_faces.cu",

@@ -5,8 +5,8 @@ The batch is a leading tensor dimension: ``batch_step`` hands all B meshes
 to one closest-point kernel launch (brute force up to the crossover, the
 sphere-culled kernel above it) and one ``vert_normals`` pass, and
 ``visibility_step`` hands every (mesh, camera, vertex) ray to one
-``ray_any_hit`` launch, not a Python loop over meshes.  Numpy goes in and
-out with the reference's dtypes and shapes.
+``ray_any_hit_culled`` launch, not a Python loop over meshes.  Numpy goes
+in and out with the reference's dtypes and shapes.
 """
 
 import numpy as np
@@ -76,9 +76,9 @@ def batch_step(vs, f, pts, with_normals=True, assume_nondegenerate=False,
 def visibility_step(vs, f, cams, normals=None, min_dist=1e-3):
     """One batched visibility step on tensors on their own device: every
     mesh of ``vs`` [B, V, 3], self-occluded by its own faces ``f`` [F, 3],
-    from every camera of ``cams`` [C, 3], in one ``ray_any_hit`` launch.
-    ``normals`` [B, V, 3] for n.dir; None computes vertex normals in the
-    step.  Returns (visible [B, C, V] bool, n_dot_cam [B, C, V])."""
+    from every camera of ``cams`` [C, 3], in one ``ray_any_hit_culled``
+    launch.  ``normals`` [B, V, 3] for n.dir; None computes vertex normals
+    in the step.  Returns (visible [B, C, V] bool, n_dot_cam [B, C, V])."""
     if normals is None:
         normals = vert_normals_t(vs, f)
     return visibility_local(vs, vs[..., f.long(), :], cams, normals,

@@ -25,7 +25,11 @@ from .ray import (  # noqa: F401
     tri_tri_intersects,
     tri_tri_intersects_moller,
 )
-from .ray_kernel import nearest_alongnormal_kernel, ray_any_hit  # noqa: F401
+from .ray_kernel import (  # noqa: F401
+    nearest_alongnormal_kernel,
+    ray_any_hit,
+    ray_any_hit_culled,
+)
 from .tri_tri_kernel import (  # noqa: F401
     self_intersection_counts_kernel,
     tri_tri_any_hit_kernel,

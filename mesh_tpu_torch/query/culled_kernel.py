@@ -117,6 +117,13 @@ def _morton_codes(xyz):
                         q & 0x3FF).sum(dim=-1)
 
 
+def morton_face_order(tri):
+    """The order of triangles ``tri`` [..., F, 3, 3] (F > 0) by the Morton
+    code of their centroids (stable), per mesh of a batch: the face order
+    of the culled, self-intersection and culled any-hit kernels."""
+    return torch.argsort(_morton_codes(tri.mean(dim=-2)), dim=-1, stable=True)
+
+
 def _pad_rows_edge(x, multiple, dim=0):
     """Pad ``x`` along ``dim`` to a multiple of ``multiple`` by repeating
     its last row."""
@@ -166,7 +173,7 @@ def prologue_orders(tri, pts):
     """Prologue step 1: the Morton orders [B, F] of the faces ``tri``
     [B, F, 3, 3] (by centroid) and [B, Q] of the queries ``pts``
     [B, Q, 3]."""
-    return (torch.argsort(_morton_codes(tri.mean(dim=2)), dim=1, stable=True),
+    return (morton_face_order(tri),
             torch.argsort(_morton_codes(pts), dim=1, stable=True))
 
 

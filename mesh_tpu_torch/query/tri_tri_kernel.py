@@ -45,7 +45,12 @@ import numpy as np
 import torch
 
 from ..geometry.cross_product import cross3
-from .culled_kernel import WARP, _morton_codes, _pad_rows_edge, _warp_any
+from .culled_kernel import (
+    WARP,
+    _pad_rows_edge,
+    _warp_any,
+    morton_face_order,
+)
 from .ray import _EPS
 from .ray_kernel import mt_line_hit, ray_planes
 
@@ -612,12 +617,6 @@ def tri_tri_any_hit_kernel(q_tri, tri, algorithm="segment"):
     qp, fp = tri_tri_planes(q_tri.to(torch.float32), tri.to(torch.float32),
                             algorithm)
     return tri_tri_any_hit(qp, fp, algorithm)
-
-
-def morton_face_order(tri):
-    """The order of triangles ``tri`` [F, 3, 3] (F > 0) by the Morton code
-    of their centroids (stable): the self_intersect kernel's face order."""
-    return torch.argsort(_morton_codes(tri.mean(dim=1)), stable=True)
 
 
 def self_sorted_operands(tri, f, order, algorithm):

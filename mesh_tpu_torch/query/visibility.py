@@ -10,15 +10,20 @@ mesh/src/visibility.cpp:75-133).  An optional 9-float sensor per camera
 within the sensor's extents, and an extra occluder mesh can be merged in.
 
 The O(C V) directions, origins, n.dir and sensor tests are PyTorch; the
-O(C V F) blocked test is one launch of the ``ray_any_hit`` kernel for the
-whole batch of meshes and cameras (``ray_kernel.py``).
+O(C V F) blocked test is one launch of the ``ray_any_hit_culled`` kernel
+for the whole batch of meshes and cameras (``ray_kernel.py``), on rays
+whose vertices are sorted by Morton code per mesh, so that a warp's 32
+rays leave neighbouring vertices towards one camera and need the same few
+chunks of faces; the flags are scattered back to the caller's order and
+equal the every-face ``ray_any_hit`` kernel's.
 """
 
 import numpy as np
 import torch
 
 from ..utils.device import as_tensor
-from .ray_kernel import ray_any_hit, ray_planes
+from .culled_kernel import _morton_codes
+from .ray_kernel import any_hit_operands, ray_any_hit_culled
 
 
 def _dot3(x, y):
@@ -51,6 +56,38 @@ def sensor_mask(verts, dirs, cams, sensors):
             & (_dot3(p_i, yoff).abs() < _dot3(yoff, yoff)))
 
 
+def vertex_order(verts):
+    """The Morton order [B, V] of each mesh's vertices ``verts`` [B, V, 3]
+    (stable): the culled any-hit kernel's ray order."""
+    if not verts.shape[1]:
+        return torch.zeros(verts.shape[:2], dtype=torch.int64,
+                           device=verts.device)
+    return torch.argsort(_morton_codes(verts), dim=1, stable=True)
+
+
+def sort_rays(origins, dirs, order):
+    """Rays ``origins`` [B, C*V, 3] and ``dirs`` (any shape holding
+    [B, C*V, 3]) with each camera's vertices in ``order`` [B, V], as two
+    contiguous [B, C*V, 3]: one gather, so each ray keeps its floats."""
+    n_b, n_v = order.shape
+    if not n_v:
+        return origins.contiguous(), dirs.reshape(origins.shape).contiguous()
+    both = torch.cat([origins.reshape(n_b, -1, n_v, 3),
+                      dirs.reshape(n_b, -1, n_v, 3)], dim=-1)
+    both = torch.gather(both, 2, order[:, None, :, None].expand(both.shape))
+    both = both.reshape(n_b, -1, 6)
+    return both[..., :3].contiguous(), both[..., 3:].contiguous()
+
+
+def unsort_flags(flags, order, n_c):
+    """Per-ray ``flags`` [B, C*V] of rays sorted by ``sort_rays`` -> [B, C, V]
+    in the caller's vertex order."""
+    n_b, n_v = order.shape
+    out = torch.empty((n_b, n_c, n_v), dtype=flags.dtype, device=flags.device)
+    return out.scatter_(2, order[:, None].expand(out.shape),
+                        flags.reshape(n_b, n_c, n_v))
+
+
 def visibility_local(verts, occ_tri, cams, normals, sensors=None,
                      min_dist=1e-3):
     """The visibility core on tensors on their own device: ``verts``
@@ -58,10 +95,10 @@ def visibility_local(verts, occ_tri, cams, normals, sensors=None,
     ``cams`` [C, 3]; ``normals`` [B, V, 3] for n.dir; ``sensors`` [C, 9] or
     None.  Returns (visible [B, C, V] bool, n_dot_cam [B, C, V])."""
     origins, dirs = visibility_rays(verts, cams, min_dist)
-    blocked, _ = ray_any_hit(origins,
-                             dirs.reshape(origins.shape).contiguous(),
-                             ray_planes(occ_tri), t_lo=0.0)
-    reach = ~blocked.reshape(dirs.shape[:-1])
+    order = vertex_order(verts)
+    blocked, _ = ray_any_hit_culled(any_hit_operands(
+        *sort_rays(origins, dirs, order), occ_tri), t_lo=0.0)
+    reach = ~unsort_flags(blocked, order, dirs.shape[1])
     ndc = _dot3(normals[:, None], dirs)
     if sensors is not None:
         reach = reach & sensor_mask(verts, dirs, cams, sensors)
