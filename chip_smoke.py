@@ -827,24 +827,53 @@ def culled_prologue_parts(qk, v, f, points, variant):
     return parts
 
 
+def grid_bounds(out, n_tiles, per_tile, tile_q, tile_f, pair_ops):
+    """Add to ``out`` the bounds of a launch of one block per query tile:
+    a grid of fewer tiles than SMs uses only that many SMs' share of the
+    card's float32 rate, and no launch ends before its heaviest tile
+    (``per_tile``, the leaves each tile folds) is folded on one SM."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    folded = int(per_tile.sum())
+    out["grid_sms"] = min(n_tiles, n_sms)
+    out["bound_grid_sms_ms"] = max(
+        out["bound_ms"], folded * tile_q * tile_f * pair_ops / PEAK_FP32_OPS
+        * 1e3 * n_sms / out["grid_sms"])
+    out["leaves_per_tile_max"] = int(per_tile.max())
+    out["leaves_per_tile_mean"] = folded / n_tiles
+    out["bound_heaviest_tile_ms"] = (
+        out["leaves_per_tile_max"] * tile_q * tile_f * pair_ops
+        / (PEAK_FP32_OPS / n_sms) * 1e3)
+    return ("bound over the grid's %d SMs %.4f ms; leaves per tile mean "
+            "%.1f, max %d, the heaviest tile's bound on one SM %.4f ms" % (
+                out["grid_sms"], out["bound_grid_sms_ms"],
+                out["leaves_per_tile_mean"], out["leaves_per_tile_max"],
+                out["bound_heaviest_tile_ms"]))
+
+
+def lane_counts(rk, tile_q, tile_f):
+    """The sub-lane counts of ``rk.LANES`` the tiles allow."""
+    return [s for s in rk.LANES
+            if tile_f % s == 0 and tile_q * s <= rk.MAX_LANE_THREADS]
+
+
 def compare_rope(rk, ops, n_buffers, label="scan", reps=REPS):
     """Kernel vs plain for one rope_faces entry on one operand set:
     identical distances, faces and leaf counts over every query tile.  The
-    resident entry is held at every sub-lane count of ``rk.LANES`` and at
-    the one ``rope_argmin`` picks (``rk.resident_lanes``),
-    each timed; ``ms`` is the picked one's."""
+    entry is held at every sub-lane count of ``rk.LANES`` the tiles allow
+    and at the one ``rope_argmin`` picks (``rk.picked_lanes``), each
+    timed; ``ms`` is the picked one's, and the pick must give S = 1's
+    answers (one thread folding each leaf)."""
     name = "rope_faces_stream" if n_buffers else "rope_faces_resident"
     (pd, pi, pl), plain_ms = timed(lambda: rk.rope_argmin_plain(ops,
                                                                 n_buffers))
     tile_q, tile_f = ops["tile_q"], ops["tile_f"]
     n_tiles = ops["seed"].shape[0] // tile_q
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chosen = None if n_buffers else rk.resident_lanes(tile_q, tile_f)
-    ms_by_lanes = {}
-    fit = [s for s in rk.LANES
-           if tile_f % s == 0 and tile_q * s <= rk.MAX_LANE_THREADS]
-    for lanes in ([None] if n_buffers else fit + [None]):
-        kd, ki, kl = rk.rope_argmin(ops, n_buffers, lanes=lanes)
+    chosen = rk.picked_lanes(tile_q, tile_f)
+    ms_by_lanes, outs = {}, {}
+    fit = lane_counts(rk, tile_q, tile_f)
+    for lanes in fit + [None]:
+        outs[lanes] = kd, ki, kl = rk.rope_argmin(ops, n_buffers,
+                                                  lanes=lanes)
         check(torch.equal(ki, pi) and torch.equal(kl, pl)
               and torch.equal(kd, pd),
               "%s on %s (lanes %s): %d of %d faces (and %d leaf counts) "
@@ -855,50 +884,32 @@ def compare_rope(rk, ops, n_buffers, label="scan", reps=REPS):
             ms_by_lanes[lanes] = cuda_ms(
                 lambda: rk.rope_argmin(ops, n_buffers, lanes=lanes),
                 reps=reps)
+    check(all(torch.equal(a, b) for a, b in zip(outs[None], outs[1])),
+          "%s on %s: the picked lanes' answers are not S = 1's"
+          % (name, label))
     leaves = int(kl.sum())
     n_leaves = ops["rows"].shape[-1] // tile_f
+    faces = "recs" if n_buffers else "rows"
     out = {"operands": label,
            "shape": [ops["seed"].shape[0], ops["rows"].shape[-1]],
            "n_buffers": n_buffers, "faces_identical": True,
            "max_abs_err": float((kd - pd).abs().max()),
            "leaves_tested": leaves, "leaves": kl.numel() * n_leaves,
-           "plain_ms": plain_ms,
-           "ms": (ms_by_lanes[chosen] if chosen else cuda_ms(
-               lambda: rk.rope_argmin(ops, n_buffers), reps=reps))}
+           "plain_ms": plain_ms, "lanes": chosen,
+           "ms_by_lanes": ms_by_lanes, "ms": ms_by_lanes[chosen]}
     n_bytes = 4 * (sum(ops[key].numel() for key in (
-        "pts_s", "seed", "boxes", "topo", "rows")) + 2 * kd.numel()
+        "pts_s", "seed", "boxes", "topo", faces)) + 2 * kd.numel()
         + kl.numel())
     pairs = leaves * tile_q * tile_f
     out["bound_ms"], out["bound_by"] = bound_ms(pairs, ROPE_PAIR_OPS, n_bytes)
-    if chosen:
-        # a block per query tile: a grid of fewer tiles than SMs can use
-        # only that many SMs' share of the card's float32 rate, and no
-        # launch ends before its heaviest tile, folded on one SM
-        sm_ops = PEAK_FP32_OPS / n_sms
-        out["lanes"], out["ms_by_lanes"] = chosen, ms_by_lanes
-        out["grid_sms"] = min(n_tiles, n_sms)
-        out["bound_grid_sms_ms"] = max(
-            out["bound_ms"], pairs * ROPE_PAIR_OPS / PEAK_FP32_OPS * 1e3
-            * n_sms / out["grid_sms"])
-        out["leaves_per_tile_max"] = int(kl.max())
-        out["leaves_per_tile_mean"] = leaves / n_tiles
-        out["bound_heaviest_tile_ms"] = (
-            out["leaves_per_tile_max"] * tile_q * tile_f * ROPE_PAIR_OPS
-            / sm_ops * 1e3)
+    grid = grid_bounds(out, n_tiles, kl, tile_q, tile_f, ROPE_PAIR_OPS)
     log("  %s on %s %s: faces, distances and leaf counts identical to the "
-        "plain version%s, %d of %d leaves tested, %.3f ms (plain %.1f ms, "
-        "bound %.4f ms%s)" % (
-            name, label, out["shape"],
-            " at lanes %s" % fit if chosen else "", leaves,
-            out["leaves"], out["ms"], plain_ms, out["bound_ms"],
-            "; lanes %d picked; by lanes %s; bound over the grid's %d SMs "
-            "%.4f ms; leaves per tile mean %.1f, max %d, the heaviest "
-            "tile's bound on one SM %.4f ms" % (
-                chosen, ", ".join("%d: %.3f" % kv
-                                  for kv in ms_by_lanes.items()),
-                out["grid_sms"], out["bound_grid_sms_ms"],
-                out["leaves_per_tile_mean"], out["leaves_per_tile_max"],
-                out["bound_heaviest_tile_ms"]) if chosen else ""))
+        "plain version at lanes %s and the pick, which gives S = 1's; %d of "
+        "%d leaves tested, %.3f ms (plain %.1f ms, bound %.4f ms); lanes %d "
+        "picked; by lanes %s; %s" % (
+            name, label, out["shape"], fit, leaves, out["leaves"], out["ms"],
+            plain_ms, out["bound_ms"], chosen,
+            ", ".join("%d: %.3f" % kv for kv in ms_by_lanes.items()), grid))
     return out, (kd, ki, kl)
 
 
@@ -931,46 +942,70 @@ def compare_fused_nan(ck, body, f, q, variant, tail):
 def compare_rope_mxu(rk, ops, n_buffers, use_bf16, label, timing):
     """Kernel vs plain for one rope_mxu_faces entry (f32 or bf16) on one
     operand set: identical distances, faces, leaves taken and full visits
-    over every query tile.  The bound counts the full visits' pairs at
-    ROPE_MXU_PAIR_OPS and the screen's pairs, each query up to its first
-    survivor, at SCREEN_PAIR_OPS."""
+    over every query tile.  The streamed entry is held at every sub-lane
+    count the tiles allow and at the pick (which must give S = 1's
+    answers), each timed with ``timing``; the resident one runs one lane.
+    The bound counts the full visits' pairs at ROPE_MXU_PAIR_OPS and the
+    screen's pairs at SCREEN_PAIR_OPS, as the launch evaluates them: each
+    query up to its first survivor on the resident entry, each sub-lane's
+    run up to its own on the streamed one."""
     name = "rope_mxu_stream" if n_buffers else "rope_mxu_resident"
-    kd, ki, kl, kr = rk.rope_mxu_argmin(ops, n_buffers, use_bf16)
+    tile_q, tile_f = ops["tile_q"], ops["tile_f"]
+    chosen = rk.picked_lanes(tile_q, tile_f) if n_buffers else 1
     counts = {}
     (pd, pi, pl, pr), plain_ms = timed(lambda: rk.rope_mxu_argmin_plain(
-        ops, n_buffers, use_bf16, counts))
-    check(torch.equal(ki, pi) and torch.equal(kd, pd) and torch.equal(kl, pl)
-          and torch.equal(kr, pr),
-          "%s[%s, bf16=%s]: %d of %d faces, %d leaf counts and %d visit "
-          "counts differ from the plain version" % (
-              name, label, use_bf16, int((ki != pi).sum()), ki.numel(),
-              int((kl != pl).sum()), int((kr != pr).sum())))
-    tile_q, tile_f = ops["tile_q"], ops["tile_f"]
+        ops, n_buffers, use_bf16, counts, lanes=chosen))
+    fit = lane_counts(rk, tile_q, tile_f) if n_buffers else [1]
+    ms_by_lanes, outs = {}, {}
+    for lanes in fit + [None]:
+        outs[lanes] = kd, ki, kl, kr = rk.rope_mxu_argmin(
+            ops, n_buffers, use_bf16, lanes=lanes)
+        check(torch.equal(ki, pi) and torch.equal(kd, pd)
+              and torch.equal(kl, pl) and torch.equal(kr, pr),
+              "%s[%s, bf16=%s, lanes %s]: %d of %d faces, %d leaf counts "
+              "and %d visit counts differ from the plain version" % (
+                  name, label, use_bf16, lanes, int((ki != pi).sum()),
+                  ki.numel(), int((kl != pl).sum()), int((kr != pr).sum())))
+        if timing and lanes is not None:
+            ms_by_lanes[lanes] = cuda_ms(lambda: rk.rope_mxu_argmin(
+                ops, n_buffers, use_bf16, lanes=lanes), reps=REPS)
+    check(all(torch.equal(a, b) for a, b in zip(outs[None], outs[1])),
+          "%s[%s, bf16=%s]: the picked lanes' answers are not S = 1's"
+          % (name, label, use_bf16))
     out = {"on": label, "shape": [ops["seed"].shape[0], ops["rec"].shape[0]],
            "n_buffers": n_buffers, "use_bf16": use_bf16, "identical": True,
+           "lanes": chosen, "lanes_held": fit,
            "max_abs_err": float((kd - pd).abs().max()),
            "leaves_tested": int(kl.sum()), "full_visits": int(kr.sum()),
            "screen_pairs": counts.get("screen_pairs", 0),
+           "screen_lane_pairs": counts.get("screen_lane_pairs", 0),
            "leaves": kl.numel() * (ops["rec"].shape[0] // tile_f),
            "pair_tests": int(kl.long().repeat_interleave(tile_q)[
                :ops["qorder"].shape[0]].sum()) * tile_f,
            "plain_ms": plain_ms}
+    grid = ""
     if timing:
-        out["ms"] = cuda_ms(lambda: rk.rope_mxu_argmin(ops, n_buffers,
-                                                       use_bf16), reps=REPS)
+        out["ms_by_lanes"] = ms_by_lanes
+        out["ms"] = ms_by_lanes[chosen]
         n_bytes = 4 * (sum(ops[key].numel() for key in (
             "pts_s", "p2", "seed", "boxes", "topo", "rec"))
             + 2 * kd.numel() + 2 * kl.numel())
         n_ops = (out["full_visits"] * tile_q * tile_f * ROPE_MXU_PAIR_OPS
-                 + out["screen_pairs"] * SCREEN_PAIR_OPS)
+                 + out["screen_lane_pairs"] * SCREEN_PAIR_OPS)
         out["bound_ms"], out["bound_by"] = bound_ms(n_ops, 1, n_bytes)
+        # the grid bounds count each tile's full visits (not its screen)
+        grid = "; " + grid_bounds(out, kl.numel(), kr, tile_q, tile_f,
+                                  ROPE_MXU_PAIR_OPS)
     log("  %s[%s, bf16=%s] %s: faces, distances, leaf and visit counts "
-        "identical; %d leaves taken, %d full visits, %d screen pairs; plain "
-        "%.1f ms%s" % (
-            name, label, use_bf16, out["shape"], out["leaves_tested"],
-            out["full_visits"], out["screen_pairs"], plain_ms,
-            "" if not timing else ", %.3f ms (bound %.3f ms)"
-            % (out["ms"], out["bound_ms"])))
+        "identical at lanes %s and the pick (%d, S = 1's answers); %d leaves "
+        "taken, %d full visits, %d screen pairs (%d as the sub-lanes screen); "
+        "plain %.1f ms%s%s" % (
+            name, label, use_bf16, out["shape"], fit, chosen,
+            out["leaves_tested"], out["full_visits"], out["screen_pairs"],
+            out["screen_lane_pairs"], plain_ms,
+            "" if not timing else ", %.3f ms (bound %.3f ms); by lanes %s"
+            % (out["ms"], out["bound_ms"], ", ".join(
+                "%d: %.3f" % kv for kv in ms_by_lanes.items())), grid))
     return out, (kd, ki, kl, kr)
 
 
@@ -1725,15 +1760,24 @@ def compare_leaf_boxes(tri_s, n_leaves, leaf, label, nan_leaves=None,
                                     reps=100)
         out["l2_warm_ms"] = queued_ms(lambda: fk.leaf_boxes_kernel(
             tri_s, n_leaves, leaf), reps=100)
+        # the library calls in both regimes, beside the kernel's
+        out["library_l2_warm_ms"] = queued_ms(
+            lambda: torch.aminmax(blocks, dim=1), reps=100)
+        out["amin_amax_ms"] = cold_ms(
+            lambda: (blocks.amin(dim=1), blocks.amax(dim=1)), reps=100)
+        out["amin_amax_l2_warm_ms"] = queued_ms(
+            lambda: (blocks.amin(dim=1), blocks.amax(dim=1)), reps=100)
         n_bytes = 4 * (tri_s.numel() + 6 * n_leaves)
         out["bound_ms"], out["bound_by"] = bound_ms(
             tri_s.numel(), LEAF_BOX_OPS, n_bytes)
     log("  leaf_boxes on %s %s: every leaf identical (%d NaN)%s" % (
         label, out["shape"], out["nan_leaves"], "" if not timing else
-        ", L2 flushed: %.4f ms (plain %.4f ms, aminmax %.4f ms, HBM bound "
-        "%.4f ms); L2 warm, back to back: %.4f ms"
-        % (out["ms"], out["plain_ms"], out["library_ms"], out["bound_ms"],
-           out["l2_warm_ms"])))
+        ", L2 flushed: %.4f ms (plain %.4f ms, aminmax %.4f ms, amin + amax "
+        "%.4f ms, HBM bound %.4f ms); L2 warm, back to back: %.4f ms "
+        "(aminmax %.4f ms, amin + amax %.4f ms)"
+        % (out["ms"], out["plain_ms"], out["library_ms"],
+           out["amin_amax_ms"], out["bound_ms"], out["l2_warm_ms"],
+           out["library_l2_warm_ms"], out["amin_amax_l2_warm_ms"])))
     return out
 
 
@@ -2570,8 +2614,9 @@ def main():
         culled_runs.append(compare_culled(qk, ops_l, variant, tail,
                                           timing=(variant, tail) == variant_l))
         del ops_l
-    # both rope_faces entries at phase 6's shapes (every query tile)
-    ops_s = rk.rope_operands(v_s, f_s, p_s, device=dev)
+    # both rope_faces entries at phase 6's shapes (every query tile), each
+    # at every sub-lane count
+    ops_s = rk.rope_operands(v_s, f_s, p_s, device=dev, records=True)
     rope_stream, (sd, si, sl) = compare_rope(rk, ops_s, n_buffers)
     rope_resident, (rd, ri, rl) = compare_rope(rk, ops_s, None)
     check(torch.equal(si, ri) and torch.equal(sd, rd)
@@ -3412,7 +3457,9 @@ def main():
         builds.append((time.perf_counter() - t0) * 1e3)
     stages_s = {"host_bvh_build": statistics.median(builds)}
     stages_s["rope_prologue"] = cuda_ms(lambda: rk.rope_operands(
-        v_s, f_s, p_s, device=dev), 3)
+        v_s, f_s, p_s, device=dev, records=True), 3)
+    stages_s["rope_prologue_face_records"] = cuda_ms(
+        lambda: rk._face_records(ops_s["rows"]), 3)
     stages_s["rope_stream_kernel"] = rope_stream["ms"]
     stages_s["rope_resident_kernel"] = rope_resident["ms"]
     stages_s["rope_epilogue"] = cuda_ms(
@@ -3591,7 +3638,11 @@ def main():
          "ms": main_lb["ms"], "plain_ms": main_lb["plain_ms"],
          "bound_ms": main_lb["bound_ms"], "bound_by": main_lb["bound_by"],
          "library_ms": main_lb["library_ms"],
-         "l2_warm_ms": main_lb["l2_warm_ms"], "on": main_lb["on"],
+         "l2_warm_ms": main_lb["l2_warm_ms"],
+         "library_l2_warm_ms": main_lb["library_l2_warm_ms"],
+         "amin_amax_ms": main_lb["amin_amax_ms"],
+         "amin_amax_l2_warm_ms": main_lb["amin_amax_l2_warm_ms"],
+         "on": main_lb["on"],
          "detail": leaf_runs})
     main_m = next(r for r in mxu_runs if r["mesh"] == "sphere_surface"
                   and "faces" in r)

@@ -40,7 +40,7 @@ KERNELS = {
     "rope_faces": ("rope_faces.cu", "mt_rope_faces",
                    [_PTR] * 8 + [_INT] * 7),
     "rope_mxu_faces": ("rope_mxu_faces.cu", "mt_rope_mxu_faces",
-                       [_PTR] * 10 + [_INT] * 7),
+                       [_PTR] * 10 + [_INT] * 8),
     "ray_any_hit": ("ray_any_hit.cu", "mt_ray_any_hit",
                     [_PTR] * 5 + [_INT] * 4 + [_FLOAT, _INT, _FLOAT]),
     "ray_any_hit_culled": ("ray_any_hit_culled.cu", "mt_ray_any_hit_culled",

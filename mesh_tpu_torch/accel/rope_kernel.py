@@ -33,13 +33,19 @@ screen skips only visits that cannot change a face, so its answers are the
 f32 walk's bit for bit, and it counts leaves taken ("screened") and full
 visits ("repaired") per query tile.
 
-The resident ``rope_faces`` entry splits each query's leaf visit over
-``lanes`` threads (S in ``LANES``): each folds a contiguous run of
-``tile_f / S`` faces to a (minimum, lowest position) pair, the S pairs
-merge by (distance, position), and one strict ``<`` applies the result,
-which gives the faces, distances and leaf counts of the whole-leaf fold
-bit for bit.  ``rope_lanes_plain`` is that design in plain PyTorch;
-``resident_lanes`` picks S from the tile shape.
+Both ``rope_faces`` entries and the streamed ``rope_mxu_faces`` entry
+split each query's leaf visit over ``lanes`` threads (S in ``LANES``):
+each folds a contiguous run of ``tile_f / S`` faces to a (minimum, lowest
+position) pair, the S pairs merge by (distance, position), and one strict
+``<`` applies the result, which gives the faces, distances, leaf counts
+and full visits of the whole-leaf fold bit for bit; under the bf16 screen
+each sub-lane screens its own run and the block ORs the verdicts, which
+skips the same visits.  The plain versions take ``lanes`` too
+(``_leaf_min``); ``picked_lanes`` picks S from the tile shape.  The
+streamed ``rope_faces`` kernel copies its leaves with ``cp.async``, which
+moves contiguous 16-byte pieces only, so it reads the faces as one record
+per face (``recs`` [Fp, 20]: the 19 planes and a pad), built by the
+prologue under ``records=True``.
 
 ``rope_argmin`` / ``rope_mxu_argmin`` launch the kernel for CUDA operands
 and take their plain versions (``rope_argmin_plain`` /
@@ -82,18 +88,24 @@ _SEED_SUB = 128     # sub-block size for the seed upper bound
 MAX_BUFFERS = 16
 
 #: shared memory the CUDA walks may stage leaves in (csrc/rope_walk.cuh):
-#: the MXU walk's ring of n_buffers x 96 * tile_f bytes must fit it
+#: the staged leaves (one, or a ring of n_buffers) and the sub-lanes'
+#: partials (8 bytes a thread) must fit it
 MAX_RING_BYTES = 226 * 1024
 
-#: sub-lanes per query the resident rope_faces entry takes, and the threads
-#: (tile_q x lanes) its block may have (csrc/rope_walk.cuh rope_lanes_kernel)
+#: sub-lanes per query the rope_faces entries and the streamed
+#: rope_mxu_faces entry take, and the threads (tile_q x lanes) their block
+#: may have (csrc/rope_walk.cuh rope_lanes_kernel, rope_stream_kernel)
 LANES = (1, 2, 4, 8)
 MAX_LANE_THREADS = 1024
 
-#: the most sub-lanes ``resident_lanes`` picks: S = 4 was the fastest on
-#: every grid measured on the H100, from 32 query tiles to 1088 (PERF.md
-#: section 6); S = 8 adds merge work and ran slower
+#: the most sub-lanes ``picked_lanes`` picks: S = 4 was the fastest on
+#: every grid the resident walk was measured on on the H100, from 32 query
+#: tiles to 1088 (PERF.md section 6); S = 8 adds merge work and ran slower
 PICKED_LANES_MAX = 4
+
+#: floats of the streamed rope_faces entry's face record: the fast tile's
+#: 19 planes and a pad (csrc/rope_faces.cu FastLanes::kRecord)
+FAST_RECORD = 20
 
 #: a sub-lane's face position when its run beat nothing (kNoFace)
 _NO_FACE = 2 ** 31 - 1
@@ -115,12 +127,21 @@ def _coarse_index(v, f, tile_f, index, rebuild_mismatched):
                      kind="bvh", leaf_size=int(tile_f))
 
 
+def _face_records(rows):
+    """The fast tile's planes [19, Fp] as one record per face [Fp, 20]:
+    the 19 planes and a zero pad, contiguous."""
+    pad = rows.new_zeros((FAST_RECORD - N_FACE_ROWS, rows.shape[1]))
+    return torch.cat([rows, pad], dim=0).t().contiguous()
+
+
 def _rope_operands(v32, f, pts32, order_p, center_b, node_lo, node_hi,
-                   node_skip, node_leaf, tile_q, tile_f, mxu=False):
+                   node_skip, node_leaf, tile_q, tile_f, mxu=False,
+                   records=False):
     """Shared prologue of the resident and streamed walks (tensors on one
     device) -> dict of the kernel's operands (``pts_s`` [Qp, 3], ``seed``
     [Qp], ``boxes`` [N, 6], ``topo`` [N, 2] int32, and the leaves' faces:
-    ``rows`` [19, Fp] for the fast tile, or with ``mxu`` the face record
+    ``rows`` [19, Fp] for the fast tile, with ``records`` also ``recs``
+    [Fp, 20] for its streamed kernel, or with ``mxu`` the face record
     ``rec`` [Fp, 24] and ``p2`` [Qp]) and what the epilogue needs (faces
     ``f`` among them)."""
     vc = v32 - center_b                        # the builder's frame
@@ -148,6 +169,8 @@ def _rope_operands(v32, f, pts32, order_p, center_b, node_lo, node_hi,
         ops["p2"] = (px * px + py * py + pz * pz).contiguous()
     else:
         ops["rows"] = torch.stack(fast_tile_rows(tri_s), dim=0).contiguous()
+        if records:
+            ops["recs"] = _face_records(ops["rows"])
     return ops
 
 
@@ -176,7 +199,9 @@ def _rope_epilogue(ops, out_i, out_lv):
 # ---------------------------------------------------------------------------
 # The walks: plain versions, and the wrappers that launch the kernels.
 
-def _check_rope(ops, n_buffers, mxu=False):
+def _check_rope(ops, n_buffers, lanes, mxu=False):
+    """Raises unless the kernel can launch on ``ops`` with a ring of
+    ``n_buffers`` (None: the resident entry) and ``lanes`` sub-lanes."""
     name = "rope_mxu_faces" if mxu else "rope_faces"
     faces = ("rec", "p2") if mxu else ("rows",)
     names = ("pts_s", "seed", "boxes", "topo") + faces
@@ -206,12 +231,18 @@ def _check_rope(ops, n_buffers, mxu=False):
     if n_buffers is not None and not 2 <= n_buffers <= MAX_BUFFERS:
         raise ValueError("streamed rope kernel needs 2 <= n_buffers <= %d "
                          "(got %d)" % (MAX_BUFFERS, n_buffers))
-    staged = (n_buffers or 1) * MXU_RECORD * tile_f * 4
-    if mxu and staged > MAX_RING_BYTES:
-        raise ValueError("rope_mxu_faces: %d staged leaves of %d faces take "
-                         "%d bytes of shared memory, above the %d a walk may "
-                         "use" % (n_buffers or 1, tile_f, staged,
-                                  MAX_RING_BYTES))
+    _check_lanes(ops, n_buffers, lanes, mxu)
+    # the staged leaves, then the sub-lanes' partials (a distance and a
+    # position a thread)
+    slot = (MXU_RECORD if mxu else FAST_RECORD) * tile_f * 4
+    staged = ((n_buffers or 1) * slot
+              + (tile_q * lanes * 8 if lanes > 1 else 0))
+    if staged > MAX_RING_BYTES:
+        raise ValueError("%s: %d staged leaves of %d faces and %d lanes' "
+                         "partials take %d bytes of shared memory, above the "
+                         "%d a walk may use" % (name, n_buffers or 1, tile_f,
+                                                lanes, staged,
+                                                MAX_RING_BYTES))
     if dev.type not in ("cpu", "cuda"):
         raise ValueError("%s: no kernel for device %s" % (name, dev))
 
@@ -347,13 +378,18 @@ def _fast_leaf_cost(ops):
     return leaf_cost
 
 
-def rope_argmin_plain(ops, n_buffers=None):
+def rope_argmin_plain(ops, n_buffers=None, lanes=None):
     """Plain PyTorch version of the ``rope_faces`` kernel on the operand
     dict of ``_rope_operands``: the resident walk for ``n_buffers=None``,
-    else the streamed one with a ring of ``n_buffers``.  Returns (best
-    squared distance [Qp] float32, sorted face position [Qp] int32, leaves
-    tested per query tile [Qp/tile_q] int32)."""
-    d, i, leaves, _ = _walk_plain(ops, n_buffers, _fast_leaf_cost(ops))
+    else the streamed one with a ring of ``n_buffers``; with ``lanes``,
+    each leaf folded as ``lanes`` sub-lanes (bit-identical to the
+    whole-leaf fold).  Returns (best squared distance [Qp] float32, sorted
+    face position [Qp] int32, leaves tested per query tile [Qp/tile_q]
+    int32)."""
+    if lanes is not None:
+        _check_lanes(ops, n_buffers, lanes)
+    d, i, leaves, _ = _walk_plain(ops, n_buffers, _fast_leaf_cost(ops),
+                                  lanes=lanes)
     return d, i, leaves
 
 
@@ -363,29 +399,28 @@ def rope_lanes_plain(ops, lanes):
     costs split into ``lanes`` runs, a (minimum, first argmin) per run and
     a merge by (distance, position).  Returns what ``rope_argmin_plain``
     returns, and equals it bit for bit."""
-    _check_lanes(ops, None, lanes)
-    d, i, leaves, _ = _walk_plain(ops, None, _fast_leaf_cost(ops),
-                                  lanes=lanes)
-    return d, i, leaves
+    return rope_argmin_plain(ops, None, lanes)
 
 
-def _check_lanes(ops, n_buffers, lanes):
+def _check_lanes(ops, n_buffers, lanes, mxu=False):
     tile_q, tile_f = ops["tile_q"], ops["tile_f"]
-    if n_buffers is not None and lanes != 1:
-        raise ValueError("the streamed rope_faces entry runs one lane per "
-                         "query (got lanes=%s)" % lanes)
+    if mxu and n_buffers is None and lanes != 1:
+        raise ValueError("the resident rope_mxu_faces entry runs one lane "
+                         "per query (got lanes=%s)" % lanes)
     if lanes not in LANES or tile_f % lanes or \
             tile_q * lanes > MAX_LANE_THREADS:
         raise ValueError(
-            "rope_faces: lanes must be one of %s, divide tile_f (%d) and "
-            "keep tile_q x lanes (%d x %s) within %d threads"
-            % (LANES, tile_f, tile_q, lanes, MAX_LANE_THREADS))
+            "%s: lanes must be one of %s, divide tile_f (%d) and keep "
+            "tile_q x lanes (%d x %s) within %d threads"
+            % ("rope_mxu_faces" if mxu else "rope_faces", LANES, tile_f,
+               tile_q, lanes, MAX_LANE_THREADS))
 
 
-def resident_lanes(tile_q, tile_f):
-    """Sub-lanes per query of the resident ``rope_faces`` launch: the most
-    of ``LANES`` up to ``PICKED_LANES_MAX`` that divide ``tile_f`` and keep
-    ``tile_q x S`` within ``MAX_LANE_THREADS``."""
+def picked_lanes(tile_q, tile_f):
+    """Sub-lanes per query of a sub-lane rope launch (both ``rope_faces``
+    entries, the streamed ``rope_mxu_faces`` one) when the caller names
+    none: the most of ``LANES`` up to ``PICKED_LANES_MAX`` that divide
+    ``tile_f`` and keep ``tile_q x S`` within ``MAX_LANE_THREADS``."""
     return max(s for s in LANES if s <= PICKED_LANES_MAX and tile_f % s == 0
                and tile_q * s <= MAX_LANE_THREADS)
 
@@ -393,28 +428,34 @@ def resident_lanes(tile_q, tile_f):
 def rope_argmin(ops, n_buffers=None, lanes=None):
     """(best squared distance, sorted face position, leaves per query
     tile): the ``rope_faces`` CUDA kernel for CUDA operands (the resident
-    entry for ``n_buffers=None``, at ``lanes`` sub-lanes per query, by
-    default ``resident_lanes``; else the streamed one, one lane per
-    query), the plain walk (``rope_argmin_plain``) for CPU operands."""
-    _check_rope(ops, n_buffers)
-    if lanes is not None:
-        _check_lanes(ops, n_buffers, lanes)
+    entry for ``n_buffers=None``, else the streamed one, which reads
+    ``ops["recs"]``), at ``lanes`` sub-lanes per query, by default
+    ``picked_lanes``; the plain walk (``rope_argmin_plain``) for CPU
+    operands."""
+    if lanes is None:
+        lanes = picked_lanes(ops["tile_q"], ops["tile_f"])
+    _check_rope(ops, n_buffers, lanes)
     dev = ops["seed"].device
     if dev.type == "cpu":
-        return rope_argmin_plain(ops, n_buffers)
+        return rope_argmin_plain(ops, n_buffers, lanes)
+    faces = ops["rows"]
+    if n_buffers:
+        faces = ops.get("recs")
+        want = (ops["rows"].shape[1], FAST_RECORD)
+        if faces is None or faces.shape != want or faces.device != dev or \
+                faces.dtype != torch.float32 or not faces.is_contiguous():
+            raise ValueError("rope_faces: the streamed entry reads the face "
+                             "records [Fp, %d] float32 of rope_operands(..., "
+                             "records=True)" % FAST_RECORD)
     from .. import _build
 
     q_pad = ops["seed"].shape[0]
     n_tiles = q_pad // ops["tile_q"]
-    if n_buffers:
-        lanes = 1
-    elif lanes is None:
-        lanes = resident_lanes(ops["tile_q"], ops["tile_f"])
     out_d = torch.empty(q_pad, dtype=torch.float32, device=dev)
     out_i = torch.empty(q_pad, dtype=torch.int32, device=dev)
     out_lv = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     _build.launch("rope_faces", dev, ops["pts_s"], ops["seed"], ops["boxes"],
-                  ops["topo"], ops["rows"], out_d, out_i, out_lv, q_pad,
+                  ops["topo"], faces, out_d, out_i, out_lv, q_pad,
                   ops["boxes"].shape[0], ops["rows"].shape[-1], ops["tile_q"],
                   ops["tile_f"], n_buffers or 0, lanes)
     LAUNCHES["rope_faces_stream" if n_buffers else "rope_faces_resident"] += 1
@@ -439,15 +480,22 @@ def _screen(cols, q, best):
     return ap2t - env <= ub + (su + su) * reach + reach * reach
 
 
-def rope_mxu_argmin_plain(ops, n_buffers=None, use_bf16=False, counts=None):
+def rope_mxu_argmin_plain(ops, n_buffers=None, use_bf16=False, counts=None,
+                          lanes=None):
     """Plain PyTorch version of the ``rope_mxu_faces`` kernel on the
     operand dict of ``_rope_operands(..., mxu=True)``: the resident walk
-    for ``n_buffers=None``, else the streamed one.  Returns (best squared
-    distance [Qp] float32, sorted face position [Qp] int32, leaves taken
-    and full visits per query tile [Qp/tile_q] int32).
+    for ``n_buffers=None``, else the streamed one; with ``lanes``, each
+    leaf folded as ``lanes`` sub-lanes (bit-identical to the whole-leaf
+    fold).  Returns (best squared distance [Qp] float32, sorted face
+    position [Qp] int32, leaves taken and full visits per query tile
+    [Qp/tile_q] int32).
 
     ``counts``, a dict, gains ``screen_pairs``: the query-face pairs the
-    kernel's screen evaluates, each query up to its first survivor."""
+    one-lane screen evaluates, each query up to its first survivor; with
+    ``lanes`` also ``screen_lane_pairs``, those the sub-lanes evaluate,
+    each run up to its own first survivor."""
+    if lanes is not None:
+        _check_lanes(ops, n_buffers, lanes, mxu=True)
     rec = ops["rec"]
     tile_f = ops["tile_f"]
     span = torch.arange(tile_f, device=rec.device)
@@ -455,28 +503,42 @@ def rope_mxu_argmin_plain(ops, n_buffers=None, use_bf16=False, counts=None):
     def leaf_cost(q, ls):
         return _sqdist_tile_mxu(q, _leaf_cols(rec, ls, span))
 
+    def tested(surv):
+        """Pairs a screen tests over the last dim of ``surv``, up to the
+        first survivor."""
+        hit = surv.any(dim=-1)
+        return int(torch.where(hit, surv.int().argmax(dim=-1) + 1,
+                               surv.shape[-1]).sum())
+
     def screen(q, ls, best):
         surv = _screen(_leaf_cols(rec, ls, span), q, best)
-        hit = surv.any(dim=-1)
         if counts is not None:
-            first = torch.where(hit, surv.int().argmax(dim=-1) + 1, tile_f)
             counts["screen_pairs"] = (counts.get("screen_pairs", 0)
-                                      + int(first.sum()))
-        return hit.any(dim=-1)
+                                      + tested(surv))
+            if lanes is not None:
+                counts["screen_lane_pairs"] = (
+                    counts.get("screen_lane_pairs", 0)
+                    + tested(surv.unflatten(-1, (lanes, -1))))
+        return surv.any(dim=-1).any(dim=-1)
 
     return _walk_plain(ops, n_buffers, leaf_cost,
-                       screen if use_bf16 else None)
+                       screen if use_bf16 else None, lanes)
 
 
-def rope_mxu_argmin(ops, n_buffers=None, use_bf16=False):
+def rope_mxu_argmin(ops, n_buffers=None, use_bf16=False, lanes=None):
     """(best squared distance, sorted face position, leaves taken and full
     visits per query tile) of the MXU walk: the ``rope_mxu_faces`` CUDA
-    kernel for CUDA operands (the resident entry for ``n_buffers=None``,
-    else the streamed one), its plain version for CPU operands."""
-    _check_rope(ops, n_buffers, mxu=True)
+    kernel for CUDA operands (the resident entry, one lane per query, for
+    ``n_buffers=None``; else the streamed one at ``lanes`` sub-lanes per
+    query, by default ``picked_lanes``), its plain version for CPU
+    operands."""
+    if lanes is None:
+        lanes = 1 if n_buffers is None else picked_lanes(ops["tile_q"],
+                                                         ops["tile_f"])
+    _check_rope(ops, n_buffers, lanes, mxu=True)
     dev = ops["seed"].device
     if dev.type == "cpu":
-        return rope_mxu_argmin_plain(ops, n_buffers, use_bf16)
+        return rope_mxu_argmin_plain(ops, n_buffers, use_bf16, lanes=lanes)
     from .. import _build
 
     q_pad = ops["seed"].shape[0]
@@ -489,7 +551,7 @@ def rope_mxu_argmin(ops, n_buffers=None, use_bf16=False):
                   ops["seed"], ops["boxes"], ops["topo"], ops["rec"], out_d,
                   out_i, out_lv, out_rep, q_pad, ops["boxes"].shape[0],
                   ops["rec"].shape[0], ops["tile_q"], ops["tile_f"],
-                  n_buffers or 0, int(bool(use_bf16)))
+                  n_buffers or 0, int(bool(use_bf16)), lanes)
     LAUNCHES["rope_mxu_stream" if n_buffers else "rope_mxu_resident"] += 1
     return out_d, out_i, out_lv, out_rep
 
@@ -498,10 +560,13 @@ def rope_mxu_argmin(ops, n_buffers=None, use_bf16=False):
 # Whole queries.
 
 def rope_operands(v, f, points, tile_q=128, tile_f=256, index=None,
-                  rebuild_mismatched=False, device="cuda", mxu=False):
+                  rebuild_mismatched=False, device="cuda", mxu=False,
+                  records=False):
     """The operand dict of a rope query on ``device``: the coarse index
     from the cache (or ``index``), its arrays uploaded once per device,
-    and the shared prologue (with ``mxu``, the MXU walk's)."""
+    and the shared prologue (with ``mxu``, the MXU walk's; with
+    ``records``, also the face records the streamed ``rope_faces`` kernel
+    reads)."""
     dev = resolve_device(device)
     index = _coarse_index(v, f, tile_f, index, rebuild_mismatched)
     arr = index.on(dev)
@@ -509,13 +574,14 @@ def rope_operands(v, f, points, tile_q=128, tile_f=256, index=None,
         as_tensor(v, dev, torch.float32), as_tensor(f, dev),
         as_tensor(points, dev, torch.float32).reshape(-1, 3),
         arr["order"], arr["center"], arr["node_lo"], arr["node_hi"],
-        arr["node_skip"], arr["node_leaf"], int(tile_q), int(tile_f), mxu)
+        arr["node_skip"], arr["node_leaf"], int(tile_q), int(tile_f), mxu,
+        records)
 
 
 def _closest_point_rope(v, f, points, tile_q, tile_f, n_buffers, index,
-                        rebuild_mismatched, device, argmin):
+                        rebuild_mismatched, device, argmin, records=False):
     ops = rope_operands(v, f, points, tile_q, tile_f, index,
-                        rebuild_mismatched, device)
+                        rebuild_mismatched, device, records=records)
     _, out_i, out_lv = argmin(ops, n_buffers)
     return _rope_epilogue(ops, out_i, out_lv)
 
@@ -559,7 +625,8 @@ def closest_point_bvh_stream_kernel(v, f, points, tile_q=128, tile_f=256,
     least 2 (at most ``MAX_BUFFERS``)."""
     _check_stream(tile_f)
     return _closest_point_rope(v, f, points, tile_q, tile_f, int(n_buffers),
-                               index, rebuild_mismatched, device, rope_argmin)
+                               index, rebuild_mismatched, device, rope_argmin,
+                               records=True)
 
 
 def closest_point_bvh_stream_plain(v, f, points, tile_q=128, tile_f=256,

@@ -16,7 +16,7 @@
 // query also carries p2 = |p|^2, an operand.
 //
 // bf16 screen (use_bf16): before the full visit every thread tests its
-// query against each face of the landed leaf,
+// query against the faces of the landed leaf,
 //   max0(p2 - 2 (bf16(p) . bf16(a)) + a2) - 2^-6 (p2 + a2)
 //       <= ub + 2 sqrt(max0(ub)) r + r^2,
 // with ub the thread's running best (mesh_tpu/query/pallas_closest.py
@@ -27,17 +27,22 @@
 // running best only tightens, so the screen skips only visits whose every
 // pair would lose the strict <: faces and distances are bit-identical
 // with and without the screen, and between the resident and the streamed
-// entry.  Per query tile the kernel counts the leaves it took and the full
-// visits it ran, the reference's screened and repaired.
+// entry.  The resident entry (rope_walk_kernel, one thread per query)
+// screens the whole leaf; the streamed entry (rope_stream_kernel, `lanes`
+// threads per query) screens each sub-lane's run, which decides every
+// visit alike (rope_walk.cuh's note).  Per query tile the kernel counts the
+// leaves it took and the full visits it ran, the reference's screened and
+// repaired.
 //
 // Bound on the H100: float32 issue on the pairs of the visited leaves (124
 // operations a pair: the MXU tile with its tail) plus, under the screen,
 // the screened pairs up to each query's first survivor (25 operations:
 // three bf16 round trips counted as two each, the dot product 5, ap2~ 5,
 // the envelope 2, the bound's 4, the subtract, the compare and the loop's
-// exit test).  The walk's control is rope_walk.cuh's.  A ring of n_buffers
-// slots of 96 * tile_f bytes must fit the walk's 226 KB: 9 slots at
-// tile_f 256.
+// exit test), each query's sub-lanes up to their own first survivors on
+// the streamed entry.  The walk's control is rope_walk.cuh's.  A ring of
+// n_buffers slots of 96 * tile_f bytes and the sub-lanes' partials (8
+// bytes a thread) must fit the walk's 226 KB: 9 slots at tile_f 256.
 
 #include "mxu_cost.cuh"
 #include "rope_walk.cuh"
@@ -53,11 +58,14 @@ struct MxuVisit {
   struct Query {
     float px, py, pz, p2, bx, by, bz;
   };
+  static constexpr bool kScreen = kBf16;
 
   __device__ Query query(size_t q, float px, float py, float pz) const {
     return {px, py, pz, p2[q], bf16_round(px), bf16_round(py),
             bf16_round(pz)};
   }
+
+  __device__ int leaf_faces() const { return tile_f; }
 
   __device__ int slot_floats() const { return kMxuRecord * tile_f; }
 
@@ -82,13 +90,13 @@ struct MxuVisit {
     cp_async_commit();
   }
 
-  // Whether this thread's query may still beat best_d on a face of the
-  // staged leaf (the bf16 screen).
-  __device__ bool survives(const float* slot, const Query& q,
-                           float ub) const {
+  // Whether this thread's query may still beat ub on a face of [k0, k1)
+  // of the staged leaf (the bf16 screen), testing up to the first survivor.
+  __device__ bool survives(const float* slot, const Query& q, float ub,
+                           int k0, int k1) const {
     const float su = sqrtf(max0(ub));
     const float su2 = su + su;
-    for (int k = 0; k < tile_f; ++k) {
+    for (int k = k0; k < k1; ++k) {
       const float* r = slot + k * kMxuRecord;
       const float pa = q.bx * bf16_round(r[9]) + q.by * bf16_round(r[10]) +
                        q.bz * bf16_round(r[11]);
@@ -100,20 +108,29 @@ struct MxuVisit {
     return false;
   }
 
-  // Fold a staged leaf into (best_d, best_i) in increasing face order,
-  // unless the screen shows that no thread of the block can improve.
-  __device__ bool visit(const float* slot, int leaf_start, const Query& q,
-                        float& best_d, int& best_i) const {
-    if (kBf16 && !__syncthreads_or(survives(slot, q, best_d))) return false;
+  // Fold faces [k0, k1) of a staged leaf into (d, i) in increasing face
+  // order with a strict <; i = base + the face's position in the leaf.
+  __device__ void fold(const float* slot, int k0, int k1, int base,
+                       const Query& q, float& d, int& i) const {
     const float4* s4 = reinterpret_cast<const float4*>(slot);
-    for (int k = 0; k < tile_f; ++k) {
-      const float d =
+    for (int k = k0; k < k1; ++k) {
+      const float dk =
           mxu_pair<true>(q.px, q.py, q.pz, q.p2, s4 + k * kMxuVec);
-      if (d < best_d) {
-        best_d = d;
-        best_i = leaf_start + k;
+      if (dk < d) {
+        d = dk;
+        i = base + k;
       }
     }
+  }
+
+  // Fold a staged leaf into (best_d, best_i), unless the screen shows that
+  // no thread of the block can improve (the resident entry).
+  __device__ bool visit(const float* slot, int leaf_start, const Query& q,
+                        float& best_d, int& best_i) const {
+    if (kBf16 && !__syncthreads_or(survives(slot, q, best_d, 0, tile_f))) {
+      return false;
+    }
+    fold(slot, 0, tile_f, leaf_start, q, best_d, best_i);
     return true;
   }
 };
@@ -123,22 +140,24 @@ struct MxuVisit {
 // pts [q_pad, 3], p2 [q_pad], seed [q_pad], boxes [n_nodes, 6], topo
 // [n_nodes, 2] int32, rec [f_pad, 24] (16-byte aligned) float32; out_d,
 // out_i [q_pad]; out_lv and out_rep [q_pad / tile_q] int32.  n_buffers: 0
-// for the resident entry, 2..16 for the streamed one.  tile_q must be a
-// multiple of 32 up to 1024 dividing q_pad; tile_f must divide f_pad; the
-// staged leaves (one, or n_buffers) must fit 226 KB.  Returns the launch's
-// CUDA error code.
+// for the resident entry (lanes must be 1), 2..16 for the streamed one
+// (lanes 1, 2, 4 or 8 threads per query, dividing tile_f, with tile_q x
+// lanes up to 1024).  tile_q must be a multiple of 32 up to 1024 dividing
+// q_pad; tile_f must divide f_pad; the staged leaves (one, or n_buffers)
+// and the partials must fit 226 KB.  Returns the launch's CUDA error code.
 extern "C" int mt_rope_mxu_faces(const float* pts, const float* p2,
                                  const float* seed, const float* boxes,
                                  const int* topo, const float* rec,
                                  float* out_d, int* out_i, int* out_lv,
                                  int* out_rep, int q_pad, int n_nodes,
                                  int f_pad, int tile_q, int tile_f,
-                                 int n_buffers, int use_bf16,
+                                 int n_buffers, int use_bf16, int lanes,
                                  cudaStream_t stream) {
   using namespace mt;
   (void)cudaGetLastError();  // clear an error left by an earlier call
   if (q_pad <= 0) return 0;
-  if (tile_f <= 0 || f_pad % tile_f ||
+  if (tile_f <= 0 || f_pad % tile_f || lanes <= 0 || tile_f % lanes ||
+      (n_buffers == 0 && lanes != 1) ||
       reinterpret_cast<size_t>(rec) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -146,11 +165,21 @@ extern "C" int mt_rope_mxu_faces(const float* pts, const float* p2,
   const size_t slot_bytes =
       static_cast<size_t>(kMxuRecord) * tile_f * sizeof(float);
   if (use_bf16) {
-    return launch_rope_walk(pts, seed, rope, MxuVisit<true>{rec, p2, tile_f},
-                            out_d, out_i, out_lv, out_rep, q_pad, tile_q,
-                            n_buffers, slot_bytes, stream);
+    const MxuVisit<true> policy{rec, p2, tile_f};
+    if (n_buffers == 0) {
+      return launch_rope_walk(pts, seed, rope, policy, out_d, out_i, out_lv,
+                              out_rep, q_pad, tile_q, slot_bytes, stream);
+    }
+    return launch_rope_stream(pts, seed, rope, policy, out_d, out_i, out_lv,
+                              out_rep, q_pad, tile_q, lanes, n_buffers,
+                              slot_bytes, stream);
   }
-  return launch_rope_walk(pts, seed, rope, MxuVisit<false>{rec, p2, tile_f},
-                          out_d, out_i, out_lv, out_rep, q_pad, tile_q,
-                          n_buffers, slot_bytes, stream);
+  const MxuVisit<false> policy{rec, p2, tile_f};
+  if (n_buffers == 0) {
+    return launch_rope_walk(pts, seed, rope, policy, out_d, out_i, out_lv,
+                            out_rep, q_pad, tile_q, slot_bytes, stream);
+  }
+  return launch_rope_stream(pts, seed, rope, policy, out_d, out_i, out_lv,
+                            out_rep, q_pad, tile_q, lanes, n_buffers,
+                            slot_bytes, stream);
 }

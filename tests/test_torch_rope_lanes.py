@@ -125,8 +125,9 @@ def test_rope_argmin_refuses_lanes_it_cannot_launch():
     wide = dict(ops, tile_q=256)
     with pytest.raises(ValueError, match="1024"):
         rk._check_lanes(wide, None, 8)                # 2048 threads
-    with pytest.raises(ValueError, match="one lane"):
-        rk.rope_argmin(ops, 2, lanes=2)               # streamed entry
+    for a, b in zip(rk.rope_argmin(ops, 2, lanes=2), rk.rope_argmin_plain(
+            ops, 2)):                                 # streamed entry
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="lanes"):
         rk.rope_lanes_plain(ops, 5)
     # on CPU operands the wrapper keeps returning the whole-leaf plain walk
@@ -147,7 +148,7 @@ def test_rope_argmin_refuses_lanes_it_cannot_launch():
     (4096, 128, 256, 4),    # the pick does not depend on the grid
 ])
 def test_resident_lanes_fill_the_card(n_tiles, tile_q, tile_f, want):
-    assert rk.resident_lanes(tile_q, tile_f) == want
+    assert rk.picked_lanes(tile_q, tile_f) == want
     _check_lanes_ok(tile_q, tile_f, want)
 
 
@@ -161,7 +162,7 @@ def test_resident_lanes_are_the_fewest_that_reach_the_target():
     the cap."""
     for tile_q in (32, 64, 128, 256, 512, 1024):
         for tile_f in (8, 30, 64, 256, 258):
-            s = rk.resident_lanes(tile_q, tile_f)
+            s = rk.picked_lanes(tile_q, tile_f)
             assert s in rk.LANES and s <= rk.PICKED_LANES_MAX
             _check_lanes_ok(tile_q, tile_f, s)
             for x in rk.LANES:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B timing of mesh_tpu_torch's resident rope walk kernel alone
-(``rope_faces``, resident entry), and of the accel traversal around it on
-avatar frames, in two checkouts, on one CUDA card, in one run.
+"""A/B timing of mesh_tpu_torch's rope walk kernels alone (``rope_faces``,
+both entries, and the streamed ``rope_mxu_faces`` entry, f32 and bf16), of
+the accel traversal around the resident one on avatar frames, and of the
+scan's ``Mesh`` call, in two checkouts, on one CUDA card, in one run.
 
     python3 tools/ab_rope.py --other DIR [--pairs 2] [--rounds 5] [--reps 10]
 
@@ -10,7 +11,8 @@ commit, unpacked with ``git archive`` into a directory that .gitignore
 lists, such as ``build/parent``).  The operands are made once, here, on
 the card, with chip_smoke.py's seeds and shapes: the scan's
 (``rope_operands`` on phase 6's 209,304-face sphere and 65,536 queries,
-tile_q 128, tile_f 256: 512 query tiles), the same sphere with 139,264
+tile_q 128, tile_f 256: 512 query tiles; with the streamed entry's face
+records, and the MXU walk's records), the same sphere with 139,264
 queries made by the scan's recipe from another seed (``scan_1088``: 1,088
 tiles, a grid of more than 8 blocks an SM), and phase 11's two anim
 frames (``chip_smoke.anim_frame``: the SMPL-sized model and the
@@ -18,26 +20,36 @@ frames (``chip_smoke.anim_frame``: the SMPL-sized model and the
 over the frame's refit index).  Each side then runs in a process of its
 own, from its own checkout, ``--pairs`` times, the pairs alternating
 which side runs first (other, this, this, other, ...).  A process times,
-on every operand set, the resident entry at each sub-lane count its
-``rope_argmin`` takes (``rk.LANES`` and its own pick; a checkout without
-sub-lanes has its one resident launch), on the scan, first in each round,
-the streamed entry (ring of 2), and on each anim frame the whole
+on every operand set, the resident ``rope_faces`` entry at each sub-lane
+count its ``rope_argmin`` takes (``rk.LANES`` and its own pick; a
+checkout without sub-lanes has its one resident launch); on the two scans
+the streamed ``rope_faces`` entry and the streamed ``rope_mxu_faces``
+entry, f32 and bf16, each at each sub-lane count and at the pick with a
+ring of 2 (a checkout without streamed sub-lanes has its one streamed
+launch) and at the pick with a ring of 4; on each anim frame the whole
 traversal (``closest_faces_and_points_accel`` over the refit index, which
 the process builds from the frame's rest keyframe and posed vertices with
 its own ``get_index`` and ``refit_bvh``; ``traversal_launches`` counts
-the resident kernel's launches a call): CUDA events around ``--reps``
-back-to-back calls, in ``--rounds`` rounds that interleave the variants,
-the median over the rounds.  The first process of a side builds its
-kernels (with ``-Xptxas -v``; the rope kernels' register and spill lines
-are printed; this checkout's are built first, here).  Every resident
-answer (distances, sorted face positions, leaves per query tile) must
-equal every other on the same operands, on both sides and at every
-sub-lane count, the streamed entry's distances and faces must equal them,
-and each traversal's faces, points and distances must equal the first
-process's.  Prints one line per process and, last, one JSON object with
-every reading, per variant the median of each side's medians and the
-fastest round, and the card's name and power limit; exits non-zero
-without a card or when two answers differ.
+the resident kernel's launches a call); and on the scan the ``Mesh``
+call (``Mesh.closest_faces_and_points``, the BVH rung's streamed walk;
+``facade`` times it on the host clock up to ``torch.cuda.synchronize``,
+after a first call that builds the index): CUDA events around ``--reps``
+back-to-back calls, in ``--rounds`` rounds that interleave the variants
+(on the scans the streamed entries first), the median over the rounds.
+The first process of a side builds its kernels (with ``-Xptxas -v``; the
+rope kernels' register and spill lines are printed; this checkout's are
+built first, here).  Every answer must equal the first process's answer
+of the same variant; on the same operands every resident answer
+(distances, sorted face positions, leaves per query tile) must equal the
+one at the pick, every streamed ``rope_faces`` answer at a ring of 2 the
+one at the pick, with the resident distances and faces and at least as
+many leaves (at a ring of 4 the same distances and faces), and every
+streamed MXU answer (distances, faces, leaves, full visits) the f32 one at
+the pick of its ring, bf16 with the same distances, faces and leaves.
+Prints one line per process and, last, one JSON object with every
+reading, per variant the median of each side's medians and the fastest
+round, and the card's name and power limit; exits non-zero without a card
+or when two answers differ.
 """
 
 import argparse
@@ -50,47 +62,74 @@ import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: the operand keys the rope_faces wrappers read
-OP_KEYS = ("pts_s", "seed", "boxes", "topo", "rows", "tile_q", "tile_f")
+#: the operand keys the rope walk wrappers read
+OP_KEYS = ("pts_s", "seed", "boxes", "topo", "rows", "recs", "tile_q",
+           "tile_f")
+MXU_KEYS = ("pts_s", "seed", "boxes", "topo", "rec", "p2", "tile_q",
+            "tile_f")
 
 #: queries of the scan_1088 set: 1,088 query tiles of 128
 BIG_SCAN_QUERIES = 1088 * 128
 
+#: the ring depths timed at the pick: the default and a deeper one
+RINGS = (2, 4)
+
 #: what each side's process runs, from its own checkout
 SIDE = r"""
-import json, statistics, sys
+import json, statistics, sys, time
 import torch
 sys.path.insert(0, ".")
-from mesh_tpu_torch import _build
+from mesh_tpu_torch import Mesh, _build
 from mesh_tpu_torch.accel import rope_kernel as rk
 from mesh_tpu_torch.accel.build import get_index
 from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
 from mesh_tpu_torch.anim import refit as anim_refit
 
-sets, frames = torch.load(sys.argv[1])
+sets, mxu_sets, frames, scan = torch.load(sys.argv[1])
 reps, rounds, out_path = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+rings = [int(x) for x in sys.argv[5].split(",")]
 report = _build.build(verbose=True)
-ptxas = [line.strip() for line in
-         report.get("rope_faces", {}).get("ptxas", "").splitlines()
+ptxas = [line.strip() for name in ("rope_faces", "rope_mxu_faces")
+         for line in report.get(name, {}).get("ptxas", "").splitlines()
          if "Compiling entry" in line or "registers" in line
          or "spill" in line]
 lanes = list(rk.LANES) if hasattr(rk, "LANES") else []
+pick = getattr(rk, "picked_lanes", getattr(rk, "resident_lanes", None))
+# streamed sub-lanes: both streamed wrappers take lanes
+stream_lanes = lanes if hasattr(rk, "picked_lanes") else []
+dev = torch.device("cuda")
 variants, picked = [], {}
 for name, ops in sets.items():
     ops = {k: v.cuda() if torch.is_tensor(v) else v for k, v in ops.items()}
-    if name == "scan":
-        # first in each round on both sides, after the same kind of call
-        variants.append((name, "stream",
-                         lambda ops=ops: rk.rope_argmin(ops, 2)))
+    if name in mxu_sets:
+        mops = {k: v.cuda() if torch.is_tensor(v) else v
+                for k, v in mxu_sets[name].items()}
+        # the streamed entries first in each round on both sides
+        for s in stream_lanes:
+            variants.append((name, "stream_s%d" % s, lambda ops=ops, s=s:
+                             rk.rope_argmin(ops, rings[0], lanes=s)))
+        for n_b in rings:
+            variants.append((name, "stream_ring%d" % n_b,
+                             lambda ops=ops, n_b=n_b: rk.rope_argmin(ops,
+                                                                     n_b)))
+        for mode, b in (("f32", False), ("bf16", True)):
+            for s in stream_lanes:
+                variants.append((name, "mxu_%s_s%d" % (mode, s),
+                                 lambda mops=mops, s=s, b=b:
+                                 rk.rope_mxu_argmin(mops, rings[0], b,
+                                                    lanes=s)))
+            for n_b in rings:
+                variants.append((name, "mxu_%s_ring%d" % (mode, n_b),
+                                 lambda mops=mops, n_b=n_b, b=b:
+                                 rk.rope_mxu_argmin(mops, n_b, b)))
     for s in lanes:
         variants.append((name, "resident_s%d" % s,
                          lambda ops=ops, s=s: rk.rope_argmin(ops, None,
                                                              lanes=s)))
     variants.append((name, "resident",
                      lambda ops=ops: rk.rope_argmin(ops, None)))
-    if lanes:
-        picked[name] = rk.resident_lanes(ops["tile_q"], ops["tile_f"])
-dev = torch.device("cuda")
+    if pick is not None:
+        picked[name] = pick(ops["tile_q"], ops["tile_f"])
 launches = {}
 for name, fr in frames.items():
     v, q = fr["v"].to(dev), fr["q"].to(dev)
@@ -108,8 +147,19 @@ for name, fr in frames.items():
     traversal()
     launches[name] = rk.LAUNCHES["rope_faces_resident"] - before
     variants.append((name, "traversal", traversal))
+mesh = Mesh(scan["v"].numpy(), scan["f"].numpy(), device=dev)
+scan_p = scan["p"].numpy()
+
+
+def facade():
+    faces, points = mesh.closest_faces_and_points(scan_p)
+    return [torch.as_tensor(faces.astype("int64")), torch.as_tensor(points)]
+
+
 answers = {n + "/" + k: [t.cpu() for t in fn()] for n, k, fn in variants}
+answers["scan/facade"] = facade()       # the first call builds the index
 times = {n + "/" + k: [] for n, k, _ in variants}
+times["scan/facade"] = []
 for _ in range(rounds):
     for name, key, fn in variants:
         fn()
@@ -122,6 +172,13 @@ for _ in range(rounds):
         end.record()
         end.synchronize()
         times[name + "/" + key].append(start.elapsed_time(end) / reps)
+    # the Mesh call ends on the host (numpy answers): host clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        facade()
+    torch.cuda.synchronize()
+    times["scan/facade"].append((time.perf_counter() - t0) * 1e3 / reps)
 torch.save(answers, out_path)
 print(json.dumps({"ms": {k: statistics.median(v) for k, v in times.items()},
                   "rounds_ms": times, "lanes_picked": picked,
@@ -131,11 +188,12 @@ print(json.dumps({"ms": {k: statistics.median(v) for k, v in times.items()},
 
 
 def operand_sets():
-    """({name: operand dict on the CPU, OP_KEYS only}, {anim name: the
+    """({name: rope_faces operand dict on the CPU, OP_KEYS only}, {scan
+    name: the MXU walk's operand dict, MXU_KEYS only}, {anim name: the
     frame's rest keyframe, posed vertices, queries, faces and leaf size on
-    the CPU}): the two scans' and the two anim frames' rope operands, made
-    on the card from chip_smoke.py's seeds, and the frames the traversal
-    runs on."""
+    the CPU}, the scan's mesh and queries): the two scans' and the two anim
+    frames' rope operands, made on the card from chip_smoke.py's seeds, and
+    the frames the traversal runs on."""
     import numpy as np
     import torch
 
@@ -152,9 +210,11 @@ def operand_sets():
     p_big = rng.randn(BIG_SCAN_QUERIES, 3)
     p_big /= np.linalg.norm(p_big, axis=1, keepdims=True)
     p_big *= 1.0 + 0.05 * rng.randn(BIG_SCAN_QUERIES, 1)
-    sets = {"scan": rk.rope_operands(v_s, f_s, p_s, device=dev),
-            "scan_1088": rk.rope_operands(v_s, f_s, p_big.astype(np.float32),
-                                          device=dev)}
+    scans = {"scan": p_s, "scan_1088": p_big.astype(np.float32)}
+    sets = {name: rk.rope_operands(v_s, f_s, p, device=dev, records=True)
+            for name, p in scans.items()}
+    mxu_sets = {name: rk.rope_operands(v_s, f_s, p, device=dev, mxu=True)
+                for name, p in scans.items()}
     frames = {}
     models = {"anim_smpl": (synthetic_body_model(seed=0, device=dev), 11),
               "anim_large": (cs.large_batch_inputs(dev)[0], 12)}
@@ -167,8 +227,15 @@ def operand_sets():
         frames[name] = {"rest": torch.as_tensor(rest), "v": v.cpu(),
                         "q": q.cpu(), "faces": model.faces.cpu(),
                         "leaf": RESIDENT_TILE_F}
-    return ({name: {k: ops[k].cpu() if torch.is_tensor(ops[k]) else ops[k]
-                    for k in OP_KEYS} for name, ops in sets.items()}, frames)
+
+    def host(d, keys):
+        return {k: d[k].cpu() if torch.is_tensor(d[k]) else d[k]
+                for k in keys if k in d}
+
+    return ({name: host(ops, OP_KEYS) for name, ops in sets.items()},
+            {name: host(ops, MXU_KEYS) for name, ops in mxu_sets.items()},
+            frames, {"v": torch.as_tensor(v_s), "f": torch.as_tensor(f_s),
+                     "p": torch.as_tensor(p_s)})
 
 
 def card():
@@ -182,30 +249,50 @@ def card():
 
 
 def check_answers(paths):
-    """The variants whose answers differ on the same operands (empty when
-    all agree): every resident answer must equal the first process's
-    resident one, every streamed one the first process's streamed one, and
-    the streamed distances and faces the resident ones, with at least as
-    many leaves; every traversal answer must equal the first process's."""
+    """The variants whose answers differ (empty when all agree): every
+    answer must equal the first process's of the same variant (the first
+    that has it), and on the same operands among those: every resident
+    answer the one at
+    the pick; every streamed ``rope_faces`` answer at a ring of 2 the one
+    at the pick, with the resident distances and faces and at least as many
+    leaves, at a ring of 4 the same distances and faces with at least as
+    many leaves; every streamed MXU answer the f32 one at the pick of its
+    ring, bf16 with the same distances, faces and leaves, and at a ring of
+    4 the same distances and faces as at a ring of 2."""
     import torch
 
+    def same(a, b, n=None):
+        return all(torch.equal(x, y) for x, y in list(zip(a, b))[:n])
+
     runs = [torch.load(p) for p in paths]
-    bad = set()
+    first = {}          # each variant's answer in the first process with it
     for run in runs:
         for key, got in run.items():
-            name, variant = key.split("/")
-            if variant == "traversal":
-                if not all(torch.equal(a, b)
-                           for a, b in zip(got, runs[0][key])):
-                    bad.add(key)
-                continue
-            res = runs[0][name + "/resident"]
-            ref = runs[0][key] if variant == "stream" else res
-            if not (all(torch.equal(a, b) for a, b in zip(got, ref))
-                    and torch.equal(got[0], res[0])
-                    and torch.equal(got[1], res[1])
-                    and bool((got[2] >= res[2]).all())):
-                bad.add(key)
+            first.setdefault(key, got)
+    bad = {key for run in runs for key, got in run.items()
+           if not same(got, first[key])}
+    for key, got in first.items():
+        name, variant = key.split("/")
+        res = first.get(name + "/resident")
+        if variant.startswith("resident"):
+            ok = same(got, res)
+        elif variant.startswith("stream"):
+            ring = (first[name + "/stream_ring2"]
+                    if variant != "stream_ring4" else got)
+            ok = (same(got, ring) and same(got, res, 2)
+                  and bool((got[2] >= res[2]).all()))
+        elif variant.startswith("mxu"):
+            mode = variant.split("_")[1]
+            ring = variant.split("_")[-1] if "ring" in variant else "ring2"
+            want = first["%s/mxu_%s_%s" % (name, mode, ring)]
+            f32 = first["%s/mxu_f32_%s" % (name, ring)]
+            base = first[name + "/mxu_f32_ring2"]
+            ok = (same(got, want) and same(got, f32, 2)
+                  and same(got, base, 2) and torch.equal(got[2], f32[2]))
+        else:
+            continue
+        if not ok:
+            bad.add(key)
     return sorted(bad)
 
 
@@ -231,9 +318,11 @@ def main():
     # this checkout's kernels, built here (the operands need the leaf-box
     # kernel) with the register report
     report = _build.build(verbose=True)
-    for line in report.get("rope_faces", {}).get("ptxas", "").splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print("  this ptxas: %s" % line.strip(), flush=True)
+    for name in ("rope_faces", "rope_mxu_faces"):
+        for line in report.get(name, {}).get("ptxas", "").splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                print("  this ptxas: %s" % line.strip(), flush=True)
     runs, outs = [], []
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
@@ -246,8 +335,8 @@ def main():
             out = os.path.join(tmp, "answers_%d.pt" % k)
             res = subprocess.run(
                 [sys.executable, "-c", SIDE, path, str(args.reps),
-                 str(args.rounds), out], cwd=root, capture_output=True,
-                text=True, timeout=900)
+                 str(args.rounds), out, ",".join(map(str, RINGS))],
+                cwd=root, capture_output=True, text=True, timeout=900)
             if res.returncode:
                 sys.stderr.write(res.stderr)
                 sys.exit("ab_rope: the %s side failed" % side)
