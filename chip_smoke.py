@@ -19,9 +19,10 @@ Phases (any failure raises and exits non-zero; none catches its own):
    tiles against every face of each tested tile, with the fractions of
    tiles, chunks and pairs tested), both rope_faces entries on the scan of
    phase 6 (the resident one at every sub-lane count of ``rk.LANES`` and at
-   the one it picks, each timed), and both rope_mxu_faces entries, f32 and bf16, on that scan and on
-   8,192 mixed-radius queries around its sphere (where the bf16 screen must
-   skip visits), each over all its query tiles;
+   the one it picks, each timed), and both rope_mxu_faces entries, f32
+   and bf16, on that scan and on 8,192 mixed-radius queries around its
+   sphere (where the bf16 screen must skip visits), each over all its query
+   tiles at every sub-lane count and at the pick (timed on the scan);
    ray_any_hit (every face) and ray_any_hit_culled on every ray of phase 7
    (64 bodies x 4 cameras x 6890 vertices; the culled kernel on each
    body's vertices in Morton order, its flags the every-face kernel's, its
@@ -942,20 +943,19 @@ def compare_fused_nan(ck, body, f, q, variant, tail):
 def compare_rope_mxu(rk, ops, n_buffers, use_bf16, label, timing):
     """Kernel vs plain for one rope_mxu_faces entry (f32 or bf16) on one
     operand set: identical distances, faces, leaves taken and full visits
-    over every query tile.  The streamed entry is held at every sub-lane
-    count the tiles allow and at the pick (which must give S = 1's
-    answers), each timed with ``timing``; the resident one runs one lane.
-    The bound counts the full visits' pairs at ROPE_MXU_PAIR_OPS and the
-    screen's pairs at SCREEN_PAIR_OPS, as the launch evaluates them: each
-    query up to its first survivor on the resident entry, each sub-lane's
-    run up to its own on the streamed one."""
+    over every query tile.  Either entry is held at every sub-lane count
+    the tiles allow and at the pick (which must give S = 1's answers),
+    each timed with ``timing``.  The bound counts the full visits' pairs
+    at ROPE_MXU_PAIR_OPS and the screen's pairs at SCREEN_PAIR_OPS, as the
+    picked launch evaluates them: each sub-lane's run up to its own first
+    survivor."""
     name = "rope_mxu_stream" if n_buffers else "rope_mxu_resident"
     tile_q, tile_f = ops["tile_q"], ops["tile_f"]
-    chosen = rk.picked_lanes(tile_q, tile_f) if n_buffers else 1
+    chosen = rk.picked_lanes(tile_q, tile_f)
     counts = {}
     (pd, pi, pl, pr), plain_ms = timed(lambda: rk.rope_mxu_argmin_plain(
         ops, n_buffers, use_bf16, counts, lanes=chosen))
-    fit = lane_counts(rk, tile_q, tile_f) if n_buffers else [1]
+    fit = lane_counts(rk, tile_q, tile_f)
     ms_by_lanes, outs = {}, {}
     for lanes in fit + [None]:
         outs[lanes] = kd, ki, kl, kr = rk.rope_mxu_argmin(

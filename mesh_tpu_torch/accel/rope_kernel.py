@@ -33,19 +33,18 @@ screen skips only visits that cannot change a face, so its answers are the
 f32 walk's bit for bit, and it counts leaves taken ("screened") and full
 visits ("repaired") per query tile.
 
-Both ``rope_faces`` entries and the streamed ``rope_mxu_faces`` entry
-split each query's leaf visit over ``lanes`` threads (S in ``LANES``):
-each folds a contiguous run of ``tile_f / S`` faces to a (minimum, lowest
-position) pair, the S pairs merge by (distance, position), and one strict
-``<`` applies the result, which gives the faces, distances, leaf counts
-and full visits of the whole-leaf fold bit for bit; under the bf16 screen
-each sub-lane screens its own run and the block ORs the verdicts, which
-skips the same visits.  The plain versions take ``lanes`` too
-(``_leaf_min``); ``picked_lanes`` picks S from the tile shape.  The
-streamed ``rope_faces`` kernel copies its leaves with ``cp.async``, which
-moves contiguous 16-byte pieces only, so it reads the faces as one record
-per face (``recs`` [Fp, 20]: the 19 planes and a pad), built by the
-prologue under ``records=True``.
+Every entry of both kernels splits each query's leaf visit over
+``lanes`` threads (S in ``LANES``): each folds a contiguous run of
+``tile_f / S`` faces to a (minimum, lowest position) pair, the S pairs
+merge by (distance, position), and one strict ``<`` applies the result,
+which gives the faces, distances, leaf counts and full visits of the
+whole-leaf fold bit for bit; under the bf16 screen each sub-lane screens
+its own run and the block ORs the verdicts, which skips the same visits.
+The plain versions take ``lanes`` too (``_leaf_min``); ``picked_lanes``
+picks S from the tile shape.  The streamed ``rope_faces`` kernel copies
+its leaves with ``cp.async``, which moves contiguous 16-byte pieces only,
+so it reads the faces as one record per face (``recs`` [Fp, 20]: the 19
+planes and a pad), built by the prologue under ``records=True``.
 
 ``rope_argmin`` / ``rope_mxu_argmin`` launch the kernel for CUDA operands
 and take their plain versions (``rope_argmin_plain`` /
@@ -92,9 +91,9 @@ MAX_BUFFERS = 16
 #: partials (8 bytes a thread) must fit it
 MAX_RING_BYTES = 226 * 1024
 
-#: sub-lanes per query the rope_faces entries and the streamed
-#: rope_mxu_faces entry take, and the threads (tile_q x lanes) their block
-#: may have (csrc/rope_walk.cuh rope_lanes_kernel, rope_stream_kernel)
+#: sub-lanes per query every rope entry takes, and the threads (tile_q x
+#: lanes) its block may have (csrc/rope_walk.cuh rope_lanes_kernel,
+#: rope_stream_kernel)
 LANES = (1, 2, 4, 8)
 MAX_LANE_THREADS = 1024
 
@@ -231,7 +230,7 @@ def _check_rope(ops, n_buffers, lanes, mxu=False):
     if n_buffers is not None and not 2 <= n_buffers <= MAX_BUFFERS:
         raise ValueError("streamed rope kernel needs 2 <= n_buffers <= %d "
                          "(got %d)" % (MAX_BUFFERS, n_buffers))
-    _check_lanes(ops, n_buffers, lanes, mxu)
+    _check_lanes(ops, lanes, mxu)
     # the staged leaves, then the sub-lanes' partials (a distance and a
     # position a thread)
     slot = (MXU_RECORD if mxu else FAST_RECORD) * tile_f * 4
@@ -387,7 +386,7 @@ def rope_argmin_plain(ops, n_buffers=None, lanes=None):
     face position [Qp] int32, leaves tested per query tile [Qp/tile_q]
     int32)."""
     if lanes is not None:
-        _check_lanes(ops, n_buffers, lanes)
+        _check_lanes(ops, lanes)
     d, i, leaves, _ = _walk_plain(ops, n_buffers, _fast_leaf_cost(ops),
                                   lanes=lanes)
     return d, i, leaves
@@ -402,11 +401,8 @@ def rope_lanes_plain(ops, lanes):
     return rope_argmin_plain(ops, None, lanes)
 
 
-def _check_lanes(ops, n_buffers, lanes, mxu=False):
+def _check_lanes(ops, lanes, mxu=False):
     tile_q, tile_f = ops["tile_q"], ops["tile_f"]
-    if mxu and n_buffers is None and lanes != 1:
-        raise ValueError("the resident rope_mxu_faces entry runs one lane "
-                         "per query (got lanes=%s)" % lanes)
     if lanes not in LANES or tile_f % lanes or \
             tile_q * lanes > MAX_LANE_THREADS:
         raise ValueError(
@@ -417,10 +413,10 @@ def _check_lanes(ops, n_buffers, lanes, mxu=False):
 
 
 def picked_lanes(tile_q, tile_f):
-    """Sub-lanes per query of a sub-lane rope launch (both ``rope_faces``
-    entries, the streamed ``rope_mxu_faces`` one) when the caller names
-    none: the most of ``LANES`` up to ``PICKED_LANES_MAX`` that divide
-    ``tile_f`` and keep ``tile_q x S`` within ``MAX_LANE_THREADS``."""
+    """Sub-lanes per query of a rope launch (every entry of both
+    kernels) when the caller names none: the most of ``LANES`` up to
+    ``PICKED_LANES_MAX`` that divide ``tile_f`` and keep ``tile_q x S``
+    within ``MAX_LANE_THREADS``."""
     return max(s for s in LANES if s <= PICKED_LANES_MAX and tile_f % s == 0
                and tile_q * s <= MAX_LANE_THREADS)
 
@@ -490,12 +486,16 @@ def rope_mxu_argmin_plain(ops, n_buffers=None, use_bf16=False, counts=None,
     position [Qp] int32, leaves taken and full visits per query tile
     [Qp/tile_q] int32).
 
-    ``counts``, a dict, gains ``screen_pairs``: the query-face pairs the
-    one-lane screen evaluates, each query up to its first survivor; with
-    ``lanes`` also ``screen_lane_pairs``, those the sub-lanes evaluate,
-    each run up to its own first survivor."""
+    Under ``use_bf16`` both walks screen alike: a tile's full visit runs
+    when any (query, run) pair survives, the OR over the tile of each
+    run's test up to its first survivor, which is the whole-leaf screen's
+    verdict at every ``lanes``.  ``counts``, a dict, gains
+    ``screen_pairs``: the query-face pairs the one-lane screen evaluates,
+    each query up to its first survivor; with ``lanes`` also
+    ``screen_lane_pairs``, those the sub-lanes evaluate, each run up to its
+    own first survivor."""
     if lanes is not None:
-        _check_lanes(ops, n_buffers, lanes, mxu=True)
+        _check_lanes(ops, lanes, mxu=True)
     rec = ops["rec"]
     tile_f = ops["tile_f"]
     span = torch.arange(tile_f, device=rec.device)
@@ -528,13 +528,11 @@ def rope_mxu_argmin_plain(ops, n_buffers=None, use_bf16=False, counts=None,
 def rope_mxu_argmin(ops, n_buffers=None, use_bf16=False, lanes=None):
     """(best squared distance, sorted face position, leaves taken and full
     visits per query tile) of the MXU walk: the ``rope_mxu_faces`` CUDA
-    kernel for CUDA operands (the resident entry, one lane per query, for
-    ``n_buffers=None``; else the streamed one at ``lanes`` sub-lanes per
-    query, by default ``picked_lanes``), its plain version for CPU
-    operands."""
+    kernel for CUDA operands (the resident entry for ``n_buffers=None``,
+    else the streamed one), at ``lanes`` sub-lanes per query, by default
+    ``picked_lanes``; its plain version for CPU operands."""
     if lanes is None:
-        lanes = 1 if n_buffers is None else picked_lanes(ops["tile_q"],
-                                                         ops["tile_f"])
+        lanes = picked_lanes(ops["tile_q"], ops["tile_f"])
     _check_rope(ops, n_buffers, lanes, mxu=True)
     dev = ops["seed"].device
     if dev.type == "cpu":

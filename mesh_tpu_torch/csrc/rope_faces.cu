@@ -51,6 +51,7 @@ struct FastLanes {
   };
   static constexpr int kRecord = 4 * FastCost<true>::kVec;
   static constexpr bool kScreen = false;
+  static constexpr bool kCountVisits = false;
 
   __device__ Query query(size_t, float px, float py, float pz) const {
     return {px, py, pz};
@@ -145,7 +146,8 @@ extern "C" int mt_rope_faces(const float* pts, const float* seed,
       static_cast<size_t>(FastLanes::kRecord) * tile_f * sizeof(float);
   if (n_buffers == 0) {
     return launch_rope_lanes(pts, seed, rope, policy, out_d, out_i, out_lv,
-                             q_pad, tile_q, lanes, slot_bytes, stream);
+                             nullptr, q_pad, tile_q, lanes, slot_bytes,
+                             stream);
   }
   return launch_rope_stream(pts, seed, rope, policy, out_d, out_i, out_lv,
                             nullptr, q_pad, tile_q, lanes, n_buffers,

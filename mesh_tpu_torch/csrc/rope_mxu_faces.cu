@@ -16,7 +16,7 @@
 // query also carries p2 = |p|^2, an operand.
 //
 // bf16 screen (use_bf16): before the full visit every thread tests its
-// query against the faces of the landed leaf,
+// query against the faces of its run of the staged leaf,
 //   max0(p2 - 2 (bf16(p) . bf16(a)) + a2) - 2^-6 (p2 + a2)
 //       <= ub + 2 sqrt(max0(ub)) r + r^2,
 // with ub the thread's running best (mesh_tpu/query/pallas_closest.py
@@ -27,22 +27,22 @@
 // running best only tightens, so the screen skips only visits whose every
 // pair would lose the strict <: faces and distances are bit-identical
 // with and without the screen, and between the resident and the streamed
-// entry.  The resident entry (rope_walk_kernel, one thread per query)
-// screens the whole leaf; the streamed entry (rope_stream_kernel, `lanes`
-// threads per query) screens each sub-lane's run, which decides every
-// visit alike (rope_walk.cuh's note).  Per query tile the kernel counts the
-// leaves it took and the full visits it ran, the reference's screened and
-// repaired.
+// entry.  Both entries run `lanes` threads per query (the resident one on
+// rope_lanes_kernel, the streamed one on rope_stream_kernel), and each
+// sub-lane screens its own run of the leaf, which decides every visit as
+// one thread screening the whole leaf does (rope_walk.cuh's note).  Per
+// query tile the kernel counts the leaves it took and the full visits it
+// ran, the reference's screened and repaired.
 //
 // Bound on the H100: float32 issue on the pairs of the visited leaves (124
 // operations a pair: the MXU tile with its tail) plus, under the screen,
-// the screened pairs up to each query's first survivor (25 operations:
-// three bf16 round trips counted as two each, the dot product 5, ap2~ 5,
-// the envelope 2, the bound's 4, the subtract, the compare and the loop's
-// exit test), each query's sub-lanes up to their own first survivors on
-// the streamed entry.  The walk's control is rope_walk.cuh's.  A ring of
-// n_buffers slots of 96 * tile_f bytes and the sub-lanes' partials (8
-// bytes a thread) must fit the walk's 226 KB: 9 slots at tile_f 256.
+// the screened pairs as the sub-lanes test them, each run up to its own
+// first survivor (25 operations: three bf16 round trips counted as two
+// each, the dot product 5, ap2~ 5, the envelope 2, the bound's 4, the
+// subtract, the compare and the loop's exit test).  The walk's control is
+// rope_walk.cuh's.  The staged leaves (one resident, a ring of n_buffers
+// streamed) of 96 * tile_f bytes each and the sub-lanes' partials (8 bytes
+// a thread) must fit the walk's 226 KB: 9 slots at tile_f 256.
 
 #include "mxu_cost.cuh"
 #include "rope_walk.cuh"
@@ -59,6 +59,7 @@ struct MxuVisit {
     float px, py, pz, p2, bx, by, bz;
   };
   static constexpr bool kScreen = kBf16;
+  static constexpr bool kCountVisits = true;
 
   __device__ Query query(size_t q, float px, float py, float pz) const {
     return {px, py, pz, p2[q], bf16_round(px), bf16_round(py),
@@ -122,17 +123,6 @@ struct MxuVisit {
       }
     }
   }
-
-  // Fold a staged leaf into (best_d, best_i), unless the screen shows that
-  // no thread of the block can improve (the resident entry).
-  __device__ bool visit(const float* slot, int leaf_start, const Query& q,
-                        float& best_d, int& best_i) const {
-    if (kBf16 && !__syncthreads_or(survives(slot, q, best_d, 0, tile_f))) {
-      return false;
-    }
-    fold(slot, 0, tile_f, leaf_start, q, best_d, best_i);
-    return true;
-  }
 };
 
 }  // namespace mt
@@ -140,11 +130,12 @@ struct MxuVisit {
 // pts [q_pad, 3], p2 [q_pad], seed [q_pad], boxes [n_nodes, 6], topo
 // [n_nodes, 2] int32, rec [f_pad, 24] (16-byte aligned) float32; out_d,
 // out_i [q_pad]; out_lv and out_rep [q_pad / tile_q] int32.  n_buffers: 0
-// for the resident entry (lanes must be 1), 2..16 for the streamed one
-// (lanes 1, 2, 4 or 8 threads per query, dividing tile_f, with tile_q x
-// lanes up to 1024).  tile_q must be a multiple of 32 up to 1024 dividing
-// q_pad; tile_f must divide f_pad; the staged leaves (one, or n_buffers)
-// and the partials must fit 226 KB.  Returns the launch's CUDA error code.
+// for the resident entry (rope_lanes_kernel), 2..16 for the streamed one
+// (rope_stream_kernel).  lanes: 1, 2, 4 or 8 threads per query, dividing
+// tile_f, with tile_q x lanes up to 1024.  tile_q must be a multiple of 32
+// dividing q_pad; tile_f must divide f_pad; the staged leaves (one, or
+// n_buffers) and the partials must fit 226 KB.  Returns the launch's CUDA
+// error code.
 extern "C" int mt_rope_mxu_faces(const float* pts, const float* p2,
                                  const float* seed, const float* boxes,
                                  const int* topo, const float* rec,
@@ -157,7 +148,6 @@ extern "C" int mt_rope_mxu_faces(const float* pts, const float* p2,
   (void)cudaGetLastError();  // clear an error left by an earlier call
   if (q_pad <= 0) return 0;
   if (tile_f <= 0 || f_pad % tile_f || lanes <= 0 || tile_f % lanes ||
-      (n_buffers == 0 && lanes != 1) ||
       reinterpret_cast<size_t>(rec) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -167,8 +157,9 @@ extern "C" int mt_rope_mxu_faces(const float* pts, const float* p2,
   if (use_bf16) {
     const MxuVisit<true> policy{rec, p2, tile_f};
     if (n_buffers == 0) {
-      return launch_rope_walk(pts, seed, rope, policy, out_d, out_i, out_lv,
-                              out_rep, q_pad, tile_q, slot_bytes, stream);
+      return launch_rope_lanes(pts, seed, rope, policy, out_d, out_i, out_lv,
+                               out_rep, q_pad, tile_q, lanes, slot_bytes,
+                               stream);
     }
     return launch_rope_stream(pts, seed, rope, policy, out_d, out_i, out_lv,
                               out_rep, q_pad, tile_q, lanes, n_buffers,
@@ -176,8 +167,9 @@ extern "C" int mt_rope_mxu_faces(const float* pts, const float* p2,
   }
   const MxuVisit<false> policy{rec, p2, tile_f};
   if (n_buffers == 0) {
-    return launch_rope_walk(pts, seed, rope, policy, out_d, out_i, out_lv,
-                            out_rep, q_pad, tile_q, slot_bytes, stream);
+    return launch_rope_lanes(pts, seed, rope, policy, out_d, out_i, out_lv,
+                             out_rep, q_pad, tile_q, lanes, slot_bytes,
+                             stream);
   }
   return launch_rope_stream(pts, seed, rope, policy, out_d, out_i, out_lv,
                             out_rep, q_pad, tile_q, lanes, n_buffers,

@@ -18,42 +18,44 @@
 // the reference's margin, exceeds the tile's worst running best (a block
 // max).  A taken leaf is copied into shared memory and folded into each
 // query's (best_d, best_i) through the visit policy, with a strict <, so
-// exact ties keep the lowest sorted position.  Three kernels:
+// exact ties keep the lowest sorted position.  Two kernels, each with S
+// threads per query:
 //
-//   rope_lanes_kernel   resident walk, S threads per query (rope_faces.cu's
-//                       resident entry): a leaf that survives the fresh
-//                       bound is copied and visited at once.
-//   rope_stream_kernel  streamed walk, S threads per query (both streamed
-//                       entries): refill walks the rope ahead and, for each
-//                       leaf that survives the bound frozen when refill was
-//                       called, starts a cp.async copy into the next slot
-//                       of a ring of n_buffers, until the ring is full; the
-//                       main loop waits for the oldest slot, visits it, and
-//                       calls refill again with the tightened bound.  A
-//                       popped leaf is not re-checked.  The frozen bound is
+//   rope_lanes_kernel   resident walk (both resident entries): a leaf that
+//                       survives the fresh bound is copied and visited at
+//                       once.
+//   rope_stream_kernel  streamed walk (both streamed entries): refill walks
+//                       the rope ahead and, for each leaf that survives the
+//                       bound frozen when refill was called, starts a
+//                       cp.async copy into the next slot of a ring of
+//                       n_buffers, until the ring is full; the main loop
+//                       waits for the oldest slot, visits it, and calls
+//                       refill again with the tightened bound.  A popped
+//                       leaf is not re-checked.  The frozen bound is
 //                       looser, so the streamed walk takes a superset of the
 //                       resident walk's leaves in the same order; the leaves
 //                       it adds cannot beat the running best under the
 //                       strict <, so faces and distances are bit-identical
 //                       between the two walks and only the leaf count may
 //                       grow (mesh_tpu/accel/pallas_stream.py:34-50).
-//   rope_walk_kernel    resident walk, one thread per query, whole-leaf
-//                       visit: rope_mxu_faces.cu's resident entry alone.
 //
 // rope_stream_kernel is a kernel of its own beside rope_lanes_kernel, not a
-// streamed branch of it: the ring's state (slots, head, count, the full
-// visits, n_buffers, out_rep) would be dead parameters and registers in
-// the resident walk.  The two write the same leaf fold and merge, each in
-// its own body: factored into one inlined function, the merge changed the
-// resident kernel's SASS at S > 1, and the resident kernel keeps its
-// measured code.
+// streamed branch of it: the ring's state (slots, head, count, n_buffers)
+// would be dead parameters and registers in the resident walk.  The two
+// write the same screen, leaf fold and merge, each in its own body:
+// factored into one inlined function, the merge changed the resident
+// kernel's SASS at S > 1, and the fast tile's resident instantiation keeps
+// its measured code.  For the same reason the resident kernel's screen and
+// its count of full visits are compile-time members of the policy
+// (kScreen, kCountVisits): without them it compiles to the code it had
+// before it took them.
 //
-// Sub-lanes (rope_lanes_kernel, rope_stream_kernel).  A block of tile_q x S
-// threads owns a query tile; thread t is sub-lane s = t / tile_q of query
-// t % tile_q, so a warp holds 32 queries of ONE sub-lane and reads the same
-// face of the staged leaf at every step of its fold: a broadcast from
-// shared memory, free of bank conflicts (interleaving the sub-lanes of a
-// query in a warp would read faces tile_f / S apart, all in one bank).
+// Sub-lanes.  A block of tile_q x S threads owns a query tile; thread t is
+// sub-lane s = t / tile_q of query t % tile_q, so a warp holds 32 queries
+// of ONE sub-lane and reads the same face of the staged leaf at every step
+// of its fold: a broadcast from shared memory, free of bank conflicts
+// (interleaving the sub-lanes of a query in a warp would read faces
+// tile_f / S apart, all in one bank).
 // Every thread of the block copies its share of a leaf, 16 bytes at a
 // time.  Sub-lane s folds faces [s R, (s + 1) R), R = tile_f / S, from
 // (+inf, kNoFace) with a strict <: its run's minimum at its lowest
@@ -84,9 +86,9 @@
 // run) is the OR over (query, leaf) of the one-lane screen, and the same
 // visits are skipped.  A sub-lane may test more pairs than the one-lane
 // screen did (it stops at its own run's first survivor, not the leaf's),
-// never fewer in total.
+// never fewer in total.  With S == 1 a thread screens the whole leaf.
 //
-// A visit policy V of the sub-lane kernels provides
+// A visit policy V provides
 //   V::Query                                 per-thread query state
 //   query(q, px, py, pz)                     the state of query q
 //   leaf_faces()                             tile_f
@@ -102,13 +104,12 @@
 //                                            as one cp.async group of this
 //                                            thread (16-byte pieces)
 //   kScreen, survives(slot, query, ub, k0, k1)
-//                                            (streamed) whether faces
-//                                            [k0, k1) may still beat ub
-// rope_walk_kernel's policy provides V::Query, query(), stage() and
-//   visit(slot, leaf_start, query, best_d, best_i)
-//                                            fold the staged leaf; called by
-//                                            every thread of the block; false
-//                                            when it skipped the full visit
+//                                            whether faces [k0, k1) may
+//                                            still beat ub (survives only
+//                                            under kScreen)
+//   kCountVisits                             (resident) whether the walk
+//                                            counts full visits into out_rep
+//                                            (the streamed walk always does)
 
 #pragma once
 
@@ -160,56 +161,15 @@ struct Rope {
   }
 };
 
-// Resident walk, one thread per query, whole-leaf visit through
-// V::visit: blocks of tile_q threads.  Only the MXU policy's resident entry
-// (rope_mxu_faces.cu) runs it.
-template <class V>
-__global__ void rope_walk_kernel(const float* __restrict__ pts,
-                                 const float* __restrict__ seed, Rope rope,
-                                 V policy, float* __restrict__ out_d,
-                                 int* __restrict__ out_i,
-                                 int* __restrict__ out_lv,
-                                 int* __restrict__ out_rep) {
-  extern __shared__ float4 smem4[];
-  __shared__ float scratch[32];
-  float* slot = reinterpret_cast<float*>(smem4);
-  rope.scratch = scratch;
-  const size_t q = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const float px = pts[q * 3], py = pts[q * 3 + 1], pz = pts[q * 3 + 2];
-  const typename V::Query query = policy.query(q, px, py, pz);
-  float best_d = seed[q];
-  int best_i = 0;
-  int leaves = 0, full = 0;
-  int node = 0;
-  float worst = block_reduce<MaxOp>(best_d, scratch);
-  while (node < rope.n_nodes) {
-    const bool prune = rope.lower_bound(node, px, py, pz) * kShrink > worst;
-    const int skip = rope.topo[2 * node];
-    const int leaf_start = rope.topo[2 * node + 1];
-    const bool is_leaf = leaf_start >= 0;
-    if (is_leaf && !prune) {
-      policy.stage(slot, leaf_start);
-      full += policy.visit(slot, leaf_start, query, best_d, best_i);
-      ++leaves;
-      worst = block_reduce<MaxOp>(best_d, scratch);
-    }
-    node = (prune || is_leaf) ? skip : node + 1;
-  }
-  out_d[q] = best_d;
-  out_i[q] = best_i;
-  if (threadIdx.x == 0) {
-    out_lv[blockIdx.x] = leaves;
-    if (out_rep != nullptr) out_rep[blockIdx.x] = full;
-  }
-}
-
 // Resident walk with kLanes sub-lanes per query (the note at the top).
+// Under V::kCountVisits it writes the full visits per query tile into
+// out_rep, which may be null; otherwise it never reads out_rep.
 template <class V, int kLanes>
 __global__ void __launch_bounds__(kMaxLaneThreads)
 rope_lanes_kernel(const float* __restrict__ pts,
                   const float* __restrict__ seed, Rope rope, V policy,
                   float* __restrict__ out_d, int* __restrict__ out_i,
-                  int* __restrict__ out_lv) {
+                  int* __restrict__ out_lv, int* __restrict__ out_rep) {
   extern __shared__ float4 smem4[];
   __shared__ float scratch[32];
   // the partials [kLanes][tile_q] (distances, then positions), then the
@@ -228,7 +188,7 @@ rope_lanes_kernel(const float* __restrict__ pts,
   const int k0 = lane * run;
   float best_d = seed[q];
   int best_i = 0;
-  int leaves = 0;
+  int leaves = 0, full = 0;
   int node = 0;
   float worst = block_reduce<MaxOp>(best_d, scratch);
   while (node < rope.n_nodes) {
@@ -238,34 +198,43 @@ rope_lanes_kernel(const float* __restrict__ pts,
     const bool is_leaf = leaf_start >= 0;
     if (is_leaf && !prune) {
       policy.stage(slot, leaf_start);
-      if constexpr (kLanes == 1) {
-        policy.fold(slot, 0, run, leaf_start, query, best_d, best_i);
-      } else {
-        float d = CUDART_INF_F;
-        int i = kNoFace;
-        policy.fold(slot, k0, k0 + run, 0, query, d, i);
-        part_d[threadIdx.x] = d;
-        part_i[threadIdx.x] = i;
-        __syncthreads();
-        float md = part_d[ql];
-        int mi = part_i[ql];
+      bool visit = true;
+      if constexpr (V::kScreen) {
+        visit = __syncthreads_or(
+            policy.survives(slot, query, best_d, k0, k0 + run));
+      }
+      if (visit) {
+        if constexpr (kLanes == 1) {
+          policy.fold(slot, 0, run, leaf_start, query, best_d, best_i);
+        } else {
+          float d = CUDART_INF_F;
+          int i = kNoFace;
+          policy.fold(slot, k0, k0 + run, 0, query, d, i);
+          part_d[threadIdx.x] = d;
+          part_i[threadIdx.x] = i;
+          __syncthreads();
+          float md = part_d[ql];
+          int mi = part_i[ql];
 #pragma unroll
-        for (int r = 1; r < kLanes; ++r) {
-          const float dr = part_d[r * tile_q + ql];
-          const int ir = part_i[r * tile_q + ql];
-          if (dr < md || (dr == md && ir < mi)) {
-            md = dr;
-            mi = ir;
+          for (int r = 1; r < kLanes; ++r) {
+            const float dr = part_d[r * tile_q + ql];
+            const int ir = part_i[r * tile_q + ql];
+            if (dr < md || (dr == md && ir < mi)) {
+              md = dr;
+              mi = ir;
+            }
+          }
+          if (md < best_d) {
+            best_d = md;
+            best_i = leaf_start + mi;
           }
         }
-        if (md < best_d) {
-          best_d = md;
-          best_i = leaf_start + mi;
-        }
+        if constexpr (V::kCountVisits) ++full;
       }
       ++leaves;
-      // its leading __syncthreads also ends every read of the slot and of
-      // the partials before the next leaf overwrites them
+      // its leading __syncthreads also ends every read of the slot (by the
+      // screen or the fold) and of the partials before the next leaf
+      // overwrites them
       worst = block_reduce<MaxOp>(best_d, scratch);
     }
     node = (prune || is_leaf) ? skip : node + 1;
@@ -274,7 +243,12 @@ rope_lanes_kernel(const float* __restrict__ pts,
     out_d[q] = best_d;
     out_i[q] = best_i;
   }
-  if (threadIdx.x == 0) out_lv[blockIdx.x] = leaves;
+  if (threadIdx.x == 0) {
+    out_lv[blockIdx.x] = leaves;
+    if constexpr (V::kCountVisits) {
+      if (out_rep != nullptr) out_rep[blockIdx.x] = full;
+    }
+  }
 }
 
 // Streamed walk with kLanes sub-lanes per query (the note at the top):
@@ -388,12 +362,13 @@ rope_stream_kernel(const float* __restrict__ pts,
 // slot_bytes of shared memory (after the partials when lanes > 1).  lanes
 // must be 1, 2, 4 or 8 and divide tile_f (the caller checks the latter);
 // tile_q a multiple of 32 dividing q_pad, with tile_q x lanes up to
-// kMaxLaneThreads.  Returns the launch's CUDA error code.
+// kMaxLaneThreads.  out_rep may be null.  Returns the launch's CUDA error
+// code.
 template <class V>
 int launch_rope_lanes(const float* pts, const float* seed, Rope rope,
                       V policy, float* out_d, int* out_i, int* out_lv,
-                      int q_pad, int tile_q, int lanes, size_t slot_bytes,
-                      cudaStream_t stream) {
+                      int* out_rep, int q_pad, int tile_q, int lanes,
+                      size_t slot_bytes, cudaStream_t stream) {
   if (q_pad <= 0) return 0;
   const int threads = tile_q * lanes;
   if (tile_q <= 0 || tile_q % 32 || q_pad % tile_q || lanes <= 0 ||
@@ -415,8 +390,8 @@ int launch_rope_lanes(const float* pts, const float* seed, Rope rope,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<q_pad / tile_q, threads, smem, stream>>>(pts, seed, rope, policy,
-                                                     out_d, out_i, out_lv);
+  kernel<<<q_pad / tile_q, threads, smem, stream>>>(
+      pts, seed, rope, policy, out_d, out_i, out_lv, out_rep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -455,34 +430,6 @@ int launch_rope_stream(const float* pts, const float* seed, Rope rope,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<q_pad / tile_q, threads, smem, stream>>>(
       pts, seed, rope, policy, out_d, out_i, out_lv, out_rep, n_buffers);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches rope_walk_kernel<V> on `stream`, the staged leaf taking
-// slot_bytes of shared memory.  tile_q must be a multiple of 32 up to 1024
-// dividing q_pad.  out_rep may be null.  Returns the launch's CUDA error
-// code (cudaErrorInvalidValue for shapes the walk does not take).
-template <class V>
-int launch_rope_walk(const float* pts, const float* seed, Rope rope, V policy,
-                     float* out_d, int* out_i, int* out_lv, int* out_rep,
-                     int q_pad, int tile_q, size_t slot_bytes,
-                     cudaStream_t stream) {
-  if (q_pad <= 0) return 0;
-  if (tile_q <= 0 || tile_q > 1024 || tile_q % 32 || q_pad % tile_q) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (slot_bytes > kMaxRingBytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto kernel = rope_walk_kernel<V>;
-  // opt in on every launch: the kernel's static scratch counts against the
-  // 48 KB a block gets without it, so even exactly 48 KB of leaves needs it
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(slot_bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<q_pad / tile_q, tile_q, slot_bytes, stream>>>(
-      pts, seed, rope, policy, out_d, out_i, out_lv, out_rep);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -121,10 +121,10 @@ def test_rope_argmin_refuses_lanes_it_cannot_launch():
         rk.rope_argmin(ops, None, lanes=16)
     odd = dict(ops, tile_f=36)
     with pytest.raises(ValueError, match="lanes"):
-        rk._check_lanes(odd, None, 8)                 # 8 does not divide 36
+        rk._check_lanes(odd, 8)                       # 8 does not divide 36
     wide = dict(ops, tile_q=256)
     with pytest.raises(ValueError, match="1024"):
-        rk._check_lanes(wide, None, 8)                # 2048 threads
+        rk._check_lanes(wide, 8)                      # 2048 threads
     for a, b in zip(rk.rope_argmin(ops, 2, lanes=2), rk.rope_argmin_plain(
             ops, 2)):                                 # streamed entry
         assert torch.equal(a, b)
@@ -153,7 +153,7 @@ def test_resident_lanes_fill_the_card(n_tiles, tile_q, tile_f, want):
 
 
 def _check_lanes_ok(tile_q, tile_f, lanes):
-    rk._check_lanes({"tile_q": tile_q, "tile_f": tile_f}, None, lanes)
+    rk._check_lanes({"tile_q": tile_q, "tile_f": tile_f}, lanes)
 
 
 def test_resident_lanes_are_the_fewest_that_reach_the_target():

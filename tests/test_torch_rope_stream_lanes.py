@@ -247,12 +247,39 @@ def test_wrappers_refuse_what_the_kernel_cannot_launch():
         rk.rope_mxu_argmin(big, 3, lanes=4)
     with pytest.raises(ValueError, match="shared memory"):
         rk.rope_mxu_argmin(big, 3)                 # the pick is 4
-    # the resident MXU entry runs one lane per query
-    for lanes in (2, 4, 8):
-        with pytest.raises(ValueError, match="one lane"):
+    # the resident MXU entry takes every S of LANES too, and both resident
+    # wrappers refuse what their kernel cannot launch
+    for use_bf16 in (False, True):
+        whole = rk.rope_mxu_argmin_plain(mxu, None, use_bf16)
+        for lanes in (2, 4, 8):
+            _equal(rk.rope_mxu_argmin(mxu, None, use_bf16, lanes=lanes),
+                   whole)
+            _equal(rk.rope_mxu_argmin_plain(mxu, None, use_bf16,
+                                            lanes=lanes), whole)
+    for lanes in (3, 16):                          # not one of LANES
+        with pytest.raises(ValueError, match="lanes"):
+            rk.rope_argmin(ops, None, lanes=lanes)
+        with pytest.raises(ValueError, match="lanes"):
             rk.rope_mxu_argmin(mxu, None, lanes=lanes)
-        with pytest.raises(ValueError, match="one lane"):
+        with pytest.raises(ValueError, match="lanes"):
             rk.rope_mxu_argmin_plain(mxu, None, lanes=lanes)
+    with pytest.raises(ValueError, match="divide tile_f"):
+        rk.rope_argmin(odd, None, lanes=8)
+    with pytest.raises(ValueError, match="divide tile_f"):
+        rk.rope_mxu_argmin(odd_m, None, lanes=8)
+    rk.rope_mxu_argmin(odd_m, None, lanes=4)
+    with pytest.raises(ValueError, match="1024"):
+        rk.rope_mxu_argmin(wide, None, lanes=8)    # 2048 threads
+    rk.rope_mxu_argmin(wide, None, lanes=4)
+    # one resident MXU leaf of 2400 faces (230,400 bytes) fits the 226 KB
+    # with 2 lanes' partials (1,024 bytes), not with 4 lanes'
+    huge = rk.rope_operands(v, f, q, tile_q=64, tile_f=2400, device="cpu",
+                            mxu=True)
+    rk.rope_mxu_argmin(huge, None, lanes=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.rope_mxu_argmin(huge, None, lanes=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.rope_mxu_argmin(huge, None)             # the pick is 4
 
 
 def test_stream_facade_matches_resident_facade():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A/B timing of mesh_tpu_torch's rope walk kernels alone (``rope_faces``,
-both entries, and the streamed ``rope_mxu_faces`` entry, f32 and bf16), of
-the accel traversal around the resident one on avatar frames, and of the
-scan's ``Mesh`` call, in two checkouts, on one CUDA card, in one run.
+"""A/B timing of mesh_tpu_torch's rope walk kernels alone (both entries of
+``rope_faces`` and of ``rope_mxu_faces``, the latter f32 and bf16), of the
+accel traversal around the resident ``rope_faces`` entry on avatar frames,
+and of the scan's ``Mesh`` call, in two checkouts, on one CUDA card, in
+one run, with a SASS comparison of the resident fast-tile walk.
 
     python3 tools/ab_rope.py --other DIR [--pairs 2] [--rounds 5] [--reps 10]
 
@@ -26,7 +27,10 @@ checkout without sub-lanes has its one resident launch); on the two scans
 the streamed ``rope_faces`` entry and the streamed ``rope_mxu_faces``
 entry, f32 and bf16, each at each sub-lane count and at the pick with a
 ring of 2 (a checkout without streamed sub-lanes has its one streamed
-launch) and at the pick with a ring of 4; on each anim frame the whole
+launch) and at the pick with a ring of 4, and the resident
+``rope_mxu_faces`` entry, f32 and bf16, at each sub-lane count and at the
+pick (a checkout whose resident MXU entry refuses sub-lanes has its one
+launch, the pick); on each anim frame the whole
 traversal (``closest_faces_and_points_accel`` over the refit index, which
 the process builds from the frame's rest keyframe and posed vertices with
 its own ``get_index`` and ``refit_bvh``; ``traversal_launches`` counts
@@ -43,18 +47,26 @@ of the same variant; on the same operands every resident answer
 (distances, sorted face positions, leaves per query tile) must equal the
 one at the pick, every streamed ``rope_faces`` answer at a ring of 2 the
 one at the pick, with the resident distances and faces and at least as
-many leaves (at a ring of 4 the same distances and faces), and every
+many leaves (at a ring of 4 the same distances and faces), every
 streamed MXU answer (distances, faces, leaves, full visits) the f32 one at
-the pick of its ring, bf16 with the same distances, faces and leaves.
+the pick of its ring, bf16 with the same distances, faces and leaves, and
+every resident MXU answer the pick's of its mode, with the f32 pick's
+distances, faces and leaves, the streamed walk's distances and faces and
+at most its leaves.  Last, ``cuobjdump -sass`` of each side's
+``rope_faces`` library: the SASS of ``rope_lanes_kernel<FastLanes, S>``
+(the resident fast-tile walk) at each S, with its encodings, this side's
+against the other's (``sass``: per S whether the two are identical).
 Prints one line per process and, last, one JSON object with every
 reading, per variant the median of each side's medians and the fastest
-round, and the card's name and power limit; exits non-zero without a card
-or when two answers differ.
+round, the SASS comparison, and the card's name and power limit; exits
+non-zero without a card or when two answers differ.
 """
 
 import argparse
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -73,6 +85,12 @@ BIG_SCAN_QUERIES = 1088 * 128
 
 #: the ring depths timed at the pick: the default and a deeper one
 RINGS = (2, 4)
+
+#: where the CUDA toolkit puts cuobjdump when it is not on PATH
+TOOLKIT_CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
+
+#: the mangled name of rope_lanes_kernel<mt::FastLanes, S>, S captured
+FAST_LANES_KERNEL = re.compile(r"rope_lanes_kernelI\w*?9FastLanesELi(\d+)E")
 
 #: what each side's process runs, from its own checkout
 SIDE = r"""
@@ -97,6 +115,8 @@ lanes = list(rk.LANES) if hasattr(rk, "LANES") else []
 pick = getattr(rk, "picked_lanes", getattr(rk, "resident_lanes", None))
 # streamed sub-lanes: both streamed wrappers take lanes
 stream_lanes = lanes if hasattr(rk, "picked_lanes") else []
+libs = {name: _build._library_path(name)
+        for name in ("rope_faces", "rope_mxu_faces")}
 dev = torch.device("cuda")
 variants, picked = [], {}
 for name, ops in sets.items():
@@ -122,6 +142,21 @@ for name, ops in sets.items():
                 variants.append((name, "mxu_%s_ring%d" % (mode, n_b),
                                  lambda mops=mops, n_b=n_b, b=b:
                                  rk.rope_mxu_argmin(mops, n_b, b)))
+        # resident MXU sub-lanes, where the resident entry takes them
+        try:
+            rk._check_rope(mops, None, 2, mxu=True)
+            resident_mxu_lanes = stream_lanes
+        except ValueError:
+            resident_mxu_lanes = []
+        for mode, b in (("f32", False), ("bf16", True)):
+            for s in resident_mxu_lanes:
+                variants.append((name, "mxu_%s_resident_s%d" % (mode, s),
+                                 lambda mops=mops, s=s, b=b:
+                                 rk.rope_mxu_argmin(mops, None, b,
+                                                    lanes=s)))
+            variants.append((name, "mxu_%s_resident" % mode,
+                             lambda mops=mops, b=b:
+                             rk.rope_mxu_argmin(mops, None, b)))
     for s in lanes:
         variants.append((name, "resident_s%d" % s,
                          lambda ops=ops, s=s: rk.rope_argmin(ops, None,
@@ -183,7 +218,7 @@ torch.save(answers, out_path)
 print(json.dumps({"ms": {k: statistics.median(v) for k, v in times.items()},
                   "rounds_ms": times, "lanes_picked": picked,
                   "traversal_launches": launches,
-                  "ptxas": ptxas}))
+                  "ptxas": ptxas, "libs": libs}))
 """
 
 
@@ -252,13 +287,15 @@ def check_answers(paths):
     """The variants whose answers differ (empty when all agree): every
     answer must equal the first process's of the same variant (the first
     that has it), and on the same operands among those: every resident
-    answer the one at
-    the pick; every streamed ``rope_faces`` answer at a ring of 2 the one
-    at the pick, with the resident distances and faces and at least as many
-    leaves, at a ring of 4 the same distances and faces with at least as
-    many leaves; every streamed MXU answer the f32 one at the pick of its
-    ring, bf16 with the same distances, faces and leaves, and at a ring of
-    4 the same distances and faces as at a ring of 2."""
+    ``rope_faces`` answer the one at the pick; every streamed
+    ``rope_faces`` answer at a ring of 2 the one at the pick, with the
+    resident distances and faces and at least as many leaves, at a ring of
+    4 the same distances and faces with at least as many leaves; every
+    streamed MXU answer the f32 one at the pick of its ring, bf16 with the
+    same distances, faces and leaves, and at a ring of 4 the same distances
+    and faces as at a ring of 2; every resident MXU answer the pick's of
+    its mode, with the f32 pick's distances, faces and leaves, and the
+    streamed f32 answer's distances and faces with at most its leaves."""
     import torch
 
     def same(a, b, n=None):
@@ -281,6 +318,13 @@ def check_answers(paths):
                     if variant != "stream_ring4" else got)
             ok = (same(got, ring) and same(got, res, 2)
                   and bool((got[2] >= res[2]).all()))
+        elif variant.startswith("mxu") and "resident" in variant:
+            mode = variant.split("_")[1]
+            stream = first[name + "/mxu_f32_ring2"]
+            ok = (same(got, first["%s/mxu_%s_resident" % (name, mode)])
+                  and same(got, first[name + "/mxu_f32_resident"], 3)
+                  and same(got, stream, 2)
+                  and bool((got[2] <= stream[2]).all()))
         elif variant.startswith("mxu"):
             mode = variant.split("_")[1]
             ring = variant.split("_")[-1] if "ring" in variant else "ring2"
@@ -294,6 +338,51 @@ def check_answers(paths):
         if not ok:
             bad.add(key)
     return sorted(bad)
+
+
+def sass_functions(lib):
+    """{mangled name: SASS lines with their encodings, addresses dropped}
+    of every function in the shared library ``lib`` (``cuobjdump
+    -sass``)."""
+    tool = shutil.which("cuobjdump") or TOOLKIT_CUOBJDUMP
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, body = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            body = funcs.setdefault(head.group(1), [])
+        elif body is not None and line.strip().startswith("....."):
+            body = None                      # the end of a function
+        elif body is not None and line.strip():
+            body.append(" ".join(
+                re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).split()))
+    return funcs
+
+
+def compare_sass(this_lib, other_lib):
+    """Per S, whether ``rope_lanes_kernel<FastLanes, S>`` has the same SASS
+    (instructions and encodings) in both ``rope_faces`` libraries, with its
+    instruction count on each side; an "error" entry if cuobjdump fails."""
+    try:
+        sides = [sass_functions(lib) for lib in (this_lib, other_lib)]
+    except (OSError, subprocess.SubprocessError) as exc:
+        return {"error": str(exc)}
+    by_lanes = []
+    for funcs in sides:
+        found = {}
+        for name, body in funcs.items():
+            m = FAST_LANES_KERNEL.search(name)
+            if m:
+                found[int(m.group(1))] = body
+        by_lanes.append(found)
+    this, other = by_lanes
+    out = {}
+    for s in sorted(set(this) | set(other)):
+        a, b = this.get(s), other.get(s)
+        out[s] = {"identical": a is not None and a == b,
+                  "this_lines": len(a or []), "other_lines": len(b or [])}
+    return out
 
 
 def main():
@@ -348,6 +437,11 @@ def main():
             for line in reading["ptxas"]:
                 print("  %s ptxas: %s" % (side, line), flush=True)
         bad = check_answers(outs)
+    libs = {run["side"]: run["readings"]["libs"]["rope_faces"]
+            for run in runs}
+    sass = compare_sass(libs["this"], libs["other"])
+    print("rope_lanes_kernel<FastLanes, S> SASS, this against other: %s"
+          % json.dumps(sass), flush=True)
     summary, fastest = {}, {}
     for side in ("other", "this"):
         mine = [run["readings"] for run in runs if run["side"] == side]
@@ -363,6 +457,7 @@ def main():
                           run["readings"]["lanes_picked"] for run in runs
                           if run["side"] == "this"),
                       "answers_agree": not bad, "differ": bad,
+                      "sass": sass,
                       "runs": runs}))
     if bad:
         sys.exit("ab_rope: answers differ: %s" % ", ".join(bad))
