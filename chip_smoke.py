@@ -13,7 +13,14 @@ Phases (any failure raises and exits non-zero; none catches its own):
    exact and the fused reduction) and on one body with 4096 queries (all
    variants; the fused reduction also with NaN planted in three faces and
    two queries; the degenerate-tail variants also on a mesh with planted
-   zero-area and collinear faces); culled_faces in all four variants on
+   zero-area and collinear faces) and with 4096 queries at 10-100x its
+   radius (all variants, both reductions); closest_faces' chunk cull on
+   each of these against the plain version of its design (faces, chunks
+   each warp folded, faces each lane needed, chunks each warp staged),
+   the every-face plain version and the every-face kernel
+   (``closest_faces_every``, which launches on no driven path), with the
+   shares of chunks tested, and its chunk records (``cull_records``)
+   against their plain version; culled_faces in all four variants on
    the large batch of phase 5 (faces, face tiles and warp chunks tested
    and faces each query folded against its plain version, faces and face
    tiles against every face of each tested tile, with the fractions of
@@ -341,6 +348,17 @@ MXU_BOUND_OPS = 26
 #: key's two ands, its or and the tile's shift (csrc/argmin.cuh)
 FUSED_PAIR_OPS = {k: v + 4 for k, v in FACE_PAIR_OPS.items()}
 
+#: operations of closest_faces' chunk bound (closest_cull.cuh cull_lb2 and
+#: the lane's need test) and of its seed's scan, per lane and chunk
+CULL_BOUND_OPS = 41
+SEED_OPS = 11
+
+#: operations of cull_records per face (the planes' finiteness, the corners,
+#: the box's minima and maxima, the conditioning numbers and their maxima)
+RECORD_OPS = 120
+
+
+
 #: phase 13: the MXU rope walks through the Mesh facade on phase 6's scan
 #: under MESH_TPU_MXU, with the MXU crossover pinned at MXU_BVH_CROSSOVER
 #: faces (the card's saved calibration puts it past the scan's mesh), a
@@ -361,6 +379,10 @@ MIXED_RADIUS = 1.6
 #: (a kernel with no path has its row in its successor's)
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "closest_faces_fused": ("main_path_fused",),
+                # the every-face kernel, phase 2's face oracle
+                "closest_faces_every": (),
+                "cull_records": ("main_path", "main_path_fused", "facade",
+                                 "contact"),
                 "nearest_vertices": ("facade",),
                 "culled_faces": ("large_batch",),
                 "rope_faces_stream": ("scan",),
@@ -502,40 +524,149 @@ def planted_degenerate(v, f, rng, n=64):
 def compare_faces(ck, pts, planes, tri, center, variant, tail, timing,
                   reduction="exact"):
     """Kernel vs plain for closest_faces on one operand set (the fused
-    reduction at the reference's tile_f with ``reduction="fused"``):
-    identical faces, and the max abs point/sqdist difference after the
-    epilogue (NaN where both are NaN counts as equal)."""
+    reduction at the reference's tile_f with ``reduction="fused"``): the
+    chunk-cull kernel's faces identical to the plain version of its design
+    (``argmin_faces_culled_plain``, also its warp, lane and stage counts),
+    to the every-face plain version and to the every-face kernel
+    (``closest_faces_every``), and the max abs point/sqdist difference
+    after the epilogue (NaN where both are NaN counts as equal).
+
+    With ``timing``: the kernel alone on operands made beforehand, the
+    every-face kernel, the cull prologue (``cull_operands``) and the plain
+    versions; three bounds: the work these inputs need per lane (the faces
+    of the chunks its own lane needs, a bound per chunk and the seed), the
+    pairs the warps issue (32 lanes x the faces of each chunk a warp
+    folds) and every pair (the every-face design's), each x the tile's
+    operations per pair."""
     kw = {"reduction": reduction, "tile_f": ck.FUSED_TILE_F}
     name = "closest_faces" + ("_fused" if reduction == "fused" else "")
-    k = ck.argmin_faces(pts, planes, variant, tail, **kw)
-    p = ck.argmin_faces_plain(pts, planes, variant, tail, **kw)
+    cull = ck.cull_operands(pts, planes, variant, tail)
+    records_plain = ck.cull_records_plain(planes, variant, tail)
+    same = (cull["records"] == records_plain) | (
+        torch.isnan(cull["records"]) & torch.isnan(records_plain))
+    check(bool(same.all()), "cull_records[%s, tail=%s]: %d of %d values "
+          "differ from the plain version" % (
+              variant, tail, int((~same).sum()), same.numel()))
+    k, kw_, kl, kb = ck.argmin_faces(pts, planes, variant, tail, cull=cull,
+                                     with_stats=True, **kw)
+    (p, pw, pl, pb), plain_ms = timed(lambda: ck.argmin_faces_culled_plain(
+        pts, planes, cull, variant, tail, **kw))
+    every, every_plain_ms = timed(lambda: ck.argmin_faces_plain(
+        pts, planes, variant, tail, **kw))
+    oracle = ck.argmin_faces_every(pts, planes, variant, tail, **kw)
     mism = int((k != p).sum())
-    check(mism == 0, "%s[%s, tail=%s]: %d of %d faces differ from the "
-          "plain version" % (name, variant, tail, mism, k.numel()))
+    check(mism == 0 and torch.equal(kw_, pw) and torch.equal(kl, pl)
+          and torch.equal(kb, pb),
+          "%s[%s, tail=%s]: %d of %d faces (and %d warp, %d lane, %d stage "
+          "counts) differ from the plain version" % (
+              name, variant, tail, mism, k.numel(), int((kw_ != pw).sum()),
+              int((kl != pl).sum()), int((kb != pb).sum())))
+    check(torch.equal(k, every) and torch.equal(k, oracle),
+          "%s[%s, tail=%s]: %d faces differ from the every-face plain "
+          "version, %d from the every-face kernel" % (
+              name, variant, tail, int((k != every).sum()),
+              int((k != oracle).sum())))
     rk = ck.winner_epilogue(k, tri, pts, center)
     rp = ck.winner_epilogue(p, tri, pts, center)
     err = max(float((rk["point"] - rp["point"]).abs().nan_to_num().max()),
               float((rk["sqdist"] - rp["sqdist"]).abs().nan_to_num().max()))
+    n_b, n_q = pts.shape[:2]
+    n_f = planes.shape[-1]
+    n_c = -(-n_f // ck.CULL_CHUNK)
     out = {"variant": variant, "degenerate_tail": tail,
-           "shape": list(pts.shape[:2]) + [planes.shape[-1]],
-           "faces_identical": True, "max_abs_err": err}
+           "shape": [n_b, n_q, n_f], "faces_identical": True,
+           "every_face_identical": True, "max_abs_err": err,
+           "warp_chunks": int(kw_.sum()), "warp_chunks_all": kw_.numel() * n_c,
+           "warp_chunk_max": int(kw_.max()), "warp_stages": int(kb.sum()),
+           "warp_stage_max": int(kb.max()), "lane_faces": int(kl.sum()),
+           "pairs": n_b * n_q * n_f, "plain_ms": plain_ms,
+           "every_plain_ms": every_plain_ms}
+    out["warp_share"] = out["warp_chunks"] / out["warp_chunks_all"]
+    out["heaviest_warp_share"] = out["warp_chunk_max"] / n_c
+    out["stage_share"] = out["warp_stages"] / out["warp_chunks_all"]
+    out["lane_share"] = out["lane_faces"] / out["pairs"]
     if timing:
-        out["ms"] = cuda_ms(lambda: ck.argmin_faces(pts, planes, variant,
-                                                    tail, **kw), reps=REPS)
-        out["plain_ms"] = cuda_ms(lambda: ck.argmin_faces_plain(
-            pts, planes, variant, tail, **kw), reps=1)
-        n_b, n_q = pts.shape[:2]
-        pairs = n_b * n_q * planes.shape[-1]
-        n_bytes = 4 * (pts.numel() + planes.numel() + n_b * n_q)
-        ops = FUSED_PAIR_OPS if reduction == "fused" else FACE_PAIR_OPS
+        out["ms"] = cuda_ms(lambda: ck.argmin_faces(
+            pts, planes, variant, tail, cull=cull, **kw), reps=REPS)
+        out["every_ms"] = cuda_ms(lambda: ck.argmin_faces_every(
+            pts, planes, variant, tail, **kw), reps=REPS)
+        out["prologue_ms"] = cuda_ms(lambda: ck.cull_operands(
+            pts, planes, variant, tail), reps=REPS)
+        out["records_ms"] = cuda_ms(lambda: ck.cull_records(
+            planes, variant, tail), reps=REPS)
+        out["records_plain_ms"] = cuda_ms(lambda: ck.cull_records_plain(
+            planes, variant, tail), reps=3)
+        out["records_bound_ms"], out["records_bound_by"] = bound_ms(
+            n_b * n_f, RECORD_OPS,
+            4 * (planes.numel() + cull["records"].numel()))
+        n_bytes = 4 * (pts.numel() + planes.numel() + n_b * n_q
+                       + cull["qorder"].numel() + cull["records"].numel())
+        ops = (FUSED_PAIR_OPS if reduction == "fused"
+               else FACE_PAIR_OPS)[(variant, tail)]
+        lanes = n_b * n_q
+        around = lanes * (n_c * (CULL_BOUND_OPS + SEED_OPS) + ops)
         out["bound_ms"], out["bound_by"] = bound_ms(
-            pairs, ops[(variant, tail)], n_bytes)
-    log("  %s[%s, tail=%s] %s: faces identical, max abs point/sqdist diff "
-        "%.3g%s" % (
-            name, variant, tail, out["shape"], err,
-            "" if not timing else ", %.3f ms (plain %.1f ms, bound %.3f ms)"
-            % (out["ms"], out["plain_ms"], out["bound_ms"])))
+            out["lane_faces"] * ops + around, 1, n_bytes)
+        out["bound_issued_ms"], _ = bound_ms(
+            out["warp_chunks"] * 32 * ck.CULL_CHUNK * ops + around, 1,
+            n_bytes)
+        out["bound_every_pair_ms"], _ = bound_ms(out["pairs"], ops, n_bytes)
+        # no launch ends before its heaviest block has run on one SM
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per_block = kw_.new_zeros((n_b, -(-kw_.shape[1] // 4) * 4))
+        per_block[:, :kw_.shape[1]] = kw_
+        heavy = int(per_block.view(n_b, -1, 4).sum(-1).max())
+        out["bound_heaviest_block_ms"] = (heavy * 32 * ck.CULL_CHUNK * ops
+                                          / (PEAK_FP32_OPS / n_sms) * 1e3)
+    log("  %s[%s, tail=%s] %s: records identical to cull_records_plain's; "
+        "faces identical to the plain version (and "
+        "its counts), the every-face plain version and kernel; warps fold "
+        "%.4f of the chunks (heaviest warp %.4f) and stage %.4f, lanes "
+        "need %.4f of the pairs; max abs point/sqdist diff %.3g%s" % (
+            name, variant, tail, out["shape"], out["warp_share"],
+            out["heaviest_warp_share"], out["stage_share"],
+            out["lane_share"], err, "" if not timing else
+            "; %.3f ms (every face %.3f, prologue %.3f of it records "
+            "%.4f, plain %.2f, bound %.4f; plain %.1f ms, "
+            "every-face plain %.1f; bound %.3f ms, issued %.3f, every pair "
+            "%.3f, heaviest block on one SM %.3f)" % (
+                out["ms"], out["every_ms"], out["prologue_ms"],
+                out["records_ms"], out["records_plain_ms"],
+                out["records_bound_ms"],
+                out["plain_ms"], out["every_plain_ms"], out["bound_ms"],
+                out["bound_issued_ms"], out["bound_every_pair_ms"],
+                out["bound_heaviest_block_ms"])))
     return out
+
+
+def far_queries(v, n_q, rng):
+    """[1, n_q, 3] queries in random directions from body ``v``'s vertex
+    mean, at 10 to 100 times its radius (the largest vertex distance from
+    the mean)."""
+    mean = v.mean(dim=0)
+    radius = float((v - mean).norm(dim=-1).max())
+    d = rng.randn(n_q, 3)
+    d *= rng.uniform(10.0, 100.0, (n_q, 1)) * radius / np.linalg.norm(
+        d, axis=1, keepdims=True)
+    return (torch.as_tensor(d, dtype=torch.float32, device=v.device)
+            + mean)[None].contiguous()
+
+
+def cull_row(run, launches):
+    """The chunk cull's figures of a timed ``compare_faces`` run for the
+    kernels line, with the every-face oracle's time and launches (0 on
+    every path) beside them."""
+    row = {key: run[key] for key in (
+        "bound_issued_ms", "bound_every_pair_ms", "bound_heaviest_block_ms",
+        "warp_share", "heaviest_warp_share", "stage_share", "lane_share",
+        "prologue_ms", "every_plain_ms")}
+    row["every"] = {
+        "name": "closest_faces_every", "route": "cuda",
+        "source": "mesh_tpu_torch/csrc/closest_faces_every.cu",
+        "ms": run["every_ms"],
+        "launches_by_path": {p: launches[p]["closest_faces_every"]
+                             for p in launches}}
+    return row
 
 
 def compare_vertices(ck, pts, vplanes, timing):
@@ -2572,10 +2703,20 @@ def main():
                                         reduction="fused"))
         del pts, planes, tri, center
     body = verts[:1]
+    face_sets = []
     for variant, tail in VARIANTS:
         ops = ck.closest_point_operands(body, f, q1, variant)
-        compare_faces(ck, *ops, variant, tail, timing=False)
+        face_sets.append(dict(compare_faces(ck, *ops, variant, tail,
+                                            timing=False), on="facade"))
         fused_runs.append(compare_fused_nan(ck, body, f, q1, variant, tail))
+    # the far-query set: 10-100x the body's radius
+    q_far = far_queries(body[0], FACADE_QUERIES, np.random.RandomState(14))
+    for variant, tail in VARIANTS:
+        ops = ck.closest_point_operands(body, f, q_far, variant)
+        for reduction in ("exact", "fused"):
+            face_sets.append(dict(compare_faces(
+                ck, *ops, variant, tail, timing=False, reduction=reduction),
+                on="far", reduction=reduction))
     v2, f2, q2 = planted_degenerate(posed[0], f_np, rng)
     check(not ck.mesh_is_nondegenerate(v2, f2),
           "the planted mesh must fail the nondegeneracy check")
@@ -2585,7 +2726,8 @@ def main():
     oracle = closest_faces_and_points_t(v2t[0], f2t, q2t[0])
     for variant in ("fast", "safe"):
         ops = ck.closest_point_operands(v2t, f2t, q2t, variant)
-        compare_faces(ck, *ops, variant, True, timing=False)
+        face_sets.append(dict(compare_faces(ck, *ops, variant, True,
+                                            timing=False), on="planted"))
         res = ck.closest_point_kernel(v2t, f2t, q2t, tile_variant=variant)
         gap = float((res["sqdist"][0] - oracle["sqdist"]).abs().max())
         check(gap <= 1e-5, "planted mesh, %s tile: sqdist %.3g from the "
@@ -3422,12 +3564,15 @@ def main():
     ops = ck.closest_point_operands(verts, f, queries, main_variant[0])
     stages["closest_prologue"] = cuda_ms(lambda: ck.closest_point_operands(
         verts, f, queries, main_variant[0]), 3)
+    cull = ck.cull_operands(ops[0], ops[1], *main_variant)
+    stages["cull_prologue"] = cuda_ms(lambda: ck.cull_operands(
+        ops[0], ops[1], *main_variant), 3)
     stages["closest_kernel"] = cuda_ms(lambda: ck.argmin_faces(
-        ops[0], ops[1], main_variant[0], main_variant[1]), 3)
-    best = ck.argmin_faces(ops[0], ops[1], *main_variant)
+        ops[0], ops[1], main_variant[0], main_variant[1], cull=cull), 3)
+    best = ck.argmin_faces(ops[0], ops[1], *main_variant, cull=cull)
     stages["closest_epilogue"] = cuda_ms(
         lambda: ck.winner_epilogue(best, ops[2], ops[0], ops[3]), 3)
-    del ops
+    del ops, cull
     log("stage breakdown (ms, separate runs): " + ", ".join(
         "%s %.3f" % kv for kv in stages.items()))
     stages_l = {}
@@ -3514,7 +3659,8 @@ def main():
          "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
          "library_ms": None,
          "variant": "%s, tail=%s" % main_variant,
-         "variants": face_runs},
+         "variants": face_runs, "sets": face_sets,
+         **cull_row(main, launches)},
         {"name": "nearest_vertices", "route": "cuda",
          "source": "mesh_tpu_torch/csrc/nearest_vertices.cu",
          "replaces": "mesh_tpu/query/pallas_closest.py:577",
@@ -3683,7 +3829,23 @@ def main():
          "bound_by": main_fused["bound_by"], "library_ms": None,
          "variant": "%s, tail=%s, tile_f=%d" % (*main_variant,
                                                 ck.FUSED_TILE_F),
-         "variants": fused_runs})
+         "variants": fused_runs, **cull_row(main_fused, launches)})
+    kernels.append(
+        {"name": "cull_records", "route": "cuda",
+         "source": "mesh_tpu_torch/csrc/cull_records.cu",
+         "replaces": "mesh_tpu/query/pallas_closest.py:696",
+         "launches": launches["main_path"]["cull_records"],
+         "launches_by_path": {p: launches[p]["cull_records"]
+                              for p in launches},
+         "max_abs_err": 0.0, "ms": main["records_ms"],
+         "plain_ms": main["records_plain_ms"],
+         "bound_ms": main["records_bound_ms"],
+         "bound_by": main["records_bound_by"], "library_ms": None,
+         "variant": "%s, tail=%s" % main_variant,
+         "detail": [{k: r[k] for k in ("variant", "degenerate_tail",
+                                       "records_ms", "records_plain_ms",
+                                       "records_bound_ms")}
+                    for r in face_runs]})
     for name, walk, path, replaces in (
             ("rope_mxu_stream", "stream", "mxu_bvh",
              "mesh_tpu/accel/pallas_stream.py:432"),

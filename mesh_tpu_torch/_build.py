@@ -32,7 +32,12 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: trailing stream)
 KERNELS = {
     "closest_faces": ("closest_faces.cu", "mt_closest_faces",
-                      [_PTR] * 3 + [_INT] * 6),
+                      [_PTR] * 8 + [_INT] * 6),
+    "closest_faces_every": ("closest_faces_every.cu",
+                            "mt_closest_faces_every",
+                            [_PTR] * 3 + [_INT] * 6),
+    "cull_records": ("cull_records.cu", "mt_cull_records",
+                     [_PTR] * 2 + [_INT] * 4),
     "nearest_vertices": ("nearest_vertices.cu", "mt_nearest_vertices",
                          [_PTR] * 3 + [_INT] * 3),
     "culled_faces": ("culled_faces.cu", "mt_culled_faces",

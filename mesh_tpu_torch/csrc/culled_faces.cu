@@ -71,41 +71,6 @@ constexpr int kChunk = 128;  // most faces a staged chunk holds
 // (1 - _MARGIN) in float32, the reference's lower-bound shrink
 constexpr float kShrink = static_cast<float>(1.0 - 1e-3);
 
-// How a chunk of a cost functor's plane-major planes lands in shared
-// memory: kCopy planes, plane `row(i)` of the chunk's faces copied to word
-// `slot(i)` of each face's record of 4 * Cost::kVec words, then `derive` on
-// each staged record.
-template <class Cost>
-struct Staging;
-
-template <bool kTail>
-struct Staging<FastCost<kTail>> {
-  static constexpr int kCopy = 19;  // the 19 planes, in order
-  __device__ static int row(int i) { return i; }
-  __device__ static int slot(int i) { return i; }
-  static constexpr bool kDerive = false;
-  __device__ static void derive(float*) {}
-};
-
-template <bool kTail>
-struct Staging<SafeCost<kTail>> {
-  // corners a b c and n (planes 0-11) to words 0-11, the reciprocals
-  // (planes 15-18) to words 21-24; ab2 ac2 abac are not read
-  static constexpr int kCopy = 16;
-  __device__ static int row(int i) { return i < 12 ? i : i + 3; }
-  __device__ static int slot(int i) { return i < 12 ? i : i + 9; }
-  static constexpr bool kDerive = true;
-  // the edges ab, ac, bc, as SafeCost::stage derives them
-  __device__ static void derive(float* f) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      f[12 + k] = f[3 + k] - f[k];
-      f[15 + k] = f[6 + k] - f[k];
-      f[18 + k] = f[6 + k] - f[3 + k];
-    }
-  }
-};
-
 template <class Cost>
 __global__ void culled_kernel(const float* __restrict__ pts,
                               const float* __restrict__ seed,

@@ -10,7 +10,9 @@
 //
 // A functor provides what csrc/argmin.cuh asks of one (kRows, kVec, stage,
 // cost); fast_pair is the fast tile's arithmetic on the 19 values of one
-// face, for kernels that keep the planes in another layout.
+// face, for kernels that keep the planes in another layout.  Staging<Cost>
+// says how the chunk kernels (culled_faces.cu, closest_cull.cuh) copy a
+// chunk of plane-major planes into the functor's shared-memory records.
 
 #pragma once
 
@@ -206,6 +208,41 @@ struct SafeCost {
     if ((d1 <= 0.0f) & (d2 <= 0.0f)) d = ap2;
     if (kTail && !(inv_n2 > 0.0f)) d = fminf(e_ab, fminf(e_ca, e_bc));
     return clamp_cost<kKeepNan>(d);
+  }
+};
+
+// How a chunk of a cost functor's plane-major planes lands in shared
+// memory: kCopy planes, plane `row(i)` of the chunk's faces copied to word
+// `slot(i)` of each face's record of 4 * Cost::kVec words, then `derive` on
+// each staged record.
+template <class Cost>
+struct Staging;
+
+template <bool kTail, bool kKeepNan>
+struct Staging<FastCost<kTail, kKeepNan>> {
+  static constexpr int kCopy = 19;  // the 19 planes, in order
+  __device__ static int row(int i) { return i; }
+  __device__ static int slot(int i) { return i; }
+  static constexpr bool kDerive = false;
+  __device__ static void derive(float*) {}
+};
+
+template <bool kTail, bool kKeepNan>
+struct Staging<SafeCost<kTail, kKeepNan>> {
+  // corners a b c and n (planes 0-11) to words 0-11, the reciprocals
+  // (planes 15-18) to words 21-24; ab2 ac2 abac are not read
+  static constexpr int kCopy = 16;
+  __device__ static int row(int i) { return i < 12 ? i : i + 3; }
+  __device__ static int slot(int i) { return i < 12 ? i : i + 9; }
+  static constexpr bool kDerive = true;
+  // the edges ab, ac, bc, as SafeCost::stage derives them
+  __device__ static void derive(float* f) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      f[12 + k] = f[3 + k] - f[k];
+      f[15 + k] = f[6 + k] - f[k];
+      f[18 + k] = f[6 + k] - f[3 + k];
+    }
   }
 };
 

@@ -2,19 +2,30 @@
 their plain PyTorch versions, and the prologue and epilogue around them
 (counterpart of mesh_tpu/query/pallas_closest.py).
 
-Two kernels, one argmin scaffold (``csrc/argmin.cuh``):
+Four kernels:
 
-- ``closest_faces`` (``csrc/closest_faces.cu``): for each query, the face
-  with the least Ericson squared distance, computed from 19 per-face
-  planes hoisted out of the scan (``fast_tile_rows`` / ``safe_tile_rows``).
-  Four instantiations: the fast or the sliver-safe tile, with or without
-  the degenerate-face tail.
+- ``closest_faces`` (``csrc/closest_faces.cu`` over ``csrc/closest_cull.cuh``):
+  for each query, the face with the least Ericson squared distance,
+  computed from 19 per-face planes hoisted out of the scan
+  (``fast_tile_rows`` / ``safe_tile_rows``).  Four instantiations: the fast
+  or the sliver-safe tile, with or without the degenerate-face tail.  It
+  walks the faces in chunks of ``CULL_CHUNK`` and skips, per warp of 32
+  queries, every chunk that no lane needs: an exact cull, whose answers
+  are the every-face kernel's bit for bit (``cull_operands`` and the
+  source note of ``csrc/closest_cull.cuh``).
+- ``closest_faces_every`` (``csrc/closest_faces_every.cu`` over
+  ``csrc/argmin.cuh``): the same function on every face, the oracle that
+  ``chip_smoke.py`` holds ``closest_faces`` to; no path launches it.
+- ``cull_records`` (``csrc/cull_records.cu``): the chunk records of
+  ``closest_faces``' cull, one warp per chunk (``cull_records_plain`` is
+  its plain version).
 - ``nearest_vertices`` (``csrc/nearest_vertices.cu``): for each query, the
   nearest mesh vertex.
 
-Both keep a running (distance, index) pair per query and take a face only
-when it is strictly closer, walking faces in increasing order, so the
-lowest index wins an exact tie, as the reference's argmin does.
+The argmin kernels keep a running (distance, index) pair per query and
+take a face only when it is strictly closer, walking faces in increasing
+order, so the lowest index wins an exact tie, as the reference's argmin
+does.
 
 ``closest_faces`` also has the reference's fused reduction
 (``reduction="fused"``, counted apart as ``closest_faces_fused``): one
@@ -34,7 +45,9 @@ the kernel's path for CUDA tensors and the plain version
 CPU tensors; any other device raises.  ``LAUNCHES`` counts each kernel's
 launches.  The plain versions repeat the kernels' float32 arithmetic op for
 op, so with the kernels built without FMA contraction (``--fmad=false``)
-both pick the same faces on the card.
+both pick the same faces on the card.  ``argmin_faces_plain`` is the
+every-face argmin; ``argmin_faces_culled_plain`` repeats the chunk cull's
+decisions and counts too.
 """
 
 import hashlib
@@ -51,6 +64,7 @@ N_FACE_ROWS = 19
 
 #: launches of each CUDA kernel since the counts were last set to 0
 LAUNCHES = {"closest_faces": 0, "closest_faces_fused": 0,
+            "closest_faces_every": 0, "cull_records": 0,
             "nearest_vertices": 0}
 
 TILE_VARIANTS = ("fast", "safe")
@@ -367,6 +381,329 @@ def _check_reduction(reduction, tile_f):
 
 
 # ---------------------------------------------------------------------------
+# The chunk cull of ``closest_faces``: its operands and its plain version.
+# csrc/closest_cull.cuh makes the same float32 operations in the same order.
+
+#: faces per chunk of the cull: a warp of 32 queries folds a chunk or skips it
+CULL_CHUNK = 32
+
+#: queries per warp: the unit of the chunk culls (here and culled_kernel)
+WARP = 32
+
+#: float32's unit roundoff, 2^-24
+_U = 2.0 ** -24
+
+#: the box bound's relative shrink of the squared distance, (1 - 1e-3)^2
+#: as culled_kernel's _MARGIN shrinks a distance
+_CULL_SHRINK2 = 0.998
+
+#: a chunk whose center lies this far from a query, plus three radii, is
+#: always tested: below it no product of the cost tile can overflow
+CULL_FAR = 1e9
+
+#: a chunk holding a face whose conditioning number (S or G in
+#: ``cull_records``) exceeds this is always tested
+CULL_MAX_COND = 1e4
+
+
+def query_order(pts):
+    """[B, Q] int32: each mesh's queries ``pts`` [B, Q, 3] in the Morton
+    order of their positions (stable sort), the kernel's lane order."""
+    from .culled_kernel import _morton_codes
+
+    if pts.shape[1] == 0:
+        return torch.empty(pts.shape[:2], dtype=torch.int32,
+                           device=pts.device)
+    return torch.argsort(_morton_codes(pts), dim=1,
+                         stable=True).to(torch.int32)
+
+
+def cull_records_plain(planes, tile_variant="fast", degenerate_tail=True):
+    """Plain PyTorch version of the ``cull_records`` kernel: [B, C, 12]
+    float32 records of the chunks of ``CULL_CHUNK``
+    consecutive faces (in index order) of ``planes`` [B, 19, F], C =
+    ceil(F / 32), as three float4: the center of the box around the
+    chunk's corners and its half diagonal; the box's half extents and the
+    rounding term e1; corner a of the chunk's first face (the seed's
+    representative) and the rounding term e2.
+
+    The corners are those the tile's cost sees: a, a + ab and a + ac for the
+    fast tile (the box widened for the float32 rounding of those sums),
+    rows 0-8 for the sliver-safe one.  The rounding terms come from each
+    face's conditioning (csrc/closest_cull.cuh derives them): S = |ab| |ac|
+    / |n|, Lambda = L^2 / (|n| e_min) over its longest and shortest edges,
+    and for the fast tile G = L / |bc| (``inv_bc2`` is the reciprocal of
+    the corners' own |c - b|^2, not of |ac - ab|^2); over the chunk's faces
+    that run the region chain (every face without the degenerate tail,
+    those with inv_n2 > 0 with it),
+    e1 = u (64 + 40 max S + 96 max G) and e2 = 128 u max Lambda, u = 2^-24.
+    A chunk is always tested (e1 = +inf) when a face has a non-finite plane,
+    an S or G above ``CULL_MAX_COND``, or, without the tail, inv_n2 <= 0
+    (its interior cost is 0 wherever it lies)."""
+    _check_variant(tile_variant)
+    n_b, n_rows, n_f = planes.shape
+    pad = -n_f % CULL_CHUNK
+    if pad:      # repeat the last face: no new corner, no new face
+        planes = torch.cat(
+            [planes, planes[..., -1:].expand(n_b, n_rows, pad)], dim=-1)
+    rows = planes.reshape(n_b, n_rows, -1, CULL_CHUNK).unbind(1)
+    ax, ay, az = rows[0:3]                                # [B, C, 32] each
+    if tile_variant == "fast":
+        abx, aby, abz, acx, acy, acz = rows[3:9]
+        corners = ((ax, ax + abx, ax + acx), (ay, ay + aby, ay + acy),
+                   (az, az + abz, az + acz))
+    else:
+        bx, by, bz, cx, cy, cz = rows[3:9]
+        abx, aby, abz = bx - ax, by - ay, bz - az
+        acx, acy, acz = cx - ax, cy - ay, cz - az
+        corners = ((ax, bx, cx), (ay, by, cy), (az, bz, cz))
+    box = []
+    for xyz in corners:
+        lo = torch.minimum(torch.minimum(xyz[0], xyz[1]), xyz[2]).amin(-1)
+        hi = torch.maximum(torch.maximum(xyz[0], xyz[1]), xyz[2]).amax(-1)
+        cen = (lo + hi) * 0.5
+        # fl(a + ab) lies within u |fl(a + ab)| of a + ab, and each
+        # computed extent within u of its own value: widen generously
+        half = (torch.maximum(hi - cen, cen - lo) * (1.0 + 8 * _U)
+                + torch.maximum(lo.abs(), hi.abs()) * (4 * _U))
+        box.append((cen, half))
+    (cx_, hx), (cy_, hy), (cz_, hz) = box
+    diag = torch.sqrt(hx * hx + hy * hy + hz * hz) * (1.0 + 8 * _U)
+
+    ab2 = abx * abx + aby * aby + abz * abz               # [B, C, 32]
+    ac2 = acx * acx + acy * acy + acz * acz
+    bcx, bcy, bcz = acx - abx, acy - aby, acz - abz
+    bc2 = bcx * bcx + bcy * bcy + bcz * bcz
+    long2 = torch.maximum(torch.maximum(ab2, ac2), bc2)
+    short = torch.sqrt(torch.minimum(torch.minimum(ab2, ac2), bc2))
+    span = torch.sqrt(ab2 * ac2)
+    nx, ny, nz = rows[9:12]
+    # |n| less the float32 rounding of the cross product
+    n_low = torch.sqrt(nx * nx + ny * ny + nz * nz) - span * (16 * _U)
+    inf = torch.full_like(n_low, float("inf"))
+    pos = n_low > 0
+    cond_s = torch.where(pos, span / n_low, inf)
+    cond_l = torch.where(pos & (short > 0), long2 / (n_low * short), inf)
+    cond_g = (torch.sqrt(long2 * rows[17]) if tile_variant == "fast"
+              else torch.zeros_like(cond_s))
+    chain = rows[18] > 0
+    always = ~torch.isfinite(planes).all(1).reshape(chain.shape)
+    if degenerate_tail:
+        zero = torch.zeros_like(cond_s)
+        cond_s = torch.where(chain, cond_s, zero)
+        cond_l = torch.where(chain, cond_l, zero)
+        cond_g = torch.where(chain, cond_g, zero)
+    else:
+        always |= ~chain
+    always = (always | ~(cond_s <= CULL_MAX_COND)
+              | ~(cond_g <= CULL_MAX_COND)).any(-1)
+    e1 = (cond_s.amax(-1) * 40.0 + 64.0 + cond_g.amax(-1) * 96.0) * _U
+    e1 = torch.where(always, inf[..., 0], e1)
+    e2 = cond_l.amax(-1) * (128.0 * _U)
+    return torch.stack([cx_, cy_, cz_, diag, hx, hy, hz, e1,
+                        ax[..., 0], ay[..., 0], az[..., 0], e2],
+                       dim=-1).contiguous()
+
+
+def cull_records(planes, tile_variant="fast", degenerate_tail=True):
+    """The chunk records of ``cull_records_plain`` for ``planes`` [B, 19,
+    F]: the ``cull_records`` CUDA kernel (csrc/cull_records.cu, one pass over
+    the planes) for a CUDA tensor, the plain version for a CPU one."""
+    _check_variant(tile_variant)
+    if (planes.dtype != torch.float32 or not planes.is_contiguous()
+            or planes.ndim != 3 or planes.shape[1] != N_FACE_ROWS):
+        raise ValueError("cull_records wants contiguous float32 planes "
+                         "[B, 19, F], got %s %s" % (tuple(planes.shape),
+                                                   planes.dtype))
+    if planes.device.type == "cpu":
+        return cull_records_plain(planes, tile_variant, degenerate_tail)
+    if planes.device.type != "cuda":
+        raise ValueError("cull_records: no kernel for device %s"
+                         % planes.device)
+    from .. import _build
+
+    n_b, _, n_f = planes.shape
+    recs = torch.empty((n_b, -(-n_f // CULL_CHUNK), 12), dtype=torch.float32,
+                       device=planes.device)
+    _build.launch("cull_records", planes.device, planes, recs, n_b, n_f,
+                  TILE_VARIANTS.index(tile_variant),
+                  int(bool(degenerate_tail)))
+    LAUNCHES["cull_records"] += 1
+    return recs
+
+
+def cull_operands(pts, planes, tile_variant="fast", degenerate_tail=True):
+    """The cull's operands for the kernel's ``pts`` [B, Q, 3] and ``planes``
+    [B, 19, F]: ``qorder`` (``query_order``) and ``records``
+    (``cull_records``), with the tile and tail they were made for."""
+    return {"qorder": query_order(pts),
+            "records": cull_records(planes, tile_variant, degenerate_tail),
+            "tile_variant": tile_variant,
+            "degenerate_tail": bool(degenerate_tail)}
+
+
+def _check_cull(pts, planes, cull, tile_variant, degenerate_tail):
+    qorder, recs = cull["qorder"], cull["records"]
+    n_b, n_q = pts.shape[:2]
+    n_c = -(-planes.shape[-1] // CULL_CHUNK)
+    if (cull["tile_variant"] != tile_variant
+            or cull["degenerate_tail"] != bool(degenerate_tail)):
+        raise ValueError("closest_faces: cull operands made for the %s tile "
+                         "(tail %s), not the %s tile (tail %s)" % (
+                             cull["tile_variant"], cull["degenerate_tail"],
+                             tile_variant, bool(degenerate_tail)))
+    if (qorder.dtype != torch.int32 or recs.dtype != torch.float32
+            or not qorder.is_contiguous() or not recs.is_contiguous()
+            or qorder.device != pts.device or recs.device != pts.device
+            or tuple(qorder.shape) != (n_b, n_q)
+            or tuple(recs.shape) != (n_b, n_c, 12)):
+        raise ValueError("closest_faces: want qorder [%d, %d] int32 and "
+                         "records [%d, %d, 12] float32, contiguous, on %s; "
+                         "got %s %s and %s %s" % (
+                             n_b, n_q, n_b, n_c, pts.device,
+                             tuple(qorder.shape), qorder.dtype,
+                             tuple(recs.shape), recs.dtype))
+
+
+def _cull_lb2(px, py, pz, rec):
+    """The kernel's squared lower bound (``cull_lb2``) from queries to the
+    chunk records ``rec`` [..., 12] (broadcast): the squared distance to
+    the chunk's box, shrunk by (1 - 1e-3)^2, less E = R^2 e1 + (R^2 e2)^2,
+    R the distance to the box's center plus three half diagonals; -inf
+    past ``CULL_FAR``.  NaN stays NaN (abs, clamp_min), so a NaN query or
+    box is always needed."""
+    dx, dy, dz = px - rec[..., 0], py - rec[..., 1], pz - rec[..., 2]
+    big = torch.sqrt(dx * dx + dy * dy + dz * dz) + 3.0 * rec[..., 3]
+    ox = torch.clamp_min(dx.abs() - rec[..., 4], 0.0)
+    oy = torch.clamp_min(dy.abs() - rec[..., 5], 0.0)
+    oz = torch.clamp_min(dz.abs() - rec[..., 6], 0.0)
+    big2 = big * big
+    t = big2 * rec[..., 11]
+    lb2 = ((ox * ox + oy * oy + oz * oz) * _CULL_SHRINK2
+           - (big2 * rec[..., 7] + t * t))
+    return torch.where(big <= CULL_FAR, lb2,
+                       torch.full_like(lb2, float("-inf")))
+
+
+def _warp_vote(x):
+    """[..., N / 32] bool: whether any lane of each warp of bool ``x``
+    [..., N] (N a multiple of 32) holds, as __any_sync gives it."""
+    return x.reshape(x.shape[:-1] + (-1, WARP)).any(dim=-1)
+
+
+def argmin_faces_culled_plain(pts, planes, cull, tile_variant="fast",
+                              degenerate_tail=True, reduction="exact",
+                              tile_f=FUSED_TILE_F):
+    """Plain PyTorch version of the ``closest_faces`` kernel's chunk cull:
+    (closest face per query [B, Q] int32, chunks each warp folded
+    [B, ceil(Q / 32)] int32, real faces of the chunks each query's own
+    lane needed [B, Q] int32 at its sorted position, chunks each warp
+    staged [B, ceil(Q / 32)] int32).  The faces are ``argmin_faces_plain``'s.
+
+    Queries run in ``cull["qorder"]``, 32 to a warp.
+    Each lane is seeded with the cost of the first face of the chunk whose
+    corner a is nearest (``records[..., 8:11]``; a NaN distance counts as
+    +inf).  The chunks come in index order; a lane needs chunk k unless its
+    bound (``_cull_lb2``) exceeds the threshold: min(best, seed) for the
+    exact reduction, the float whose bits are min(best key, seed key) with
+    the tile's low bits set for the fused one.  A warp stages chunk k when
+    one of its lanes needs it against the state before the last chunk it
+    staged (the kernel votes one chunk ahead), and folds a staged chunk,
+    every lane of it, when one of its lanes needs it against the state
+    now.  The fold is torch.argmin's: strict < in increasing face order, a
+    NaN cost (keys for the fused reduction) winning as torch.argmin has it."""
+    _check_variant(tile_variant)
+    _check_reduction(reduction, tile_f)
+    tile = {"fast": _sqdist_tile_fast, "safe": _sqdist_tile_safe}[
+        tile_variant]
+    fused = reduction == "fused"
+    mask, shift = tile_f - 1, int(tile_f).bit_length() - 1
+    n_b, n_q = pts.shape[:2]
+    n_f = planes.shape[-1]
+    n_c = -(-n_f // CULL_CHUNK)
+    dev = pts.device
+    q_pad = -(-n_q // WARP) * WARP
+    out = torch.zeros((n_b, n_q), dtype=torch.int32, device=dev)
+    warp = torch.zeros((n_b, q_pad // WARP), dtype=torch.int32, device=dev)
+    lane = torch.zeros((n_b, q_pad), dtype=torch.int32, device=dev)
+    stage = torch.zeros_like(warp)
+    valid = torch.arange(q_pad, device=dev) < n_q
+    per = max(1, _PLAIN_PAIRS[dev.type] // (q_pad * max(n_c, CULL_CHUNK)))
+    for b0 in range(0, n_b, per):
+        b1 = min(n_b, b0 + per)
+        nb = b1 - b0
+        qo = cull["qorder"][b0:b1].long()
+        ps = torch.zeros((nb, q_pad, 3), dtype=pts.dtype, device=dev)
+        ps[:, :n_q] = torch.gather(pts[b0:b1], 1, qo[..., None].expand(
+            nb, n_q, 3))
+        px, py, pz = ps[..., 0], ps[..., 1], ps[..., 2]
+        rec = cull["records"][b0:b1]                          # [nb, C, 12]
+        pl = planes[b0:b1]
+        # the seed: the cost of the nearest representative's face
+        dx = px[..., None] - rec[:, None, :, 8]
+        dy = py[..., None] - rec[:, None, :, 9]
+        dz = pz[..., None] - rec[:, None, :, 10]
+        rep = torch.nan_to_num(dx * dx + dy * dy + dz * dz,
+                               nan=float("inf"))
+        fs = torch.argmin(rep, dim=-1) * CULL_CHUNK           # [nb, Qp]
+        del dx, dy, dz, rep
+        face = torch.gather(pl, 2, fs[:, None, :].expand(nb, N_FACE_ROWS,
+                                                          q_pad))
+        seed = tile(px, py, pz, *face.unbind(1),
+                    degenerate_tail=degenerate_tail)
+        if fused:
+            best = torch.full((nb, q_pad), 2 ** 31 - 1, dtype=torch.int32,
+                              device=dev)
+            seed = ((seed.view(torch.int32) & ~mask)
+                    | (fs.to(torch.int32) & mask))
+
+            def thr(state):
+                return (torch.minimum(state, seed) | mask).view(
+                    torch.float32)
+        else:
+            best = torch.full((nb, q_pad), float("inf"), device=dev)
+
+            def thr(state):
+                return torch.fmin(state, seed)
+        best_i = torch.zeros((nb, q_pad), dtype=torch.int32, device=dev)
+        snap = best.clone()
+        for k in range(n_c):
+            lb2 = _cull_lb2(px, py, pz, rec[:, None, k])
+            vote = _warp_vote(~(lb2 > thr(snap)) & valid)
+            if not bool(vote.any()):
+                continue
+            stage[b0:b1] += vote.to(torch.int32)
+            snap = torch.where(vote.repeat_interleave(WARP, -1), best, snap)
+            need = ~(lb2 > thr(best)) & valid
+            folds = _warp_vote(need)
+            c0 = k * CULL_CHUNK
+            nf = min(CULL_CHUNK, n_f - c0)
+            warp[b0:b1] += folds.to(torch.int32)
+            lane[b0:b1] += need.to(torch.int32) * nf
+            if not bool(folds.any()):
+                continue
+            cost = tile(px[..., None], py[..., None], pz[..., None],
+                        *pl[:, :, None, c0:c0 + nf].unbind(1),
+                        degenerate_tail=degenerate_tail)      # [nb, Qp, nf]
+            if fused:
+                col = torch.arange(c0, c0 + nf, dtype=torch.int32,
+                                   device=dev)
+                cost = (cost.view(torch.int32) & ~mask) | (col & mask)
+            arg = torch.argmin(cost, dim=-1)
+            low = torch.gather(cost, -1, arg[..., None])[..., 0]
+            take = low < best
+            if not fused:
+                take |= torch.isnan(low) & ~torch.isnan(best)
+            take &= folds.repeat_interleave(WARP, -1)
+            best = torch.where(take, low, best)
+            best_i = torch.where(take, (arg + c0).to(torch.int32), best_i)
+        if fused:
+            best_i = ((best_i >> shift) << shift) + (best & mask)
+        out[b0:b1].scatter_(1, qo, best_i[:, :n_q])
+    return out, warp, lane[:, :n_q], stage
+
+
+# ---------------------------------------------------------------------------
 # The argmin steps: plain version, and the wrapper that launches the kernel.
 
 def _chunks(n_b, n_q, n_cols, device):
@@ -445,24 +782,63 @@ def _grid(pts, cols, name):
 
 
 def argmin_faces(pts, planes, tile_variant="fast", degenerate_tail=True,
-                 reduction="exact", tile_f=FUSED_TILE_F):
+                 reduction="exact", tile_f=FUSED_TILE_F, cull=None,
+                 with_stats=False):
     """Index of the closest face per query: the ``closest_faces`` CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors."""
+    kernel, the exact chunk cull, for CUDA tensors; ``argmin_faces_plain``
+    for CPU tensors.  ``cull``: the operands of ``cull_operands`` (made here
+    when None).  ``with_stats`` returns the four outputs of
+    ``argmin_faces_culled_plain`` (which a CPU call runs then)."""
     _check_variant(tile_variant)
     _check_reduction(reduction, tile_f)
     _check_operands(pts, planes, N_FACE_ROWS, "closest_faces")
+    if pts.device.type == "cpu" and not with_stats:
+        return argmin_faces_plain(pts, planes, tile_variant, degenerate_tail,
+                                  reduction, tile_f)
+    if cull is None:
+        cull = cull_operands(pts, planes, tile_variant, degenerate_tail)
+    _check_cull(pts, planes, cull, tile_variant, degenerate_tail)
+    if pts.device.type == "cpu":
+        return argmin_faces_culled_plain(pts, planes, cull, tile_variant,
+                                         degenerate_tail, reduction, tile_f)
+    from .. import _build
+
+    fused = reduction == "fused"
+    n_b, n_q, n_f = _grid(pts, planes, "closest_faces")
+    out = torch.empty((n_b, n_q), dtype=torch.int32, device=pts.device)
+    stats = tuple(
+        torch.empty((n_b, -(-n_q // size)), dtype=torch.int32,
+                    device=pts.device) for size in (WARP, 1, WARP)
+    ) if with_stats else (None, None, None)
+    _build.launch("closest_faces", pts.device, pts, cull["qorder"], planes,
+                  cull["records"], out, *stats, n_b, n_q, n_f,
+                  TILE_VARIANTS.index(tile_variant),
+                  int(bool(degenerate_tail)),
+                  int(tile_f) if fused else 0)
+    LAUNCHES["closest_faces_fused" if fused else "closest_faces"] += 1
+    return (out,) + stats if with_stats else out
+
+
+def argmin_faces_every(pts, planes, tile_variant="fast", degenerate_tail=True,
+                       reduction="exact", tile_f=FUSED_TILE_F):
+    """Index of the closest face per query over every face: the
+    ``closest_faces_every`` CUDA kernel (``closest_faces``' oracle; no path
+    launches it) for CUDA tensors, ``argmin_faces_plain`` for CPU tensors."""
+    _check_variant(tile_variant)
+    _check_reduction(reduction, tile_f)
+    _check_operands(pts, planes, N_FACE_ROWS, "closest_faces_every")
     if pts.device.type == "cpu":
         return argmin_faces_plain(pts, planes, tile_variant, degenerate_tail,
                                   reduction, tile_f)
     from .. import _build
 
-    fused = reduction == "fused"
     out = torch.empty(pts.shape[:2], dtype=torch.int32, device=pts.device)
-    _build.launch("closest_faces", pts.device, pts, planes, out,
-                  *_grid(pts, planes, "closest_faces"),
-                  TILE_VARIANTS.index(tile_variant), int(bool(degenerate_tail)),
-                  int(tile_f) if fused else 0)
-    LAUNCHES["closest_faces_fused" if fused else "closest_faces"] += 1
+    _build.launch("closest_faces_every", pts.device, pts, planes, out,
+                  *_grid(pts, planes, "closest_faces_every"),
+                  TILE_VARIANTS.index(tile_variant),
+                  int(bool(degenerate_tail)),
+                  int(tile_f) if reduction == "fused" else 0)
+    LAUNCHES["closest_faces_every"] += 1
     return out
 
 

@@ -42,6 +42,7 @@ import torch
 
 from .closest_kernel import (
     N_FACE_ROWS,
+    WARP,
     _PLAIN_PAIRS,
     _batched,
     _center_inputs,
@@ -66,9 +67,6 @@ _GROW = 1.0 + _MARGIN
 _SEED_ELEMS = 1 << 24
 
 _TILES = {"fast": _sqdist_tile_fast, "safe": _sqdist_tile_safe}
-
-#: queries per warp: the kernel's unit of the chunk cull
-WARP = 32
 
 
 def _warp_any(x, dim):
