@@ -55,8 +55,15 @@ Phases (any failure raises and exits non-zero; none catches its own):
    leaves 256 and 8 timed with L2 flushed before each call, as the HBM
    bound assumes; the row in the kernels line is leaf 256's); mxu_faces,
    mxu_bound and mxu_repair at phase 12's shapes with and without the
-   degenerate tail, the tail also on the planted mesh (faces, ub, cert and
-   repaired tiles identical, and the repair's faces the dense scan's).
+   degenerate tail, the tail also on the planted mesh, and both tails on
+   body 0's far queries: the chunk culls of mxu_faces and mxu_repair
+   against the plain versions of their design (faces, tiles run, chunks
+   each warp folded, faces each lane needed, chunks each warp staged), the
+   every-face plain versions and the every-face kernels
+   (``mxu_faces_every``, ``mxu_repair_every``, which launch on no driven
+   path), with the shares of chunks tested and their chunk records against
+   ``cull_records_plain``; ub and cert identical, and the repair's faces
+   the dense scan's.
    Built without FMA contraction,
    each kernel must pick exactly the faces (vertices, blocked flags,
    counts, leaf boxes) its plain version picks, with the same tiles,
@@ -352,6 +359,9 @@ FUSED_PAIR_OPS = {k: v + 4 for k, v in FACE_PAIR_OPS.items()}
 #: the lane's need test) and of its seed's scan, per lane and chunk
 CULL_BOUND_OPS = 41
 SEED_OPS = 11
+#: operations of the MXU chunk cull's bound (csrc/mxu_cull.cuh cull_lb2 and
+#: the lane's need test): row 1's, the reach's two adds and the screen's and
+MXU_CULL_BOUND_OPS = 44
 
 #: operations of cull_records per face (the planes' finiteness, the corners,
 #: the box's minima and maxima, the conditioning numbers and their maxima)
@@ -382,7 +392,7 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 # the every-face kernel, phase 2's face oracle
                 "closest_faces_every": (),
                 "cull_records": ("main_path", "main_path_fused", "facade",
-                                 "contact"),
+                                 "contact", "mxu"),
                 "nearest_vertices": ("facade",),
                 "culled_faces": ("large_batch",),
                 "rope_faces_stream": ("scan",),
@@ -399,7 +409,10 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "leaf_boxes": ("anim",),
                 "mxu_faces": ("mxu",),
                 "mxu_bound": ("mxu",),
-                "mxu_repair": ("mxu",)}
+                "mxu_repair": ("mxu",),
+                # the every-face kernels, phase 2's MXU face oracles
+                "mxu_faces_every": (),
+                "mxu_repair_every": ()}
 
 
 def log(*args):
@@ -2197,31 +2210,75 @@ def surface_patches(n_q, rng):
 
 
 def compare_mxu(mk, ck, label, v, f, q, tail, timing):
-    """Kernel vs plain for the three MXU kernels on one mesh (``v`` [V, 3],
-    ``f`` [F, 3], ``q`` [Q, 3] on the card) at the reference's tiles:
-    identical faces, ub, cert and repaired tiles, and the repair's faces
-    identical to the dense scan's.  With ``timing``: each kernel's time,
-    its plain version's and its bound, and the ``closest_faces`` kernel's
-    time on the same inputs."""
+    """Kernel vs plain for the MXU kernels on one mesh (``v`` [V, 3], ``f``
+    [F, 3], ``q`` [Q, 3] on the card) at the reference's tiles: the chunk
+    culls ``mxu_faces`` and ``mxu_repair`` identical to the plain versions
+    of their design (faces, tiles run, and the chunks each warp folded, the
+    faces each lane needed and the chunks each warp staged), to the
+    every-face plain versions and to the every-face kernels
+    (``mxu_faces_every``, ``mxu_repair_every``, which launch on no driven
+    path) on faces and tiles run; the chunk records' box and rounding
+    fields identical to ``cull_records_plain``'s; ub and cert identical to
+    the bound pass's plain version; and the repair's faces the dense
+    scan's.  With ``timing``: each kernel's time, the every-face kernels',
+    the cull prologue's (``mxu_cull_operands``: the Morton order, the
+    records cached), the plain versions' and the bounds: the work these
+    inputs need per lane (the faces of the chunks its own lane needs, a
+    bound per chunk it scans, the seed), the pairs the warps issue and
+    every pair; and the ``closest_faces`` kernel's time on the same
+    inputs."""
     tile_q, tile_f = mk.TILE_Q, mk.TILE_F
     p, rec, tri, pts, center = mk.mxu_operands(v, f, q, device=v.device)
-    kf = mk.mxu_faces(p, rec, degenerate_tail=tail)
-    pf = mk.mxu_faces_plain(p, rec, degenerate_tail=tail)
+    n_q, n_f = p.shape[0], rec.shape[0]
+    split = mk.mxu_split(n_q)
+    cull = mk.mxu_cull_operands(p, rec, tail)
+    planes = rec[:, list(mk._FAST_COLS)].T.contiguous()[None]
+    records_plain = ck.cull_records_plain(planes, "fast", tail)[0]
+    got = cull["records"][:, :12]
+    same = (got == records_plain) | (torch.isnan(got)
+                                     & torch.isnan(records_plain))
+    check(bool(same.all()), "mxu chunk records[%s, tail=%s]: %d of %d "
+          "values differ from cull_records_plain's" % (
+              label, tail, int((~same).sum()), same.numel()))
+    kf, *kstats = mk.mxu_faces(p, rec, degenerate_tail=tail, cull=cull,
+                               with_stats=True)
+    pf, *pstats = mk.mxu_faces_culled_plain(p, rec, cull,
+                                            degenerate_tail=tail, split=split)
+    ef = mk.mxu_faces_plain(p, rec, degenerate_tail=tail)
+    of = mk.mxu_faces_every(p, rec, degenerate_tail=tail)
     kub, kcert = mk.mxu_bound(p, rec)
     pub, pcert = mk.mxu_bound_plain(p, rec)
-    kr, krep = mk.mxu_repair(p, rec, kub, kcert, degenerate_tail=tail)
-    pr, prep = mk.mxu_repair_plain(p, rec, kub, kcert, degenerate_tail=tail)
-    check(torch.equal(kf, pf), "mxu_faces[%s, tail=%s]: %d of %d faces differ "
-          "from the plain version" % (label, tail, int((kf != pf).sum()),
-                                      kf.numel()))
+    kr, krep, *krstats = mk.mxu_repair(p, rec, kub, kcert,
+                                       degenerate_tail=tail, cull=cull,
+                                       with_stats=True)
+    pr, prep, *prstats = mk.mxu_repair_culled_plain(
+        p, rec, kub, kcert, cull, degenerate_tail=tail, split=split)
+    er, erep = mk.mxu_repair_plain(p, rec, kub, kcert, degenerate_tail=tail)
+    orr, orep = mk.mxu_repair_every(p, rec, kub, kcert, degenerate_tail=tail)
+    for name, k, pl, ks, ps in (("mxu_faces", kf, pf, kstats, pstats),
+                                ("mxu_repair", kr, pr, krstats, prstats)):
+        check(torch.equal(k, pl) and all(torch.equal(a, b)
+                                         for a, b in zip(ks, ps)),
+              "%s[%s, tail=%s]: %d of %d faces (and %s warp, lane, stage "
+              "counts) differ from the plain version of its design" % (
+                  name, label, tail, int((k != pl).sum()), k.numel(),
+                  [int((a != b).sum()) for a, b in zip(ks, ps)]))
+    check(torch.equal(kf, ef) and torch.equal(kf, of),
+          "mxu_faces[%s, tail=%s]: %d faces differ from the every-face plain "
+          "version, %d from the every-face kernel" % (
+              label, tail, int((kf != ef).sum()), int((kf != of).sum())))
+    check(torch.equal(krep, prep) and torch.equal(krep, erep)
+          and torch.equal(krep, orep),
+          "mxu_repair[%s, tail=%s]: tiles run differ from the plain versions "
+          "or the every-face kernel" % (label, tail))
+    check(torch.equal(kr, er) and torch.equal(kr, orr),
+          "mxu_repair[%s, tail=%s]: %d faces differ from the every-face "
+          "plain version, %d from the every-face kernel" % (
+              label, tail, int((kr != er).sum()), int((kr != orr).sum())))
     check(torch.equal(kub, pub) and torch.equal(kcert, pcert),
           "mxu_bound[%s]: %d ub and %d cert values differ from the plain "
           "version" % (label, int((kub != pub).sum()),
                        int((kcert != pcert).sum())))
-    check(torch.equal(kr, pr) and torch.equal(krep, prep),
-          "mxu_repair[%s, tail=%s]: %d faces and %d tile counts differ from "
-          "the plain version" % (label, tail, int((kr != pr).sum()),
-                                 int((krep != prep).sum())))
     check(torch.equal(kr, kf), "mxu_repair[%s, tail=%s]: %d faces differ "
           "from the dense scan's" % (label, tail, int((kr != kf).sum())))
     rk_, rp = mk.mxu_epilogue(kf, tri, pts, center), mk.mxu_epilogue(
@@ -2229,58 +2286,105 @@ def compare_mxu(mk, ck, label, v, f, q, tail, timing):
     err = max(float((rk_["point"] - rp["point"]).abs().max()),
               float((rk_["sqdist"] - rp["sqdist"]).abs().max()))
     surv = mk.survivors(kub, kcert, tile_q)
-    n_f = rec.shape[0]
     tile_faces = torch.tensor([min(n_f, (t + 1) * tile_f) - t * tile_f
                                for t in range(surv.shape[1])],
                               device=surv.device)
+    n_c = -(-n_f // ck.CULL_CHUNK)
     out = {"mesh": label, "degenerate_tail": tail,
-           "shape": [int(p.shape[0]), n_f], "queries": int(pts.shape[1]),
-           "identical": True, "max_abs_err": err,
+           "shape": [int(n_q), n_f], "queries": int(pts.shape[1]),
+           "split": split, "identical": True, "max_abs_err": err,
            "screened": int(surv.numel()), "repaired": int(krep.sum()),
            "repaired_pairs": int((surv.sum(0) * tile_faces).sum()) * tile_q}
-    log("  mxu[%s, tail=%s] %s: faces, ub, cert and repaired tiles identical "
-        "to the plain versions, repair == dense; %d of %d tiles repaired"
-        % (label, tail, out["shape"], out["repaired"], out["screened"]))
+    for key, (warp, lane, stage), pairs in (
+            ("faces", kstats, n_q * n_f),
+            ("repair", krstats, out["repaired_pairs"])):
+        out[key] = {"warp_chunks": int(warp.sum()),
+                    "warp_share": int(warp.sum()) / (warp.numel() * n_c),
+                    "heaviest_warp_share": int(warp.max()) / n_c,
+                    "stage_share": int(stage.sum()) / (stage.numel() * n_c),
+                    "lane_faces": int(lane.sum()),
+                    "lane_share": int(lane.sum()) / (n_q * n_f),
+                    "lane_share_of_run": int(lane.sum()) / max(1, pairs)}
+    log("  mxu[%s, tail=%s] %s, split %d: faces, counts and tiles run "
+        "identical to the plain versions of the design, faces to the "
+        "every-face plain versions and kernels; ub, cert identical, repair "
+        "== dense; %d of %d tiles repaired; dense warps fold %.4f of the "
+        "chunks (heaviest %.4f), lanes need %.4f of the pairs; repair %.4f "
+        "(heaviest %.4f), %.4f" % (
+            label, tail, out["shape"], split, out["repaired"],
+            out["screened"], out["faces"]["warp_share"],
+            out["faces"]["heaviest_warp_share"], out["faces"]["lane_share"],
+            out["repair"]["warp_share"],
+            out["repair"]["heaviest_warp_share"],
+            out["repair"]["lane_share"]))
     if not timing:
         return out
-    pairs = p.shape[0] * n_f
+    ops = MXU_PAIR_OPS[tail]
+    cull_bytes = 4 * (cull["qorder"].numel() + cull["records"].numel())
     rec_bytes = 4 * (p.numel() + rec.numel())
     screen_bytes = 4 * (kub.numel() + kcert.numel())
-    ops = ck.closest_point_operands(v[None], f, q[None], "fast")
-    out["faces"] = {
-        "ms": cuda_ms(lambda: mk.mxu_faces(p, rec, degenerate_tail=tail),
-                      REPS),
-        "plain_ms": cuda_ms(lambda: mk.mxu_faces_plain(
-            p, rec, degenerate_tail=tail), 1)}
-    out["faces"]["bound_ms"], out["faces"]["bound_by"] = bound_ms(
-        pairs, MXU_PAIR_OPS[tail], rec_bytes + 4 * p.shape[0])
+    # chunks each lane scans: every chunk for the dense scan, those of the
+    # tiles its query tile runs for the repair (its seed's scan likewise)
+    chunks_run = int((surv.sum(0) * (tile_faces // ck.CULL_CHUNK + (
+        tile_faces % ck.CULL_CHUNK > 0))).sum()) * tile_q
+    args = {"faces": (p, rec), "repair": (p, rec, kub, kcert)}
+    kernels = {"faces": (mk.mxu_faces, mk.mxu_faces_every,
+                         mk.mxu_faces_culled_plain, mk.mxu_faces_plain),
+               "repair": (mk.mxu_repair, mk.mxu_repair_every,
+                          mk.mxu_repair_culled_plain, mk.mxu_repair_plain)}
+    for key, scanned, n_bytes in (
+            ("faces", n_q * n_c, rec_bytes + cull_bytes + 4 * n_q),
+            ("repair", chunks_run, rec_bytes + cull_bytes + surv.numel()
+             + 4 * (n_q + krep.numel()))):
+        kern, every, culled_plain, plain = kernels[key]
+        row = out[key]
+        row["ms"] = cuda_ms(lambda: kern(*args[key], degenerate_tail=tail,
+                                         cull=cull), REPS)
+        row["every_ms"] = cuda_ms(lambda: every(*args[key],
+                                                degenerate_tail=tail), REPS)
+        row["with_prologue_ms"] = cuda_ms(lambda: kern(
+            *args[key], degenerate_tail=tail), REPS)
+        row["plain_ms"] = cuda_ms(lambda: culled_plain(
+            *args[key], cull, degenerate_tail=tail, split=split), 1)
+        row["every_plain_ms"] = cuda_ms(lambda: plain(
+            *args[key], degenerate_tail=tail), 1)
+        around = scanned * (MXU_CULL_BOUND_OPS + SEED_OPS) + n_q * ops
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            row["lane_faces"] * ops + around, 1, n_bytes)
+        row["bound_issued_ms"] = bound_ms(
+            row["warp_chunks"] * 32 * ck.CULL_CHUNK * ops + around, 1,
+            n_bytes)[0]
+        row["bound_every_pair_ms"] = bound_ms(
+            n_q * n_f if key == "faces" else out["repaired_pairs"], ops,
+            rec_bytes + 4 * n_q + (screen_bytes if key == "repair" else 0))[0]
+    out["prologue_ms"] = cuda_ms(lambda: mk.mxu_cull_operands(p, rec, tail),
+                                 REPS)
     out["bound"] = {
         "ms": cuda_ms(lambda: mk.mxu_bound(p, rec), REPS),
         "plain_ms": cuda_ms(lambda: mk.mxu_bound_plain(p, rec), 1)}
     out["bound"]["bound_ms"], out["bound"]["bound_by"] = bound_ms(
-        pairs, MXU_BOUND_OPS, rec_bytes + screen_bytes)
-    out["repair"] = {
-        "ms": cuda_ms(lambda: mk.mxu_repair(p, rec, kub, kcert,
-                                            degenerate_tail=tail), REPS),
-        "plain_ms": cuda_ms(lambda: mk.mxu_repair_plain(
-            p, rec, kub, kcert, degenerate_tail=tail), 1)}
-    out["repair"]["bound_ms"], out["repair"]["bound_by"] = bound_ms(
-        out["repaired_pairs"], MXU_PAIR_OPS[tail],
-        rec_bytes + screen_bytes + 4 * (p.shape[0] + krep.numel()))
+        n_q * n_f, MXU_BOUND_OPS, rec_bytes + screen_bytes)
+    ops_c = ck.closest_point_operands(v[None], f, q[None], "fast")
     out["closest_faces_ms"] = cuda_ms(lambda: ck.argmin_faces(
-        ops[0], ops[1], "fast", tail), REPS)
-    out["closest_faces_bound_ms"] = bound_ms(
-        ops[0].shape[1] * n_f, FACE_PAIR_OPS[("fast", tail)],
-        4 * (ops[0].numel() + ops[1].numel() + ops[0].shape[1]))[0]
-    log("    %s: mxu_faces %.3f ms (plain %.1f, bound %.3f), mxu_bound %.3f "
-        "ms (plain %.1f, bound %.3f), mxu_repair %.3f ms (plain %.1f, bound "
-        "%.3f on %d pairs); closest_faces %.3f ms (bound %.3f)" % (
-            label, out["faces"]["ms"], out["faces"]["plain_ms"],
-            out["faces"]["bound_ms"], out["bound"]["ms"],
+        ops_c[0], ops_c[1], "fast", tail), REPS)
+    log("    %s: mxu_faces %.3f ms (every face %.3f, with its prologue "
+        "%.3f; plain %.1f, every-face plain %.1f; bound %.4f, issued %.4f, "
+        "every pair %.3f), mxu_bound %.3f ms (plain %.1f, bound %.3f), "
+        "mxu_repair %.3f ms (every face %.3f, with its prologue %.3f; plain "
+        "%.1f, every-face plain %.1f; bound %.4f, issued %.4f, every pair "
+        "%.3f on %d pairs); cull prologue %.4f ms; closest_faces %.3f ms" % (
+            label, out["faces"]["ms"], out["faces"]["every_ms"],
+            out["faces"]["with_prologue_ms"], out["faces"]["plain_ms"],
+            out["faces"]["every_plain_ms"], out["faces"]["bound_ms"],
+            out["faces"]["bound_issued_ms"],
+            out["faces"]["bound_every_pair_ms"], out["bound"]["ms"],
             out["bound"]["plain_ms"], out["bound"]["bound_ms"],
-            out["repair"]["ms"], out["repair"]["plain_ms"],
-            out["repair"]["bound_ms"], out["repaired_pairs"],
-            out["closest_faces_ms"], out["closest_faces_bound_ms"]))
+            out["repair"]["ms"], out["repair"]["every_ms"],
+            out["repair"]["with_prologue_ms"], out["repair"]["plain_ms"],
+            out["repair"]["every_plain_ms"], out["repair"]["bound_ms"],
+            out["repair"]["bound_issued_ms"],
+            out["repair"]["bound_every_pair_ms"], out["repaired_pairs"],
+            out["prologue_ms"], out["closest_faces_ms"]))
     return out
 
 
@@ -2910,6 +3014,9 @@ def main():
                 timing=tail == mxu_tails[label]))
     mxu_runs.append(compare_mxu(mk, ck, "planted", v2t[0], f2t, q2t[0], True,
                                 timing=False))
+    for tail in (False, True):
+        mxu_runs.append(compare_mxu(mk, ck, "far", body[0], f, q_far[0],
+                                    tail, timing=False))
 
     # -- 3. main path at full width ------------------------------------------
     card_state = {"after_phase_2": nvidia_smi(CARD_STATE)}
@@ -3791,7 +3898,7 @@ def main():
          "on": main_lb["on"],
          "detail": leaf_runs})
     main_m = next(r for r in mxu_runs if r["mesh"] == "sphere_surface"
-                  and "faces" in r)
+                  and "ms" in r["faces"])
     for name, key, source, replaces in (
             ("mxu_faces", "faces", "mxu_faces.cu",
              "mesh_tpu/query/pallas_closest.py:1015"),
@@ -3811,9 +3918,24 @@ def main():
              "on": "sphere_surface, tail=%s" % main_m["degenerate_tail"],
              "detail": [dict(r.get(key, {}), mesh=r["mesh"],
                              degenerate_tail=r["degenerate_tail"],
+                             split=r["split"],
                              closest_faces_ms=r.get("closest_faces_ms"),
+                             prologue_ms=r.get("prologue_ms"),
                              repaired=r["repaired"], screened=r["screened"])
                         for r in mxu_runs]})
+        if key != "bound":
+            # the every-face oracle beside the chunk cull: no path runs it
+            kernels[-1]["every"] = {
+                "name": name + "_every", "route": "cuda",
+                "source": "mesh_tpu_torch/csrc/%s_every.cu" % name,
+                "ms": main_m[key]["every_ms"],
+                "launches_by_path": {p: launches[p][name + "_every"]
+                                     for p in launches}}
+            for field in ("bound_issued_ms", "bound_every_pair_ms",
+                          "warp_share", "heaviest_warp_share", "stage_share",
+                          "lane_share", "every_plain_ms",
+                          "with_prologue_ms"):
+                kernels[-1][field] = main_m[key][field]
     main_fused = next(r for r in fused_runs if "ms" in r and (
         r["variant"], r["degenerate_tail"]) == main_variant)
     kernels.append(

@@ -61,10 +61,14 @@ KERNELS = {
     "self_intersect": ("self_intersect.cu", "mt_self_intersect",
                        [_PTR] * 6 + [_INT] * 4 + [_FLOAT] * 2),
     "leaf_boxes": ("leaf_boxes.cu", "mt_leaf_boxes", [_PTR] * 3 + [_INT] * 2),
-    "mxu_faces": ("mxu_faces.cu", "mt_mxu_faces", [_PTR] * 3 + [_INT] * 5),
+    "mxu_faces": ("mxu_faces.cu", "mt_mxu_faces", [_PTR] * 11 + [_INT] * 5),
+    "mxu_faces_every": ("mxu_faces_every.cu", "mt_mxu_faces_every",
+                        [_PTR] * 3 + [_INT] * 5),
     "mxu_bound": ("mxu_bound.cu", "mt_mxu_bound", [_PTR] * 4 + [_INT] * 3),
     "mxu_repair": ("mxu_repair.cu", "mt_mxu_repair",
-                   [_PTR] * 6 + [_INT] * 5),
+                   [_PTR] * 12 + [_INT] * 6),
+    "mxu_repair_every": ("mxu_repair_every.cu", "mt_mxu_repair_every",
+                         [_PTR] * 6 + [_INT] * 5),
 }
 
 #: no FMA contraction and no fast math: the kernels round like the plain

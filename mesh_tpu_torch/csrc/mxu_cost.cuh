@@ -1,7 +1,9 @@
-// The MXU rung of the closest-point ladder on Hopper: the per-pair costs and
-// the query-block scan shared by mxu_faces.cu, mxu_bound.cu and
-// mxu_repair.cu, counterparts of _sqdist_tile_mxu, _mxu_ap2_env and the
-// argmin scaffolds over them in mesh_tpu/query/pallas_closest.py.
+// The MXU rung of the closest-point ladder on Hopper: the per-pair costs
+// shared by mxu_faces.cu, mxu_repair.cu (over mxu_cull.cuh), mxu_bound.cu
+// and rope_mxu_faces.cu, and the every-face query-block scan of the
+// oracles mxu_faces_every.cu and mxu_repair_every.cu: counterparts of
+// _sqdist_tile_mxu, _mxu_ap2_env and the argmin scaffolds over them in
+// mesh_tpu/query/pallas_closest.py.
 //
 // On the TPU the four query-dependent dot products of the fast tile (ab.p,
 // ac.p, n.p and a.p) come from one matrix product per tile.  Here they are
@@ -65,7 +67,8 @@ __device__ __forceinline__ float mxu_pair(float px, float py, float pz,
                              r5.y, r5.z);
 }
 
-// The exact scan of rows 3 and 5.  One block of blockDim.x (tile_q) threads
+// The every-face scan of rows 3 and 5 (the oracles of mxu_cull.cuh's chunk
+// cull; no path launches it).  One block of blockDim.x (tile_q) threads
 // owns tile_q consecutive queries, one each; the query count is a multiple
 // of tile_q (the wrapper pads with queries at the origin, as the reference
 // pads).  The block walks the face tiles [t*tile_f, (t+1)*tile_f) in

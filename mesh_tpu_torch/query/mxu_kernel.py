@@ -6,17 +6,27 @@ On the TPU this rung computes the fast tile's four query-dependent dot
 products (ab.p, ac.p, n.p, a.p) by one matrix product per tile, and can put
 a bf16 screen in front of the exact pass.  Three kernels:
 
-- ``mxu_faces`` (``csrc/mxu_faces.cu``, row 3): the dense exact scan, the
-  closest face per query by the MXU-form cost
-  (``ap2 = max(p2 - 2 p.a + a2, 0)`` and the fast tile's Ericson tail);
+- ``mxu_faces`` (``csrc/mxu_faces.cu`` over ``csrc/mxu_cull.cuh``, row 3):
+  the dense exact scan, the closest face per query by the MXU-form cost
+  (``ap2 = max(p2 - 2 p.a + a2, 0)`` and the fast tile's Ericson tail),
+  by an exact per-warp chunk cull: queries in Morton order, 32 to a warp,
+  chunks of ``CULL_CHUNK`` faces skipped when no lane needs them, with
+  the every-face kernel's answers bit for bit (``mxu_cull_operands`` and
+  the source note of ``csrc/mxu_cull.cuh``);
 - ``mxu_bound`` (``csrc/mxu_bound.cu``, row 4): the bf16 bound pass, per
   query an upper bound ``ub`` on the closest squared distance and per
   (query, face tile) a certificate ``cert``, a lower bound on the
   distance of every face of the tile, under the envelope
   ``E = 2^-6 (p2 + a2)`` (``MXU_BF16_EPS``);
-- ``mxu_repair`` (``csrc/mxu_repair.cu``, row 5): the dense scan over the
-  face tiles that some query of a tile_q block may still win
-  (``cert <= sqrt(ub)``), bit-identical to ``mxu_faces``.
+- ``mxu_repair`` (``csrc/mxu_repair.cu``, row 5): the same chunk cull over
+  the face tiles that some query of a tile_q block may still win
+  (``cert <= sqrt(ub)``, the mask of ``survivors``), bit-identical to
+  ``mxu_faces``.
+
+``mxu_faces_every`` and ``mxu_repair_every`` (``csrc/mxu_faces_every.cu``,
+``csrc/mxu_repair_every.cu``) fold every face of every tile they run: the
+oracles ``chip_smoke.py`` holds the culled kernels to; no path launches
+them.
 
 On the card the dot products are CUDA-core float32 (no tensor cores): the
 kernels and the plain versions make the same operations in the same order,
@@ -24,12 +34,15 @@ each dot product written ``px*gx + py*gy + pz*gz``, never a matrix product,
 whose order and TF32 use are not fixed.  Built without FMA, each kernel
 equals its plain version.  The wrappers ``mxu_faces`` / ``mxu_bound`` /
 ``mxu_repair`` launch the kernel for CUDA tensors and take the plain
-version for CPU tensors; any other device raises.  ``LAUNCHES`` counts each
-kernel's launches.
+version for CPU tensors (for the culled kernels the plain versions of
+their design, ``mxu_faces_culled_plain`` / ``mxu_repair_culled_plain``,
+whose faces are ``mxu_faces_plain``'s / ``mxu_repair_plain``'s); any other
+device raises.  ``LAUNCHES`` counts each kernel's launches.
 
 The face side (centering, the face record, the reach) depends only on the
 mesh and is cached by a blake2b digest of its bytes (``_MXU_FACE_CACHE``,
-FIFO of 16), as the reference caches its staging.
+FIFO of 16), as the reference caches its staging; the cull's chunk
+records are cached beside each face record (``_MXU_CHUNK_CACHE``).
 """
 
 import hashlib
@@ -40,14 +53,23 @@ import torch
 from ..geometry.cross_product import cross3
 from ..utils.device import as_tensor, host_array, resolve_device
 from .closest_kernel import (
+    _CULL_SHRINK2,
     _PLAIN_PAIRS,
+    _U,
+    CULL_CHUNK,
+    CULL_FAR,
+    WARP,
     _ericson_tail,
+    _warp_vote,
+    cull_records,
     fast_tile_rows,
+    query_order,
     winner_epilogue,
 )
 
 #: launches of each CUDA kernel since the counts were last set to 0
-LAUNCHES = {"mxu_faces": 0, "mxu_bound": 0, "mxu_repair": 0}
+LAUNCHES = {"mxu_faces": 0, "mxu_faces_every": 0, "mxu_bound": 0,
+            "mxu_repair": 0, "mxu_repair_every": 0}
 
 #: the certified envelope of the bf16 screen (the reference's derivation,
 #: mesh_tpu/query/pallas_closest.py:828-837): |ap2~ - ap2| <= 2^-6 (p2 + a2)
@@ -204,6 +226,256 @@ def _row_chunks(n_rows, n_cols, device):
 
 
 # ---------------------------------------------------------------------------
+# The chunk cull of ``mxu_faces`` and ``mxu_repair``: its operands and the
+# plain version of its design.  csrc/mxu_cull.cuh makes the same float32
+# operations in the same order.
+
+#: floats of one chunk record: ``cull_records``' 12 (box center, half
+#: diagonal, half extents, e1, corner a of the first face, e2), the reach
+#: from the origin ``|center| + h`` and three pads
+MXU_CHUNK_RECORD = 16
+
+#: the record's columns in ``fast_tile_rows`` order (a, ab, ac, n, ab2,
+#: ac2, abac and the four reciprocals): the planes ``cull_records`` reads
+_FAST_COLS = (9, 10, 11, 0, 1, 2, 3, 4, 5, 6, 7, 8,
+              16, 17, 18, 19, 20, 21, 22)
+
+#: the most warps that share one warp's chunk range (csrc/mxu_cull.cuh)
+MAX_SPLIT = 64
+
+#: ``mxu_split`` splits a warp's chunks until the launch has this many
+#: warps: on an H100 (PERF.md, rows 3 and 5; tools/ab_mxu.py) 32 splits of
+#: 2048 warps beat 1, 4, 16 and 64 on N(0, 0.4) queries, whose heaviest
+#: warps fold every chunk, and 64 of 128 warps beat 1, 4 and 16 on body 0;
+#: on surface patches neither is 10% off the best split
+SPLIT_WARPS = 65536
+
+
+def mxu_chunk_records(rec, degenerate_tail=True):
+    """[C, 16] float32 records of the chunks of ``CULL_CHUNK`` consecutive
+    faces (in index order) of the face record ``rec`` [F, 24], C =
+    ceil(F / 32): ``cull_records`` of the same triangles (the ``cull_records``
+    kernel for a CUDA tensor), with e1 = +inf also where a face's hoisted
+    corner terms a.ab, a.ac, a.n or a2 are not finite, and the reach from
+    the origin ``|center| + h`` (widened for its float32 rounding), which
+    the MXU tile's rounding scales with (csrc/mxu_cull.cuh, item 4')."""
+    planes = rec[:, list(_FAST_COLS)].T.contiguous()[None]
+    fast = cull_records(planes, "fast", degenerate_tail)[0]
+    n_f = rec.shape[0]
+    hoisted = rec[:, 12:16]
+    pad = -n_f % CULL_CHUNK
+    if pad:      # repeat the last face, as cull_records pads
+        hoisted = torch.cat([hoisted, hoisted[-1:].expand(pad, 4)])
+    finite = torch.isfinite(hoisted).reshape(-1, CULL_CHUNK * 4).all(dim=1)
+    out = torch.zeros((fast.shape[0], MXU_CHUNK_RECORD), dtype=torch.float32,
+                      device=rec.device)
+    out[:, :12] = fast
+    out[:, 7] = torch.where(finite, fast[:, 7],
+                            torch.full_like(fast[:, 7], float("inf")))
+    cen = fast[:, 0:3]
+    out[:, 12] = ((torch.sqrt((cen * cen).sum(dim=-1)) + fast[:, 3])
+                  * (1.0 + 8 * _U))
+    return out
+
+
+#: id of a face record -> (the record, its version counter, {tail: chunk
+#: records}); the entry keeps the record alive, so its id stays its own
+_MXU_CHUNK_CACHE = {}
+
+
+def _cached_chunk_records(rec, degenerate_tail):
+    """``mxu_chunk_records`` of ``rec``, made once per record and tail
+    (bounded FIFO of ``_MXU_FACE_CACHE_MAX``; an in-place change of the
+    record makes them anew)."""
+    hit = _MXU_CHUNK_CACHE.get(id(rec))
+    if hit is None or hit[1] != rec._version:
+        if hit is None and len(_MXU_CHUNK_CACHE) >= _MXU_FACE_CACHE_MAX:
+            _MXU_CHUNK_CACHE.pop(next(iter(_MXU_CHUNK_CACHE)))
+        hit = _MXU_CHUNK_CACHE[id(rec)] = (rec, rec._version, {})
+    key = bool(degenerate_tail)
+    if key not in hit[2]:
+        hit[2][key] = mxu_chunk_records(rec, degenerate_tail)
+    return hit[2][key]
+
+
+def mxu_cull_operands(p, rec, degenerate_tail=True):
+    """The cull's operands for the queries ``p`` [N, 3] and the face record
+    ``rec`` [F, 24]: ``qorder`` [N] int32 (``query_order``: the Morton
+    order of every row of p, the padding included) and ``records``
+    (``mxu_chunk_records``, cached with the record), with the tail they
+    were made for."""
+    return {"qorder": query_order(p[None])[0].contiguous(),
+            "records": _cached_chunk_records(rec, degenerate_tail),
+            "degenerate_tail": bool(degenerate_tail)}
+
+
+def mxu_split(n_q):
+    """The number of warps that share one warp's chunks, for ``n_q``
+    queries: the least power of two that gives the launch ``SPLIT_WARPS``
+    warps, at most ``MAX_SPLIT``."""
+    split = 1
+    while split < MAX_SPLIT and split * (n_q // WARP) < SPLIT_WARPS:
+        split *= 2
+    return split
+
+
+def _check_cull(p, rec, cull, degenerate_tail, split, name):
+    n_q, n_c = p.shape[0], -(-rec.shape[0] // CULL_CHUNK)
+    qorder, recs = cull["qorder"], cull["records"]
+    if cull["degenerate_tail"] != bool(degenerate_tail):
+        raise ValueError("%s: cull operands made for tail %s, not %s" % (
+            name, cull["degenerate_tail"], bool(degenerate_tail)))
+    if (qorder.dtype != torch.int32 or recs.dtype != torch.float32
+            or not qorder.is_contiguous() or not recs.is_contiguous()
+            or qorder.device != p.device or recs.device != p.device
+            or tuple(qorder.shape) != (n_q,)
+            or tuple(recs.shape) != (n_c, MXU_CHUNK_RECORD)):
+        raise ValueError("%s: want qorder [%d] int32 and records [%d, %d] "
+                         "float32, contiguous, on %s; got %s %s and %s %s" % (
+                             name, n_q, n_c, MXU_CHUNK_RECORD, p.device,
+                             tuple(qorder.shape), qorder.dtype,
+                             tuple(recs.shape), recs.dtype))
+    if not 1 <= split <= MAX_SPLIT:
+        raise ValueError("%s: split %r not in [1, %d]" % (name, split,
+                                                         MAX_SPLIT))
+
+
+def _mxu_lb2(px, py, pz, plen, crec):
+    """The kernel's squared lower bound (``cull_lb2``) from queries to the
+    chunk records ``crec`` [..., 16] (broadcast): ``closest_kernel
+    ._cull_lb2`` with R_m = |p - center| + 3h + (|p| + reach), ``plen`` =
+    |p|, in place of R; -inf past ``CULL_FAR``, NaN kept."""
+    dx, dy, dz = px - crec[..., 0], py - crec[..., 1], pz - crec[..., 2]
+    big = (torch.sqrt(dx * dx + dy * dy + dz * dz) + 3.0 * crec[..., 3]
+           + (plen + crec[..., 12]))
+    ox = torch.clamp_min(dx.abs() - crec[..., 4], 0.0)
+    oy = torch.clamp_min(dy.abs() - crec[..., 5], 0.0)
+    oz = torch.clamp_min(dz.abs() - crec[..., 6], 0.0)
+    big2 = big * big
+    t = big2 * crec[..., 11]
+    lb2 = ((ox * ox + oy * oy + oz * oz) * _CULL_SHRINK2
+           - (big2 * crec[..., 7] + t * t))
+    return torch.where(big <= CULL_FAR, lb2,
+                       torch.full_like(lb2, float("-inf")))
+
+
+def _mxu_culled(p, rec, cull, surv, tile_q, tile_f, degenerate_tail, split):
+    """The culled walk of csrc/mxu_cull.cuh on the plain side: (faces [N]
+    int32, warp chunks [N / 32], lane faces [N], warp stages [N / 32],
+    each count summed over the splits).  ``surv`` None: the dense scan,
+    whose fold is torch.argmin's (a NaN cost wins); else the repair's
+    screen, whose fold takes a face only when strictly below (a NaN cost
+    never)."""
+    screen = surv is not None
+    n_q, n_f = p.shape[0], rec.shape[0]
+    n_c = -(-n_f // CULL_CHUNK)
+    dev = p.device
+    order = cull["qorder"].long()
+    crec = cull["records"]
+    ps = p[order]
+    px, py, pz = ps[:, 0], ps[:, 1], ps[:, 2]
+    p2 = px * px + py * py + pz * pz
+    plen = torch.sqrt(p2)
+    cpt = tile_f // CULL_CHUNK if screen else n_c
+    chunk_tile = torch.arange(n_c, device=dev) // cpt
+    runs = surv[order // tile_q] if screen else None     # [N, n_tiles]
+
+    # the seed: the cost of the first face of the nearest representative
+    # among the chunks of the tiles each lane folds (+inf: none)
+    ks = torch.zeros(n_q, dtype=torch.long, device=dev)
+    has = torch.zeros(n_q, dtype=torch.bool, device=dev)
+    for r0, r1 in _row_chunks(n_q, n_c, dev):
+        dx = px[r0:r1, None] - crec[None, :, 8]
+        dy = py[r0:r1, None] - crec[None, :, 9]
+        dz = pz[r0:r1, None] - crec[None, :, 10]
+        d = torch.nan_to_num(dx * dx + dy * dy + dz * dz, nan=float("inf"))
+        if screen:
+            d = torch.where(runs[r0:r1][:, chunk_tile], d,
+                            torch.full_like(d, float("inf")))
+        low, ks[r0:r1] = torch.min(d, dim=1)
+        has[r0:r1] = low < float("inf")
+    face = rec[ks * CULL_CHUNK]
+    seed = _sqdist_tile_mxu(ps, [face[:, k:k + 1] for k in range(MXU_RECORD)],
+                            degenerate_tail)[:, 0]
+    seed = torch.where(has, seed, torch.full_like(seed, float("inf")))
+
+    warp = torch.zeros(n_q // WARP, dtype=torch.int32, device=dev)
+    lane = torch.zeros(n_q, dtype=torch.int32, device=dev)
+    stage = torch.zeros_like(warp)
+    every = torch.ones(n_q, dtype=torch.bool, device=dev)
+    fin_d = fin_i = None
+    for s in range(split):
+        best = torch.full((n_q,), float("inf"), device=dev)
+        best_i = torch.zeros(n_q, dtype=torch.int32, device=dev)
+        snap = best.clone()
+        for k in range(n_c * s // split, n_c * (s + 1) // split):
+            r = runs[:, int(chunk_tile[k])] if screen else every
+            if screen and not bool(r.any()):
+                continue
+            lb2 = _mxu_lb2(px, py, pz, plen, crec[k])
+            vote = _warp_vote(r & ~(lb2 > torch.fmin(snap, seed)))
+            if not bool(vote.any()):
+                continue
+            stage += vote.to(torch.int32)
+            snap = torch.where(vote.repeat_interleave(WARP), best, snap)
+            need = r & ~(lb2 > torch.fmin(best, seed))
+            folds = _warp_vote(need)
+            c0 = k * CULL_CHUNK
+            nf = min(CULL_CHUNK, n_f - c0)
+            warp += folds.to(torch.int32)
+            lane += need.to(torch.int32) * nf
+            if not bool(folds.any()):
+                continue
+            cost = _sqdist_tile_mxu(ps, _cols(rec, c0, c0 + nf),
+                                    degenerate_tail)          # [N, nf]
+            arg = torch.argmin(cost, dim=-1)
+            low = torch.gather(cost, -1, arg[:, None])[:, 0]
+            take = low < best
+            if not screen:
+                take |= torch.isnan(low) & ~torch.isnan(best)
+            take &= folds.repeat_interleave(WARP) & r
+            best = torch.where(take, low, best)
+            best_i = torch.where(take, (arg + c0).to(torch.int32), best_i)
+        if fin_d is None:
+            fin_d, fin_i = best, best_i
+        else:
+            take = best < fin_d
+            if not screen:
+                take |= torch.isnan(best) & ~torch.isnan(fin_d)
+            fin_d = torch.where(take, best, fin_d)
+            fin_i = torch.where(take, best_i, fin_i)
+    out = torch.empty(n_q, dtype=torch.int32, device=dev)
+    out[order] = fin_i
+    return out, warp, lane, stage
+
+
+def mxu_faces_culled_plain(p, rec, cull, tile_q=TILE_Q, tile_f=TILE_F,
+                           degenerate_tail=True, split=1):
+    """Plain PyTorch version of the ``mxu_faces`` kernel's chunk cull:
+    (closest face per query [N] int32, chunks each warp folded [N / 32],
+    real faces of the chunks each query's own lane needed [N] at its sorted
+    position, chunks each warp staged [N / 32], the counts summed over the
+    splits), int32.  The faces are ``mxu_faces_plain``'s.
+
+    Queries run in ``cull["qorder"]``, 32 to a warp.  Each lane is seeded
+    with the MXU cost of the first face of the chunk whose corner a is
+    nearest (``records[:, 8:11]``; a NaN distance counts as +inf).  With
+    ``split`` warps to a warp's queries, warp s walks chunks [s C / split,
+    (s + 1) C / split) in index order; a lane needs chunk k unless its
+    bound (``_mxu_lb2``) exceeds min(best, seed).  A warp stages chunk k
+    when one of its lanes needs it against the state before the last chunk
+    it staged (the kernel votes one chunk ahead), and folds a staged chunk,
+    every lane of it, when one of its lanes needs it against the state now.
+    The fold is torch.argmin's: strict < in increasing face order, a NaN
+    cost winning as torch.argmin has it; the splits merge in order the
+    same way."""
+    _check(p, rec, tile_q, tile_f, "mxu_faces")
+    _check_cull(p, rec, cull, degenerate_tail, split, "mxu_faces")
+    return _mxu_culled(p, rec, cull, None, tile_q, tile_f, degenerate_tail,
+                       split)
+
+
+# ---------------------------------------------------------------------------
 # The three steps: plain version, and the wrapper that launches the kernel.
 
 def _check(p, rec, tile_q, tile_f, name):
@@ -248,18 +520,75 @@ def mxu_faces_plain(p, rec, tile_q=TILE_Q, tile_f=TILE_F,
     return out
 
 
-def mxu_faces(p, rec, tile_q=TILE_Q, tile_f=TILE_F, degenerate_tail=True):
-    """Index of the closest face per query: the ``mxu_faces`` CUDA kernel
-    for CUDA tensors, its plain version for CPU tensors."""
+def _stats(n_q, split, device):
+    """Empty per-split count outputs of a culled launch: warp chunks
+    [split, N / 32], lane faces [split, N], warp stages [split, N / 32]."""
+    return tuple(torch.empty((split, n_q // size), dtype=torch.int32,
+                             device=device) for size in (WARP, 1, WARP))
+
+
+def _launch_cull(name, p, rec, cull, surv, tile_q, tile_f, degenerate_tail,
+                 split, with_stats):
+    """Launch the culled kernel ``name`` (``surv`` None for the dense scan);
+    returns the faces, then the counts summed over the splits when
+    ``with_stats``."""
+    from .. import _build
+
+    n_q, n_f = p.shape[0], rec.shape[0]
+    out = torch.empty(n_q, dtype=torch.int32, device=p.device)
+    seeds = torch.empty(n_q, dtype=torch.float32, device=p.device)
+    part = ((torch.empty((split, n_q), dtype=torch.float32, device=p.device),
+             torch.empty((split, n_q), dtype=torch.int32, device=p.device))
+            if split > 1 else (None, None))
+    stats = (_stats(n_q, split, p.device) if with_stats
+             else (None, None, None))
+    screen = () if surv is None else (surv,)
+    tiles = (tile_q,) if surv is None else (tile_q, tile_f)
+    _build.launch(name, p.device, p, cull["qorder"], rec, cull["records"],
+                  *screen, seeds, *part, out, *stats, n_q, n_f, *tiles, split,
+                  int(bool(degenerate_tail)))
+    LAUNCHES[name] += 1
+    if not with_stats:
+        return out
+    return (out,) + tuple(x.sum(dim=0, dtype=torch.int32) for x in stats)
+
+
+def mxu_faces(p, rec, tile_q=TILE_Q, tile_f=TILE_F, degenerate_tail=True,
+              cull=None, split=None, with_stats=False):
+    """Index of the closest face per query: the ``mxu_faces`` CUDA kernel,
+    the exact chunk cull, for CUDA tensors; its plain version
+    ``mxu_faces_culled_plain`` for CPU tensors.  ``cull``: the operands of
+    ``mxu_cull_operands`` (made here when None); ``split``: warps to a
+    warp's chunks (``mxu_split`` when None).  ``with_stats`` also returns
+    the three counts of ``mxu_faces_culled_plain``."""
     _check(p, rec, tile_q, tile_f, "mxu_faces")
+    if cull is None:
+        cull = mxu_cull_operands(p, rec, degenerate_tail)
+    if split is None:
+        split = mxu_split(p.shape[0])
+    _check_cull(p, rec, cull, degenerate_tail, split, "mxu_faces")
+    if p.device.type == "cpu":
+        res = mxu_faces_culled_plain(p, rec, cull, tile_q, tile_f,
+                                     degenerate_tail, split)
+        return res if with_stats else res[0]
+    return _launch_cull("mxu_faces", p, rec, cull, None, tile_q, tile_f,
+                        degenerate_tail, split, with_stats)
+
+
+def mxu_faces_every(p, rec, tile_q=TILE_Q, tile_f=TILE_F,
+                    degenerate_tail=True):
+    """Index of the closest face per query over every face: the
+    ``mxu_faces_every`` CUDA kernel (``mxu_faces``' oracle; no path
+    launches it) for CUDA tensors, ``mxu_faces_plain`` for CPU tensors."""
+    _check(p, rec, tile_q, tile_f, "mxu_faces_every")
     if p.device.type == "cpu":
         return mxu_faces_plain(p, rec, tile_q, tile_f, degenerate_tail)
     from .. import _build
 
     out = torch.empty(p.shape[0], dtype=torch.int32, device=p.device)
-    _build.launch("mxu_faces", p.device, p, rec, out, p.shape[0],
+    _build.launch("mxu_faces_every", p.device, p, rec, out, p.shape[0],
                   rec.shape[0], tile_q, tile_f, int(bool(degenerate_tail)))
-    LAUNCHES["mxu_faces"] += 1
+    LAUNCHES["mxu_faces_every"] += 1
     return out
 
 
@@ -357,12 +686,72 @@ def mxu_repair_plain(p, rec, ub, cert, tile_q=TILE_Q, tile_f=TILE_F,
     return best_i, surv.sum(dim=1).to(torch.int32)
 
 
-def mxu_repair(p, rec, ub, cert, tile_q=TILE_Q, tile_f=TILE_F,
-               degenerate_tail=True):
-    """(faces, tiles run per query tile) of the exact repair: the
-    ``mxu_repair`` CUDA kernel for CUDA tensors, its plain version for CPU
-    tensors."""
+def mxu_repair_culled_plain(p, rec, ub, cert, cull, tile_q=TILE_Q,
+                            tile_f=TILE_F, degenerate_tail=True, split=1):
+    """Plain PyTorch version of the ``mxu_repair`` kernel's chunk cull:
+    (closest face per query [N] int32, face tiles run per query tile
+    [N / tile_q] int32, and the three counts of ``mxu_faces_culled_plain``).
+    A query folds only the faces of the face tiles its query tile runs
+    (``survivors``); a lane needs a chunk only if its query tile runs the
+    chunk's tile and its bound does not exclude it; its seed is the first
+    face of its nearest representative among those tiles (+inf when its
+    query tile runs none).  The fold takes a face only when strictly below
+    the best, so the faces are ``mxu_repair_plain``'s wherever no tile a
+    query runs holds a NaN cost for it (``mxu_repair_plain`` then drops the
+    whole tile, this fold the NaN faces)."""
     _check_screen(p, rec, ub, cert, tile_q, tile_f, "mxu_repair")
+    _check_cull(p, rec, cull, degenerate_tail, split, "mxu_repair")
+    _check_repair_tile(tile_f)
+    surv = survivors(ub, cert, tile_q)
+    out, warp, lane, stage = _mxu_culled(p, rec, cull, surv, tile_q, tile_f,
+                                         degenerate_tail, split)
+    return out, surv.sum(dim=1, dtype=torch.int32), warp, lane, stage
+
+
+def _check_repair_tile(tile_f):
+    if tile_f % CULL_CHUNK:
+        raise ValueError("mxu_repair: tile_f %d is not a multiple of the "
+                         "cull's %d-face chunks" % (tile_f, CULL_CHUNK))
+
+
+def mxu_repair(p, rec, ub, cert, tile_q=TILE_Q, tile_f=TILE_F,
+               degenerate_tail=True, cull=None, split=None,
+               with_stats=False):
+    """(faces, tiles run per query tile) of the exact repair: the
+    ``mxu_repair`` CUDA kernel, the chunk cull inside the tiles the screen
+    lets each query tile run (``survivors``, made here on the card), for
+    CUDA tensors; its plain version ``mxu_repair_culled_plain`` for CPU
+    tensors.  ``cull``, ``split`` and ``with_stats`` as for ``mxu_faces``
+    (the three counts follow the two outputs).  ``tile_f`` a multiple of
+    32."""
+    _check_screen(p, rec, ub, cert, tile_q, tile_f, "mxu_repair")
+    _check_repair_tile(tile_f)
+    if cull is None:
+        cull = mxu_cull_operands(p, rec, degenerate_tail)
+    if split is None:
+        split = mxu_split(p.shape[0])
+    _check_cull(p, rec, cull, degenerate_tail, split, "mxu_repair")
+    if p.device.type == "cpu":
+        res = mxu_repair_culled_plain(p, rec, ub, cert, cull, tile_q, tile_f,
+                                      degenerate_tail, split)
+        return res if with_stats else res[:2]
+    surv = survivors(ub, cert, tile_q)
+    res = _launch_cull("mxu_repair", p, rec, cull,
+                       surv.to(torch.uint8).contiguous(), tile_q, tile_f,
+                       degenerate_tail, split, with_stats)
+    rep = surv.sum(dim=1, dtype=torch.int32)
+    if not with_stats:
+        return res, rep
+    return (res[0], rep) + res[1:]
+
+
+def mxu_repair_every(p, rec, ub, cert, tile_q=TILE_Q, tile_f=TILE_F,
+                     degenerate_tail=True):
+    """(faces, tiles run per query tile) of the repair over every face of
+    each tile it runs: the ``mxu_repair_every`` CUDA kernel (``mxu_repair``'s
+    oracle; no path launches it) for CUDA tensors, ``mxu_repair_plain`` for
+    CPU tensors."""
+    _check_screen(p, rec, ub, cert, tile_q, tile_f, "mxu_repair_every")
     if p.device.type == "cpu":
         return mxu_repair_plain(p, rec, ub, cert, tile_q, tile_f,
                                 degenerate_tail)
@@ -371,10 +760,10 @@ def mxu_repair(p, rec, ub, cert, tile_q=TILE_Q, tile_f=TILE_F,
     out = torch.empty(p.shape[0], dtype=torch.int32, device=p.device)
     rep = torch.empty(p.shape[0] // tile_q, dtype=torch.int32,
                       device=p.device)
-    _build.launch("mxu_repair", p.device, p, rec, ub, cert, out, rep,
+    _build.launch("mxu_repair_every", p.device, p, rec, ub, cert, out, rep,
                   p.shape[0], rec.shape[0], tile_q, tile_f,
                   int(bool(degenerate_tail)))
-    LAUNCHES["mxu_repair"] += 1
+    LAUNCHES["mxu_repair_every"] += 1
     return out, rep
 
 
