@@ -54,7 +54,8 @@ Phases (any failure raises and exits non-zero; none catches its own):
    corners and one with corners at +-0.0 (the 98,304-face keyframe at
    leaves 256 and 8 timed with L2 flushed before each call, as the HBM
    bound assumes; the row in the kernels line is leaf 256's); mxu_faces,
-   mxu_bound and mxu_repair at phase 12's shapes with and without the
+   mxu_bound_culled (the bound pass) and mxu_repair at phase 12's shapes
+   with and without the
    degenerate tail, the tail also on the planted mesh, and both tails on
    body 0's far queries: the chunk culls of mxu_faces and mxu_repair
    against the plain versions of their design (faces, tiles run, chunks
@@ -62,8 +63,14 @@ Phases (any failure raises and exits non-zero; none catches its own):
    every-face plain versions and the every-face kernels
    (``mxu_faces_every``, ``mxu_repair_every``, which launch on no driven
    path), with the shares of chunks tested and their chunk records against
-   ``cull_records_plain``; ub and cert identical, and the repair's faces
-   the dense scan's.
+   ``cull_records_plain``; the bound pass's chunk cull
+   (``mxu_bound_culled``) bit for bit against the plain version of its
+   design (ub, cert, counts) and within its contract against the
+   every-face kernel (``mxu_bound``, which launches on no driven path) and
+   plain version, the repair fed its ub and cert giving the every-face
+   path's faces and tiles run, and the repair's faces the dense scan's;
+   the bound pass also on body 0's far queries with a NaN a2, a NaN
+   reach and a NaN query planted.
    Built without FMA contraction,
    each kernel must pick exactly the faces (vertices, blocked flags,
    counts, leaf boxes) its plain version picks, with the same tiles,
@@ -141,7 +148,8 @@ Phases (any failure raises and exits non-zero; none catches its own):
    surface-proximal and 65,536 N(0, 0.4) queries (cold first call, median
    of 5 warm calls; the surface queries in bench.py's patches of 256, one
    per query tile): the MXU rung's dense scan, then the bf16 bound pass
-   and the f32 exact repair.  Each answer against the brute-force kernel
+   and the f32 exact repair on one set of cull operands, each repair call
+   reported beside its dense call.  Each answer against the brute-force kernel
    (sqdist within 1e-5, faces equal except at ties), the repair's answers
    equal to the dense scan's, fewer face tiles repaired than screened on
    the surface-proximal queries; the environment is restored afterwards;
@@ -350,6 +358,12 @@ MXU_PATCH = 256
 #: degenerate tail) and csrc/mxu_bound.cu
 MXU_PAIR_OPS = {False: 93, True: 124}
 MXU_BOUND_OPS = 26
+#: operations of the bound pass's chunk test per lane and chunk
+#: (csrc/mxu_bound_culled.cu: the box distance 17, the two lower bounds 10,
+#: the compares and their logic 5)
+MXU_BOUND_CULL_OPS = 32
+#: the splits of a warp's chunks that phase 2 times beside the default
+MXU_SPLITS = (1, 4, 16, 32, 64)
 
 #: phase 3b: the fused reduction's operations per pair, the tile's plus the
 #: key's two ands, its or and the tile's shift (csrc/argmin.cuh)
@@ -408,10 +422,11 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "self_intersect": ("self_intersect",),
                 "leaf_boxes": ("anim",),
                 "mxu_faces": ("mxu",),
-                "mxu_bound": ("mxu",),
+                "mxu_bound_culled": ("mxu",),
                 "mxu_repair": ("mxu",),
-                # the every-face kernels, phase 2's MXU face oracles
+                # the every-face kernels, phase 2's MXU oracles
                 "mxu_faces_every": (),
+                "mxu_bound": (),
                 "mxu_repair_every": ()}
 
 
@@ -2209,6 +2224,33 @@ def surface_patches(n_q, rng):
     return (pts + 0.002 * rng.randn(*pts.shape)).astype(np.float32)
 
 
+def same_bits(a, b):
+    """Equal bit for bit where not NaN, and NaN where NaN."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.view(torch.int32)[~nan],
+                            b.view(torch.int32)[~nan]))
+
+
+def bound_contract(ub, cert, ub0, cert0, tile_q):
+    """Violations of the culled bound pass's contract
+    (csrc/mxu_bound_culled.cu) by (ub, cert) against the every-face
+    (ub0, cert0): ub bit for bit, cert equal where the every-face value is
+    <= sqrt(max(ub, 0)) or ub is NaN, both above or both NaN elsewhere,
+    and survivors equal."""
+    bad = 0 if same_bits(ub, ub0) else int(ub.numel())
+    su = torch.sqrt(torch.clamp_min(ub0, 0.0))[:, None]
+    both_nan = torch.isnan(cert) & torch.isnan(cert0)
+    exact = (cert0 <= su) | torch.isnan(ub0)[:, None]
+    ok = torch.where(exact, (cert == cert0) | both_nan,
+                     ((cert > su) & (cert0 > su)) | both_nan)
+    bad += int((~ok).sum())
+    from mesh_tpu_torch.query import mxu_kernel as mk
+
+    return bad + int((mk.survivors(ub, cert, tile_q)
+                      != mk.survivors(ub0, cert0, tile_q)).sum())
+
+
 def compare_mxu(mk, ck, label, v, f, q, tail, timing):
     """Kernel vs plain for the MXU kernels on one mesh (``v`` [V, 3], ``f``
     [F, 3], ``q`` [Q, 3] on the card) at the reference's tiles: the chunk
@@ -2218,15 +2260,20 @@ def compare_mxu(mk, ck, label, v, f, q, tail, timing):
     every-face plain versions and to the every-face kernels
     (``mxu_faces_every``, ``mxu_repair_every``, which launch on no driven
     path) on faces and tiles run; the chunk records' box and rounding
-    fields identical to ``cull_records_plain``'s; ub and cert identical to
-    the bound pass's plain version; and the repair's faces the dense
-    scan's.  With ``timing``: each kernel's time, the every-face kernels',
-    the cull prologue's (``mxu_cull_operands``: the Morton order, the
-    records cached), the plain versions' and the bounds: the work these
-    inputs need per lane (the faces of the chunks its own lane needs, a
-    bound per chunk it scans, the seed), the pairs the warps issue and
-    every pair; and the ``closest_faces`` kernel's time on the same
-    inputs."""
+    fields identical to ``cull_records_plain``'s; the bound pass's chunk
+    cull ``mxu_bound_culled`` identical to the plain version of its design
+    (ub, cert and the three counts, bit for bit) and meeting its contract
+    against the every-face kernel ``mxu_bound`` (which launches on no
+    driven path) and ``mxu_bound_plain``, those two equal; the repair fed
+    its (ub, cert) giving the faces and tiles run of the every-face path
+    (``mxu_bound`` then ``mxu_repair_every``) and the dense scan's faces.
+    With ``timing``: each kernel's time (the bound pass also at each of
+    MXU_SPLITS), the every-face kernels', the cull prologue's
+    (``mxu_cull_operands``: the Morton order, the records cached), the
+    plain versions' and the bounds: the work these inputs need per lane
+    (the faces of the chunks its own lane needs, a bound per chunk it
+    scans, the seed), the pairs the warps issue and every pair; and the
+    ``closest_faces`` kernel's time on the same inputs."""
     tile_q, tile_f = mk.TILE_Q, mk.TILE_F
     p, rec, tri, pts, center = mk.mxu_operands(v, f, q, device=v.device)
     n_q, n_f = p.shape[0], rec.shape[0]
@@ -2246,15 +2293,35 @@ def compare_mxu(mk, ck, label, v, f, q, tail, timing):
                                             degenerate_tail=tail, split=split)
     ef = mk.mxu_faces_plain(p, rec, degenerate_tail=tail)
     of = mk.mxu_faces_every(p, rec, degenerate_tail=tail)
-    kub, kcert = mk.mxu_bound(p, rec)
-    pub, pcert = mk.mxu_bound_plain(p, rec)
+    kub, kcert, *kbstats = mk.mxu_bound_culled(p, rec, cull=cull,
+                                               with_stats=True)
+    bsplit = mk.mxu_bound_split(n_q)
+    pub, pcert, *pbstats = mk.mxu_bound_culled_plain(p, rec, cull,
+                                                     split=bsplit)
+    eub, ecert = mk.mxu_bound(p, rec)
+    xub, xcert = mk.mxu_bound_plain(p, rec)
+    check(same_bits(kub, pub) and same_bits(kcert, pcert)
+          and all(torch.equal(a, b) for a, b in zip(kbstats, pbstats)),
+          "mxu_bound_culled[%s]: ub, cert or the warp, lane, stage counts "
+          "differ from the plain version of its design (%d, %d, %s)" % (
+              label, int((kub != pub).sum()), int((kcert != pcert).sum()),
+              [int((a != b).sum()) for a, b in zip(kbstats, pbstats)]))
+    check(same_bits(eub, xub) and same_bits(ecert, xcert),
+          "mxu_bound[%s]: %d ub and %d cert values differ from the plain "
+          "version" % (label, int((eub != xub).sum()),
+                       int((ecert != xcert).sum())))
+    for what, (u0, c0) in (("the every-face kernel", (eub, ecert)),
+                           ("mxu_bound_plain", (xub, xcert))):
+        bad = bound_contract(kub, kcert, u0, c0, tile_q)
+        check(bad == 0, "mxu_bound_culled[%s]: %d violations of its "
+              "contract against %s" % (label, bad, what))
     kr, krep, *krstats = mk.mxu_repair(p, rec, kub, kcert,
                                        degenerate_tail=tail, cull=cull,
                                        with_stats=True)
     pr, prep, *prstats = mk.mxu_repair_culled_plain(
         p, rec, kub, kcert, cull, degenerate_tail=tail, split=split)
     er, erep = mk.mxu_repair_plain(p, rec, kub, kcert, degenerate_tail=tail)
-    orr, orep = mk.mxu_repair_every(p, rec, kub, kcert, degenerate_tail=tail)
+    orr, orep = mk.mxu_repair_every(p, rec, eub, ecert, degenerate_tail=tail)
     for name, k, pl, ks, ps in (("mxu_faces", kf, pf, kstats, pstats),
                                 ("mxu_repair", kr, pr, krstats, prstats)):
         check(torch.equal(k, pl) and all(torch.equal(a, b)
@@ -2270,15 +2337,11 @@ def compare_mxu(mk, ck, label, v, f, q, tail, timing):
     check(torch.equal(krep, prep) and torch.equal(krep, erep)
           and torch.equal(krep, orep),
           "mxu_repair[%s, tail=%s]: tiles run differ from the plain versions "
-          "or the every-face kernel" % (label, tail))
+          "or the every-face path" % (label, tail))
     check(torch.equal(kr, er) and torch.equal(kr, orr),
           "mxu_repair[%s, tail=%s]: %d faces differ from the every-face "
-          "plain version, %d from the every-face kernel" % (
+          "plain version, %d from the every-face path" % (
               label, tail, int((kr != er).sum()), int((kr != orr).sum())))
-    check(torch.equal(kub, pub) and torch.equal(kcert, pcert),
-          "mxu_bound[%s]: %d ub and %d cert values differ from the plain "
-          "version" % (label, int((kub != pub).sum()),
-                       int((kcert != pcert).sum())))
     check(torch.equal(kr, kf), "mxu_repair[%s, tail=%s]: %d faces differ "
           "from the dense scan's" % (label, tail, int((kr != kf).sum())))
     rk_, rp = mk.mxu_epilogue(kf, tri, pts, center), mk.mxu_epilogue(
@@ -2292,12 +2355,14 @@ def compare_mxu(mk, ck, label, v, f, q, tail, timing):
     n_c = -(-n_f // ck.CULL_CHUNK)
     out = {"mesh": label, "degenerate_tail": tail,
            "shape": [int(n_q), n_f], "queries": int(pts.shape[1]),
-           "split": split, "identical": True, "max_abs_err": err,
+           "split": split, "bound_split": bsplit, "identical": True,
+           "max_abs_err": err,
            "screened": int(surv.numel()), "repaired": int(krep.sum()),
            "repaired_pairs": int((surv.sum(0) * tile_faces).sum()) * tile_q}
     for key, (warp, lane, stage), pairs in (
             ("faces", kstats, n_q * n_f),
-            ("repair", krstats, out["repaired_pairs"])):
+            ("repair", krstats, out["repaired_pairs"]),
+            ("bound", kbstats, n_q * n_f)):
         out[key] = {"warp_chunks": int(warp.sum()),
                     "warp_share": int(warp.sum()) / (warp.numel() * n_c),
                     "heaviest_warp_share": int(warp.max()) / n_c,
@@ -2305,18 +2370,21 @@ def compare_mxu(mk, ck, label, v, f, q, tail, timing):
                     "lane_faces": int(lane.sum()),
                     "lane_share": int(lane.sum()) / (n_q * n_f),
                     "lane_share_of_run": int(lane.sum()) / max(1, pairs)}
-    log("  mxu[%s, tail=%s] %s, split %d: faces, counts and tiles run "
-        "identical to the plain versions of the design, faces to the "
-        "every-face plain versions and kernels; ub, cert identical, repair "
+    log("  mxu[%s, tail=%s] %s, split %d (bound %d): faces, counts and "
+        "tiles run identical to the plain versions of the design, faces "
+        "to the every-face plain versions and kernels; the culled bound pass "
+        "identical to its plain version and within its contract, repair "
         "== dense; %d of %d tiles repaired; dense warps fold %.4f of the "
         "chunks (heaviest %.4f), lanes need %.4f of the pairs; repair %.4f "
-        "(heaviest %.4f), %.4f" % (
-            label, tail, out["shape"], split, out["repaired"],
+        "(heaviest %.4f), %.4f; bound %.4f (heaviest %.4f), %.4f" % (
+            label, tail, out["shape"], split, bsplit, out["repaired"],
             out["screened"], out["faces"]["warp_share"],
             out["faces"]["heaviest_warp_share"], out["faces"]["lane_share"],
             out["repair"]["warp_share"],
             out["repair"]["heaviest_warp_share"],
-            out["repair"]["lane_share"]))
+            out["repair"]["lane_share"], out["bound"]["warp_share"],
+            out["bound"]["heaviest_warp_share"],
+            out["bound"]["lane_share"]))
     if not timing:
         return out
     ops = MXU_PAIR_OPS[tail]
@@ -2359,17 +2427,37 @@ def compare_mxu(mk, ck, label, v, f, q, tail, timing):
             rec_bytes + 4 * n_q + (screen_bytes if key == "repair" else 0))[0]
     out["prologue_ms"] = cuda_ms(lambda: mk.mxu_cull_operands(p, rec, tail),
                                  REPS)
-    out["bound"] = {
-        "ms": cuda_ms(lambda: mk.mxu_bound(p, rec), REPS),
-        "plain_ms": cuda_ms(lambda: mk.mxu_bound_plain(p, rec), 1)}
-    out["bound"]["bound_ms"], out["bound"]["bound_by"] = bound_ms(
-        n_q * n_f, MXU_BOUND_OPS, rec_bytes + screen_bytes)
+    row = out["bound"]
+    row["ms"] = cuda_ms(lambda: mk.mxu_bound_culled(p, rec, cull=cull), REPS)
+    row["every_ms"] = cuda_ms(lambda: mk.mxu_bound(p, rec), REPS)
+    row["with_prologue_ms"] = cuda_ms(lambda: mk.mxu_bound_culled(p, rec),
+                                      REPS)
+    row["plain_ms"] = cuda_ms(lambda: mk.mxu_bound_culled_plain(
+        p, rec, cull, split=bsplit), 1)
+    row["every_plain_ms"] = cuda_ms(lambda: mk.mxu_bound_plain(p, rec), 1)
+    row["split_ms"] = {s: cuda_ms(lambda: mk.mxu_bound_culled(
+        p, rec, cull=cull, split=s), REPS) for s in MXU_SPLITS}
+    bound_bytes = (4 * (p.numel() + cull["qorder"].numel()
+                        + cull["records"].numel() + n_f * mk.MXU_BOUND_RECORD)
+                   + screen_bytes)
+    # per lane: a test per chunk, the seed's scan and pair, and the faces
+    # of the chunks its own lane needs
+    around = n_q * n_c * (MXU_BOUND_CULL_OPS + SEED_OPS) + n_q * MXU_BOUND_OPS
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        row["lane_faces"] * MXU_BOUND_OPS + around, 1, bound_bytes)
+    row["bound_issued_ms"] = bound_ms(
+        row["warp_chunks"] * 32 * ck.CULL_CHUNK * MXU_BOUND_OPS + around, 1,
+        bound_bytes)[0]
+    row["bound_every_pair_ms"] = bound_ms(
+        n_q * n_f, MXU_BOUND_OPS, rec_bytes + screen_bytes)[0]
     ops_c = ck.closest_point_operands(v[None], f, q[None], "fast")
     out["closest_faces_ms"] = cuda_ms(lambda: ck.argmin_faces(
         ops_c[0], ops_c[1], "fast", tail), REPS)
     log("    %s: mxu_faces %.3f ms (every face %.3f, with its prologue "
         "%.3f; plain %.1f, every-face plain %.1f; bound %.4f, issued %.4f, "
-        "every pair %.3f), mxu_bound %.3f ms (plain %.1f, bound %.3f), "
+        "every pair %.3f), mxu_bound_culled %.3f ms (every face %.3f, with "
+        "its prologue %.3f, splits %s; plain %.1f, every-face plain %.1f; "
+        "bound %.4f, issued %.4f, every pair %.3f), "
         "mxu_repair %.3f ms (every face %.3f, with its prologue %.3f; plain "
         "%.1f, every-face plain %.1f; bound %.4f, issued %.4f, every pair "
         "%.3f on %d pairs); cull prologue %.4f ms; closest_faces %.3f ms" % (
@@ -2378,7 +2466,12 @@ def compare_mxu(mk, ck, label, v, f, q, tail, timing):
             out["faces"]["every_plain_ms"], out["faces"]["bound_ms"],
             out["faces"]["bound_issued_ms"],
             out["faces"]["bound_every_pair_ms"], out["bound"]["ms"],
-            out["bound"]["plain_ms"], out["bound"]["bound_ms"],
+            out["bound"]["every_ms"], out["bound"]["with_prologue_ms"],
+            ", ".join("%d: %.3f" % kv for kv in out["bound"]["split_ms"]
+                      .items()),
+            out["bound"]["plain_ms"], out["bound"]["every_plain_ms"],
+            out["bound"]["bound_ms"], out["bound"]["bound_issued_ms"],
+            out["bound"]["bound_every_pair_ms"],
             out["repair"]["ms"], out["repair"]["every_ms"],
             out["repair"]["with_prologue_ms"], out["repair"]["plain_ms"],
             out["repair"]["every_plain_ms"], out["repair"]["bound_ms"],
@@ -2386,6 +2479,43 @@ def compare_mxu(mk, ck, label, v, f, q, tail, timing):
             out["repair"]["bound_every_pair_ms"], out["repaired_pairs"],
             out["prologue_ms"], out["closest_faces_ms"]))
     return out
+
+
+def compare_bound_planted(mk, v, f, q):
+    """The bound pass's chunk cull on planted non-finite inputs: one NaN
+    query, then a NaN reach in one face, then also a NaN a2 in a late
+    face (which makes every ub NaN), each at split 1 and the default:
+    bit for bit its plain version (ub, cert, counts) and within its
+    contract against the every-face kernel."""
+    p, rec, _, _, _ = mk.mxu_operands(v, f, q, device=v.device)
+    p = p.clone()
+    p[5] = float("nan")
+    rec = rec.clone()
+    n_f = rec.shape[0]
+    for col, face in ((23, n_f // 3), (15, n_f - 40)):
+        rec[face, col] = float("nan")
+        cull = mk.mxu_cull_operands(p, rec)
+        eub, ecert = mk.mxu_bound(p, rec)
+        for split in (1, mk.mxu_bound_split(p.shape[0])):
+            k = mk.mxu_bound_culled(p, rec, cull=cull, split=split,
+                                    with_stats=True)
+            pl = mk.mxu_bound_culled_plain(p, rec, cull, split=split)
+            check(same_bits(k[0], pl[0]) and same_bits(k[1], pl[1])
+                  and all(torch.equal(a, b) for a, b in zip(k[2:], pl[2:])),
+                  "mxu_bound_culled[planted NaN in column %d, split %d]: "
+                  "differs from the plain version of its design"
+                  % (col, split))
+            bad = bound_contract(k[0], k[1], eub, ecert, mk.TILE_Q)
+            check(bad == 0, "mxu_bound_culled[planted NaN in column %d, "
+                  "split %d]: %d violations of its contract" % (
+                      col, split, bad))
+        check(bool(torch.isnan(ecert[:, face // mk.TILE_F]).all())
+              and bool(torch.isnan(eub[5]))
+              and bool(torch.isnan(eub).all()) == (col == 15),
+              "mxu_bound[planted NaN in column %d]: NaN not where planted"
+              % col)
+    log("  mxu_bound_culled on planted NaN (a query, a reach, a late a2): "
+        "identical to its plain version, within its contract")
 
 
 def drive_mxu(cases, dev):
@@ -2482,10 +2612,15 @@ def check_mxu(cases, runs, dev):
         if label == "sphere_surface":
             check(rep["repaired"] < rep["screened"], "mxu %s: the screen "
                   "pruned no tile" % label)
+        log("  mxu %s: repair call %.3f ms (first %.3f) beside the dense "
+            "call's %.3f (first %.3f), warm medians" % (
+                label, rep["warm_ms"], rep["first_ms"], dense["warm_ms"],
+                dense["first_ms"]))
         summary[label] = {
             "faces": int(f.shape[0]), "queries": int(q.shape[0]),
             "vs_brute": vs, "repaired_over_screened":
                 rep["repaired"] / rep["screened"],
+            "repair_over_dense": rep["warm_ms"] / dense["warm_ms"],
             **{"%s_%s" % (mode, k): runs[label, mode][k]
                for mode in ("dense", "repair")
                for k in ("first_ms", "warm_ms", "warm_ms_min",
@@ -3017,6 +3152,7 @@ def main():
     for tail in (False, True):
         mxu_runs.append(compare_mxu(mk, ck, "far", body[0], f, q_far[0],
                                     tail, timing=False))
+    compare_bound_planted(mk, body[0], f, q_far[0])
 
     # -- 3. main path at full width ------------------------------------------
     card_state = {"after_phase_2": nvidia_smi(CARD_STATE)}
@@ -3902,7 +4038,7 @@ def main():
     for name, key, source, replaces in (
             ("mxu_faces", "faces", "mxu_faces.cu",
              "mesh_tpu/query/pallas_closest.py:1015"),
-            ("mxu_bound", "bound", "mxu_bound.cu",
+            ("mxu_bound_culled", "bound", "mxu_bound_culled.cu",
              "mesh_tpu/query/pallas_closest.py:1091"),
             ("mxu_repair", "repair", "mxu_repair.cu",
              "mesh_tpu/query/pallas_closest.py:1115")):
@@ -3923,19 +4059,20 @@ def main():
                              prologue_ms=r.get("prologue_ms"),
                              repaired=r["repaired"], screened=r["screened"])
                         for r in mxu_runs]})
-        if key != "bound":
-            # the every-face oracle beside the chunk cull: no path runs it
-            kernels[-1]["every"] = {
-                "name": name + "_every", "route": "cuda",
-                "source": "mesh_tpu_torch/csrc/%s_every.cu" % name,
-                "ms": main_m[key]["every_ms"],
-                "launches_by_path": {p: launches[p][name + "_every"]
-                                     for p in launches}}
-            for field in ("bound_issued_ms", "bound_every_pair_ms",
-                          "warp_share", "heaviest_warp_share", "stage_share",
-                          "lane_share", "every_plain_ms",
-                          "with_prologue_ms"):
-                kernels[-1][field] = main_m[key][field]
+        # the every-face oracle beside the chunk cull: no path runs it
+        oracle = {"faces": "mxu_faces_every", "bound": "mxu_bound",
+                  "repair": "mxu_repair_every"}[key]
+        kernels[-1]["every"] = {
+            "name": oracle, "route": "cuda",
+            "source": "mesh_tpu_torch/csrc/%s.cu" % oracle,
+            "ms": main_m[key]["every_ms"],
+            "launches_by_path": {p: launches[p][oracle] for p in launches}}
+        for field in ("bound_issued_ms", "bound_every_pair_ms",
+                      "warp_share", "heaviest_warp_share", "stage_share",
+                      "lane_share", "every_plain_ms", "with_prologue_ms"):
+            kernels[-1][field] = main_m[key][field]
+        if key == "bound":
+            kernels[-1]["split_ms"] = main_m[key]["split_ms"]
     main_fused = next(r for r in fused_runs if "ms" in r and (
         r["variant"], r["degenerate_tail"]) == main_variant)
     kernels.append(

@@ -65,6 +65,8 @@ KERNELS = {
     "mxu_faces_every": ("mxu_faces_every.cu", "mt_mxu_faces_every",
                         [_PTR] * 3 + [_INT] * 5),
     "mxu_bound": ("mxu_bound.cu", "mt_mxu_bound", [_PTR] * 4 + [_INT] * 3),
+    "mxu_bound_culled": ("mxu_bound_culled.cu", "mt_mxu_bound_culled",
+                         [_PTR] * 12 + [_INT] * 5),
     "mxu_repair": ("mxu_repair.cu", "mt_mxu_repair",
                    [_PTR] * 12 + [_INT] * 6),
     "mxu_repair_every": ("mxu_repair_every.cu", "mt_mxu_repair_every",

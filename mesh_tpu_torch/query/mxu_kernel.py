@@ -13,17 +13,36 @@ a bf16 screen in front of the exact pass.  Three kernels:
   chunks of ``CULL_CHUNK`` faces skipped when no lane needs them, with
   the every-face kernel's answers bit for bit (``mxu_cull_operands`` and
   the source note of ``csrc/mxu_cull.cuh``);
-- ``mxu_bound`` (``csrc/mxu_bound.cu``, row 4): the bf16 bound pass, per
-  query an upper bound ``ub`` on the closest squared distance and per
-  (query, face tile) a certificate ``cert``, a lower bound on the
-  distance of every face of the tile, under the envelope
-  ``E = 2^-6 (p2 + a2)`` (``MXU_BF16_EPS``);
+- ``mxu_bound_culled`` (``csrc/mxu_bound_culled.cu``, row 4): the bf16
+  bound pass, per query an upper bound ``ub`` on the closest squared
+  distance and per (query, face tile) a certificate ``cert``, a lower
+  bound on the distance of every face of the tile, under the envelope
+  ``E = 2^-6 (p2 + a2)`` (``MXU_BF16_EPS``), by the same kind of chunk
+  cull on the same cull operands;
 - ``mxu_repair`` (``csrc/mxu_repair.cu``, row 5): the same chunk cull over
   the face tiles that some query of a tile_q block may still win
   (``cert <= sqrt(ub)``, the mask of ``survivors``), bit-identical to
   ``mxu_faces``.
 
-``mxu_faces_every`` and ``mxu_repair_every`` (``csrc/mxu_faces_every.cu``,
+The culled bound pass's contract, stated against the every-face pass
+(``mxu_bound``, ``mxu_bound_plain``) for the same ``p`` (with the origin
+padding rows of ``mxu_operands``) and face record:
+
+- ``ub`` is equal bit for bit, NaN where it is NaN;
+- ``cert[q, t]`` is equal wherever the every-face value is
+  ``<= sqrt(max(ub[q], 0))``, and on every row whose ub is NaN;
+  elsewhere both values are ``> sqrt(max(ub[q], 0))``, or both are NaN;
+- so ``survivors(ub, cert, tile_q)`` is equal for every query tile, and
+  the repair's answers and tile counts do not change on any input.
+
+A NaN a or a2 in one face makes ub NaN for every query and that tile's
+cert NaN (every chunk of such a mesh is always folded); a NaN reach makes
+its tile NaN (its chunk is always folded); a NaN query makes its row NaN
+(its lane folds every chunk).  ``csrc/mxu_bound_culled.cu`` proves the
+bounds (items B1-B6).
+
+``mxu_faces_every``, ``mxu_bound`` and ``mxu_repair_every``
+(``csrc/mxu_faces_every.cu``, ``csrc/mxu_bound.cu``,
 ``csrc/mxu_repair_every.cu``) fold every face of every tile they run: the
 oracles ``chip_smoke.py`` holds the culled kernels to; no path launches
 them.
@@ -32,17 +51,19 @@ On the card the dot products are CUDA-core float32 (no tensor cores): the
 kernels and the plain versions make the same operations in the same order,
 each dot product written ``px*gx + py*gy + pz*gz``, never a matrix product,
 whose order and TF32 use are not fixed.  Built without FMA, each kernel
-equals its plain version.  The wrappers ``mxu_faces`` / ``mxu_bound`` /
-``mxu_repair`` launch the kernel for CUDA tensors and take the plain
-version for CPU tensors (for the culled kernels the plain versions of
-their design, ``mxu_faces_culled_plain`` / ``mxu_repair_culled_plain``,
-whose faces are ``mxu_faces_plain``'s / ``mxu_repair_plain``'s); any other
-device raises.  ``LAUNCHES`` counts each kernel's launches.
+equals its plain version.  The wrappers ``mxu_faces`` /
+``mxu_bound_culled`` / ``mxu_repair`` (and the oracles') launch the kernel
+for CUDA tensors and take the plain version for CPU tensors (for the
+culled kernels the plain versions of their design,
+``mxu_faces_culled_plain`` / ``mxu_bound_culled_plain`` /
+``mxu_repair_culled_plain``); any other device raises.  ``LAUNCHES``
+counts each kernel's launches.
 
 The face side (centering, the face record, the reach) depends only on the
 mesh and is cached by a blake2b digest of its bytes (``_MXU_FACE_CACHE``,
 FIFO of 16), as the reference caches its staging; the cull's chunk
-records are cached beside each face record (``_MXU_CHUNK_CACHE``).
+records and the bound pass's face records are cached beside each face
+record (``_MXU_CHUNK_CACHE``).
 """
 
 import hashlib
@@ -69,7 +90,7 @@ from .closest_kernel import (
 
 #: launches of each CUDA kernel since the counts were last set to 0
 LAUNCHES = {"mxu_faces": 0, "mxu_faces_every": 0, "mxu_bound": 0,
-            "mxu_repair": 0, "mxu_repair_every": 0}
+            "mxu_bound_culled": 0, "mxu_repair": 0, "mxu_repair_every": 0}
 
 #: the certified envelope of the bf16 screen (the reference's derivation,
 #: mesh_tpu/query/pallas_closest.py:828-837): |ap2~ - ap2| <= 2^-6 (p2 + a2)
@@ -232,7 +253,8 @@ def _row_chunks(n_rows, n_cols, device):
 
 #: floats of one chunk record: ``cull_records``' 12 (box center, half
 #: diagonal, half extents, e1, corner a of the first face, e2), the reach
-#: from the origin ``|center| + h`` and three pads
+#: from the origin ``|center| + h`` and the bound pass's three: the largest
+#: a2, the largest reach and the box's rounding term (``mxu_chunk_records``)
 MXU_CHUNK_RECORD = 16
 
 #: the record's columns in ``fast_tile_rows`` order (a, ab, ac, n, ab2,
@@ -251,6 +273,15 @@ MAX_SPLIT = 64
 SPLIT_WARPS = 65536
 
 
+#: a2 past this (|a| above 1e9) flags the mesh for the bound pass's cull,
+#: as p2 past it flags a query (csrc/mxu_bound_culled.cu, item B6)
+_BOUND_FAR2 = 1e18
+
+#: the bound pass's rounding term of a chunk's box: h^2 2^-21 + 2^-120
+#: (csrc/mxu_bound_culled.cu, items B2, B4)
+_BOUND_TINY = 2.0 ** -120
+
+
 def mxu_chunk_records(rec, degenerate_tail=True):
     """[C, 16] float32 records of the chunks of ``CULL_CHUNK`` consecutive
     faces (in index order) of the face record ``rec`` [F, 24], C =
@@ -258,7 +289,14 @@ def mxu_chunk_records(rec, degenerate_tail=True):
     kernel for a CUDA tensor), with e1 = +inf also where a face's hoisted
     corner terms a.ab, a.ac, a.n or a2 are not finite, and the reach from
     the origin ``|center| + h`` (widened for its float32 rounding), which
-    the MXU tile's rounding scales with (csrc/mxu_cull.cuh, item 4')."""
+    the MXU tile's rounding scales with (csrc/mxu_cull.cuh, item 4').
+
+    Columns 13-15 serve the bound pass (csrc/mxu_bound_culled.cu): the
+    largest a2 of the chunk's faces (+inf in every chunk when a face of the
+    mesh has a non-finite a or a2 or an a2 above 1e18, and in a chunk whose
+    box is not finite: such chunks are always folded), the largest reach
+    times 1 + 2^-21 (NaN or +inf kept) and h^2 2^-21 + 2^-120.  Rows 3 and
+    5 read columns 0-12 only, which these leave as they were."""
     planes = rec[:, list(_FAST_COLS)].T.contiguous()[None]
     fast = cull_records(planes, "fast", degenerate_tail)[0]
     n_f = rec.shape[0]
@@ -275,27 +313,69 @@ def mxu_chunk_records(rec, degenerate_tail=True):
     cen = fast[:, 0:3]
     out[:, 12] = ((torch.sqrt((cen * cen).sum(dim=-1)) + fast[:, 3])
                   * (1.0 + 8 * _U))
+    a2, reach = rec[:, 15], rec[:, 23]
+    if pad:
+        a2 = torch.cat([a2, a2[-1:].expand(pad)])
+        reach = torch.cat([reach, reach[-1:].expand(pad)])
+    wild = ~(torch.isfinite(rec[:, 9:12]).all(dim=1) & (rec[:, 15]
+                                                          <= _BOUND_FAR2))
+    always = wild.any() | ~torch.isfinite(fast[:, :7]).all(dim=1)
+    inf = torch.full_like(out[:, 13], float("inf"))
+    out[:, 13] = torch.where(always, inf,
+                             a2.reshape(-1, CULL_CHUNK).amax(dim=1))
+    out[:, 14] = reach.reshape(-1, CULL_CHUNK).amax(dim=1) * (1.0 + 8 * _U)
+    h = fast[:, 3]
+    out[:, 15] = h * h * (8 * _U) + _BOUND_TINY
+    return out
+
+
+#: floats of one face's bound record (``mxu_bound_records``)
+MXU_BOUND_RECORD = 8
+
+
+def mxu_bound_records(rec):
+    """[F, 8] float32 bound records of the face record ``rec`` [F, 24]: the
+    five floats the bound pass reads of a face, bf16(a) (rounded to
+    bfloat16 and back, as ``_mxu_ap2_env`` rounds it), a2 and the reach,
+    then three zeros (csrc/mxu_bound_culled.cu stages 32 bytes a face where
+    the full record is 96)."""
+    out = torch.zeros((rec.shape[0], MXU_BOUND_RECORD), dtype=torch.float32,
+                      device=rec.device)
+    out[:, 0:3] = _bf16(rec[:, 9:12])
+    out[:, 3] = rec[:, 15]
+    out[:, 4] = rec[:, 23]
     return out
 
 
 #: id of a face record -> (the record, its version counter, {tail: chunk
-#: records}); the entry keeps the record alive, so its id stays its own
+#: records, "bound": bound records}); the entry keeps the record alive, so
+#: its id stays its own
 _MXU_CHUNK_CACHE = {}
 
 
-def _cached_chunk_records(rec, degenerate_tail):
-    """``mxu_chunk_records`` of ``rec``, made once per record and tail
-    (bounded FIFO of ``_MXU_FACE_CACHE_MAX``; an in-place change of the
-    record makes them anew)."""
+def _cached(rec, key, make):
+    """``make()`` for the face record ``rec``, made once per record and key
+    (bounded FIFO of ``_MXU_FACE_CACHE_MAX`` records; an in-place change of
+    the record makes everything anew)."""
     hit = _MXU_CHUNK_CACHE.get(id(rec))
     if hit is None or hit[1] != rec._version:
         if hit is None and len(_MXU_CHUNK_CACHE) >= _MXU_FACE_CACHE_MAX:
             _MXU_CHUNK_CACHE.pop(next(iter(_MXU_CHUNK_CACHE)))
         hit = _MXU_CHUNK_CACHE[id(rec)] = (rec, rec._version, {})
-    key = bool(degenerate_tail)
     if key not in hit[2]:
-        hit[2][key] = mxu_chunk_records(rec, degenerate_tail)
+        hit[2][key] = make()
     return hit[2][key]
+
+
+def _cached_chunk_records(rec, degenerate_tail):
+    """``mxu_chunk_records`` of ``rec``, made once per record and tail."""
+    return _cached(rec, bool(degenerate_tail),
+                   lambda: mxu_chunk_records(rec, degenerate_tail))
+
+
+def _cached_bound_records(rec):
+    """``mxu_bound_records`` of ``rec``, made once per record."""
+    return _cached(rec, "bound", lambda: mxu_bound_records(rec))
 
 
 def mxu_cull_operands(p, rec, degenerate_tail=True):
@@ -317,6 +397,18 @@ def mxu_split(n_q):
     while split < MAX_SPLIT and split * (n_q // WARP) < SPLIT_WARPS:
         split *= 2
     return split
+
+
+#: the most warps that share one warp's chunks in the bound pass: on an
+#: H100 (PERF.md, row 4; tools/ab_mxu.py) 32 beat 1, 4, 16 and 64 on all
+#: three of phase 12's sets, body 0's 4096 queries included
+BOUND_MAX_SPLIT = 32
+
+
+def mxu_bound_split(n_q):
+    """The bound pass's split for ``n_q`` queries: ``mxu_split``'s, at
+    most ``BOUND_MAX_SPLIT``."""
+    return min(mxu_split(n_q), BOUND_MAX_SPLIT)
 
 
 def _check_cull(p, rec, cull, degenerate_tail, split, name):
@@ -618,7 +710,8 @@ def mxu_bound_plain(p, rec, tile_f=TILE_F):
 
 
 def mxu_bound(p, rec, tile_f=TILE_F):
-    """(ub, cert) of the bound pass: the ``mxu_bound`` CUDA kernel for CUDA
+    """(ub, cert) of the bound pass over every face: the ``mxu_bound`` CUDA
+    kernel (``mxu_bound_culled``'s oracle; no path launches it) for CUDA
     tensors, its plain version for CPU tensors."""
     _check(p, rec, None, tile_f, "mxu_bound")
     if p.device.type == "cpu":
@@ -632,6 +725,225 @@ def mxu_bound(p, rec, tile_f=TILE_F):
                   rec.shape[0], tile_f)
     LAUNCHES["mxu_bound"] += 1
     return ub, cert
+
+
+# ---------------------------------------------------------------------------
+# The chunk cull of the bound pass (row 4): the plain version of the design
+# of csrc/mxu_bound_culled.cu, which makes the same float32 operations in
+# the same order, and its wrapper.
+
+#: the bound pass's lower-bound constants (csrc/mxu_bound_culled.cu, items
+#: B4, B5): K1 of p2 in the ub bound, K3 of p2 + A2 off the cert bound
+_BOUND_K1 = 0.99 * 2.0 ** -7
+_BOUND_K3 = 3.01 * 2.0 ** -7
+
+
+def _min_nan(x, acc):
+    """csrc/mxu_cost.cuh min_nan: x where x < acc or x is NaN, else acc."""
+    return torch.where((x < acc) | torch.isnan(x), x, acc)
+
+
+def _bound_pair(bx, by, bz, p2, b):
+    """(u, c) = (ap2~ + E, sqrt(max(ap2~ - E, 0)) - r) of queries (bf16
+    coordinates, p2) and bound records ``b`` [..., 8] (broadcast): the
+    operations of ``mxu_bound_plain`` in its order."""
+    pa = bx * b[..., 0] + by * b[..., 1] + bz * b[..., 2]
+    ap2t = torch.clamp_min(p2 - (pa + pa) + b[..., 3], 0.0)
+    env = MXU_BF16_EPS * (p2 + b[..., 3])
+    return ap2t + env, torch.sqrt(torch.clamp_min(ap2t - env, 0.0)) - b[..., 4]
+
+
+def _bound_lbs(px, py, pz, p2, crec):
+    """The kernel's lower bounds (Lu of every u, Lc of every c of the
+    chunk) from queries to the chunk records ``crec`` [..., 16]
+    (broadcast): the squared distance to the box, shrunk by
+    ``_CULL_SHRINK2``, with the terms of csrc/mxu_bound_culled.cu items B4
+    and B5.  NaN stays NaN."""
+    dx, dy, dz = px - crec[..., 0], py - crec[..., 1], pz - crec[..., 2]
+    ox = torch.clamp_min(dx.abs() - crec[..., 4], 0.0)
+    oy = torch.clamp_min(dy.abs() - crec[..., 5], 0.0)
+    oz = torch.clamp_min(dz.abs() - crec[..., 6], 0.0)
+    sd2 = (ox * ox + oy * oy + oz * oz) * _CULL_SHRINK2
+    lu = (sd2 + p2 * _BOUND_K1) - crec[..., 15]
+    lc = torch.sqrt(torch.clamp_min(
+        sd2 - ((p2 + crec[..., 13]) * _BOUND_K3 + crec[..., 15]), 0.0))
+    return lu, lc - crec[..., 14]
+
+
+def _bound_needs(lu, lc, ub, near):
+    """(ub-need, cert-need) of lanes with running ``ub``; a lane that is
+    not ``near`` needs every chunk."""
+    su = torch.sqrt(torch.clamp_min(ub, 0.0))
+    return ~near | ~(lu > ub), ~near | ~(lc > su)
+
+
+def _bound_slots(n_c, split, cpt):
+    """The most face tiles one split's chunk range touches (the kernel's
+    ``split_slots``)."""
+    slots = 0
+    for s in range(split):
+        k_lo, k_hi = n_c * s // split, n_c * (s + 1) // split
+        if k_hi > k_lo:
+            slots = max(slots, (k_hi - 1) // cpt - k_lo // cpt + 1)
+    return slots
+
+
+def _bound_culled(p, rec, cull, tile_f, split, apart=False):
+    """The culled bound pass of csrc/mxu_bound_culled.cu on the plain side:
+    (ub [N], cert [N, n_tiles], warp chunks [N / 32], lane faces [N], warp
+    stages [N / 32]), the counts summed over the splits; ``apart`` adds the
+    chunks each lane needed for the ub test and for the cert test, [N]
+    each (at sorted positions, as the lane faces)."""
+    n_q, n_f = p.shape[0], rec.shape[0]
+    n_c, cpt = -(-n_f // CULL_CHUNK), tile_f // CULL_CHUNK
+    dev = p.device
+    order = cull["qorder"].long()
+    crec = cull["records"]
+    brec = _cached_bound_records(rec)
+    ps = p[order]
+    px, py, pz = ps[:, 0], ps[:, 1], ps[:, 2]
+    p2 = px * px + py * py + pz * pz
+    bx, by, bz = _bf16(px), _bf16(py), _bf16(pz)
+    near = p2 <= _BOUND_FAR2
+
+    # the seed: u of the first face of the nearest representative's chunk
+    ks = torch.zeros(n_q, dtype=torch.long, device=dev)
+    has = torch.zeros(n_q, dtype=torch.bool, device=dev)
+    for r0, r1 in _row_chunks(n_q, n_c, dev):
+        dx = px[r0:r1, None] - crec[None, :, 8]
+        dy = py[r0:r1, None] - crec[None, :, 9]
+        dz = pz[r0:r1, None] - crec[None, :, 10]
+        d = torch.nan_to_num(dx * dx + dy * dy + dz * dz, nan=float("inf"))
+        low, ks[r0:r1] = torch.min(d, dim=1)
+        has[r0:r1] = low < float("inf")
+    seed = _bound_pair(bx, by, bz, p2, brec[ks * CULL_CHUNK])[0]
+    seed = torch.where(has, seed, torch.full_like(seed, float("inf")))
+
+    inf = float("inf")
+    n_tiles = _n_tiles(rec, tile_f)
+    counts = [torch.zeros(n_q // size, dtype=torch.int32, device=dev)
+              for size in (WARP, 1, WARP, 1, 1)]
+    warp, lane, stage, lane_ub, lane_cert = counts
+    ub = None
+    cert = torch.full((n_q, n_tiles), inf, device=dev)
+    for s in range(split):
+        k_lo, k_hi = n_c * s // split, n_c * (s + 1) // split
+        run, snap = seed.clone(), seed.clone()
+        part = torch.full((n_q, n_tiles), inf, device=dev)
+        for k in range(k_lo, k_hi):
+            lu, lc = _bound_lbs(px, py, pz, p2, crec[k])
+            vote = _warp_vote(torch.logical_or(
+                *_bound_needs(lu, lc, snap, near)))
+            if not bool(vote.any()):
+                continue
+            staged = vote.repeat_interleave(WARP)
+            stage += vote.to(torch.int32)
+            snap = torch.where(staged, run, snap)
+            need_u, need_c = (x & staged
+                              for x in _bound_needs(lu, lc, run, near))
+            need = need_u | need_c
+            folds = _warp_vote(need)
+            c0 = k * CULL_CHUNK
+            nf = min(CULL_CHUNK, n_f - c0)
+            warp += folds.to(torch.int32)
+            lane += need.to(torch.int32) * nf
+            lane_ub += need_u.to(torch.int32)
+            lane_cert += need_c.to(torch.int32)
+            if not bool(folds.any()):
+                continue
+            u, c = _bound_pair(bx[:, None], by[:, None], bz[:, None],
+                               p2[:, None], brec[None, c0:c0 + nf])
+            fold = folds.repeat_interleave(WARP)
+            run = torch.where(fold, _min_nan(u.amin(dim=1), run), run)
+            t = k // cpt
+            part[:, t] = torch.where(fold, _min_nan(c.amin(dim=1),
+                                                    part[:, t]), part[:, t])
+        ub = run if ub is None else _min_nan(run, ub)
+        if k_hi > k_lo:
+            t0, t1 = k_lo // cpt, (k_hi - 1) // cpt + 1
+            cert[:, t0:t1] = _min_nan(part[:, t0:t1], cert[:, t0:t1])
+    ub_out = torch.empty_like(ub)
+    ub_out[order] = ub
+    cert_out = torch.empty_like(cert)
+    cert_out[order] = cert
+    res = (ub_out, cert_out, warp, lane, stage)
+    return res + (lane_ub, lane_cert) if apart else res
+
+
+def _check_bound_cull(p, rec, cull, tile_f, split):
+    if tile_f % CULL_CHUNK or p.shape[0] % WARP:
+        raise ValueError("mxu_bound_culled: want tile_f a multiple of the "
+                         "cull's %d-face chunks and a multiple of %d "
+                         "queries, got %r and %d" % (CULL_CHUNK, WARP,
+                                                     tile_f, p.shape[0]))
+    # the bound reads no tail-dependent field: any tail's operands serve
+    _check_cull(p, rec, cull, cull["degenerate_tail"], split,
+                "mxu_bound_culled")
+
+
+def mxu_bound_culled_plain(p, rec, cull, tile_f=TILE_F, split=1):
+    """Plain PyTorch version of the ``mxu_bound_culled`` kernel's chunk
+    cull: (ub [N], cert [N, ceil(F / tile_f)], chunks each warp folded
+    [N / 32], real faces of the chunks each query's own lane needed [N] at
+    its sorted position, chunks each warp staged [N / 32], the counts
+    summed over the splits).  ``cull``: ``mxu_cull_operands``' (either
+    tail); ``tile_f`` and N multiples of 32.
+
+    Queries run in ``cull["qorder"]``, 32 to a warp, each lane's running ub
+    seeded with the u of the first face of the chunk whose representative
+    is nearest.  With ``split`` warps to a warp's queries, warp s walks
+    chunks [s C / split, (s + 1) C / split) in index order; a lane needs
+    chunk k when its ub test or its cert test (``_bound_lbs``) does not
+    exclude it; a warp stages chunk k when one of its lanes needs it
+    against the state before the last chunk it staged, and folds a staged
+    chunk, every lane every face, when one of its lanes needs it now.  A
+    lane's cert of a tile is its min over the faces it folded there (+inf
+    where none); the splits merge in order by ``_min_nan``.  ub equals
+    ``mxu_bound_plain``'s; cert meets the contract of the module's
+    docstring."""
+    _check(p, rec, None, tile_f, "mxu_bound_culled")
+    _check_bound_cull(p, rec, cull, tile_f, split)
+    return _bound_culled(p, rec, cull, tile_f, split)
+
+
+def mxu_bound_culled(p, rec, tile_f=TILE_F, cull=None, split=None,
+                     with_stats=False):
+    """(ub, cert) of the bound pass by its exact chunk cull: the
+    ``mxu_bound_culled`` CUDA kernel for CUDA tensors, its plain version
+    ``mxu_bound_culled_plain`` for CPU tensors; any other device raises.
+    ``cull``: the operands of ``mxu_cull_operands`` (made here when None);
+    ``split``: warps to a warp's chunks (``mxu_bound_split`` when None).
+    ``with_stats`` also returns the three counts of
+    ``mxu_bound_culled_plain``."""
+    _check(p, rec, None, tile_f, "mxu_bound_culled")
+    if cull is None:
+        cull = mxu_cull_operands(p, rec)
+    if split is None:
+        split = mxu_bound_split(p.shape[0])
+    _check_bound_cull(p, rec, cull, tile_f, split)
+    if p.device.type == "cpu":
+        res = _bound_culled(p, rec, cull, tile_f, split)
+        return res if with_stats else res[:2]
+    from .. import _build
+
+    n_q, n_f = p.shape[0], rec.shape[0]
+    dev = p.device
+    ub = torch.empty(n_q, dtype=torch.float32, device=dev)
+    cert = torch.empty((n_q, _n_tiles(rec, tile_f)), dtype=torch.float32,
+                       device=dev)
+    seeds = torch.empty(n_q, dtype=torch.float32, device=dev)
+    slots = _bound_slots(-(-n_f // CULL_CHUNK), split, tile_f // CULL_CHUNK)
+    part = ((torch.empty((split, n_q), dtype=torch.float32, device=dev),
+             torch.empty((split, slots, n_q), dtype=torch.float32,
+                         device=dev)) if split > 1 else (None, None))
+    stats = _stats(n_q, split, dev) if with_stats else (None, None, None)
+    _build.launch("mxu_bound_culled", dev, p, cull["qorder"],
+                  _cached_bound_records(rec), cull["records"], seeds, *part,
+                  ub, cert, *stats, n_q, n_f, tile_f, split, slots)
+    LAUNCHES["mxu_bound_culled"] += 1
+    if not with_stats:
+        return ub, cert
+    return (ub, cert) + tuple(x.sum(dim=0, dtype=torch.int32) for x in stats)
 
 
 def survivors(ub, cert, tile_q=TILE_Q):
@@ -814,14 +1126,17 @@ def closest_point_mxu_repair_kernel(v, f, points, *,
                                     with_stats=False, device="cuda"):
     """``closest_point_mxu_kernel`` behind the bf16 bound pass: the f32
     exact repair runs only the face tiles the bound pass cannot exclude,
-    and its answers equal the dense scan's bit for bit.
+    and its answers equal the dense scan's bit for bit.  The bound pass
+    (``mxu_bound_culled``) and the repair share one set of cull operands
+    (one Morton order of the queries a call).
 
     ``with_stats=True`` also returns ``{"screened": face tiles of all
     query tiles, "repaired": those the f32 pass ran}``."""
     p, rec, tri, pts, center = mxu_operands(v, f, points, tile_q, device)
-    ub, cert = mxu_bound(p, rec, tile_f)
-    best, rep = mxu_repair(p, rec, ub, cert, tile_q, tile_f,
-                           not assume_nondegenerate)
+    tail = not assume_nondegenerate
+    cull = mxu_cull_operands(p, rec, tail)
+    ub, cert = mxu_bound_culled(p, rec, tile_f, cull=cull)
+    best, rep = mxu_repair(p, rec, ub, cert, tile_q, tile_f, tail, cull=cull)
     res = mxu_epilogue(best, tri, pts, center)
     if not with_stats:
         return res

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B timing of mesh_tpu_torch's MXU rung (the dense scan ``mxu_faces``, the
-repair ``mxu_repair``, and the ``Mesh`` calls over them) in two checkouts,
-on one CUDA card, in one run.
+bf16 bound pass, the repair ``mxu_repair``, and the ``Mesh`` calls over
+them) in two checkouts, on one CUDA card, in one run.
 
     python3 tools/ab_mxu.py --other DIR [--pairs 4] [--rounds 5] [--reps 10]
 
@@ -20,7 +20,17 @@ repair's ub and cert from ``mxu_bound`` beforehand too); where the checkout
 has the chunk cull, its operands are made beforehand as well,
 ``*_with_prologue`` time the call that makes them, ``prologue`` times
 ``mxu_cull_operands`` alone, ``*_split<n>`` each split of a warp's chunks
-and ``*_every`` the every-face oracles; then the ``Mesh`` calls of phase 12
+and ``*_every`` the every-face oracles.  The bound pass: ``bound`` is the
+checkout's own (``mxu_bound_culled`` on the cull operands made beforehand
+where it has the bound's chunk cull, else the every-face ``mxu_bound``),
+``bound_every`` the every-face kernel, ``bound_with_prologue`` and
+``bound_split<n>`` as above; ``repair_path`` times the repair's kernel chain
+as a call makes it (the cull operands made once and shared by the bound
+pass and the repair where the checkout has the bound's cull, the parent's
+bound pass and repair with its own Morton order otherwise), and
+``repair_path_split<n>`` the same with the bound pass at split n; the
+bound variants' answers are the repair's faces from their ub and cert.
+Then the ``Mesh`` calls of phase 12
 under ``MESH_TPU_MXU=1`` (``dense_call``) and with ``MESH_TPU_MXU_BF16=1``
 (``repair_call``) on one ``Mesh`` a set, as phase 12 calls it, the MXU
 crossover pinned at its default of 8192 faces.  Kernels: CUDA events around ``--reps`` back-to-back calls; calls:
@@ -59,12 +69,16 @@ inputs = torch.load(sys.argv[1])
 reps, rounds, out_path = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
 report = _build.build(verbose=True)
 ptxas = ["%s: %s" % (name, line.strip())
-         for name in ("mxu_faces", "mxu_repair")
+         for name in ("mxu_faces", "mxu_repair", "mxu_bound",
+                      "mxu_bound_culled")
          for line in report.get(name, {}).get("ptxas", "").splitlines()
          if "registers" in line or "spill" in line]
 dev = torch.device("cuda")
 culls = hasattr(mk, "mxu_cull_operands")
+bounds = hasattr(mk, "mxu_bound_culled")
 splits = (1, 4, 16, 64) if culls else ()
+#: the bound pass's splits: 32 is the default at 65,536 queries
+bound_splits = (1, 4, 16, 32, 64)
 
 
 def kernel_ms(fn):
@@ -133,6 +147,44 @@ for label, (v, f, q) in inputs["sets"].items():
                 key = "%s_split%d" % (name, split)
                 variants.append(("%s %s" % (label, key), kernel_ms, fn))
                 got[key] = fn()
+    def via_repair(fn, p=p, rec=rec, tail=tail):
+        ub_, cert_ = fn()[:2]
+        return mk.mxu_repair(p, rec, ub_, cert_, degenerate_tail=tail)[0]
+
+    def repair_path(p=p, rec=rec, tail=tail, split=None):
+        if not bounds:
+            ub_, cert_ = mk.mxu_bound(p, rec)
+            return mk.mxu_repair(p, rec, ub_, cert_,
+                                 degenerate_tail=tail)[0]
+        cull = mk.mxu_cull_operands(p, rec, tail)
+        ub_, cert_ = mk.mxu_bound_culled(p, rec, cull=cull, split=split)
+        return mk.mxu_repair(p, rec, ub_, cert_, degenerate_tail=tail,
+                             cull=cull)[0]
+
+    entries = [("bound_every", lambda p=p, rec=rec: mk.mxu_bound(p, rec))]
+    if bounds:
+        entries += [
+            ("bound", lambda p=p, rec=rec, kw=kw: mk.mxu_bound_culled(
+                p, rec, cull=kw["cull"])),
+            ("bound_with_prologue",
+             lambda p=p, rec=rec: mk.mxu_bound_culled(p, rec))]
+        entries += [("bound_split%d" % split,
+                     lambda p=p, rec=rec, kw=kw, split=split:
+                     mk.mxu_bound_culled(p, rec, cull=kw["cull"],
+                                         split=split))
+                    for split in bound_splits]
+    else:
+        entries.append(("bound", lambda p=p, rec=rec: mk.mxu_bound(p, rec)))
+    for name, fn in entries:
+        variants.append(("%s %s" % (label, name), kernel_ms, fn))
+        got[name] = via_repair(fn)
+    for name, split in [("repair_path", None)] + [
+            ("repair_path_split%d" % s, s) for s in (bound_splits if bounds
+                                                     else ())]:
+        fn = (lambda split=split, repair_path=repair_path:
+              repair_path(split=split))
+        variants.append(("%s %s" % (label, name), kernel_ms, fn))
+        got[name] = fn()
     mesh = Mesh(v_np, f_np, device=dev)
     for mode in ("dense_call", "repair_call"):
         def call(mesh=mesh, q_np=q_np, mode=mode):
