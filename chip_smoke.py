@@ -38,7 +38,16 @@ Phases (any failure raises and exits non-zero; none catches its own):
    1e-6 rad of a flat grid's plane, NaN and inf corners, t in [0, 1.5]),
    alongnormal_faces and normal_weighted_faces (with and without
    the degenerate tail) at phase 8's shapes, the tail variant also on the
-   planted mesh; tri_tri_any_hit in both tiles at phase 9's shapes (1,552
+   planted mesh and, in the drive's tail, on NW_PLANTED of phase 8's
+   queries with NaN normals, normals of norm 3 and 0, eps = -0.1 and 0,
+   and on as many queries at 10-100x the body's radius (the planted miss's
+   kind): normal_weighted_faces' chunk cull on each against the plain
+   version of its design (faces, chunks each warp folded, faces each lane
+   needed, chunks each warp staged), the every-face plain version and the
+   every-face kernel (``normal_weighted_faces_every``, which launches on
+   no driven path), with its chunk records against cull_records_plain and,
+   at phase 8's shapes, every split of NW_SPLITS timed against its plain
+   version; tri_tri_any_hit in both tiles at phase 9's shapes (1,552
    hand faces x 13,776 body faces), the segment tile also with the planted
    mesh's faces as queries against body 0; self_intersect in both tiles on
    every face of body 0 and of phase 5's body 0 (98,304 faces) and of
@@ -377,6 +386,16 @@ SEED_OPS = 11
 #: the lane's need test): row 1's, the reach's two adds and the screen's and
 MXU_CULL_BOUND_OPS = 44
 
+#: operations of normal_weighted_faces' chunk bound per lane and chunk: row
+#: 1's and NormalWeightedCost::lower's (the -inf test and its select, the
+#: max, the square root, the add; csrc/nw_cost.cuh)
+NW_CULL_BOUND_OPS = CULL_BOUND_OPS + 5
+#: the splits of a warp's chunks that phase 2 times for normal_weighted_faces
+NW_SPLITS = (1, 4, 16, 32, 64)
+#: phase 2's planted sets for normal_weighted_faces: the first NW_PLANTED of
+#: phase 8's queries on body 0
+NW_PLANTED = 4096
+
 #: operations of cull_records per face (the planes' finiteness, the corners,
 #: the box's minima and maxima, the conditioning numbers and their maxima)
 RECORD_OPS = 120
@@ -406,7 +425,7 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 # the every-face kernel, phase 2's face oracle
                 "closest_faces_every": (),
                 "cull_records": ("main_path", "main_path_fused", "facade",
-                                 "contact", "mxu"),
+                                 "contact", "mxu", "registration"),
                 "nearest_vertices": ("facade",),
                 "culled_faces": ("large_batch",),
                 "rope_faces_stream": ("scan",),
@@ -418,6 +437,8 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "ray_any_hit": (),
                 "alongnormal_faces": ("registration",),
                 "normal_weighted_faces": ("registration",),
+                # the every-face kernel, phase 2's face oracle
+                "normal_weighted_faces_every": (),
                 "tri_tri_any_hit": ("contact",),
                 "self_intersect": ("self_intersect",),
                 "leaf_boxes": ("anim",),
@@ -1476,33 +1497,167 @@ def compare_alongnormal(ray, pts, nrm, tri):
     return out
 
 
-def compare_normal_weighted(nw, ops, tail, timing):
-    """Kernel vs plain for normal_weighted_faces on one operand set:
-    identical faces, and the epilogue's points after each."""
+def compare_normal_weighted(nw, ck, ops, tail, timing, eps=REG_EPS,
+                            label="registration"):
+    """Kernel vs plain for normal_weighted_faces on one operand set: the
+    chunk-cull kernel's faces identical to the plain version of its design
+    (``argmin_normal_weighted_culled_plain``, also its warp, lane and stage
+    counts) at the default split, to the every-face plain version and to
+    the every-face kernel (``normal_weighted_faces_every``), its chunk
+    records equal to ``cull_records_plain``'s, and the epilogue's points
+    after each.
+
+    With ``timing``: also every split of NW_SPLITS against its plain
+    version, each timed; the kernel alone on operands made beforehand, with
+    its prologue (``normal_weighted_cull_operands``), the prologue alone,
+    the every-face kernel and the plain versions; four bounds: the work
+    these inputs need per lane (the faces of the chunks its own lane needs,
+    a bound per chunk and the seed), the pairs the warps issue (32 lanes x
+    the faces of each chunk a warp folds), the heaviest warp's pairs on one
+    scheduler, and every pair, each x the pair's operations."""
     pts, nrm, planes, tri, center = ops
-    k = nw.argmin_normal_weighted(pts, nrm, planes, REG_EPS, tail)
-    p, plain_ms = timed(lambda: nw.argmin_normal_weighted_plain(
-        pts, nrm, planes, REG_EPS, tail))
-    check(torch.equal(k, p), "normal_weighted_faces[tail=%s]: %d of %d "
-          "faces differ from the plain version"
-          % (tail, int((k != p).sum()), k.numel()))
+    cull = nw.normal_weighted_cull_operands(pts, planes, tail)
+    records_plain = ck.cull_records_plain(planes, "fast", tail)
+    same = (cull["records"] == records_plain) | (
+        torch.isnan(cull["records"]) & torch.isnan(records_plain))
+    check(bool(same.all()), "normal_weighted_faces[%s, tail=%s]: %d of %d "
+          "record values differ from cull_records_plain's" % (
+              label, tail, int((~same).sum()), same.numel()))
+    name = "normal_weighted_faces[%s, tail=%s, eps=%g]" % (label, tail, eps)
+
+    def against_plain(split):
+        k, kw_, kl, kb = nw.argmin_normal_weighted(
+            pts, nrm, planes, eps, tail, cull=cull, with_stats=True,
+            split=split)
+        (p, pw, pl, pb), plain_ms = timed(
+            lambda: nw.argmin_normal_weighted_culled_plain(
+                pts, nrm, planes, cull, eps, tail, split))
+        check(torch.equal(k, p) and torch.equal(kw_, pw)
+              and torch.equal(kl, pl) and torch.equal(kb, pb),
+              "%s, split %d: %d of %d faces (and %d warp, %d lane, %d stage "
+              "counts) differ from the plain version" % (
+                  name, split, int((k != p).sum()), k.numel(),
+                  int((kw_ != pw).sum()), int((kl != pl).sum()),
+                  int((kb != pb).sum())))
+        return k, kw_, kl, kb, plain_ms
+
+    k, kw_, kl, kb, plain_ms = against_plain(nw.NW_SPLIT)
+    every, every_plain_ms = timed(lambda: nw.argmin_normal_weighted_plain(
+        pts, nrm, planes, eps, tail))
+    oracle = nw.argmin_normal_weighted_every(pts, nrm, planes, eps, tail)
+    check(torch.equal(k, every) and torch.equal(k, oracle),
+          "%s: %d faces differ from the every-face plain version, %d from "
+          "the every-face kernel" % (name, int((k != every).sum()),
+                                     int((k != oracle).sum())))
     pk = nw.normal_weighted_epilogue(k, tri, pts, center)[1]
-    pp = nw.normal_weighted_epilogue(p, tri, pts, center)[1]
+    pp = nw.normal_weighted_epilogue(every, tri, pts, center)[1]
     n_b, n_q = pts.shape[:2]
-    out = {"degenerate_tail": tail, "shape": [n_b, n_q, planes.shape[-1]],
-           "faces_identical": True,
-           "max_abs_err": float((pk - pp).abs().max()), "plain_ms": plain_ms}
+    n_f = planes.shape[-1]
+    n_c = -(-n_f // ck.CULL_CHUNK)
+    out = {"set": label, "degenerate_tail": tail, "eps": eps,
+           "shape": [n_b, n_q, n_f], "split": nw.NW_SPLIT,
+           "faces_identical": True, "every_face_identical": True,
+           "max_abs_err": float((pk - pp).abs().nan_to_num().max()),
+           "warp_chunks": int(kw_.sum()), "warp_chunks_all": kw_.numel() * n_c,
+           "warp_chunk_max": int(kw_.max()), "warp_stages": int(kb.sum()),
+           "lane_faces": int(kl.sum()), "pairs": n_b * n_q * n_f,
+           "plain_ms": plain_ms, "every_plain_ms": every_plain_ms}
+    out["warp_share"] = out["warp_chunks"] / out["warp_chunks_all"]
+    out["heaviest_warp_share"] = out["warp_chunk_max"] / n_c
+    out["stage_share"] = out["warp_stages"] / out["warp_chunks_all"]
+    out["lane_share"] = out["lane_faces"] / out["pairs"]
     if timing:
-        out["ms"] = cuda_ms(lambda: nw.argmin_normal_weighted(
-            pts, nrm, planes, REG_EPS, tail), reps=REPS)
+        ops_ = NW_PAIR_OPS[tail]
         n_bytes = 4 * (pts.numel() + nrm.numel() + planes.numel()
-                       + k.numel())
+                       + n_b * n_q + cull["qorder"].numel()
+                       + cull["records"].numel() + n_b)
+        lanes = n_b * n_q
+        around = lanes * (n_c * (NW_CULL_BOUND_OPS + SEED_OPS) + ops_)
+        # a warp issues one instruction for its 32 lanes a cycle: a
+        # scheduler's share of the card's rate
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per_scheduler = PEAK_FP32_OPS / (4 * n_sms)
+        out["splits"] = {}
+        for split in NW_SPLITS:
+            _, sw, sl, sb, split_plain_ms = against_plain(split)
+            out["splits"][split] = {
+                "ms": cuda_ms(lambda: nw.argmin_normal_weighted(
+                    pts, nrm, planes, eps, tail, cull=cull, split=split),
+                    reps=REPS),
+                "plain_ms": split_plain_ms,
+                "warp_share": int(sw.sum()) / out["warp_chunks_all"],
+                "heaviest_warp_share": int(sw.max()) / n_c,
+                "lane_share": int(sl.sum()) / out["pairs"],
+                # a split's heaviest warp folds at least its share
+                "bound_heaviest_warp_ms": (
+                    int(sw.max()) / split * ck.CULL_CHUNK * 32 * ops_
+                    / per_scheduler * 1e3),
+                "bound_issued_ms": bound_ms(
+                    int(sw.sum()) * 32 * ck.CULL_CHUNK * ops_ + around, 1,
+                    n_bytes)[0]}
+        out["ms"] = cuda_ms(lambda: nw.argmin_normal_weighted(
+            pts, nrm, planes, eps, tail, cull=cull), reps=REPS)
+        out["with_prologue_ms"] = cuda_ms(lambda: nw.argmin_normal_weighted(
+            pts, nrm, planes, eps, tail), reps=REPS)
+        out["prologue_ms"] = cuda_ms(lambda: nw.normal_weighted_cull_operands(
+            pts, planes, tail), reps=REPS)
+        out["every_ms"] = cuda_ms(lambda: nw.argmin_normal_weighted_every(
+            pts, nrm, planes, eps, tail), reps=REPS)
         out["bound_ms"], out["bound_by"] = bound_ms(
-            n_b * n_q * planes.shape[-1], NW_PAIR_OPS[tail], n_bytes)
-    log("  normal_weighted_faces[tail=%s] %s: faces identical, plain %.1f "
-        "ms%s" % (tail, out["shape"], plain_ms, "" if not timing else
-                  ", %.3f ms (bound %.3f ms)" % (out["ms"], out["bound_ms"])))
+            out["lane_faces"] * ops_ + around, 1, n_bytes)
+        out["bound_issued_ms"], _ = bound_ms(
+            out["warp_chunks"] * 32 * ck.CULL_CHUNK * ops_ + around, 1,
+            n_bytes)
+        out["bound_every_pair_ms"], _ = bound_ms(out["pairs"], ops_, n_bytes)
+        out["bound_heaviest_warp_ms"] = out["splits"][nw.NW_SPLIT][
+            "bound_heaviest_warp_ms"]
+    log("  %s %s: records identical to cull_records_plain's; faces "
+        "identical to the plain version (and its counts), the every-face "
+        "plain version and kernel; warps fold %.4f of the chunks (heaviest "
+        "warp %.4f) and stage %.4f, lanes need %.4f of the pairs; plain "
+        "%.1f ms, every-face plain %.1f ms%s" % (
+            name, out["shape"], out["warp_share"],
+            out["heaviest_warp_share"], out["stage_share"],
+            out["lane_share"], plain_ms, every_plain_ms, "" if not timing else
+            "; %.3f ms at split %d (splits %s; with the prologue %.3f, "
+            "prologue %.3f, every face %.3f; bound %.4f ms, issued %.4f, "
+            "heaviest warp on one scheduler %.4f, every pair %.3f)" % (
+                out["ms"], nw.NW_SPLIT, ", ".join(
+                    "%d: %.3f" % (sp, r["ms"])
+                    for sp, r in out["splits"].items()),
+                out["with_prologue_ms"], out["prologue_ms"],
+                out["every_ms"], out["bound_ms"], out["bound_issued_ms"],
+                out["bound_heaviest_warp_ms"], out["bound_every_pair_ms"])))
     return out
+
+
+def normal_weighted_planted(nw, ck, verts0, faces, pts, nrm, tail, rng):
+    """normal_weighted_faces on phase 2's planted sets: the first
+    NW_PLANTED of phase 8's queries on body 0 with NaN in every 97th
+    normal, normals of norm 3 and 0, eps = -0.1 and 0, and NW_PLANTED
+    queries at 10-100 times the body's radius (``far_queries``, the planted
+    miss's kind) with random unit normals; each held as
+    ``compare_normal_weighted`` holds phase 8's operands."""
+    p, n = pts[:NW_PLANTED], nrm[:NW_PLANTED]
+    nan_n = n.clone()
+    nan_n[::97, 1] = float("nan")
+    far_n = torch.as_tensor(rng.randn(NW_PLANTED, 3), dtype=torch.float32,
+                            device=pts.device)
+    far_n = far_n / far_n.norm(dim=-1, keepdim=True)
+    sets = [("nan normals", p, nan_n, REG_EPS),
+            ("normals x3", p, n * 3.0, REG_EPS),
+            ("zero normals", p, torch.zeros_like(n), REG_EPS),
+            ("eps -0.1", p, n, -0.1), ("eps 0", p, n, 0.0),
+            ("far", far_queries(verts0, NW_PLANTED, rng)[0], far_n,
+             REG_EPS)]
+    runs = []
+    for label, q, qn, eps in sets:
+        runs.append(compare_normal_weighted(
+            nw, ck, nw.normal_weighted_operands(
+                verts0[None], faces, q[None].contiguous(),
+                qn[None].contiguous()), tail, timing=False, eps=eps,
+            label=label))
+    return runs
 
 
 def registration_inputs(verts0, faces, rng):
@@ -3066,17 +3221,18 @@ def main():
                                     verts[:1][..., f.long(), :])
     nw_ops = nw.normal_weighted_operands(verts[:1], f, reg_pts[None],
                                          reg_nrm[None])
-    nw_runs = [compare_normal_weighted(nw, nw_ops, tail, timing=True)
+    nw_runs = [compare_normal_weighted(nw, ck, nw_ops, tail, timing=True)
                for tail in (False, True)]
     del nw_ops
     n2 = rng.randn(1, q2.shape[0], 3)
     n2t = torch.as_tensor(n2 / np.linalg.norm(n2, axis=-1, keepdims=True),
                           dtype=torch.float32, device=dev)
-    planted = compare_normal_weighted(
-        nw, nw.normal_weighted_operands(v2t, f2t, q2t, n2t), True,
-        timing=False)
-    planted["mesh"] = "planted degenerate"
-    nw_runs.append(planted)
+    nw_runs.append(compare_normal_weighted(
+        nw, ck, nw.normal_weighted_operands(v2t, f2t, q2t, n2t), True,
+        timing=False, label="planted degenerate"))
+    nw_runs += normal_weighted_planted(nw, ck, verts[0], f, reg_pts, reg_nrm,
+                                       not nondegen_r,
+                                       np.random.RandomState(17))
     # tri_tri_any_hit at phase 9's shapes in both tiles, and the segment
     # tile with the planted mesh's faces as the queries against body 0
     tri_runs = {alg: compare_tri_tri(tk, *tk.tri_tri_planes(
@@ -3994,6 +4150,21 @@ def main():
              "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
              "library_ms": None,
              "detail": nw_runs if run is main_nw else run})
+    # the every-face oracle beside the chunk cull: no path runs it
+    kernels[-1]["every"] = {
+        "name": "normal_weighted_faces_every", "route": "cuda",
+        "source": "mesh_tpu_torch/csrc/normal_weighted_faces_every.cu",
+        "ms": main_nw["every_ms"],
+        "launches_by_path": {p: launches[p]["normal_weighted_faces_every"]
+                             for p in launches}}
+    kernels[-1]["variant"] = "fast, tail=%s, split %d" % (
+        main_nw["degenerate_tail"], main_nw["split"])
+    for field in ("bound_issued_ms", "bound_every_pair_ms",
+                  "bound_heaviest_warp_ms", "warp_share",
+                  "heaviest_warp_share", "stage_share", "lane_share",
+                  "prologue_ms", "with_prologue_ms", "every_plain_ms",
+                  "splits"):
+        kernels[-1][field] = main_nw[field]
     for name, runs, path, source, replaces, main_run in (
             ("tri_tri_any_hit", tri_runs, "contact", "tri_tri_any_hit.cu",
              "mesh_tpu/query/pallas_ray.py:754", tri_runs[contact_tile]),

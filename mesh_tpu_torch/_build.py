@@ -37,7 +37,7 @@ KERNELS = {
                             "mt_closest_faces_every",
                             [_PTR] * 3 + [_INT] * 6),
     "cull_records": ("cull_records.cu", "mt_cull_records",
-                     [_PTR] * 2 + [_INT] * 4),
+                     [_PTR] * 2 + [_INT] * 5),
     "nearest_vertices": ("nearest_vertices.cu", "mt_nearest_vertices",
                          [_PTR] * 3 + [_INT] * 3),
     "culled_faces": ("culled_faces.cu", "mt_culled_faces",
@@ -55,7 +55,10 @@ KERNELS = {
                           [_PTR] * 4 + [_INT] * 3),
     "normal_weighted_faces": ("normal_weighted_faces.cu",
                               "mt_normal_weighted_faces",
-                              [_PTR] * 4 + [_INT] * 4 + [_FLOAT]),
+                              [_PTR] * 13 + [_INT] * 5 + [_FLOAT]),
+    "normal_weighted_faces_every": ("normal_weighted_faces_every.cu",
+                                    "mt_normal_weighted_faces_every",
+                                    [_PTR] * 4 + [_INT] * 4 + [_FLOAT]),
     "tri_tri_any_hit": ("tri_tri_any_hit.cu", "mt_tri_tri_any_hit",
                         [_PTR] * 3 + [_INT] * 3 + [_FLOAT] * 2),
     "self_intersect": ("self_intersect.cu", "mt_self_intersect",

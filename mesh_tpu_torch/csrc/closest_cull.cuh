@@ -131,6 +131,20 @@
 // decisions and counts (each warp's vote one chunk ahead included), so
 // chip_smoke holds the kernel to it on faces and counts, and to the
 // every-face kernel on faces.
+//
+// A functor with a per-query vector (argmin.cuh's kQueryVec: the
+// normal-weighted cost of normal_weighted_faces.cu) runs the same loop
+// with what CullExtra carries: each lane reads its vector at its own qi
+// and the launch's scalar parameter; its seed comes from a pass of its
+// own (seeds, one per sorted lane); the functor turns the chunk's
+// squared bound into a bound on its cost (Cost::lower, with the lane's
+// term Cost::lane_floor); gridDim.z warps may share a warp's chunks,
+// split s taking [s C / split, (s + 1) C / split) and writing its
+// (best_d, best_i) for cull_merge_kernel, and its counts at split s.
+// Every such branch is an if constexpr on QueryVec<Cost>, so the
+// closest-face functors compile to the code above (their registers,
+// spills and times unchanged on the H100; PERF.md, row 7).
+// normal_weighted_faces.cu's note proves that functor's bound.
 
 #pragma once
 
@@ -174,6 +188,44 @@ struct CullGate<FusedFold> {
   }
 };
 
+// What a lane of a query-vector functor reads and writes beyond the
+// closest-face operands (empty for the closest-face functors, whose
+// kernels keep their parameters): the vectors [B, Q, 3], a per-mesh
+// bound [B] that Cost::lane_floor reads, the seeds [B, Q] of the sorted
+// lanes, each split's (best_d, best_i) [split, B, Q] (null at split 1: the
+// kernel writes out), and the launch's scalar parameter.
+template <class Cost, bool = QueryVec<Cost>::value>
+struct CullExtra {};
+
+template <class Cost>
+struct CullExtra<Cost, true> {
+  const float* vecs;
+  const float* bounds;
+  const float* seeds;
+  float* part_d;
+  int* part_i;
+  float param;
+};
+
+// The first face of the chunk whose representative (record float4 2) is
+// nearest to p: the seed's face (a NaN distance is never taken).
+__device__ __forceinline__ int cull_seed_face(const float4* rec,
+                                              int n_chunks, float px,
+                                              float py, float pz) {
+  float near = CUDART_INF_F;
+  int ks = 0;
+  for (int k = 0; k < n_chunks; ++k) {
+    const float4 r = __ldg(rec + 3 * k + 2);
+    const float dx = px - r.x, dy = py - r.y, dz = pz - r.z;
+    const float d = dx * dx + dy * dy + dz * dz;
+    if (d < near) {
+      near = d;
+      ks = k;
+    }
+  }
+  return ks * kCullChunk;
+}
+
 template <class Cost, class Fold>
 __global__ void __launch_bounds__(kCullThreads)
 closest_cull_kernel(const float* __restrict__ pts,
@@ -183,8 +235,9 @@ closest_cull_kernel(const float* __restrict__ pts,
                     int* __restrict__ warp_chunks,
                     int* __restrict__ lane_faces,
                     int* __restrict__ warp_stages, int n_q, int n_f,
-                    int tile_f) {
+                    int tile_f, CullExtra<Cost> ex) {
   using S = Staging<Cost>;
+  constexpr bool kQuery = QueryVec<Cost>::value;
   constexpr int kWords = 4 * Cost::kVec;  // one face's record
   constexpr int kWarps = kCullThreads / 32;
   __shared__ float4 ring[kWarps][2][kCullChunk * Cost::kVec];
@@ -194,6 +247,13 @@ closest_cull_kernel(const float* __restrict__ pts,
   const int n_chunks = (n_f + kCullChunk - 1) / kCullChunk;
   const float* c = planes + static_cast<size_t>(b) * Cost::kRows * n_f;
   const float4* rec = recs + static_cast<size_t>(b) * n_chunks * 3;
+  // this split's chunks [k_lo, k_hi) and the offset of its outputs
+  const int s = kQuery ? static_cast<int>(blockIdx.z) : 0;
+  const long long n_ll = n_chunks;
+  const int k_lo = kQuery ? static_cast<int>(n_ll * s / gridDim.z) : 0;
+  const int k_hi =
+      kQuery ? static_cast<int>(n_ll * (s + 1) / gridDim.z) : n_chunks;
+  const size_t n_split = static_cast<size_t>(s) * gridDim.y;
 
   bool valid = q < n_q;
   if (!__any_sync(0xffffffffu, valid)) return;  // a warp past the queries
@@ -203,33 +263,44 @@ closest_cull_kernel(const float* __restrict__ pts,
     valid = qi >= 0 && qi < n_q;
   }
   float px = 0.0f, py = 0.0f, pz = 0.0f;
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
   if (valid) {
     const size_t at = (static_cast<size_t>(b) * n_q + qi) * 3;
     px = pts[at];
     py = pts[at + 1];
     pz = pts[at + 2];
+    if constexpr (kQuery) {
+      nx = ex.vecs[at];
+      ny = ex.vecs[at + 1];
+      nz = ex.vecs[at + 2];
+    }
   }
+  // the pair's cost from a staged face record
+  auto pair = [&](const float4* t) {
+    if constexpr (kQuery) {
+      return Cost::cost(px, py, pz, nx, ny, nz, ex.param, t);
+    } else {
+      return Cost::cost(px, py, pz, t);
+    }
+  };
 
   Fold fold;
   fold.start(tile_f);
   CullGate<Fold> gate;
-  {
+  float lane_floor = 0.0f;  // the lane's term of Cost::lower
+  if constexpr (kQuery) {
+    lane_floor = Cost::lane_floor(nx, ny, nz, ex.param, ex.bounds[b]);
+    gate.set(fold,
+             valid ? ex.seeds[static_cast<size_t>(b) * n_q + q]
+                   : CUDART_INF_F,
+             0);
+  } else {
     // the seed: the cost of the first face of the chunk whose
-    // representative is nearest (a NaN distance is never taken)
-    float near = CUDART_INF_F;
-    int ks = 0;
-    for (int k = 0; k < n_chunks; ++k) {
-      const float4 r = __ldg(rec + 3 * k + 2);
-      const float dx = px - r.x, dy = py - r.y, dz = pz - r.z;
-      const float d = dx * dx + dy * dy + dz * dz;
-      if (d < near) {
-        near = d;
-        ks = k;
-      }
-    }
+    // representative is nearest
+    const int fs = cull_seed_face(rec, n_chunks, px, py, pz);
     float4 face[Cost::kVec];
-    Cost::stage(c, n_f, ks * kCullChunk, reinterpret_cast<float*>(face));
-    gate.set(fold, Cost::cost(px, py, pz, face), ks * kCullChunk);
+    Cost::stage(c, n_f, fs, reinterpret_cast<float*>(face));
+    gate.set(fold, pair(face), fs);
   }
 
   // this lane's squared lower bound to chunk k's computed costs (note,
@@ -250,23 +321,28 @@ closest_cull_kernel(const float* __restrict__ pts,
     return big <= kCullFar ? lb2 : -CUDART_INF_F;
   };
   auto needs = [&](float lb2) {
-    return valid && !(lb2 > gate.threshold(fold));
+    if constexpr (kQuery) {
+      return valid &&
+             !(Cost::lower(lb2, lane_floor) > gate.threshold(fold));
+    } else {
+      return valid && !(lb2 > gate.threshold(fold));
+    }
   };
-  // the first chunk in [k, n_chunks) that a lane of the warp needs against
-  // its best so far (n_chunks: none), by one warp vote a chunk; *lb2
-  // receives this lane's bound to it
+  // the first chunk in [k, k_hi) that a lane of the warp needs against its
+  // best so far (k_hi: none), by one warp vote a chunk; *lb2 receives this
+  // lane's bound to it
   auto next_chunk = [&](int k, float* lb2) {
-    for (; k < n_chunks; ++k) {
+    for (; k < k_hi; ++k) {
       *lb2 = cull_lb2(k);
       if (__any_sync(0xffffffffu, needs(*lb2))) return k;
     }
-    return n_chunks;
+    return k_hi;
   };
   // chunk k's planes into this warp's ring[slot], as one cp.async group of
   // this lane: copy j of the lane takes face (j / groups) * 8 + lane % 8
   // and plane (j % groups) * 4 + lane / 8, so a copy instruction reads four
   // 32-byte rows and writes 32 distinct banks (face records of 4 * kVec
-  // words)
+  // words: 20 or 28; the normal-weighted record's 24 take two ways)
   auto stage = [&](int k, int slot) {
     const int c0 = k * kCullChunk;
     const int nf = min(kCullChunk, n_f - c0);
@@ -286,13 +362,13 @@ closest_cull_kernel(const float* __restrict__ pts,
 
   float lb2 = 0.0f;
   int n_fold = 0, n_lane = 0, n_stage = 0;
-  int k = next_chunk(0, &lb2);
-  if (k < n_chunks) stage(k, 0);
-  for (int slot = 0; k < n_chunks; slot ^= 1) {
+  int k = next_chunk(k_lo, &lb2);
+  if (k < k_hi) stage(k, 0);
+  for (int slot = 0; k < k_hi; slot ^= 1) {
     ++n_stage;
     const bool need = needs(lb2);  // against the best after chunks < k
     const int nxt = next_chunk(k + 1, &lb2);
-    if (nxt < n_chunks) {
+    if (nxt < k_hi) {
       stage(nxt, slot ^ 1);
       cp_async_wait<1>();  // chunk k's group has landed
     } else {
@@ -310,7 +386,7 @@ closest_cull_kernel(const float* __restrict__ pts,
       ++n_fold;
 #pragma unroll 4
       for (int i = 0; i < nf; ++i) {
-        fold.add(Cost::cost(px, py, pz, t + i * Cost::kVec), c0 + i);
+        fold.add(pair(t + i * Cost::kVec), c0 + i);
       }
     }
     if (need) n_lane += nf;
@@ -318,14 +394,50 @@ closest_cull_kernel(const float* __restrict__ pts,
     k = nxt;
   }
 
-  if (valid) out[static_cast<size_t>(b) * n_q + qi] = fold.result();
+  if (valid) {
+    const size_t at = static_cast<size_t>(b) * n_q + qi;
+    if constexpr (kQuery) {
+      if (ex.part_d != nullptr) {
+        ex.part_d[n_split * n_q + at] = fold.best_d;
+        ex.part_i[n_split * n_q + at] = fold.best_i;
+      } else {
+        out[at] = fold.result();
+      }
+    } else {
+      out[at] = fold.result();
+    }
+  }
   if (warp_chunks == nullptr) return;
-  if (q < n_q) lane_faces[static_cast<size_t>(b) * n_q + q] = n_lane;
+  if (q < n_q) {
+    lane_faces[(n_split + b) * n_q + q] = n_lane;
+  }
   if (lane == 0) {
-    const size_t at = static_cast<size_t>(b) * ((n_q + 31) / 32) + (q >> 5);
+    const size_t at = (n_split + b) * ((n_q + 31) / 32) + (q >> 5);
     warp_chunks[at] = n_fold;
     warp_stages[at] = n_stage;
   }
+}
+
+// The splits' (best_d, best_i) [split, n] folded in split order with a
+// strict <: the face of each of the n queries (the merge of the split
+// culls of mxu_cull.cuh and normal_weighted_faces.cu).
+__global__ void cull_merge_kernel(const float* __restrict__ part_d,
+                                  const int* __restrict__ part_i,
+                                  int* __restrict__ out, long long n,
+                                  int split) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (q >= n) return;
+  float best_d = part_d[q];
+  int best_i = part_i[q];
+  for (int s = 1; s < split; ++s) {
+    const float d = part_d[s * n + q];
+    if (d < best_d) {
+      best_d = d;
+      best_i = part_i[s * n + q];
+    }
+  }
+  out[q] = best_i;
 }
 
 // Launches one culled argmin over the batch on `stream` (tile_f: the fused
@@ -339,7 +451,8 @@ int launch_cull(const float* pts, const int* qorder, const float* planes,
   const dim3 grid((n_q + kCullThreads - 1) / kCullThreads, n_b);
   closest_cull_kernel<Cost, Fold><<<grid, kCullThreads, 0, stream>>>(
       pts, qorder, planes, reinterpret_cast<const float4*>(recs), out,
-      warp_chunks, lane_faces, warp_stages, n_q, n_f, tile_f);
+      warp_chunks, lane_faces, warp_stages, n_q, n_f, tile_f,
+      CullExtra<Cost>{});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,13 +56,13 @@ __device__ __forceinline__ float warp_max(float v) {
 template <bool kFast, bool kTail>
 __global__ void __launch_bounds__(32 * kWarps)
 cull_records_kernel(const float* __restrict__ planes,
-                    float* __restrict__ recs, int n_f, int n_c) {
+                    float* __restrict__ recs, int n_f, int n_rows, int n_c) {
   const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (k >= n_c) return;  // a whole warp leaves together
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y;
   const int j = min(k * 32 + lane, n_f - 1);
-  const float* c = planes + static_cast<size_t>(b) * 19 * n_f + j;
+  const float* c = planes + static_cast<size_t>(b) * n_rows * n_f + j;
   float r[19];
   bool finite = true;
 #pragma unroll
@@ -139,24 +139,27 @@ cull_records_kernel(const float* __restrict__ planes,
 
 template <bool kFast, bool kTail>
 int launch_records(const float* planes, float* recs, int n_b, int n_f,
-                   int n_c, cudaStream_t stream) {
+                   int n_rows, int n_c, cudaStream_t stream) {
   const dim3 grid((n_c + kWarps - 1) / kWarps, n_b);
   cull_records_kernel<kFast, kTail><<<grid, 32 * kWarps, 0, stream>>>(
-      planes, recs, n_f, n_c);
+      planes, recs, n_f, n_rows, n_c);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// planes [B, 19, F] float32 -> recs [B, ceil(F / 32), 12] float32.
-// variant: 0 fast tile, 1 sliver-safe tile; tail: 1 with the
-// degenerate-face tail.  Returns the launch's CUDA error code.
+// planes [B, R, F] float32 (R >= 19: the 19 tile planes first, as the
+// normal-weighted kernel's 22 rows have them; the rest are not read) ->
+// recs [B, ceil(F / 32), 12] float32.  variant: 0 fast tile, 1
+// sliver-safe tile; tail: 1 with the degenerate-face tail.  Returns the
+// launch's CUDA error code.
 extern "C" int mt_cull_records(const float* planes, float* recs, int n_b,
-                               int n_f, int variant, int tail,
+                               int n_f, int n_rows, int variant, int tail,
                                cudaStream_t stream) {
   (void)cudaGetLastError();  // clear an error left by an earlier call
   if (n_b <= 0) return 0;
-  if (n_b > 65535 || n_f <= 0 || (variant != 0 && variant != 1)) {
+  if (n_b > 65535 || n_f <= 0 || n_rows < 19 ||
+      (variant != 0 && variant != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_c = (n_f + 31) / 32;
@@ -165,5 +168,5 @@ extern "C" int mt_cull_records(const float* planes, float* recs, int n_b,
           ? (tail ? launch_records<true, true> : launch_records<true, false>)
           : (tail ? launch_records<false, true>
                   : launch_records<false, false>);
-  return launch(planes, recs, n_b, n_f, n_c, stream);
+  return launch(planes, recs, n_b, n_f, n_rows, n_c, stream);
 }

@@ -45,7 +45,7 @@
 // - Splits.  gridDim.y = split warps share a warp's chunk range, split s
 //   taking chunks [s C / split, (s + 1) C / split) with the one seed, which
 //   a pass of its own computes first (mxu_seed_kernel, one thread a lane);
-//   each writes its (best_d, best_i) and mxu_merge_kernel folds them in
+//   each writes its (best_d, best_i) and cull_merge_kernel folds them in
 //   split order with the same strict <.  A launch ends with its heaviest
 //   warp, and a small query set fills few of the card's 528 schedulers;
 //   the wrapper picks the split (mxu_kernel.py mxu_split).
@@ -329,25 +329,6 @@ mxu_cull_kernel(const float* __restrict__ pts, const int* __restrict__ qorder,
   }
 }
 
-// The splits' (best_d, best_i) [split, n_q] folded in split order with a
-// strict <: the face per query.
-__global__ void mxu_merge_kernel(const float* __restrict__ part_d,
-                                 const int* __restrict__ part_i,
-                                 int* __restrict__ out, int n_q, int split) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n_q) return;
-  float best_d = part_d[q];
-  int best_i = part_i[q];
-  for (int s = 1; s < split; ++s) {
-    const float d = part_d[static_cast<size_t>(s) * n_q + q];
-    if (d < best_d) {
-      best_d = d;
-      best_i = part_i[static_cast<size_t>(s) * n_q + q];
-    }
-  }
-  out[q] = best_i;
-}
-
 // Launches the seeds' pass, the culled scan and, for split > 1, the merge
 // on `stream` (the wrapper gives the scratch: seeds [n_q]; part_d and
 // part_i [split, n_q] for split > 1, null otherwise) over n_q queries (a
@@ -372,8 +353,8 @@ int launch_mxu_pass(const float* pts, const int* qorder, const float4* rec,
           n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return static_cast<int>(err);
-  mxu_merge_kernel<<<(n_q + 255) / 256, 256, 0, stream>>>(part_d, part_i,
-                                                          out, n_q, split);
+  cull_merge_kernel<<<(n_q + 255) / 256, 256, 0, stream>>>(part_d, part_i,
+                                                           out, n_q, split);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -421,7 +421,8 @@ def query_order(pts):
 def cull_records_plain(planes, tile_variant="fast", degenerate_tail=True):
     """Plain PyTorch version of the ``cull_records`` kernel: [B, C, 12]
     float32 records of the chunks of ``CULL_CHUNK``
-    consecutive faces (in index order) of ``planes`` [B, 19, F], C =
+    consecutive faces (in index order) of ``planes`` [B, R, F] (R >= 19:
+    rows 0-18 are the tile's planes, any further rows are not read), C =
     ceil(F / 32), as three float4: the center of the box around the
     chunk's corners and its half diagonal; the box's half extents and the
     rounding term e1; corner a of the chunk's first face (the seed's
@@ -441,6 +442,7 @@ def cull_records_plain(planes, tile_variant="fast", degenerate_tail=True):
     an S or G above ``CULL_MAX_COND``, or, without the tail, inv_n2 <= 0
     (its interior cost is 0 wherever it lies)."""
     _check_variant(tile_variant)
+    planes = planes[:, :N_FACE_ROWS]
     n_b, n_rows, n_f = planes.shape
     pad = -n_f % CULL_CHUNK
     if pad:      # repeat the last face: no new corner, no new face
@@ -506,15 +508,16 @@ def cull_records_plain(planes, tile_variant="fast", degenerate_tail=True):
 
 
 def cull_records(planes, tile_variant="fast", degenerate_tail=True):
-    """The chunk records of ``cull_records_plain`` for ``planes`` [B, 19,
-    F]: the ``cull_records`` CUDA kernel (csrc/cull_records.cu, one pass over
+    """The chunk records of ``cull_records_plain`` for ``planes`` [B, R,
+    F], R >= 19 (the normal-weighted kernel's 22 rows are read in place):
+    the ``cull_records`` CUDA kernel (csrc/cull_records.cu, one pass over
     the planes) for a CUDA tensor, the plain version for a CPU one."""
     _check_variant(tile_variant)
     if (planes.dtype != torch.float32 or not planes.is_contiguous()
-            or planes.ndim != 3 or planes.shape[1] != N_FACE_ROWS):
+            or planes.ndim != 3 or planes.shape[1] < N_FACE_ROWS):
         raise ValueError("cull_records wants contiguous float32 planes "
-                         "[B, 19, F], got %s %s" % (tuple(planes.shape),
-                                                   planes.dtype))
+                         "[B, R >= 19, F], got %s %s" % (
+                             tuple(planes.shape), planes.dtype))
     if planes.device.type == "cpu":
         return cull_records_plain(planes, tile_variant, degenerate_tail)
     if planes.device.type != "cuda":
@@ -522,11 +525,11 @@ def cull_records(planes, tile_variant="fast", degenerate_tail=True):
                          % planes.device)
     from .. import _build
 
-    n_b, _, n_f = planes.shape
+    n_b, n_rows, n_f = planes.shape
     recs = torch.empty((n_b, -(-n_f // CULL_CHUNK), 12), dtype=torch.float32,
                        device=planes.device)
     _build.launch("cull_records", planes.device, planes, recs, n_b, n_f,
-                  TILE_VARIANTS.index(tile_variant),
+                  n_rows, TILE_VARIANTS.index(tile_variant),
                   int(bool(degenerate_tail)))
     LAUNCHES["cull_records"] += 1
     return recs

@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
-"""What the chunk cull of closest_faces tests, counted on the CPU by its
-plain version (``closest_kernel.argmin_faces_culled_plain``), on the first
-bodies of chip_smoke.py's main path.
+"""What the chunk culls of closest_faces (row 1) and normal_weighted_faces
+(row 7) test, counted on the CPU by their plain versions
+(``closest_kernel.argmin_faces_culled_plain``,
+``normal_weighted.argmin_normal_weighted_culled_plain``).
 
     python3 tools/cull_counts.py [--bodies 4] [--variant fast] [--tail]
+    python3 tools/cull_counts.py --nw [--queries 65536] [--splits 1,32]
+                                  [--eps 0.1]
 
-The bodies, poses and queries are chip_smoke.py's (seed 0, 1024 N(0, 0.4)
-queries a body), made on the CPU.  Prints, as one JSON line each, the
-shares of the shipped design (the box bound of ``cull_records``) and of a
-bounding-sphere bound over the same corners, with the same rounding terms
-and seeds: chunks folded by the mean warp and by the heaviest, chunks
-staged, and pairs each lane needs.  Both must give the every-face faces;
-the run exits non-zero otherwise.  Counts only: no time comes from here.
+Row 1 (the default): the first bodies of chip_smoke.py's main path, its
+bodies, poses and queries (seed 0, 1024 N(0, 0.4) queries a body), made
+on the CPU.  Prints, as one JSON line each, the shares of the shipped
+design (the box bound of ``cull_records``) and of a bounding-sphere bound
+over the same corners, with the same rounding terms and seeds: chunks
+folded by the mean warp and by the heaviest, chunks staged, and pairs each
+lane needs.
+
+Row 7 (``--nw``): chip_smoke.py phase 8's registration inputs on posed
+body 0 (its scan points with noisy normals, the planted miss last; the
+last ``--queries`` of them), eps ``--eps`` (the drive's 0.1; at 0 the
+penalty is gone and only the distance term keeps chunks), the tail as the
+drive picks it.
+Prints one JSON line per split: the same shares, the heaviest warp's
+chunks per split, and the shares without the warp that holds the planted
+miss.  Every run must give the every-face faces; it exits non-zero
+otherwise.  Counts only: no time comes from here.
 """
 
 import argparse
@@ -66,12 +79,88 @@ def sphere_lb2(ck):
     return lb2_of
 
 
+def nw_counts(args):
+    """Row 7's lines (``--nw``)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from mesh_tpu_torch.models import lbs, synthetic_body_model
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import normal_weighted as nw
+
+    model = synthetic_body_model(seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    betas = torch.as_tensor(rng.randn(cs.BATCH, model.num_betas) * 0.3,
+                            dtype=torch.float32)[:1]
+    pose = torch.as_tensor(rng.randn(cs.BATCH, model.num_joints, 3) * 0.1,
+                           dtype=torch.float32)[:1]
+    verts, _ = lbs(model, betas, pose, device="cpu")
+    f = model.faces
+    pts, nrm = cs.registration_inputs(verts[0], f, np.random.RandomState(1))
+    pts, nrm = pts[-args.queries:], nrm[-args.queries:]   # the miss last
+    tail = not ck.mesh_is_nondegenerate(verts[0].numpy(), f.numpy())
+    ops = nw.normal_weighted_operands(verts, f, pts[None], nrm[None])
+    want = nw.argmin_normal_weighted_plain(ops[0], ops[1], ops[2],
+                                           args.eps, tail)
+    cull = nw.normal_weighted_cull_operands(ops[0], ops[2], tail)
+    n_c = cull["records"].shape[1]
+    n_f = f.shape[0]
+    # the warp whose lanes hold the planted miss (the last query)
+    miss = int((cull["qorder"][0] == pts.shape[0] - 1).nonzero()) // 32
+    bad = []
+    for split in [int(x) for x in args.splits.split(",")]:
+        faces, warp, lane, stage = nw.argmin_normal_weighted_culled_plain(
+            ops[0], ops[1], ops[2], cull, args.eps, tail, split)
+        if not torch.equal(faces, want):
+            bad.append(split)
+        w, rest = warp[0].float(), torch.ones(warp.shape[1], dtype=bool)
+        rest[miss] = False
+        lanes = lane[0].float().view(-1)
+        in_miss = torch.zeros_like(lanes, dtype=torch.bool)
+        in_miss[miss * 32:(miss + 1) * 32] = True
+        print(json.dumps({
+            "row": 7, "kernel": "normal_weighted_faces",
+            "queries": pts.shape[0], "faces": n_f, "eps": args.eps,
+            "tail": tail, "split": split,
+            "faces_every_face": torch.equal(faces, want),
+            "warp_share": float(w.mean()) / n_c,
+            "heaviest_warp_share": float(w.max()) / n_c,
+            "heaviest_warp_chunks_per_split": float(w.max()) / split,
+            "stage_share": float(stage[0].float().mean()) / n_c,
+            "lane_share": float(lanes.mean()) / n_f,
+            "miss_warp": miss, "miss_warp_share": float(w[miss]) / n_c,
+            "miss_lane_share": float(lanes[miss * 32 + int(
+                (cull["qorder"][0, miss * 32:(miss + 1) * 32]
+                 == pts.shape[0] - 1).nonzero())]) / n_f,
+            "warp_share_without_miss_warp": float(w[rest].mean()) / n_c,
+            "heaviest_warp_share_without_miss_warp":
+                float(w[rest].max()) / n_c,
+            "lane_share_without_miss_warp":
+                float(lanes[~in_miss].mean()) / n_f}), flush=True)
+    if bad:
+        sys.exit("cull_counts: row 7's faces differ from every face at "
+                 "split %s" % bad)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bodies", type=int, default=4)
     ap.add_argument("--variant", choices=("fast", "safe"), default="fast")
     ap.add_argument("--tail", action="store_true")
+    ap.add_argument("--nw", action="store_true",
+                    help="row 7 on phase 8's registration inputs")
+    ap.add_argument("--queries", type=int, default=65536,
+                    help="with --nw: the last this many of phase 8's "
+                         "queries (the planted miss among them)")
+    ap.add_argument("--splits", default="1,32",
+                    help="with --nw: the splits to count, comma-separated")
+    ap.add_argument("--eps", type=float, default=0.1,
+                    help="with --nw: the penalty's weight (phase 8's 0.1)")
     args = ap.parse_args()
+    if args.nw:
+        return nw_counts(args)
     import numpy as np
     import torch
 
