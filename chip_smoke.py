@@ -36,7 +36,20 @@ Phases (any failure raises and exits non-zero; none catches its own):
    flags, pairs per ray, chunks per warp and blocking faces its plain
    version's) and the culled kernel on planted sets (grazing rays within
    1e-6 rad of a flat grid's plane, NaN and inf corners, t in [0, 1.5]),
-   alongnormal_faces and normal_weighted_faces (with and without
+   alongnormal_faces at phase 8's shapes and on planted sets (phase 8's
+   first ALONG_PLANTED queries with NaN normals, normals of norm 3 and 0,
+   as many queries at 10-100x the body's radius, the planted degenerate
+   mesh, lines through a flat grid's shared edges and vertices and lines
+   within GRAZE_TILT rad of its plane, body 0 scaled by 1e15): its chunk
+   cull against the plain version of its design (faces, chunks each warp
+   folded, faces each lane needed, chunks each warp staged, miss
+   candidates each lane folded), the every-face plain version and the
+   every-face kernel (``alongnormal_faces_every``, which launches on no
+   driven path), at phase 8's shapes every split of ALONG_SPLITS timed
+   against its plain version, with the kernel's bounds (the pairs its
+   lanes need, the pairs its warps issue and every pair) and, apart, the
+   time its own tests, fallbacks, bounds, misses and seed would take at
+   the card's peak; normal_weighted_faces (with and without
    the degenerate tail) at phase 8's shapes, the tail variant also on the
    planted mesh and, in the drive's tail, on NW_PLANTED of phase 8's
    queries with NaN normals, normals of norm 3 and 0, eps = -0.1 and 0,
@@ -287,6 +300,26 @@ RAY_PAIR_OPS = 64
 CULL_TEST_OPS = 69
 CULL_FACE_OPS = 7 * 32 + 2
 ALONG_PAIR_OPS = 67
+#: the along-normal chunk cull (csrc/alongnormal_faces.cu) per lane and
+#: chunk: row 8's chunk test and the lane's threshold and need test (2
+#: fminf, a compare, an and); on a chunk its line meets with the guard held,
+#: item 3's bound (tau's 2 compares, 2 selects, negation and fminf, the
+#: division and 5 products, sums and differences, the clamp's compare and
+#: select: 16); on a miss, the count and the candidate's fold (4)
+ALONG_TEST_OPS = CULL_TEST_OPS + 4
+ALONG_BOUND_OPS = 16
+ALONG_MISS_OPS = 4
+#: the along-normal seed pass per lane and chunk (along_seed_kernel): the
+#: distances to the box (12) and to the centre (3), their squares and sums
+#: (10), the NaN tests and selects (4), and the insertion into the four
+#: nearest (per slot 5 compares, 4 ands and ors, 6 selects: 60); then
+#: ray_kernel.SEED_CHUNKS x 32 pairs
+ALONG_SEED_SCAN_OPS = 89
+#: the splits of a warp's chunks that phase 2 times for alongnormal_faces
+ALONG_SPLITS = (1, 2, 4, 8, 16, 32)
+#: phase 2's planted sets for alongnormal_faces: the first ALONG_PLANTED of
+#: phase 8's queries on body 0, and as many far queries and grid lines
+ALONG_PLANTED = 4096
 NW_PAIR_OPS = {False: FACE_PAIR_OPS[("fast", False)] + 8,
                True: FACE_PAIR_OPS[("fast", True)] + 8}
 
@@ -436,6 +469,8 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 # the every-face kernel, phase 2's flag oracle
                 "ray_any_hit": (),
                 "alongnormal_faces": ("registration",),
+                # the every-face kernel, phase 2's face oracle
+                "alongnormal_faces_every": (),
                 "normal_weighted_faces": ("registration",),
                 # the every-face kernel, phase 2's face oracle
                 "normal_weighted_faces_every": (),
@@ -1467,34 +1502,220 @@ def any_hit_planted(ray, vis, template, faces, dev):
             for label, o_, d_, tri_, t_lo, t_hi in sets]
 
 
-def compare_alongnormal(ray, pts, nrm, tri):
-    """Kernel vs plain for alongnormal_faces: identical faces, and the
-    epilogue's distances and points after each."""
+def compare_alongnormal(ray, pts, nrm, tri, label="registration",
+                        timing=False):
+    """alongnormal_faces on one operand set (``pts``, ``nrm`` [B, Q, 3],
+    faces ``tri`` [B, F, 3, 3]): the chunk-cull kernel's faces identical to
+    the plain version of its design (``argmin_alongnormal_culled_plain``,
+    also its warp, lane, stage and miss counts) at the default split, to
+    the every-face plain version and to the every-face kernel
+    (``alongnormal_faces_every``), and the epilogue's distances and points
+    after each.
+
+    With ``timing``: also every split of ALONG_SPLITS against its plain
+    version, each timed; the kernel alone on operands made beforehand (the
+    face side and the query order), with the query order (what a tree's
+    warm call pays), the query order alone, the face side alone (a tree's
+    first call), the every-face kernel and the plain versions; three
+    bounds, each against the bytes: the pairs these inputs need (the real
+    faces of the chunks each lane needs), the pairs the warps issue (32
+    lanes x the faces of each chunk a warp folds) and every pair, each x
+    ALONG_PAIR_OPS; and apart from them the design's own work
+    (``design_overhead_ms``: each lane's chunk tests, their normals
+    fallbacks, the bounds of the chunks its line meets, its miss
+    candidates and its seed), which no bound counts as needed."""
     planes = ray.ray_planes(tri)
-    k = ray.argmin_alongnormal(pts, nrm, planes)
-    p, plain_ms = timed(lambda: ray.argmin_alongnormal_plain(pts, nrm,
-                                                             planes))
-    check(torch.equal(k, p), "alongnormal_faces: %d of %d faces differ from "
-          "the plain version" % (int((k != p).sum()), k.numel()))
-    dk = ray.alongnormal_epilogue(k, tri, pts, nrm)
-    dp = ray.alongnormal_epilogue(p, tri, pts, nrm)
-    check(torch.equal(dk[0], dp[0]), "alongnormal_faces: epilogue distances "
-          "differ on identical faces")
+    cull = ray.alongnormal_cull_operands(tri)
+    qorder = ray.along_query_order(pts, cull)
+    name = "alongnormal_faces[%s]" % label
+
+    def against_plain(split):
+        k = ray.argmin_alongnormal(pts, nrm, cull=cull, qorder=qorder,
+                                   with_stats=True, split=split)
+        p, plain_ms = timed(lambda: ray.argmin_alongnormal_culled_plain(
+            pts, nrm, cull, qorder, split, with_tests=True))
+        check(all(torch.equal(x, y) for x, y in zip(k, p)),
+              "%s, split %d: %d of %d faces (and %s warp, lane, stage, miss "
+              "counts) differ from the plain version" % (
+                  name, split, int((k[0] != p[0]).sum()), k[0].numel(),
+                  [int((x != y).sum()) for x, y in zip(k[1:], p[1:])]))
+        return k, p, plain_ms
+
+    k, p, plain_ms = against_plain(ray.ALONG_SPLIT)
+    every, every_plain_ms = timed(lambda: ray.argmin_alongnormal_plain(
+        pts, nrm, planes))
+    oracle = ray.argmin_alongnormal_every(pts, nrm, planes)
+    check(torch.equal(k[0], every) and torch.equal(k[0], oracle),
+          "%s: %d faces differ from the every-face plain version, %d from "
+          "the every-face kernel" % (name, int((k[0] != every).sum()),
+                                     int((k[0] != oracle).sum())))
+    dk = ray.alongnormal_epilogue(k[0], tri, pts, nrm)
+    dp = ray.alongnormal_epilogue(every, tri, pts, nrm)
+    check(same_bits(dk[0], dp[0]) and same_bits(dk[2], dp[2]),
+          "%s: epilogue distances or points differ on identical faces "
+          "(NaN where NaN, the same bits elsewhere)" % name)
+    real = ~torch.isnan(dk[2])
     n_b, n_q = pts.shape[:2]
-    out = {"shape": [n_b, n_q, planes.shape[-1]], "faces_identical": True,
-           "max_abs_err": float((dk[2] - dp[2]).abs().max()),
+    n_f, n_c = cull["n_faces"], cull["chunks"].shape[1]
+    warp, lane, stage, misses = (int(x.sum()) for x in k[1:5])
+    tests, fallbacks, meets = (int(x.sum()) for x in p[5:8])
+    out = {"set": label, "shape": [n_b, n_q, n_f], "split": ray.ALONG_SPLIT,
+           "faces_identical": True, "every_face_identical": True,
+           "max_abs_err": float((dk[2] - dp[2]).abs()[real].max())
+           if bool(real.any()) else 0.0,
            "hit_share": float(torch.isfinite(dk[0]).float().mean()),
-           "plain_ms": plain_ms,
-           "ms": cuda_ms(lambda: ray.argmin_alongnormal(pts, nrm, planes),
-                         reps=REPS)}
-    n_bytes = 4 * (pts.numel() + nrm.numel() + planes.numel() + k.numel())
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        n_b * n_q * planes.shape[-1], ALONG_PAIR_OPS, n_bytes)
-    log("  alongnormal_faces %s: faces identical, %.1f%% hit, %.3f ms "
-        "(plain %.1f ms, bound %.3f ms)" % (
-            out["shape"], 100 * out["hit_share"], out["ms"], plain_ms,
-            out["bound_ms"]))
+           "warp_chunks": warp, "warp_chunks_all": k[1].numel() * n_c,
+           "warp_chunk_max": int(k[1].max()), "warp_stages": stage,
+           "lane_faces": lane, "lane_misses": misses, "chunk_tests": tests,
+           "normal_fallbacks": fallbacks, "meets": meets,
+           "pairs": n_b * n_q * n_f, "plain_ms": plain_ms,
+           "every_plain_ms": every_plain_ms}
+    out["warp_share"] = warp / out["warp_chunks_all"]
+    out["heaviest_warp_share"] = out["warp_chunk_max"] / n_c
+    out["stage_share"] = stage / out["warp_chunks_all"]
+    out["lane_share"] = lane / out["pairs"]
+    out["miss_share"] = misses / max(1, tests)
+    out["fallback_share"] = fallbacks / max(1, tests)
+    if timing:
+        n_bytes = 4 * (pts.numel() + nrm.numel() + qorder.numel()
+                       + cull["faces"].numel() + cull["chunks"].numel()
+                       + cull["ids"].numel() + cull["min_ids"].numel()
+                       + 2 * n_b * n_q)
+
+        def overhead_ms(tests_, fallbacks_, meets_, misses_):
+            # each lane's chunk tests, bounds, miss candidates and seed
+            return bound_ms(
+                tests_ * ALONG_TEST_OPS + fallbacks_ * CULL_FACE_OPS
+                + meets_ * ALONG_BOUND_OPS + misses_ * ALONG_MISS_OPS
+                + n_b * n_q * (n_c * ALONG_SEED_SCAN_OPS + ray.SEED_CHUNKS
+                               * ray.ANY_HIT_CHUNK * ALONG_PAIR_OPS), 1, 0)[0]
+
+        out["splits"] = {}
+        for split in ALONG_SPLITS:
+            ks, ps_, split_plain_ms = against_plain(split)
+            out["splits"][split] = {
+                "ms": cuda_ms(lambda: ray.argmin_alongnormal(
+                    pts, nrm, cull=cull, qorder=qorder, split=split),
+                    reps=REPS),
+                "plain_ms": split_plain_ms,
+                "warp_share": int(ks[1].sum()) / out["warp_chunks_all"],
+                "lane_share": int(ks[2].sum()) / out["pairs"],
+                "bound_ms": bound_ms(int(ks[2].sum()), ALONG_PAIR_OPS,
+                                     n_bytes)[0],
+                "bound_issued_ms": bound_ms(
+                    int(ks[1].sum()) * 32 * ray.ANY_HIT_CHUNK,
+                    ALONG_PAIR_OPS, n_bytes)[0],
+                "design_overhead_ms": overhead_ms(*(
+                    int(x.sum()) for x in (ps_[5], ps_[6], ps_[7], ps_[4])))}
+        out["ms"] = cuda_ms(lambda: ray.argmin_alongnormal(
+            pts, nrm, cull=cull, qorder=qorder), reps=REPS)
+        out["with_order_ms"] = cuda_ms(lambda: ray.argmin_alongnormal(
+            pts, nrm, cull=cull), reps=REPS)
+        out["order_ms"] = cuda_ms(lambda: ray.along_query_order(pts, cull),
+                                  reps=REPS)
+        out["prologue_ms"] = cuda_ms(
+            lambda: ray.alongnormal_cull_operands(tri), reps=REPS)
+        out["every_ms"] = cuda_ms(lambda: ray.argmin_alongnormal_every(
+            pts, nrm, planes), reps=REPS)
+        out["bound_ms"], out["bound_by"] = bound_ms(lane, ALONG_PAIR_OPS,
+                                                    n_bytes)
+        out["bound_issued_ms"] = bound_ms(warp * 32 * ray.ANY_HIT_CHUNK,
+                                          ALONG_PAIR_OPS, n_bytes)[0]
+        out["design_overhead_ms"] = overhead_ms(tests, fallbacks, meets,
+                                                misses)
+        out["bound_every_pair_ms"] = bound_ms(out["pairs"], ALONG_PAIR_OPS,
+                                              n_bytes)[0]
+    log("  %s %s: faces identical to the plain version (and its counts), "
+        "the every-face plain version and kernel; warps fold %.4f of the "
+        "chunks (heaviest warp %.4f) and stage %.4f, lanes need %.4f of the "
+        "pairs, %.4f of the chunk tests find a miss, %.4f fall back to the "
+        "faces' normals; %.1f%% hit; plain %.1f ms, every-face plain %.1f "
+        "ms%s" % (
+            name, out["shape"], out["warp_share"],
+            out["heaviest_warp_share"], out["stage_share"],
+            out["lane_share"], out["miss_share"], out["fallback_share"],
+            100 * out["hit_share"], plain_ms, every_plain_ms,
+            "" if not timing else
+            "; %.3f ms at split %d (splits %s; with the query order %.3f, "
+            "the order %.3f, the face side %.3f; every face %.3f; bound "
+            "%.4f ms per lane, %.4f issued, %.3f every pair; the design's "
+            "tests, fallbacks, bounds, misses and seed %.4f)" % (
+                out["ms"], ray.ALONG_SPLIT, ", ".join(
+                    "%d: %.3f" % (sp, r["ms"])
+                    for sp, r in out["splits"].items()),
+                out["with_order_ms"], out["order_ms"], out["prologue_ms"],
+                out["every_ms"], out["bound_ms"], out["bound_issued_ms"],
+                out["bound_every_pair_ms"], out["design_overhead_ms"])))
     return out
+
+
+def along_planted(ray, verts0, faces, pts, nrm, v2t, f2t, q2t, rng):
+    """alongnormal_faces on phase 2's planted sets, each held as
+    ``compare_alongnormal`` holds phase 8's operands: the first
+    ALONG_PLANTED of phase 8's queries on body 0 with NaN in every 97th
+    normal, with normals of norm 3 and 0; as many queries at 10-100 times
+    the body's radius (``far_queries``) with random unit normals; the
+    planted degenerate mesh with random normals; lines through the shared
+    edges and vertices of a flat grid, perpendicular to it (both faces at
+    an edge tie at equal |t|), and lines within GRAZE_TILT rad of its
+    plane; and body 0 scaled by 1e15 (coordinates near float32's
+    overflow in the pair's products)."""
+    dev = pts.device
+    p, n = pts[:ALONG_PLANTED], nrm[:ALONG_PLANTED]
+    nan_n = n.clone()
+    nan_n[::97, 1] = float("nan")
+
+    def unit(k):
+        x = torch.as_tensor(rng.randn(k, 3), dtype=torch.float32, device=dev)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    g = GRAZE_GRID
+    xs = np.linspace(0.0, 1.0, g + 1)
+    gv = np.array([(x, y, 0.0) for y in xs for x in xs])
+    gf = np.array([q for j in range(g) for i in range(g) for q in (
+        (j * (g + 1) + i, j * (g + 1) + i + 1, (j + 1) * (g + 1) + i + 1),
+        (j * (g + 1) + i, (j + 1) * (g + 1) + i + 1, (j + 1) * (g + 1) + i))])
+    rot, _ = np.linalg.qr(rng.randn(3, 3))
+    shift = np.array([3.0, -2.0, 5.0])
+    grid = torch.as_tensor((gv @ rot.T + shift)[gf], dtype=torch.float32,
+                           device=dev)[None]
+    # points on the grid's vertices and edge midpoints, offset off the
+    # plane along its normal, lines perpendicular to it
+    k = ALONG_PLANTED // 2
+    on = np.concatenate([gv[rng.randint(0, gv.shape[0], k // 2)],
+                         (gv[gf[rng.randint(0, gf.shape[0], k - k // 2), 0]]
+                          + gv[gf[rng.randint(0, gf.shape[0],
+                                              k - k // 2), 1]]) / 2.0])
+    on = on + np.array([0.0, 0.0, 1.0]) * rng.uniform(-2.0, 2.0, (k, 1))
+    ties_p = on @ rot.T + shift
+    ties_n = np.tile(np.array([0.0, 0.0, 1.0]) @ rot.T, (k, 1))
+    # lines within GRAZE_TILT rad of the plane, from 5 to 60 units away
+    far = rng.uniform(5.0, 60.0, k)
+    tilt = rng.uniform(-GRAZE_TILT, GRAZE_TILT, k)
+    graze_p = np.stack([-far, rng.uniform(-1.0, 2.0, k),
+                        -tilt * (far + rng.uniform(-40.0, 40.0, k))], 1)
+    graze_n = np.stack([np.cos(tilt), rng.uniform(-0.05, 0.05, k)
+                        * np.cos(tilt), np.sin(tilt)], 1)
+    line_p = torch.as_tensor(np.concatenate([ties_p, graze_p @ rot.T
+                                             + shift]), dtype=torch.float32,
+                             device=dev)
+    line_n = torch.as_tensor(np.concatenate([ties_n, graze_n @ rot.T]),
+                             dtype=torch.float32, device=dev)
+    body = verts0[faces.long()][None]
+    big = 1e15
+    sets = [("nan normals", p, nan_n, body),
+            ("normals x3", p, n * 3.0, body),
+            ("zero normals", p, torch.zeros_like(n), body),
+            ("far", far_queries(verts0, ALONG_PLANTED, rng)[0],
+             unit(ALONG_PLANTED), body),
+            ("planted degenerate", q2t[0], unit(q2t.shape[1]),
+             v2t[0][f2t.long()][None]),
+            ("grid ties and grazing lines", line_p, line_n, grid),
+            ("scaled 1e15", p * big, n, body * big)]
+    return [compare_alongnormal(ray, q[None].contiguous(),
+                                qn[None].contiguous(), tri_.contiguous(),
+                                label=label)
+            for label, q, qn, tri_ in sets]
 
 
 def compare_normal_weighted(nw, ck, ops, tail, timing, eps=REG_EPS,
@@ -3218,7 +3439,11 @@ def main():
     del origins_v, dirs_v, tri_v, dense_v, order_v
     # alongnormal_faces and normal_weighted_faces at phase 8's shapes
     along_run = compare_alongnormal(ray, reg_pts[None], reg_nrm[None],
-                                    verts[:1][..., f.long(), :])
+                                    verts[:1][..., f.long(), :],
+                                    timing=True)
+    along_runs = [along_run] + along_planted(
+        ray, verts[0], f, reg_pts, reg_nrm, v2t, f2t, q2t,
+        np.random.RandomState(19))
     nw_ops = nw.normal_weighted_operands(verts[:1], f, reg_pts[None],
                                          reg_nrm[None])
     nw_runs = [compare_normal_weighted(nw, ck, nw_ops, tail, timing=True)
@@ -4133,23 +4358,44 @@ def main():
                        source="mesh_tpu_torch/csrc/ray_any_hit.cu",
                        launches_by_path={p: launches[p]["ray_any_hit"]
                                          for p in launches})})
-    for name, run, path, source, replaces in (
-            ("alongnormal_faces", along_run, "registration",
+    for name, run, runs, source, replaces in (
+            ("alongnormal_faces", along_run, along_runs,
              "alongnormal_faces.cu", "mesh_tpu/query/pallas_ray.py:231"),
-            ("normal_weighted_faces", main_nw, "registration",
+            ("normal_weighted_faces", main_nw, nw_runs,
              "normal_weighted_faces.cu",
              "mesh_tpu/query/pallas_normal_weighted.py:78")):
         kernels.append(
             {"name": name, "route": "cuda",
              "source": "mesh_tpu_torch/csrc/" + source, "replaces": replaces,
-             "launches": launches[path][name],
+             "launches": launches["registration"][name],
              "launches_by_path": {p: launches[p][name] for p in launches},
-             "max_abs_err": (max(r["max_abs_err"] for r in nw_runs)
-                             if run is main_nw else run["max_abs_err"]),
+             "max_abs_err": max(r["max_abs_err"] for r in runs),
              "ms": run["ms"], "plain_ms": run["plain_ms"],
              "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
-             "library_ms": None,
-             "detail": nw_runs if run is main_nw else run})
+             "library_ms": None, "detail": runs})
+        if run is along_run:
+            # the every-face oracle beside the chunk cull: no path runs it
+            kernels[-1]["every"] = {
+                "name": "alongnormal_faces_every", "route": "cuda",
+                "source": "mesh_tpu_torch/csrc/alongnormal_faces_every.cu",
+                "replaces": "mesh_tpu/query/pallas_ray.py:231",
+                "launches": launches["registration"][
+                    "alongnormal_faces_every"],
+                "launches_by_path": {
+                    p: launches[p]["alongnormal_faces_every"]
+                    for p in launches},
+                "max_abs_err": 0.0, "ms": along_run["every_ms"],
+                "plain_ms": along_run["every_plain_ms"],
+                "bound_ms": along_run["bound_every_pair_ms"],
+                "bound_by": "operations", "library_ms": None}
+            kernels[-1]["variant"] = "split %d" % along_run["split"]
+            for field in ("bound_issued_ms", "bound_every_pair_ms",
+                          "design_overhead_ms",
+                          "warp_share", "heaviest_warp_share", "stage_share",
+                          "lane_share", "miss_share", "fallback_share",
+                          "prologue_ms", "order_ms", "with_order_ms",
+                          "every_plain_ms", "splits"):
+                kernels[-1][field] = along_run[field]
     # the every-face oracle beside the chunk cull: no path runs it
     kernels[-1]["every"] = {
         "name": "normal_weighted_faces_every", "route": "cuda",

@@ -52,7 +52,10 @@ KERNELS = {
                            [_PTR] * 8 + [_INT] * 5
                            + [_FLOAT, _INT, _FLOAT]),
     "alongnormal_faces": ("alongnormal_faces.cu", "mt_alongnormal_faces",
-                          [_PTR] * 4 + [_INT] * 3),
+                          [_PTR] * 15 + [_INT] * 5),
+    "alongnormal_faces_every": ("alongnormal_faces_every.cu",
+                                "mt_alongnormal_faces_every",
+                                [_PTR] * 4 + [_INT] * 3),
     "normal_weighted_faces": ("normal_weighted_faces.cu",
                               "mt_normal_weighted_faces",
                               [_PTR] * 13 + [_INT] * 5 + [_FLOAT]),

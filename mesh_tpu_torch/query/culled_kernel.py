@@ -97,19 +97,22 @@ def _part1by2(x):
 _SPREAD = {}
 
 
-def _morton_codes(xyz):
+def _morton_codes(xyz, box=None):
     """30-bit Morton code per row of xyz [..., N, 3], each set normalized
-    to its own bounding box, in float32 as the reference computes it;
-    int64 codes.  The bit spreading is a lookup in ``_SPREAD``, so a call
-    is a handful of launches; the low 10 bits index it, as ``_part1by2``
-    reads them (a NaN coordinate casts to some integer)."""
+    to its own bounding box (or to ``box`` = (lo, hi) [..., 1, 3], rows
+    outside it clamped to its faces), in float32 as the reference computes
+    it; int64 codes.  The bit spreading is a lookup in ``_SPREAD``, so a
+    call is a handful of launches; the low 10 bits index it, as
+    ``_part1by2`` reads them (a NaN coordinate casts to some integer)."""
     spread = _SPREAD.get(xyz.device)
     if spread is None:
         ramp = torch.arange(1024, dtype=torch.int64, device=xyz.device)
         spread = _SPREAD[xyz.device] = torch.stack(
             [_part1by2(ramp) << 2, _part1by2(ramp) << 1, _part1by2(ramp)], 1)
-    lo = xyz.amin(dim=-2, keepdim=True)
-    span = torch.clamp_min(xyz.amax(dim=-2, keepdim=True) - lo, 1e-30)
+    if box is None:
+        box = (xyz.amin(dim=-2, keepdim=True), xyz.amax(dim=-2, keepdim=True))
+    lo = box[0]
+    span = torch.clamp_min(box[1] - lo, 1e-30)
     q = torch.clamp((xyz - lo) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
     return torch.gather(spread.expand(q.shape[:-2] + spread.shape), -2,
                         q & 0x3FF).sum(dim=-1)

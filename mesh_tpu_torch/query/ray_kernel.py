@@ -21,14 +21,27 @@ the line o + t d against a triangle given by its corner a and edges e1, e2.
   Visibility runs it.
 - ``alongnormal_faces`` (``csrc/alongnormal_faces.cu``): per query, the
   face with the least |t| on the line p + t n, misses costing ``_BIG``; a
-  query that hits nothing gets face 0.  ``nearest_alongnormal_kernel``
-  re-tests the winner with the same predicate, so a face accepted by the
-  kernel never comes back as a miss.
+  query that hits nothing gets face 0, and the lowest face index wins an
+  exact tie.  An exact per-warp chunk cull on row 8's operands
+  (``alongnormal_cull_operands``: the faces Morton-sorted into chunks,
+  their records, each sorted face's original index): each mesh's queries
+  in Morton order, a lane folds one candidate (_BIG, the chunk's least
+  index) for a chunk its line misses (``_chunk_keep``), skips a chunk
+  whose bound on its hits' |t| (``along_bound``) exceeds its best so far,
+  and its warp folds the chunks a lane needs, lexicographically on (cost,
+  index), so that the walk's order does not matter; each warp's chunks
+  may be split over ``split`` warps.  The registration path runs it.
+- ``alongnormal_faces_every`` (``csrc/alongnormal_faces_every.cu``): every
+  face, the oracle that ``chip_smoke.py`` holds the cull to; no path
+  launches it.  ``nearest_alongnormal_kernel`` re-tests the winner with
+  the same predicate, so a face accepted by the kernel never comes back
+  as a miss.
 
 The wrappers take the kernel's path for CUDA tensors and the plain version
-for CPU tensors; any other device raises.  ``LAUNCHES`` counts each
-kernel's launches.  Neither centers: the rays and faces are used as given,
-as the reference's kernels use them.
+for CPU tensors (``alongnormal_faces``: the every-face plain version, or
+with its counts the plain version of the cull); any other device raises.
+``LAUNCHES`` counts each kernel's launches.  Neither centers: the rays and
+faces are used as given, as the reference's kernels use them.
 """
 
 import torch
@@ -39,9 +52,11 @@ from .closest_kernel import (
     _check_operands,
     _chunks,
     _grid,
+    _warp_vote,
 )
 from .culled_kernel import (
     WARP,
+    _morton_codes,
     _pad_rows_edge,
     _sorted_rows,
     _warp_any,
@@ -57,17 +72,17 @@ _BIG = 1e30
 
 #: launches of each CUDA kernel since the counts were last set to 0
 LAUNCHES = {"ray_any_hit": 0, "ray_any_hit_culled": 0,
-            "alongnormal_faces": 0}
+            "alongnormal_faces": 0, "alongnormal_faces_every": 0}
 
 #: faces per chunk of the culled any-hit kernel: one warp's worth, so a
 #: staged chunk is at most one 16-byte copy per thread of a 128-ray block
 ANY_HIT_CHUNK = 32
 #: floats of a face record (a, e1, e2, unit normal / rho) and of a chunk
-#: record (csrc/ray_any_hit_culled.cu chunk_needed)
+#: record (csrc/ray_cull.cuh chunk_needed)
 FACE_WORDS = 12
 CHUNK_WORDS = 20
 #: the cull's constants, each a power of two with its argument in
-#: csrc/ray_any_hit_culled.cu: the cone's pads, the guard, the margin's
+#: csrc/ray_cull.cuh: the cone's pads, the guard, the margin's
 #: two terms and the slab test's pad
 CONE_PAD = 2.0 ** -19
 SINE_PAD = 2.0 ** -17
@@ -77,6 +92,32 @@ MARGIN_EDGE = 2.0 ** -16
 SLAB_PAD = 2.0 ** -20
 #: taken off each chunk's cone cosine for its float64 normals' rounding
 CONE_SLACK = 1e-6
+
+#: the along-normal cull's bound (csrc/alongnormal_faces.cu, item 3): its
+#: relative and absolute terms, and the range of |n|^2 outside which a
+#: lane keeps every chunk (item 5)
+BOUND_REL = 2.0 ** -19
+BOUND_TINY = 2.0 ** -100
+LOOSE_LO = 2.0 ** -100
+LOOSE_HI = 2.0 ** 100
+#: the most warps that share one warp's chunks
+#: (csrc/alongnormal_faces.cu kAlongMaxSplit)
+ALONG_MAX_SPLIT = 64
+#: the split the registration path launches: on an H100 (PERF.md, row 9;
+#: tools/ab_along.py) 16 and 32 beat 1, 2, 4 and 8 at phase 8's 65,536
+#: queries (1.02-1.03 ms against 1.53 at split 1), within 1% of each other
+ALONG_SPLIT = 16
+#: chunks whose faces a lane's seed folds (csrc/alongnormal_faces.cu
+#: kSeedChunks): on phase 8's scan points a seed over 1 / 2 / 4 / 8 chunks
+#: is the lane's best cost for 46% / 70% / 93% / 99.5% of the lanes, and
+#: the warps fold 18.9% / 16.5% / 13.0% / 11.2% of the chunks at split 16
+#: (tools/cull_counts.py --along --seed-chunks 1,2,8); past 4 the seed's
+#: own pairs cost about what the folds save
+SEED_CHUNKS = 4
+#: lane-chunk elements of the plain cull's seed search at once
+_PLAIN_SEED_ELEMS = 1 << 20
+
+INF = float("inf")
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +291,7 @@ def any_hit_records(tri_s):
     down, and its sine st, rounded up (a cone of 90 degrees or more, or
     without an axis: ct = 0, st = 1).  A chunk with a non-finite box, axis,
     rho or W gets rho = +inf, which the guard never culls
-    (csrc/ray_any_hit_culled.cu)."""
+    (csrc/ray_cull.cuh)."""
     n_b, n_fp = tri_s.shape[:2]
     per = (n_b, n_fp // ANY_HIT_CHUNK, ANY_HIT_CHUNK)
     a = tri_s[..., 0, :]
@@ -341,7 +382,7 @@ def _check_any_hit_ops(ops):
 
 
 def _ray_terms(origins, dirs, t_lo):
-    """Each ray's terms of the chunk test (csrc/ray_any_hit_culled.cu
+    """Each ray's terms of the chunk test (csrc/ray_cull.cuh
     CullRay::init), operation for operation: o, d / |d|, 1 / d, |o|_inf,
     |t_lo| |d| and whether a component is not finite."""
     o = [origins[..., k] for k in range(3)]
@@ -359,12 +400,15 @@ def _ray_terms(origins, dirs, t_lo):
     }
 
 
-def _chunk_keep(ray, q, normals, t_lo):
+def _chunk_keep(ray, q, normals, t_lo, span=False):
     """([B, R] bool, [B, R] bool): whether each ray may hit a face of the
     chunk whose record is ``q`` [B, 1, CHUNK_WORDS] and whose faces'
     normals over their shape factors are ``normals`` [B, ANY_HIT_CHUNK, 3]
-    (csrc/ray_any_hit_culled.cu chunk_needed, operation for operation),
-    and whether its test fell back to the faces' normals."""
+    (csrc/ray_cull.cuh chunk_needed, operation for operation), and whether
+    its test fell back to the faces' normals.  ``span`` adds what
+    chunk_needed's ChunkSpan holds, as [B, R] tensors: ``decided`` (the
+    guard held), ``t_near`` and ``t_far`` (the slab interval), ``rho`` and
+    ``c`` (the guard's pair) and ``s`` (W + |o - cen|_1)."""
     lo, rho, hi, edge = q[..., 0:3], q[..., 3], q[..., 4:7], q[..., 7]
     finite = rho <= torch.finfo(torch.float32).max
     axis, ct, cen, st = q[..., 8:11], q[..., 11], q[..., 12:15], q[..., 15]
@@ -397,7 +441,12 @@ def _chunk_keep(ray, q, normals, t_lo):
     miss = t_near > t_far
     if t_lo is not None:
         miss = miss | (t_far < t_lo)
-    return ray["wild"] | ~guard | ~miss, by_face & finite & ~ray["wild"]
+    keep = ray["wild"] | ~guard | ~miss
+    fell = by_face & finite & ~ray["wild"]
+    if not span:
+        return keep, fell
+    return keep, fell, {"decided": guard & ~ray["wild"], "t_near": t_near,
+                        "t_far": t_far, "rho": rho, "c": c, "s": w + sb}
 
 
 def _chunk_normals(ops, k):
@@ -505,7 +554,8 @@ def ray_any_hit_culled(ops, t_lo=0.0, t_hi=None, with_stats=False):
 
 
 # ---------------------------------------------------------------------------
-# alongnormal_faces
+# alongnormal_faces: the every-face plain version and kernel, the chunk
+# cull's operands, its plain version and the wrapper
 
 def _alongnormal_cost_tile(p, n, a, e1, e2):
     """|t| where the line p + t n meets the face, else _BIG (reference
@@ -515,10 +565,17 @@ def _alongnormal_cost_tile(p, n, a, e1, e2):
     return torch.where(hit, t_abs, torch.full_like(t_abs, _BIG))
 
 
+def _never_nan(cost):
+    """``cost`` with NaN as +inf: the kernels' folds never take a NaN cost,
+    and a +inf one only where nothing is below it, as for NaN."""
+    return torch.where(torch.isnan(cost), torch.full_like(cost, INF), cost)
+
+
 def argmin_alongnormal_plain(pts, normals, planes):
-    """Plain PyTorch version of the ``alongnormal_faces`` kernel: the face
-    with the least |t| per query, [B, Q] int32, lowest index on exact ties
-    (face 0 when nothing is hit).  ``pts``, ``normals`` [B, Q, 3] and
+    """Plain PyTorch version of the every-face ``alongnormal_faces_every``
+    kernel: the face with the least |t| per query, [B, Q] int32, lowest
+    index on exact ties (face 0 when nothing is hit; a NaN cost never
+    wins, as in the kernel's fold).  ``pts``, ``normals`` [B, Q, 3] and
     ``planes`` [B, 9, F] float32."""
     n_b, n_q = pts.shape[:2]
     out = torch.empty((n_b, n_q), dtype=torch.int32, device=pts.device)
@@ -526,22 +583,367 @@ def argmin_alongnormal_plain(pts, normals, planes):
         cost = _alongnormal_cost_tile(
             _xyz(pts[b0:b1, q0:q1]), _xyz(normals[b0:b1, q0:q1]),
             *_rows(planes, b0, b1))
-        out[b0:b1, q0:q1] = torch.argmin(cost, dim=-1).to(torch.int32)
+        out[b0:b1, q0:q1] = torch.argmin(_never_nan(cost),
+                                         dim=-1).to(torch.int32)
     return out
 
 
-def argmin_alongnormal(pts, normals, planes):
-    """The face with the least |t| per query: the ``alongnormal_faces`` CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors."""
-    check_with_vectors(pts, normals, planes, N_RAY_ROWS, "alongnormal_faces")
+def alongnormal_cull_operands(tri):
+    """The face side of the ``alongnormal_faces`` chunk cull, from each
+    mesh's faces ``tri`` [B, F, 3, 3] (F > 0): row 8's operands
+    (``any_hit_sorted_faces``, ``any_hit_records``: ``faces`` [B, Fp,
+    FACE_WORDS], ``chunks`` [B, C, CHUNK_WORDS], Fp = C ANY_HIT_CHUNK),
+    ``ids`` [B, Fp] int32, the original index of each sorted position
+    (padding repeats the last), ``min_ids`` [B, C] int32, the least
+    original index of each chunk's faces, and ``n_faces`` F.  It depends
+    on the mesh only: a tree makes it once."""
+    tri = tri.to(torch.float32)
+    if tri.ndim != 4 or tri.shape[-2:] != (3, 3) or not tri.shape[1]:
+        raise ValueError("alongnormal_cull_operands: want faces [B, F, 3, 3]"
+                         " with F > 0, got %r" % (tuple(tri.shape),))
+    order, tri_s = any_hit_sorted_faces(tri)
+    faces, chunks = any_hit_records(tri_s)
+    ids = _pad_rows_edge(order.to(torch.int32), ANY_HIT_CHUNK, dim=1)
+    min_ids = ids.view(ids.shape[0], -1, ANY_HIT_CHUNK).amin(dim=-1)
+    return {"faces": faces, "chunks": chunks, "ids": ids.contiguous(),
+            "min_ids": min_ids.contiguous(), "n_faces": tri.shape[1],
+            "box": (chunks[..., 0:3].amin(dim=1, keepdim=True),
+                    chunks[..., 4:7].amax(dim=1, keepdim=True))}
+
+
+def along_query_order(pts, cull):
+    """[B, Q] int32: each mesh's queries ``pts`` [B, Q, 3] in the Morton
+    order of their positions within the mesh's box (``cull["box"]``; a
+    query outside it takes the code of the nearest point of the box), a
+    stable sort: the kernel's lane order.  Normalizing to the queries' own
+    box instead lets one far query (registration's planted miss) squeeze
+    the others' codes into a corner of the grid, and warps lose their
+    compactness."""
+    if pts.shape[1] == 0:
+        return torch.empty(pts.shape[:2], dtype=torch.int32,
+                           device=pts.device)
+    return torch.argsort(_morton_codes(pts, cull["box"]), dim=1,
+                         stable=True).to(torch.int32)
+
+
+def _check_along_cull(pts, cull, qorder):
+    n_b, n_q = pts.shape[:2]
+    n_c = cull["chunks"].shape[1] if cull["chunks"].ndim == 3 else -1
+    n_f, n_p = cull["n_faces"], n_c * ANY_HIT_CHUNK
+    want = (("faces", torch.float32, (n_b, n_p, FACE_WORDS)),
+            ("chunks", torch.float32, (n_b, n_c, CHUNK_WORDS)),
+            ("ids", torch.int32, (n_b, n_p)),
+            ("min_ids", torch.int32, (n_b, n_c)),
+            ("qorder", torch.int32, (n_b, n_q)))
+    for key, dtype, shape in want:
+        t = qorder if key == "qorder" else cull[key]
+        if (t.dtype != dtype or not t.is_contiguous()
+                or t.device != pts.device or tuple(t.shape) != shape
+                or (t.device.type == "cuda" and t.data_ptr() % 16)):
+            raise ValueError("alongnormal_faces: want %s %s %s, contiguous "
+                             "and 16-byte aligned, on %s; got %s %s on %s"
+                             % (key, shape, dtype, pts.device,
+                                tuple(t.shape), t.dtype, t.device))
+    if not (n_c - 1) * ANY_HIT_CHUNK < n_f <= n_p:
+        raise ValueError("alongnormal_faces: %d faces do not fill %d chunks "
+                         "of %d" % (n_f, n_c, ANY_HIT_CHUNK))
+
+
+def _check_split(split):
+    if not 1 <= int(split) <= ALONG_MAX_SPLIT:
+        raise ValueError("alongnormal_faces: split %r not in [1, %d]"
+                         % (split, ALONG_MAX_SPLIT))
+    return int(split)
+
+
+def _face_cost(p, n, rec):
+    """The along-normal cost of lanes ``p``, ``n`` [N, 1] (tuples of three)
+    against face records ``rec`` [N, K, FACE_WORDS] -> [N, K]."""
+    return _alongnormal_cost_tile(
+        p, n, *[tuple(rec[..., 3 * g + j] for j in range(3))
+                for g in range(3)])
+
+
+def _seed_keys(ps, chunks):
+    """([B, L, C] float32, same): the distance squared of each lane's point
+    to each chunk's box (0 inside) and to its centre, NaN read as +inf
+    (csrc/alongnormal_faces.cu along_seed_kernel)."""
+    p = [ps[..., k, None] for k in range(3)]
+    lo, hi, cen = chunks[..., 0:3], chunks[..., 4:7], chunks[..., 12:15]
+    e = [torch.fmax(torch.fmax(lo[:, None, :, k] - p[k],
+                               p[k] - hi[:, None, :, k]),
+                    torch.zeros_like(p[k])) for k in range(3)]
+    dc = [p[k] - cen[:, None, :, k] for k in range(3)]
+    return (_never_nan(e[0] * e[0] + e[1] * e[1] + e[2] * e[2]),
+            _never_nan(dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2]))
+
+
+def along_seeds_plain(ps, ns, cull):
+    """[B, L] float32: per lane (``ps``, ``ns`` [B, L, 3], lanes in any
+    order), the least cost over the real faces of its SEED_CHUNKS nearest
+    chunks, nearest by the distance to the chunk's box, then to its
+    centre, then the lower chunk; a NaN cost is never taken
+    (csrc/alongnormal_faces.cu along_seed_kernel)."""
+    faces, chunks = cull["faces"], cull["chunks"]
+    n_b, n_l = ps.shape[:2]
+    n_c = chunks.shape[1]
+    m = min(SEED_CHUNKS, n_c)
+    seed = torch.empty((n_b, n_l), dtype=torch.float32, device=ps.device)
+    step = max(1, _PLAIN_SEED_ELEMS // max(1, n_b * n_c))
+    ramp = torch.arange(ANY_HIT_CHUNK, device=ps.device)
+    for l0 in range(0, n_l, step):
+        l1 = min(n_l, l0 + step)
+        db, dc = _seed_keys(ps[:, l0:l1], chunks)
+        order = torch.argsort(dc, dim=-1, stable=True)
+        order = torch.gather(order, -1, torch.argsort(
+            torch.gather(db, -1, order), dim=-1, stable=True))[..., :m]
+        pos = (order[..., None] * ANY_HIT_CHUNK + ramp).flatten(-2)
+        n = l1 - l0
+        rec = torch.gather(faces, 1, pos.reshape(n_b, -1, 1).expand(
+            n_b, n * m * ANY_HIT_CHUNK, FACE_WORDS)).view(n_b * n, -1,
+                                                         FACE_WORDS)
+        cost = _never_nan(_face_cost(_xyz(ps[:, l0:l1].reshape(-1, 3)),
+                                     _xyz(ns[:, l0:l1].reshape(-1, 3)), rec))
+        real = pos.reshape(n_b * n, -1) < cull["n_faces"]
+        seed[:, l0:l1] = torch.where(real, cost, INF).amin(dim=-1).view(
+            n_b, n)
+    return seed
+
+
+def _lane_terms(pts, normals, qo, q_pad):
+    """The lanes' points and normals [B, q_pad, 3] in sorted order (zero
+    padded), their chunk-test terms (``_ray_terms``, the whole line), 1 /
+    |n| and whether they keep every chunk (``loose``: a non-finite
+    component or |n|^2 outside [LOOSE_LO, LOOSE_HI])."""
+    n_b, n_q = pts.shape[:2]
+
+    def lanes(x):
+        out = torch.zeros((n_b, q_pad, 3), dtype=x.dtype, device=x.device)
+        out[:, :n_q] = torch.gather(x, 1, qo[..., None].expand(n_b, n_q, 3))
+        return out
+
+    ps, ns = lanes(pts), lanes(normals)
+    ray = _ray_terms(ps, ns, None)
+    nx, ny, nz = ns.unbind(-1)
+    dn2 = nx * nx + ny * ny + nz * nz
+    inv_dn = torch.ones_like(dn2) / torch.sqrt(dn2)
+    loose = ray["wild"] | ~((dn2 >= LOOSE_LO) & (dn2 <= LOOSE_HI))
+    return ps, ns, ray, inv_dn, loose
+
+
+def along_bound(span, inv_dn):
+    """[B, L] float32: the lane's lower bound LB on the cost of every face
+    of a chunk that its line hits (csrc/alongnormal_faces.cu, item 3), from
+    ``_chunk_keep``'s span, clamped to _BIG (a NaN stays)."""
+    t_near, t_far = span["t_near"], span["t_far"]
+    tau0 = torch.where(t_near > 0, t_near,
+                       torch.where(t_far < 0, -t_far,
+                                   torch.zeros_like(t_far)))
+    tau = torch.clamp_max(tau0, torch.finfo(torch.float32).max)
+    kr = BOUND_REL * (span["rho"] / span["c"])
+    lb = (tau - kr * (span["s"] * inv_dn + tau)) - BOUND_TINY
+    return torch.where(lb > _BIG, torch.full_like(lb, _BIG), lb)
+
+
+def _lex_take(d, i, best, best_i):
+    """Where the pair (d, i) is below (best, best_i) lexicographically."""
+    return (d < best) | ((d == best) & (i < best_i))
+
+
+def _fold_misses(miss, min_id, best, best_i):
+    """(best, best_i) after each lane where ``miss`` folds its chunk's one
+    candidate (_BIG, ``min_id``) (csrc/alongnormal_faces.cu, item 2)."""
+    take = miss & _lex_take(_BIG, min_id, best, best_i)
+    return (torch.where(take, torch.full_like(best, _BIG), best),
+            torch.where(take, min_id, best_i))
+
+
+def argmin_alongnormal_culled_plain(pts, normals, cull, qorder=None,
+                                    split=1, seed=True, with_tests=False):
+    """Plain PyTorch version of the ``alongnormal_faces`` kernel's chunk
+    cull: (face with the least |t| per query [B, Q] int32, chunks each warp
+    folded [B, ceil(Q / 32)], real faces of the chunks each query's own
+    lane needed [B, Q] at its sorted position, chunks each warp staged
+    [B, ceil(Q / 32)], chunks each lane folded as one miss candidate
+    [B, Q] at its sorted position), int32, the counts summed over the
+    splits.  The faces are ``argmin_alongnormal_plain``'s.
+
+    Queries run in ``qorder`` (``along_query_order`` when None),
+    32 to a warp.  Each lane is seeded by ``along_seeds_plain`` (+inf
+    without ``seed``).  The chunks are cut into ``split`` ranges
+    [C s / split, C (s + 1) / split), each folded from (+inf, 0): per
+    chunk a lane runs ``_chunk_keep`` on its whole line; where the line
+    misses the grown box it folds (_BIG, the chunk's least index), else it
+    needs the chunk unless ``along_bound`` exceeds min(best, seed, _BIG)
+    (always where the guard failed or the lane is loose).  A warp stages
+    chunk k when one of its lanes needs it against the state before the
+    last chunk it staged (the kernel votes one chunk ahead), and folds a
+    staged chunk, every lane of it, when one of its lanes needs it against
+    the state now.  Every fold is lexicographic on (cost, original index),
+    a NaN cost never taken, and the ranges merge the same way.
+    ``with_tests`` also returns, per query at its sorted position, the
+    chunk tests its lane ran, how many of them fell back to the faces'
+    normals and how many found the line meeting the grown box with the
+    guard held (each then computes the bound): the work the kernel's bound
+    counts."""
+    split = _check_split(split)
+    n_b, n_q = pts.shape[:2]
+    faces, chunks, ids = cull["faces"], cull["chunks"], cull["ids"]
+    n_f, n_c = cull["n_faces"], chunks.shape[1]
+    dev = pts.device
+    qo = (along_query_order(pts, cull) if qorder is None
+          else qorder).long()
+    q_pad = -(-n_q // WARP) * WARP
+    n_w = q_pad // WARP
+    warp = torch.zeros((n_b, n_w), dtype=torch.int32, device=dev)
+    lane = torch.zeros((n_b, q_pad), dtype=torch.int32, device=dev)
+    stage = torch.zeros_like(warp)
+    misses = torch.zeros_like(lane)
+    tests = [torch.zeros_like(lane) for _ in range(3)] if with_tests else []
+    valid = (torch.arange(q_pad, device=dev) < n_q).expand(n_b, q_pad)
+    ps, ns, ray, inv_dn, loose = _lane_terms(pts, normals, qo, q_pad)
+    seeds = (along_seeds_plain(ps, ns, cull) if seed
+             else torch.full((n_b, q_pad), INF, device=dev))
+    inf = torch.full((n_b, q_pad), INF, device=dev)
+    parts = []
+    for s in range(split):
+        best = inf.clone()
+        best_i = torch.zeros((n_b, q_pad), dtype=torch.int32, device=dev)
+        snap = best.clone()
+        for k in range(n_c * s // split, n_c * (s + 1) // split):
+            keep, fell, span = _chunk_keep(ray, chunks[:, k:k + 1],
+                                           _chunk_normals(cull, k), None,
+                                           span=True)
+            decided = span["decided"] & ~loose
+            miss = valid & decided & ~keep
+            misses += miss.to(torch.int32)
+            ran = valid & ~loose
+            for count, did in zip(tests, (ran, ran & fell,
+                                          ran & decided & keep)):
+                count += did.to(torch.int32)
+            best, best_i = _fold_misses(
+                miss, cull["min_ids"][:, k:k + 1].expand(n_b, q_pad), best,
+                best_i)
+            lb = torch.where(decided, along_bound(span, inv_dn), -inf)
+            lb = torch.where(miss | ~valid, inf, lb)
+
+            def needed(b_):
+                thr = torch.clamp_max(torch.fmin(b_, seeds), _BIG)
+                return ~(lb > thr) & valid
+
+            vote = _warp_vote(needed(snap))
+            if not bool(vote.any()):
+                continue
+            stage += vote.to(torch.int32)
+            snap = torch.where(vote.repeat_interleave(WARP, -1), best, snap)
+            need = needed(best)
+            folds = _warp_vote(need)
+            c0 = k * ANY_HIT_CHUNK
+            nf = min(ANY_HIT_CHUNK, n_f - c0)
+            warp += folds.to(torch.int32)
+            lane += need.to(torch.int32) * nf
+            if not bool(folds.any()):
+                continue
+            bi, li = torch.nonzero(folds.repeat_interleave(WARP, -1),
+                                   as_tuple=True)
+            cost = _never_nan(_face_cost(_xyz(ps[bi, li]), _xyz(ns[bi, li]),
+                                         faces[bi, c0:c0 + nf]))
+            low = cost.amin(dim=-1)
+            cand = torch.where(cost == low[:, None], ids[bi, c0:c0 + nf],
+                               torch.iinfo(torch.int32).max).amin(dim=-1)
+            take = _lex_take(low, cand, best[bi, li], best_i[bi, li])
+            best[bi, li] = torch.where(take, low, best[bi, li])
+            best_i[bi, li] = torch.where(take, cand, best_i[bi, li])
+        parts.append((best, best_i))
+    best, best_i = parts[0]
+    for d, i in parts[1:]:
+        take = _lex_take(d, i, best, best_i)
+        best = torch.where(take, d, best)
+        best_i = torch.where(take, i, best_i)
+    out = torch.zeros((n_b, n_q), dtype=torch.int32, device=dev)
+    out.scatter_(1, qo, best_i[:, :n_q])
+    return (out, warp, lane[:, :n_q], stage, misses[:, :n_q],
+            *(t[:, :n_q] for t in tests))
+
+
+def argmin_alongnormal(pts, normals, planes=None, cull=None,
+                       with_stats=False, split=None, qorder=None):
+    """The face with the least |t| per query: the ``alongnormal_faces``
+    CUDA kernel, the exact chunk cull, for CUDA tensors;
+    ``argmin_alongnormal_plain`` on ``planes`` [B, 9, F] for CPU tensors.
+    ``cull``: the face side of ``alongnormal_cull_operands`` (which the
+    kernel needs: it reads no planes); ``qorder``: the lanes' order
+    (``along_query_order`` when None); ``split``:
+    warps sharing one warp's chunks (``ALONG_SPLIT`` when None);
+    ``with_stats`` returns the five outputs of
+    ``argmin_alongnormal_culled_plain`` (which a CPU call runs then).  A
+    failed build or launch raises: no other version stands in."""
+    name = "alongnormal_faces"
+    if planes is None:
+        planes_like = torch.empty((pts.shape[0], N_RAY_ROWS, 0),
+                                  device=pts.device)
+        check_with_vectors(pts, normals, planes_like, N_RAY_ROWS, name)
+    else:
+        check_with_vectors(pts, normals, planes, N_RAY_ROWS, name)
+    split = _check_split(ALONG_SPLIT if split is None else split)
+    if pts.device.type == "cpu" and not with_stats:
+        if planes is None:
+            raise ValueError("alongnormal_faces: a CPU call takes the "
+                             "every-face plain version, which needs planes")
+        return argmin_alongnormal_plain(pts, normals, planes)
+    if cull is None:
+        raise ValueError("alongnormal_faces: the chunk cull needs its face "
+                         "operands, alongnormal_cull_operands(tri)")
+    if qorder is None:
+        qorder = along_query_order(pts, cull)
+    _check_along_cull(pts, cull, qorder)
+    if pts.device.type == "cpu":
+        return argmin_alongnormal_culled_plain(pts, normals, cull, qorder,
+                                               split)
+    from .. import _build
+
+    n_b, n_q = pts.shape[:2]
+    if n_b > 65535:
+        raise ValueError("%s: batch of %d meshes exceeds the grid's 65535"
+                         % (name, n_b))
+    dev = pts.device
+    out = torch.empty((n_b, n_q), dtype=torch.int32, device=dev)
+    seeds = torch.empty((n_b, n_q), dtype=torch.float32, device=dev)
+    part_d = part_i = None
+    if split > 1:
+        part_d = torch.empty((split, n_b, n_q), dtype=torch.float32,
+                             device=dev)
+        part_i = torch.empty((split, n_b, n_q), dtype=torch.int32,
+                             device=dev)
+    stats = tuple(
+        torch.zeros((split, n_b, -(-n_q // size)), dtype=torch.int32,
+                    device=dev) for size in (WARP, 1, WARP, 1)
+    ) if with_stats else (None,) * 4
+    _build.launch(name, dev, pts, normals, qorder, cull["faces"],
+                  cull["chunks"], cull["ids"], cull["min_ids"], seeds, part_d,
+                  part_i, out, *stats, n_b, n_q, cull["n_faces"],
+                  cull["chunks"].shape[1], split)
+    LAUNCHES[name] += 1
+    if not with_stats:
+        return out
+    return (out,) + tuple(t.sum(dim=0, dtype=torch.int32) for t in stats)
+
+
+def argmin_alongnormal_every(pts, normals, planes):
+    """The face with the least |t| per query over every face: the
+    ``alongnormal_faces_every`` CUDA kernel (the cull's oracle; no path
+    launches it) for CUDA tensors, ``argmin_alongnormal_plain`` for CPU
+    tensors."""
+    check_with_vectors(pts, normals, planes, N_RAY_ROWS,
+                       "alongnormal_faces_every")
     if pts.device.type == "cpu":
         return argmin_alongnormal_plain(pts, normals, planes)
     from .. import _build
 
     out = torch.empty(pts.shape[:2], dtype=torch.int32, device=pts.device)
-    _build.launch("alongnormal_faces", pts.device, pts, normals, planes, out,
-                  *_grid(pts, planes, "alongnormal_faces"))
-    LAUNCHES["alongnormal_faces"] += 1
+    _build.launch("alongnormal_faces_every", pts.device, pts, normals, planes,
+                  out, *_grid(pts, planes, "alongnormal_faces_every"))
+    LAUNCHES["alongnormal_faces_every"] += 1
     return out
 
 
@@ -563,27 +965,57 @@ def alongnormal_epilogue(best, tri, pts, normals):
     return dist, best, point
 
 
-def _nearest_alongnormal(v, f, points, normals, argmin):
+def alongnormal_operands(v, f):
+    """What an along-normal search needs of a mesh, made once per mesh:
+    ``tri`` [B, F, 3, 3] float32 of ``v`` [B, V, 3] and ``f`` [F, 3] (the
+    epilogue's), and for CUDA tensors the chunk cull's face side
+    (``cull``: ``alongnormal_cull_operands``), for CPU tensors the
+    every-face plain version's ``planes``."""
+    tri = v.to(torch.float32)[..., f.long(), :]
+    if tri.device.type == "cpu" or not tri.shape[1]:
+        return {"tri": tri, "planes": ray_planes(tri)}
+    return {"tri": tri, "cull": alongnormal_cull_operands(tri)}
+
+
+def _nearest_alongnormal(v, f, points, normals, argmin, ops):
     vb, pb, unbatch = _batched(v, points)
-    tri = vb.to(torch.float32)[..., f.long(), :]
+    if ops is None:
+        ops = alongnormal_operands(vb, f)
     pts = pb.to(torch.float32).contiguous()
     nrm = normals.to(torch.float32).reshape(pts.shape).contiguous()
-    best = argmin(pts, nrm, ray_planes(tri))
-    out = alongnormal_epilogue(best, tri, pts, nrm)
+    best = argmin(pts, nrm, ops)
+    out = alongnormal_epilogue(best, ops["tri"], pts, nrm)
     if unbatch:
         return tuple(x[0] for x in out)
     return out
 
 
-def nearest_alongnormal_kernel(v, f, points, normals):
+def _argmin_kernel(pts, nrm, ops):
+    if "cull" in ops:
+        return argmin_alongnormal(pts, nrm, cull=ops["cull"])
+    if pts.device.type == "cpu":
+        return argmin_alongnormal(pts, nrm, ops["planes"])
+    # a mesh without faces: every query gets face 0, as every fold gives it
+    return torch.zeros(pts.shape[:2], dtype=torch.int32, device=pts.device)
+
+
+
+def nearest_alongnormal_kernel(v, f, points, normals, ops=None):
     """Nearest hit along +/- normal per query -> (distance [..., Q], face
     [..., Q] int32, point [..., Q, 3]); ``v`` [V, 3] with ``points`` and
     ``normals`` [Q, 3], or a batch ``v`` [B, V, 3] with [B, Q, 3] (one
-    launch).  The CUDA kernel on the card, its plain version on the CPU."""
-    return _nearest_alongnormal(v, f, points, normals, argmin_alongnormal)
+    launch).  The chunk-cull kernel on the card, its every-face plain
+    version on the CPU.  ``ops``: ``alongnormal_operands`` of the batched
+    ``v`` and ``f``, made here when None (a tree keeps them)."""
+    return _nearest_alongnormal(v, f, points, normals, _argmin_kernel, ops)
 
 
 def nearest_alongnormal_plain(v, f, points, normals):
-    """``nearest_alongnormal_kernel`` with the plain argmin on any device."""
-    return _nearest_alongnormal(v, f, points, normals,
-                                argmin_alongnormal_plain)
+    """``nearest_alongnormal_kernel`` with the every-face plain argmin on
+    any device."""
+    tri = _batched(v, points)[0].to(torch.float32)[..., f.long(), :]
+    return _nearest_alongnormal(
+        v, f, points, normals,
+        lambda pts, nrm, ops: argmin_alongnormal_plain(pts, nrm,
+                                                       ops["planes"]),
+        {"tri": tri, "planes": ray_planes(tri)})

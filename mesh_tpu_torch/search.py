@@ -5,7 +5,8 @@ The reference wraps CGAL AABB trees (mesh/search.py:19-100).  The class
 names and the ``nearest(...)`` return conventions are kept, including the
 reference's (1, S) row-vector index shapes, but "building the tree" only
 captures the mesh on its device: every query is one brute-force or
-ladder kernel call.  A tree queries on the device of the mesh it was made
+ladder kernel call (the along-normal search keeps its face operands from
+its first call).  A tree queries on the device of the mesh it was made
 from (a ``Mesh``'s own device), else on ``device``, the card by default.
 """
 
@@ -15,7 +16,10 @@ from .query.closest_kernel import mesh_is_nondegenerate, nearest_vertices_kernel
 from .query.culled import closest_faces_and_points_auto
 from .query.normal_weighted import nearest_normal_weighted_kernel
 from .query.ray import intersections_mask
-from .query.ray_kernel import nearest_alongnormal_kernel
+from .query.ray_kernel import (
+    alongnormal_operands,
+    nearest_alongnormal_kernel,
+)
 from .utils.device import as_tensor, resolve_device
 
 __all__ = ["AabbTree", "AabbNormalsTree", "ClosestPointTree",
@@ -55,6 +59,8 @@ class AabbTree(object):
                              % (strategy,))
         self.device = _mesh_device(m, device)
         self.v, self.f = _mesh_vf(m, self.device)
+        # the along-normal search's face side, made at its first call
+        self._along = None
 
     def nearest(self, v_samples, nearest_part=False):
         """Nearest face and point per query, by the auto ladder; with
@@ -70,10 +76,13 @@ class AabbTree(object):
 
     def nearest_alongnormal(self, points, normals):
         """(distance [Q] f64, face [Q] uint32, point [Q, 3] f64) of the
-        nearest hit along +/- each normal; 1e100 where nothing is hit."""
+        nearest hit along +/- each normal; 1e100 where nothing is hit.
+        The mesh's face operands are made at the first call and kept."""
+        if self._along is None:
+            self._along = alongnormal_operands(self.v[None], self.f)
         dist, f_idxs, v_out = nearest_alongnormal_kernel(
             self.v, self.f, _points(points, self.device),
-            _points(normals, self.device))
+            _points(normals, self.device), ops=self._along)
         dist = dist.cpu().numpy().astype(np.float64)
         dist[~np.isfinite(dist)] = _NO_HIT_SENTINEL
         return (dist, f_idxs.cpu().numpy().astype(np.uint32),

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""What the chunk culls of closest_faces (row 1) and normal_weighted_faces
-(row 7) test, counted on the CPU by their plain versions
-(``closest_kernel.argmin_faces_culled_plain``,
-``normal_weighted.argmin_normal_weighted_culled_plain``).
+"""What the chunk culls of closest_faces (row 1), normal_weighted_faces
+(row 7) and alongnormal_faces (row 9) test, counted on the CPU by their
+plain versions (``closest_kernel.argmin_faces_culled_plain``,
+``normal_weighted.argmin_normal_weighted_culled_plain``,
+``ray_kernel.argmin_alongnormal_culled_plain``).
 
     python3 tools/cull_counts.py [--bodies 4] [--variant fast] [--tail]
     python3 tools/cull_counts.py --nw [--queries 65536] [--splits 1,32]
                                   [--eps 0.1]
+    python3 tools/cull_counts.py --along [--queries 65536] [--splits 1,32]
 
 Row 1 (the default): the first bodies of chip_smoke.py's main path, its
 bodies, poses and queries (seed 0, 1024 N(0, 0.4) queries a body), made
@@ -23,8 +25,24 @@ penalty is gone and only the distance term keeps chunks), the tail as the
 drive picks it.
 Prints one JSON line per split: the same shares, the heaviest warp's
 chunks per split, and the shares without the warp that holds the planted
-miss.  Every run must give the every-face faces; it exits non-zero
-otherwise.  Counts only: no time comes from here.
+miss.
+
+Row 9 (``--along``): the same phase 8 inputs (the last ``--queries`` of
+them) against alongnormal_faces' operands (row 8's Morton-sorted faces and
+records).  Prints one JSON line per split with the shipped seed (the faces
+of the ray_kernel.SEED_CHUNKS nearest chunks) and query order (Morton
+codes in the mesh's box), then at split 1 without the seed and with the
+queries ordered in their own box (``closest_kernel.query_order``, rows 1
+and 7's), then with seeds over each count of ``--seed-chunks`` chunks:
+the shares of lanes whose seed is their best cost, of chunks folded by
+the mean warp and by the heaviest, of chunks staged and of pairs each
+lane needs, and per chunk
+test the shares that find a miss and that fall back to the faces'
+normals, with the bounds in milliseconds at 67e12 operations a second
+(chip_smoke.py's operation counts).
+
+Every run must give the every-face faces; it exits non-zero otherwise.
+Counts only: no time comes from here.
 """
 
 import argparse
@@ -144,6 +162,92 @@ def nw_counts(args):
                  "split %s" % bad)
 
 
+def along_counts(args):
+    """Row 9's lines (``--along``)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from mesh_tpu_torch.models import lbs, synthetic_body_model
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import ray_kernel as ray
+
+    model = synthetic_body_model(seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    betas = torch.as_tensor(rng.randn(cs.BATCH, model.num_betas) * 0.3,
+                            dtype=torch.float32)[:1]
+    pose = torch.as_tensor(rng.randn(cs.BATCH, model.num_joints, 3) * 0.1,
+                           dtype=torch.float32)[:1]
+    verts, _ = lbs(model, betas, pose, device="cpu")
+    f = model.faces
+    pts, nrm = cs.registration_inputs(verts[0], f, np.random.RandomState(1))
+    pts = pts[-args.queries:][None].contiguous()       # the miss last
+    nrm = nrm[-args.queries:][None].contiguous()
+    tri = verts[..., f.long(), :]
+    want = ray.argmin_alongnormal_plain(pts, nrm, ray.ray_planes(tri))
+    cull = ray.alongnormal_cull_operands(tri)
+    n_c, n_f, n_q = cull["chunks"].shape[1], f.shape[0], pts.shape[1]
+    shipped = ray.SEED_CHUNKS
+    splits = [int(x) for x in args.splits.split(",")]
+    runs = [(split, True, "mesh box", shipped) for split in splits]
+    runs += [(1, False, "mesh box", shipped), (1, True, "own box", shipped)]
+    runs += [(splits[-1], True, "mesh box", int(m))
+             for m in args.seed_chunks.split(",") if m]
+    # each lane's best cost, at its sorted position in the shipped order
+    qo = ray.along_query_order(pts, cull)[0].long()
+    win = ray.ray_planes(tri)[0][:, want[0, qo].long()]
+    best = ray._alongnormal_cost_tile(
+        ray._xyz(pts[0, qo]), ray._xyz(nrm[0, qo]),
+        *[tuple(win[3 * g + k, :, None] for k in range(3))
+          for g in range(3)])[:, 0]
+    lanes = ray._lane_terms(pts, nrm, qo[None], n_q)
+    bad = []
+    for split, seed, box, m in runs:
+        qorder = (ray.along_query_order(pts, cull) if box == "mesh box"
+                  else ck.query_order(pts))
+        ray.SEED_CHUNKS = m
+        try:
+            faces, warp, lane, stage, misses, tests, fell, meets = (
+                ray.argmin_alongnormal_culled_plain(
+                    pts, nrm, cull, qorder, split, seed=seed,
+                    with_tests=True))
+            seed_best = float((ray.along_seeds_plain(
+                lanes[0], lanes[1], cull)[0] == best).float().mean())
+        finally:
+            ray.SEED_CHUNKS = shipped
+        if not torch.equal(faces, want):
+            bad.append((split, seed, box, m))
+        if not torch.equal(faces, want):
+            bad.append((split, seed, box))
+        w, l_, st, mi, te, fe, me = (int(x.sum()) for x in (
+            warp, lane, stage, misses, tests, fell, meets))
+        seeds = n_q * (n_c * cs.ALONG_SEED_SCAN_OPS + m * ray.ANY_HIT_CHUNK
+                       * cs.ALONG_PAIR_OPS)
+        around = (te * cs.ALONG_TEST_OPS + fe * cs.CULL_FACE_OPS
+                  + me * cs.ALONG_BOUND_OPS + mi * cs.ALONG_MISS_OPS
+                  + (seeds if seed else 0))
+        print(json.dumps({
+            "row": 9, "kernel": "alongnormal_faces", "queries": n_q,
+            "faces": n_f, "chunks": n_c, "split": split, "seed": seed,
+            "seed_chunks": m, "seed_is_best_share": seed_best,
+            "query_order": box, "faces_every_face": torch.equal(faces, want),
+            "warp_share": w / warp.numel() / n_c,
+            "heaviest_warp_share": int(warp.max()) / n_c,
+            "stage_share": st / warp.numel() / n_c,
+            "lane_share": l_ / (n_q * n_f),
+            "miss_share": mi / max(1, te), "fallback_share": fe / max(1, te),
+            "meets_per_lane": me / n_q,
+            "bound_ms": (l_ * cs.ALONG_PAIR_OPS + around)
+                        / cs.PEAK_FP32_OPS * 1e3,
+            "bound_issued_ms": (w * 32 * ray.ANY_HIT_CHUNK * cs.ALONG_PAIR_OPS
+                                + around) / cs.PEAK_FP32_OPS * 1e3}),
+            flush=True)
+    if bad:
+        sys.exit("cull_counts: row 9's faces differ from every face at %s"
+                 % bad)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bodies", type=int, default=4)
@@ -151,16 +255,24 @@ def main():
     ap.add_argument("--tail", action="store_true")
     ap.add_argument("--nw", action="store_true",
                     help="row 7 on phase 8's registration inputs")
+    ap.add_argument("--along", action="store_true",
+                    help="row 9 on phase 8's registration inputs")
     ap.add_argument("--queries", type=int, default=65536,
-                    help="with --nw: the last this many of phase 8's "
-                         "queries (the planted miss among them)")
+                    help="with --nw or --along: the last this many of "
+                         "phase 8's queries (the planted miss among them)")
     ap.add_argument("--splits", default="1,32",
-                    help="with --nw: the splits to count, comma-separated")
+                    help="with --nw or --along: the splits to count, "
+                         "comma-separated")
+    ap.add_argument("--seed-chunks", default="",
+                    help="with --along: seeds over this many chunks to "
+                         "count too, at the last split, comma-separated")
     ap.add_argument("--eps", type=float, default=0.1,
                     help="with --nw: the penalty's weight (phase 8's 0.1)")
     args = ap.parse_args()
     if args.nw:
         return nw_counts(args)
+    if args.along:
+        return along_counts(args)
     import numpy as np
     import torch
 
