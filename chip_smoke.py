@@ -61,7 +61,16 @@ Phases (any failure raises and exits non-zero; none catches its own):
    no driven path), with its chunk records against cull_records_plain and,
    at phase 8's shapes, every split of NW_SPLITS timed against its plain
    version; tri_tri_any_hit in both tiles at phase 9's shapes (1,552
-   hand faces x 13,776 body faces), the segment tile also with the planted
+   hand faces x 13,776 body faces) against the every-pair plain version
+   and the every-pair kernel (``tri_tri_any_hit_every``, which launches on
+   no driven path; flags and first hits), the Moller tile's cull also
+   against the plain version of its design (flags, first hits, warp and
+   lane counts) with its records kernel (``tri_records``) against
+   ``tri_records_plain``, on those shapes (every split of TRI_SPLITS
+   timed) and on the planted sets of ``tri_planted`` (NaN corners and
+   normals, zero normals, coplanar overlaps, grazing copies, far queries,
+   coordinates near the margin's 2^100 cap, triangles hitting in several
+   splits), the segment tile also with the planted
    mesh's faces as queries against body 0; self_intersect in both tiles on
    every face of body 0 and of phase 5's body 0 (98,304 faces) and of
    their rest templates in the kernel's Morton face order, against the
@@ -328,6 +337,8 @@ NW_PAIR_OPS = {False: FACE_PAIR_OPS[("fast", False)] + 8,
 #: (9 vertex-id compares, 8 ors, the self test's add, compare and or, the
 #: count's add)
 TRI_PAIR_OPS = {"segment": 428, "moller": 232}
+#: the splits of a warp's chunks that phase 2 times for tri_tri_any_hit
+TRI_SPLITS = (1, 4, 8, 16, 32, 64)
 SELF_PAIR_OPS = {k: v + 21 for k, v in TRI_PAIR_OPS.items()}
 #: the work of the redesigned self_intersect (csrc/self_intersect.cu) per
 #: query lane: the Moller box test of each tile (plane_needs_box: 3 sign
@@ -475,6 +486,9 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 # the every-face kernel, phase 2's face oracle
                 "normal_weighted_faces_every": (),
                 "tri_tri_any_hit": ("contact",),
+                "tri_records": ("contact",),
+                # the every-pair kernel, phase 2's flag oracle
+                "tri_tri_any_hit_every": (),
                 "self_intersect": ("self_intersect",),
                 "leaf_boxes": ("anim",),
                 "mxu_faces": ("mxu",),
@@ -1974,34 +1988,274 @@ def alongnormal_hits64(v, f, pts, nrm):
     return torch.cat(any_hit), torch.cat(least)
 
 
+def moller_rows(tk, tri):
+    """The Moller operand [13, N] of triangles ``tri`` [N, 3, 3] already in
+    the operand's frame (no prescale): corners, unit normal, offset."""
+    a, b, c, n, d = tk.tri_planes(tri.to(torch.float32))
+    return torch.cat([a, b, c, n, d[..., None]], dim=-1).t().contiguous()
+
+
+def tri_planted(tk, qp, fp, rng):
+    """tri_tri_any_hit's planted sets on the Moller operands ``qp`` [13, Q]
+    and ``fp`` [13, F] (phase 9's hand and body), as (label, query operand,
+    face operand), each made in the operands' unit-box frame:
+
+    - nan_faces: NaN in a corner of every 1009th face from face 101 and
+      in the normal of every 1103rd from the middle (its chunk's box is
+      NaN; a NaN plane makes the Moller test report a hit);
+    - nan_queries: NaN in a corner of every 97th query from query 5 (the
+      query box is NaN: every face is a candidate);
+    - zero_normal: every 13th query and every 17th face with normal and
+      offset 0, a degenerate triangle's operand;
+    - coplanar: the first Q faces as the queries, every other one moved
+      within its plane by a third of an edge (Moller's coplanar reject);
+    - graze: the Q faces nearest the origin (the finest float32 grid) as
+      queries with their corners moved off their planes by N(0, 2 kTriEps);
+    - far: the queries moved 10 units along x, where every face plane
+      clears the query box unless it is parallel to x within the margin;
+    - cap: corners and offsets of both scaled by 2^99, where
+      X = |n|_1 P + |d| crosses the 2^100 cap;
+    - splits: 64 triangles spanning the mesh in planes near x = c, each
+      meeting faces across the whole index range, so in many splits."""
+    n_q, n_f = qp.shape[1], fp.shape[1]
+    dev = qp.device
+    ftri = fp[0:9].t().reshape(-1, 3, 3)
+    sets = []
+    f = fp.clone()
+    f[4, 101::1009] = float("nan")
+    f[10, n_f // 2::1103] = float("nan")
+    sets.append(("nan_faces", qp, f))
+    q = qp.clone()
+    q[0, 5::97] = float("nan")
+    sets.append(("nan_queries", q, fp))
+    q, f = qp.clone(), fp.clone()
+    q[9:13, ::13] = 0.0
+    f[9:13, ::17] = 0.0
+    sets.append(("zero_normal", q, f))
+    take = torch.arange(min(n_q, n_f), device=dev)
+    tri = ftri[take].clone()
+    shift = (tri[:, 1] - tri[:, 0]) / 3.0
+    tri[1::2] += shift[1::2, None]
+    sets.append(("coplanar", moller_rows(tk, tri), fp))
+    near = torch.argsort(ftri.mean(dim=1).norm(dim=-1))[:n_q]
+    tri = ftri[near].clone()
+    n = fp[9:12, near].t()
+    lift = torch.as_tensor(rng.randn(len(near), 3) * 2e-9,
+                           dtype=torch.float32, device=dev)
+    tri += lift[..., None] * n[:, None, :]
+    sets.append(("graze", moller_rows(tk, tri), fp))
+    q = qp.clone()
+    q[0:9:3] += 10.0
+    q[12] -= 10.0 * q[9]          # the offset of the moved plane
+    sets.append(("far", q, fp))
+    q, f = qp.clone(), fp.clone()
+    for t in (q, f):
+        t[0:9] *= 2.0 ** 99
+        t[12] *= 2.0 ** 99
+    sets.append(("cap", q, f))
+    c = torch.as_tensor(rng.uniform(-0.9, 0.9, 64), dtype=torch.float32,
+                        device=dev)
+    tilt = torch.as_tensor(rng.uniform(-0.05, 0.05, (64, 1, 2)),
+                           dtype=torch.float32, device=dev)
+    base = torch.tensor([[0.0, -3.0, -3.0], [0.0, 6.0, -3.0],
+                         [0.0, -3.0, 6.0]], device=dev)
+    tri = base[None].repeat(64, 1, 1)
+    tri[..., 0] = c[:, None] + (tilt * base[None, :, 1:]).sum(dim=-1)
+    sets.append(("splits", moller_rows(tk, tri), fp))
+    return sets
+
+
+def records_match(a, b):
+    """Two chunk records [C, 8] of the tri_tri_any_hit cull: the box words
+    equal as values (NaN where NaN; a zero's sign is free), the masks bit
+    for bit."""
+    box_a, box_b = a[:, :7], b[:, :7]
+    nan = torch.isnan(box_a)
+    return (torch.equal(nan, torch.isnan(box_b))
+            and torch.equal(box_a[~nan], box_b[~nan])
+            and torch.equal(a.view(torch.int32)[:, 7],
+                            b.view(torch.int32)[:, 7]))
+
+
 def compare_tri_tri(tk, qp, fp, algorithm, label, timing):
-    """Kernel vs plain for tri_tri_any_hit on one operand set: identical
-    flags and pairs tested per query, the plain version timed."""
-    k, kt = tk.tri_tri_any_hit(qp, fp, algorithm)
-    (p, pt), plain_ms = timed(
+    """tri_tri_any_hit on one operand set: flags and first hits (tested)
+    identical to the every-pair plain version and to the every-pair kernel
+    (``tri_tri_any_hit_every``).  The Moller tile's cull runs on
+    ``tri_any_hit_operands``, whose records kernel must equal
+    ``tri_records_plain`` (``records_match``; the face records bit for
+    bit), and the kernel must equal the plain version of its design
+    (``tri_tri_any_hit_culled_plain``: flags, first hits, warp and lane
+    counts) at ``TRI_SPLIT``.
+
+    With ``timing``: the kernel alone (queued, each launch into the same
+    first-hit buffer), every split of TRI_SPLITS (each held to its plain
+    version too), the wrapper with the operands made in it (what a facade
+    call runs on the card), the operands alone, the records kernel alone,
+    the every-pair kernel and the plain versions.  Bounds against the
+    bytes: the lanes' work (each lane's box test of every chunk with a
+    candidate x 38, the pairs its lane ran through the plane sides x 64,
+    those reaching the interval part x 168), the warps' issued work (the
+    candidate slots of the chunks each warp took x 32 lanes instead of the
+    lanes' pairs) and every pair x 232 (the segment tile: the pairs it
+    tests x 428)."""
+    from mesh_tpu_torch import _build
+
+    name = "tri_tri_any_hit[%s]" % algorithm
+    every, every_plain_ms = timed(
         lambda: tk.tri_tri_any_hit_plain(qp, fp, algorithm))
-    check(torch.equal(k, p) and torch.equal(kt, pt),
-          "tri_tri_any_hit[%s] on %s: %d of %d flags (and %d pair counts) "
-          "differ from the plain version" % (
-              algorithm, label, int((k != p).sum()), k.numel(),
-              int((kt != pt).sum())))
+    oracle = tk.tri_tri_any_hit_every(qp, fp, algorithm)
     n_q, n_f = qp.shape[-1], fp.shape[-1]
-    tested = int(kt.sum())
     out = {"tile": algorithm, "on": label, "shape": [n_q, n_f],
-           "flags_identical": True, "max_abs_err": 0.0,
-           "hit": int(k.sum()), "pairs_tested": tested, "pairs": n_q * n_f,
-           "plain_ms": plain_ms}
+           "flags_identical": True, "every_pair_identical": True,
+           "max_abs_err": 0.0, "pairs": n_q * n_f,
+           "every_plain_ms": every_plain_ms}
+    if algorithm == "segment":
+        k = tk.tri_tri_any_hit(qp, fp, algorithm)
+        check(all(torch.equal(x, y) and torch.equal(x, z)
+                  for x, y, z in zip(k, every, oracle)),
+              "%s on %s: %d of %d flags (%d first hits) differ from the "
+              "every-pair plain version, %d from the every-pair kernel" % (
+                  name, label, int((k[0] != every[0]).sum()), n_q,
+                  int((k[1] != every[1]).sum()),
+                  int((k[0] != oracle[0]).sum())))
+        tested = int(k[1].sum())
+        out.update(hit=int(k[0].sum()), pairs_tested=tested,
+                   plain_ms=every_plain_ms)
+        if timing:
+            n_bytes = 4 * (qp.numel() + fp.numel() + 2 * n_q)
+            out["ms"] = cuda_ms(lambda: tk.tri_tri_any_hit(
+                qp, fp, algorithm), reps=REPS)
+            out["every_ms"] = cuda_ms(lambda: tk.tri_tri_any_hit_every(
+                qp, fp, algorithm), reps=REPS)
+            out["bound_ms"], out["bound_by"] = bound_ms(
+                tested, TRI_PAIR_OPS[algorithm], n_bytes)
+        log("  %s on %s %s: flags and first hits identical to every pair "
+            "(plain and kernel), %d hit, %d of %d pairs tested, plain %.1f "
+            "ms%s" % (name, label, out["shape"], out["hit"], tested,
+                      n_q * n_f, every_plain_ms, "" if not timing else
+                      ", %.3f ms (every-pair kernel %.3f, bound %.4f ms)"
+                      % (out["ms"], out["every_ms"], out["bound_ms"])))
+        return out
+
+    ops = tk.tri_any_hit_operands(qp, fp)
+    (faces_p, chunks_p), records_plain_ms = timed(
+        lambda: tk.tri_records_plain(ops["qlo"], ops["qhi"], fp))
+    check(same_bits(ops["faces"], faces_p)
+          and records_match(ops["chunks"], chunks_p),
+          "tri_records on %s: the records differ from the plain version "
+          "(faces %s, chunks %s)" % (label, same_bits(ops["faces"], faces_p),
+                                     records_match(ops["chunks"], chunks_p)))
+
+    def against_plain(split):
+        k = tk.tri_tri_any_hit(qp, fp, algorithm, ops=ops, split=split,
+                               with_stats=True)
+        p, plain_ms = timed(
+            lambda: tk.tri_tri_any_hit_culled_plain(qp, ops, split))
+        check(all(torch.equal(x, y) for x, y in zip(k, p)),
+              "%s on %s, split %d: %d of %d flags (%d first hits, %s warp "
+              "and lane counts) differ from the plain version of the cull"
+              % (name, label, split, int((k[0] != p[0]).sum()), n_q,
+                 int((k[1] != p[1]).sum()),
+                 [int((x != y).sum()) for x, y in zip(k[2:], p[2:])]))
+        return k, plain_ms
+
+    k, plain_ms = against_plain(tk.TRI_SPLIT)
+    check(torch.equal(k[0], every[0]) and torch.equal(k[1], every[1])
+          and torch.equal(k[0], oracle[0]) and torch.equal(k[1], oracle[1]),
+          "%s on %s: %d of %d flags (%d first hits) differ from the "
+          "every-pair plain version, %d (%d) from the every-pair kernel" % (
+              name, label, int((k[0] != every[0]).sum()), n_q,
+              int((k[1] != every[1]).sum()), int((k[0] != oracle[0]).sum()),
+              int((k[1] != oracle[1]).sum())))
+    bits = tk._mask_bits(ops["chunks"])
+    n_c = ops["chunks"].shape[0]
+    nonempty = int((bits.view(n_c, -1).any(dim=1)).sum())
+    warp_chunks, warp_slots = (int(x) for x in k[2].sum(dim=0))
+    lane_pairs, deep = (int(x) for x in k[3].sum(dim=0))
+    out.update(
+        hit=int(k[0].sum()), pairs_tested=int(k[1].sum()),
+        split=tk.TRI_SPLIT, plain_ms=plain_ms,
+        records_plain_ms=records_plain_ms, candidates=int(bits.sum()),
+        chunks=n_c, chunks_with_candidates=nonempty,
+        warp_chunks=warp_chunks, warp_slots=warp_slots,
+        lane_pairs=lane_pairs, deep_pairs=deep)
+    out["candidate_share"] = out["candidates"] / n_f
+    out["warp_share"] = warp_chunks / (k[2].shape[0] * n_c)
+    out["lane_share"] = lane_pairs / out["pairs"]
+    out["issued_share"] = warp_slots * tk.WARP / out["pairs"]
+    out["deep_share"] = deep / out["pairs"]
     if timing:
-        out["ms"] = cuda_ms(lambda: tk.tri_tri_any_hit(qp, fp, algorithm),
-                            reps=REPS)
-        n_bytes = 4 * (qp.numel() + fp.numel() + 2 * n_q)
-        out["bound_ms"], out["bound_by"] = bound_ms(
-            tested, TRI_PAIR_OPS[algorithm], n_bytes)
-    log("  tri_tri_any_hit[%s] on %s %s: flags and pair counts identical, "
-        "%d hit, %d of %d pairs tested, plain %.1f ms%s" % (
-            algorithm, label, out["shape"], out["hit"], tested, n_q * n_f,
-            plain_ms, "" if not timing else ", %.3f ms (bound %.4f ms)"
-            % (out["ms"], out["bound_ms"])))
+        n_bytes = 4 * (qp.numel() + ops["faces"].numel()
+                       + ops["chunks"].numel() + n_q)
+        tests = n_q * nonempty * SELF_BOX_OPS
+
+        def work(pairs, deep_):
+            return (tests + pairs * MOLLER_SIDES_OPS
+                    + deep_ * MOLLER_INTERVAL_OPS)
+
+        first = torch.empty(n_q, dtype=torch.int32, device=qp.device)
+
+        def kernel_alone(split):
+            _build.launch("tri_tri_any_hit", qp.device, qp, ops["faces"],
+                          ops["chunks"], first, None, None, n_q, n_f, n_c,
+                          split, 1, tk.T_LO, tk.T_HI)
+
+        out["splits"] = {}
+        for split in TRI_SPLITS:
+            ks, split_plain_ms = against_plain(split)
+            pairs_s, deep_s = (int(x) for x in ks[3].sum(dim=0))
+            out["splits"][split] = {
+                "ms": queued_ms(lambda: kernel_alone(split), reps=100),
+                "plain_ms": split_plain_ms,
+                "warp_share": int(ks[2][:, 0].sum()) / (ks[2].shape[0]
+                                                        * n_c),
+                "lane_share": pairs_s / out["pairs"],
+                "bound_ms": bound_ms(work(pairs_s, deep_s), 1, n_bytes)[0],
+                "bound_issued_ms": bound_ms(work(
+                    int(ks[2][:, 1].sum()) * tk.WARP, deep_s), 1,
+                    n_bytes)[0]}
+        out["ms"] = queued_ms(lambda: kernel_alone(tk.TRI_SPLIT), reps=100)
+        out["wrapper_ms"] = queued_ms(lambda: tk.tri_tri_any_hit(
+            qp, fp, algorithm, ops=ops), reps=100)
+        out["with_operands_ms"] = cuda_ms(lambda: tk.tri_tri_any_hit(
+            qp, fp, algorithm), reps=REPS)
+        out["operands_ms"] = cuda_ms(lambda: tk.tri_any_hit_operands(qp, fp),
+                                     reps=REPS)
+        out["records_ms"] = queued_ms(lambda: tk.tri_records(
+            ops["qlo"], ops["qhi"], fp), reps=100)
+        out["records_bound_ms"], out["records_bound_by"] = bound_ms(
+            0, 0, 4 * (6 + fp.numel() + ops["faces"].numel()
+                       + ops["chunks"].numel()))
+        out["every_ms"] = cuda_ms(lambda: tk.tri_tri_any_hit_every(
+            qp, fp, algorithm), reps=REPS)
+        out["bound_ms"], out["bound_by"] = bound_ms(work(lane_pairs, deep),
+                                                    1, n_bytes)
+        out["bound_issued_ms"] = bound_ms(
+            work(warp_slots * tk.WARP, deep), 1, n_bytes)[0]
+        out["bound_every_pair_ms"] = bound_ms(
+            out["pairs"], TRI_PAIR_OPS[algorithm],
+            4 * (qp.numel() + fp.numel() + 2 * n_q))[0]
+    log("  %s on %s %s: flags, first hits and counts identical to the "
+        "plain version of the cull, flags and first hits to every pair "
+        "(plain and kernel); %d hit; %d candidate faces (%.4f), %d of %d "
+        "chunks hold one; warps take %.4f of the warp-chunks and issue "
+        "%.5f of the pairs, lanes run %.5f, %.2g reach the interval part; "
+        "plain %.1f ms, every-pair plain %.1f ms%s" % (
+            name, label, out["shape"], out["hit"], out["candidates"],
+            out["candidate_share"], nonempty, n_c, out["warp_share"],
+            out["issued_share"], out["lane_share"], out["deep_share"],
+            plain_ms, every_plain_ms, "" if not timing else
+            "; %.4f ms at split %d (splits %s; wrapper %.4f, with its "
+            "operands %.4f, operands %.4f, records kernel %.4f; every-pair "
+            "kernel %.4f; bound %.5f ms per lane, %.5f issued, %.4f every "
+            "pair)" % (
+                out["ms"], tk.TRI_SPLIT, ", ".join(
+                    "%d: %.4f" % (sp, r["ms"])
+                    for sp, r in out["splits"].items()),
+                out["wrapper_ms"], out["with_operands_ms"],
+                out["operands_ms"], out["records_ms"], out["every_ms"],
+                out["bound_ms"], out["bound_issued_ms"],
+                out["bound_every_pair_ms"])))
     return out
 
 
@@ -3458,11 +3712,16 @@ def main():
     nw_runs += normal_weighted_planted(nw, ck, verts[0], f, reg_pts, reg_nrm,
                                        not nondegen_r,
                                        np.random.RandomState(17))
-    # tri_tri_any_hit at phase 9's shapes in both tiles, and the segment
-    # tile with the planted mesh's faces as the queries against body 0
+    # tri_tri_any_hit at phase 9's shapes in both tiles, the Moller tile's
+    # cull also on the planted sets, and the segment tile with the planted
+    # mesh's faces as the queries against body 0
     tri_runs = {alg: compare_tri_tri(tk, *tk.tri_tri_planes(
         hand_tri, body_tri, alg), alg, "hand vs body", timing=True)
         for alg in tk.ALGORITHMS}
+    for label, qp_, fp_ in tri_planted(tk, *tk.moller_planes(
+            hand_tri, body_tri), np.random.RandomState(23)):
+        tri_runs["moller_" + label] = compare_tri_tri(
+            tk, qp_, fp_, "moller", label, timing=False)
     tri_runs["segment_planted"] = compare_tri_tri(
         tk, *tk.segment_planes(v2t[0][f2t.long()], verts[0][f.long()]),
         "segment", "planted mesh vs body 0", timing=False)
@@ -4430,9 +4689,34 @@ def main():
              "bound_by": main_run["bound_by"], "library_ms": None,
              "tile": main_run["tile"], "detail": runs})
         for key in ("bound_every_pair_ms", "tile_fraction", "pair_fraction",
-                    "deep_fraction", "pairs_issued"):
+                    "deep_fraction", "pairs_issued", "bound_issued_ms",
+                    "split", "splits", "wrapper_ms", "with_operands_ms",
+                    "operands_ms", "candidate_share", "warp_share",
+                    "lane_share", "issued_share", "deep_share",
+                    "every_plain_ms"):
             if key in main_run:
                 kernels[-1][key] = main_run[key]
+        if name == "tri_tri_any_hit":
+            # the every-pair oracle beside the cull: no path runs it
+            kernels[-1]["every"] = {
+                "name": "tri_tri_any_hit_every", "route": "cuda",
+                "source": "mesh_tpu_torch/csrc/tri_tri_any_hit_every.cu",
+                "ms": {alg: tri_runs[alg]["every_ms"]
+                       for alg in tk.ALGORITHMS},
+                "launches_by_path": {p: launches[p]["tri_tri_any_hit_every"]
+                                     for p in launches}}
+            kernels.append(
+                {"name": "tri_records", "route": "cuda",
+                 "source": "mesh_tpu_torch/csrc/tri_records.cu",
+                 "replaces": "mesh_tpu/query/pallas_ray.py:754",
+                 "launches": launches["contact"]["tri_records"],
+                 "launches_by_path": {p: launches[p]["tri_records"]
+                                      for p in launches},
+                 "max_abs_err": 0.0, "ms": tri_runs["moller"]["records_ms"],
+                 "plain_ms": tri_runs["moller"]["records_plain_ms"],
+                 "bound_ms": tri_runs["moller"]["records_bound_ms"],
+                 "bound_by": tri_runs["moller"]["records_bound_by"],
+                 "library_ms": None, "on": "hand vs body"})
     main_lb = next(r for r in leaf_runs if "ms" in r)     # leaf 256
     kernels.append(
         {"name": "leaf_boxes", "route": "cuda",

@@ -63,7 +63,12 @@ KERNELS = {
                                     "mt_normal_weighted_faces_every",
                                     [_PTR] * 4 + [_INT] * 4 + [_FLOAT]),
     "tri_tri_any_hit": ("tri_tri_any_hit.cu", "mt_tri_tri_any_hit",
-                        [_PTR] * 3 + [_INT] * 3 + [_FLOAT] * 2),
+                        [_PTR] * 6 + [_INT] * 5 + [_FLOAT] * 2),
+    "tri_tri_any_hit_every": ("tri_tri_any_hit_every.cu",
+                              "mt_tri_tri_any_hit_every",
+                              [_PTR] * 3 + [_INT] * 3 + [_FLOAT] * 2),
+    "tri_records": ("tri_records.cu", "mt_tri_records",
+                    [_PTR] * 5 + [_INT] * 2),
     "self_intersect": ("self_intersect.cu", "mt_self_intersect",
                        [_PTR] * 6 + [_INT] * 4 + [_FLOAT] * 2),
     "leaf_boxes": ("leaf_boxes.cu", "mt_leaf_boxes", [_PTR] * 3 + [_INT] * 2),

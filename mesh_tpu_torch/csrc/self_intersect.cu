@@ -46,7 +46,8 @@
 //
 //   X = (|nx| + |ny| + |nz|) P + |d|,  M = 2^-28 + 2^-20 X,
 //
-// P the largest corner magnitude of the box, and only when X < 2^100.
+// P the largest corner magnitude of the box, and only when X < 2^100
+// (plane_needs_box and its constants, in tri_tri_cost.cuh).
 // Why no pair it skips can count, in float32 with u = 2^-24 and no FMA:
 // plane_dist evaluates ((nx px + ny py) + nz pz) + d, whose error is at most
 // g4 (|n|_1 P + |d|) = g4 X with g4 = 4u / (1 - 4u) (three products and
@@ -99,42 +100,16 @@ namespace mt {
 
 constexpr int kSelfThreads = 128;  // query faces per block
 constexpr int kSelfTile = 128;     // faces per staged tile
-constexpr int kBoxWords = 8;       // a tile box: lo (3), hi (3), P, pad
 // Blocks a launch aims for: about 256 per SM of the H100's 132, so many
 // short face ranges that the uneven work the cull leaves (one block's
 // queries need most tiles, another's few) spreads over the SMs instead of
 // waiting on the busiest block of a single wave.
 constexpr int kSelfTargetBlocks = 256 * 132;
 
-// the cull's margin M = kMarginFloor + kMarginRel * X, taken when X is
-// below kMarginCap (see the note above)
-constexpr float kMarginFloor = 0x1p-28f;
-constexpr float kMarginRel = 0x1p-20f;
-constexpr float kMarginCap = 0x1p100f;
-
 // words of a face record: the operand rows and three vertex ids, rounded
 // up to whole float4
 template <class Tile>
 constexpr int kRecWords = (Tile::kFace + 3 + 3) / 4 * 4;
-
-// Whether the query plane (n, d) may pass within the margin of a tile's
-// box b0 = (lo.x, lo.y, lo.z, hi.x), b1 = (hi.y, hi.z, P, 0): the
-// negation of the cull's skip.
-__device__ __forceinline__ bool plane_needs_box(float nx, float ny, float nz,
-                                                float d, float4 b0,
-                                                float4 b1) {
-  const float lox = b0.x, loy = b0.y, loz = b0.z;
-  const float hix = b0.w, hiy = b1.x, hiz = b1.y, p = b1.z;
-  const bool px = nx >= 0.0f, py = ny >= 0.0f, pz = nz >= 0.0f;
-  const float s_min = nx * (px ? lox : hix) + ny * (py ? loy : hiy) +
-                      nz * (pz ? loz : hiz) + d;
-  const float s_max = nx * (px ? hix : lox) + ny * (py ? hiy : loy) +
-                      nz * (pz ? hiz : loz) + d;
-  const float x = (fabsf(nx) + fabsf(ny) + fabsf(nz)) * p + fabsf(d);
-  const float margin = kMarginFloor + kMarginRel * x;
-  const bool skip = (x < kMarginCap) & ((s_min > margin) | (s_max < -margin));
-  return !skip;
-}
 
 template <class Tile>
 __global__ void __launch_bounds__(kSelfThreads)

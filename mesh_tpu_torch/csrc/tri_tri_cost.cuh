@@ -1,6 +1,8 @@
-// The two triangle-triangle pair tests shared by tri_tri_any_hit.cu and
-// self_intersect.cu: the Hopper counterparts of _tri_tri_hit_tile and
-// _moller_hit in mesh_tpu/query/pallas_ray.py.
+// The two triangle-triangle pair tests shared by tri_tri_any_hit.cu,
+// tri_tri_any_hit_every.cu and self_intersect.cu (the Hopper counterparts
+// of _tri_tri_hit_tile and _moller_hit in mesh_tpu/query/pallas_ray.py),
+// and the plane cull that tri_tri_any_hit.cu and self_intersect.cu take
+// in the Moller tile (plane_needs_box).
 //
 // SegmentTile: the 3 edges of the query triangle against the mesh face and
 // the 3 edges of the mesh face against the query triangle, each the
@@ -125,6 +127,39 @@ __device__ __forceinline__ float plane_dist(const float* n, float d,
                                             const float* p) {
   const float val = n[0] * p[0] + n[1] * p[1] + n[2] * p[2] + d;
   return fabsf(val) < kTriEps ? 0.0f : val;
+}
+
+// The plane cull of the Moller tile (self_intersect.cu's query plane
+// against a tile box, tri_tri_any_hit.cu's face planes against the query
+// box and its query planes against chunk boxes): whether the plane (n, d)
+// may pass within the margin M = kPlaneMarginFloor + kPlaneMarginRel * X,
+// X = |n|_1 P + |d|, of a box of corners b0 = (lo.x, lo.y, lo.z, hi.x),
+// b1 = (hi.y, hi.z, P, -), P the largest corner magnitude; the margin is
+// taken only where X < kPlaneMarginCap.  Where it returns false, every
+// corner in the box has a plane_dist at least kTriEps of one sign, so a
+// triangle with its three corners there lies strictly on one side of the
+// plane (the lemma of self_intersect.cu's note).  A NaN plane or box
+// returns true.
+constexpr float kPlaneMarginFloor = 0x1p-28f;
+constexpr float kPlaneMarginRel = 0x1p-20f;
+constexpr float kPlaneMarginCap = 0x1p100f;
+constexpr int kBoxWords = 8;  // a box record: lo (3), hi (3), P, one word
+
+__device__ __forceinline__ bool plane_needs_box(float nx, float ny, float nz,
+                                                float d, float4 b0,
+                                                float4 b1) {
+  const float lox = b0.x, loy = b0.y, loz = b0.z;
+  const float hix = b0.w, hiy = b1.x, hiz = b1.y, p = b1.z;
+  const bool px = nx >= 0.0f, py = ny >= 0.0f, pz = nz >= 0.0f;
+  const float s_min = nx * (px ? lox : hix) + ny * (py ? loy : hiy) +
+                      nz * (pz ? loz : hiz) + d;
+  const float s_max = nx * (px ? hix : lox) + ny * (py ? hiy : loy) +
+                      nz * (pz ? hiz : loz) + d;
+  const float x = (fabsf(nx) + fabsf(ny) + fabsf(nz)) * p + fabsf(d);
+  const float margin = kPlaneMarginFloor + kPlaneMarginRel * x;
+  const bool skip =
+      (x < kPlaneMarginCap) & ((s_min > margin) | (s_max < -margin));
+  return !skip;
 }
 
 // One triangle's interval on the intersection line (_moller_intervals):

@@ -19,9 +19,18 @@ Two kernels over two pair tests (``csrc/tri_tri_cost.cuh``, here
 
 - ``tri_tri_any_hit`` (``csrc/tri_tri_any_hit.cu``): per query triangle,
   whether it meets any face, and the pairs a scan in face order tests for
-  it: the first hit's index plus one, or every face.  The kernel splits
-  the faces across blocks and keeps each query's first hit with an atomic
-  minimum, so the index is the same whatever order the blocks run in.
+  it: the first hit's index plus one, or every face.  In the Moller tile
+  it is an exact cull on ``tri_any_hit_operands``: a face is a candidate
+  unless its plane clears the box of every query corner by a margin
+  (``tri_records``, one kernel), and a query skips a chunk of 32 faces
+  whose candidates' box its own plane clears, each warp of 32 consecutive
+  queries staging the chunks one of its lanes needs; ``TRI_SPLIT`` warps
+  share a warp's chunks and keep each query's first hit with an atomic
+  minimum, so the index is the same whatever order they run in.  The
+  segment tile tests every pair.  ``tri_tri_any_hit_culled_plain`` is the
+  plain version of the cull, ``tri_tri_any_hit_plain`` tests every pair, and
+  ``tri_tri_any_hit_every`` (``csrc/tri_tri_any_hit_every.cu``) is the
+  every-pair kernel, the cull's oracle, which no path launches.
 - ``self_intersect_counts`` (``csrc/self_intersect.cu``): per face of a
   query range, the number of other faces sharing no vertex index with it
   that it meets, the partial counts of the face ranges summed with integer
@@ -66,9 +75,22 @@ T_LO = -_EPS
 T_HI = 1.0 + _EPS
 
 #: launches of each CUDA kernel since the counts were last set to 0
-LAUNCHES = {"tri_tri_any_hit": 0, "self_intersect": 0}
-#: the same launches, per tile
-TILE_LAUNCHES = {"%s[%s]" % (k, a): 0 for k in LAUNCHES for a in ALGORITHMS}
+LAUNCHES = {"tri_tri_any_hit": 0, "tri_tri_any_hit_every": 0,
+            "tri_records": 0, "self_intersect": 0}
+#: the launches of the kernels that run a pair tile, per tile
+TILE_LAUNCHES = {"%s[%s]" % (k, a): 0 for k in LAUNCHES if k != "tri_records"
+                 for a in ALGORITHMS}
+
+#: faces per chunk of the tri_tri_any_hit cull (csrc/tri_tri_any_hit.cu
+#: kTriChunk), words of its face record (the 13 Moller rows, zero-padded)
+#: and of its chunk record (the candidates' box: lo, hi, P; the mask's bits)
+TRI_CHUNK = 32
+TRI_FACE_WORDS = 16
+TRI_CHUNK_WORDS = 8
+#: warps sharing one warp's chunks in the tri_tri_any_hit cull, and the
+#: most the kernel takes
+TRI_SPLIT = 64
+TRI_MAX_SPLIT = 64
 
 #: faces per staged tile of the self_intersect kernel
 #: (csrc/self_intersect.cu kSelfTile)
@@ -189,13 +211,12 @@ def moller_sides(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps=_EPS):
             reject_q | reject_m)
 
 
-def moller_hit(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps=_EPS):
-    """Moller's interval test on broadcastable (x, y, z) corner triples,
-    unit normals and plane offsets of the query (q*, n1, d1) and mesh (m*,
-    n2, d2) triangles (reference _moller_hit)."""
-    (dv0, dv1, dv2, dv0dv1, dv0dv2), (du0, du1, du2, du0du1, du0du2), \
-        reject = moller_sides(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps)
-
+def moller_intervals(q0, q1, q2, n1, m0, m1, m2, n2, sides):
+    """The interval part of Moller's test (MollerTile::intervals): whether
+    the two triangles' intervals on their planes' intersection line
+    overlap, neither being coplanar, given the plane sides ``sides`` of
+    ``moller_sides`` (its first two entries)."""
+    (dv0, dv1, dv2, dv0dv1, dv0dv2), (du0, du1, du2, du0du1, du0du2) = sides
     # the intersection line's direction and its dominant axis
     dx = n1[1] * n2[2] - n1[2] * n2[1]
     dy = n1[2] * n2[0] - n1[0] * n2[2]
@@ -226,7 +247,17 @@ def moller_hit(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps=_EPS):
     lo2 = torch.minimum(i2a, i2b)
     hi2 = torch.maximum(i2a, i2b)
     overlap = ~((hi1 < lo2) | (hi2 < lo1))
-    return overlap & ~cop1 & ~cop2 & ~reject
+    return overlap & ~cop1 & ~cop2
+
+
+def moller_hit(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps=_EPS):
+    """Moller's interval test on broadcastable (x, y, z) corner triples,
+    unit normals and plane offsets of the query (q*, n1, d1) and mesh (m*,
+    n2, d2) triangles (reference _moller_hit): the interval part where
+    neither plane side rejects."""
+    sides = moller_sides(q0, q1, q2, n1, d1, m0, m1, m2, n2, d2, eps)
+    return (moller_intervals(q0, q1, q2, n1, m0, m1, m2, n2, sides[:2])
+            & ~sides[2])
 
 
 def moller_hit_tile(q, m, t_lo=None, t_hi=None):
@@ -363,9 +394,10 @@ def _check_planes(qplanes, fplanes, algorithm, name):
 
 
 def tri_tri_any_hit_plain(qplanes, fplanes, algorithm):
-    """Plain PyTorch version of the ``tri_tri_any_hit`` kernel: (hit [Q]
-    bool, tested [Q] int32: the first hit's index plus one, else F).  ``qplanes`` [K, Q] and
-    ``fplanes`` [K, F] are ``algorithm``'s operands."""
+    """The every-pair plain version of the ``tri_tri_any_hit`` kernels: (hit
+    [Q] bool, tested [Q] int32: the first hit's index plus one, else F).
+    ``qplanes`` [K, Q] and ``fplanes`` [K, F] are ``algorithm``'s
+    operands."""
     tile = _TILES[algorithm]
     n_q, n_f = qplanes.shape[-1], fplanes.shape[-1]
     dev = qplanes.device
@@ -383,29 +415,291 @@ def tri_tri_any_hit_plain(qplanes, fplanes, algorithm):
     return hit, tested
 
 
-def tri_tri_any_hit(qplanes, fplanes, algorithm):
+def tri_tri_any_hit_every(qplanes, fplanes, algorithm):
     """Whether each query triangle meets any face, and the pairs a scan in
-    face order tests for it: the ``tri_tri_any_hit`` CUDA kernel for CUDA
-    tensors, its plain version for CPU tensors.  No query or no face: all
-    False, no launch."""
-    _check_planes(qplanes, fplanes, algorithm, "tri_tri_any_hit")
+    face order tests for it, over every pair: the ``tri_tri_any_hit_every``
+    CUDA kernel (the cull's oracle; no path launches it) for CUDA tensors,
+    ``tri_tri_any_hit_plain`` for CPU tensors."""
+    _check_planes(qplanes, fplanes, algorithm, "tri_tri_any_hit_every")
     n_q, n_f = qplanes.shape[-1], fplanes.shape[-1]
-    if qplanes.device.type == "cpu":
+    if qplanes.device.type == "cpu" or n_q == 0 or n_f == 0:
         return tri_tri_any_hit_plain(qplanes, fplanes, algorithm)
+    from .. import _build
+
+    first = torch.full((n_q,), n_f, dtype=torch.int32, device=qplanes.device)
+    _build.launch("tri_tri_any_hit_every", qplanes.device, qplanes, fplanes,
+                  first, n_q, n_f, ALGORITHMS.index(algorithm), T_LO, T_HI)
+    LAUNCHES["tri_tri_any_hit_every"] += 1
+    TILE_LAUNCHES["tri_tri_any_hit_every[%s]" % algorithm] += 1
+    hit = first < n_f
+    return hit, first + hit
+
+
+# ---------------------------------------------------------------------------
+# The tri_tri_any_hit cull (Moller tile): its operands, its plain version.
+
+def tri_query_box(qplanes):
+    """(lo [3], hi [3]): the least and the largest coordinate, per axis, of
+    every query corner (rows 0-8 of the Moller query operand [13, Q],
+    Q > 0); ``amin`` / ``amax`` keep NaN, so a NaN corner makes the box
+    NaN, which no face clears."""
+    corners = qplanes[0:9].view(3, 3, -1)      # corner, axis, query
+    return corners.amin(dim=(0, 2)), corners.amax(dim=(0, 2))
+
+
+def _box_magnitude(lo, hi):
+    """The largest magnitude of boxes [..., 3] (NaN kept)."""
+    return torch.maximum(lo.abs(), hi.abs()).amax(dim=-1)
+
+
+def _mask_words(cand):
+    """[C] int32 of a [32 C] bool: bit j of word k is candidate 32 k + j."""
+    bits = cand.view(-1, TRI_CHUNK).to(torch.int64) << torch.arange(
+        TRI_CHUNK, device=cand.device)
+    word = bits.sum(dim=1)
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
+def _mask_bits(chunks):
+    """[32 C] bool: the candidate flags held in chunk records [C, 8]."""
+    words = chunks.view(torch.int32)[:, 7].to(torch.int64)
+    shift = torch.arange(TRI_CHUNK, device=chunks.device)
+    return ((words[:, None] >> shift) & 1).bool().reshape(-1)
+
+
+def tri_records_plain(qlo, qhi, fplanes):
+    """Plain PyTorch version of the ``tri_records`` kernel: (faces [32 C,
+    16], chunks [C, 8]) float32, C = ceil(F / 32), of the Moller face
+    operand ``fplanes`` [13, F] against the query box [qlo, qhi]
+    (``tri_query_box``).
+
+    A face is a candidate unless its own plane (rows 9-12) clears the
+    query box by the margin (``moller_tile_needs`` on the box with its
+    largest magnitude P): then every query corner lies strictly on one side
+    of it, and the Moller tile rejects every pair it makes.  ``faces``: per
+    face its 13 rows, zero-padded, the last face repeated to a whole chunk.
+    ``chunks``: per chunk of 32 faces the least and the largest
+    coordinates of its candidates' corners and their largest magnitude
+    (+inf, -inf and +inf when it has none; NaN where a candidate has a NaN
+    corner), then the bits of the candidate mask (bit j: face 32 k + j;
+    padding faces are never candidates)."""
+    n_f = fplanes.shape[1]
+    qbox = torch.cat([qlo, qhi, _box_magnitude(qlo, qhi)[None],
+                      qlo.new_zeros(1)])[None]
+    cand = moller_tile_needs(fplanes, qbox, 0, n_f)[:, 0]
+    cand = torch.cat([cand, cand.new_zeros((-n_f) % TRI_CHUNK)])
+    rows = _pad_rows_edge(fplanes.t(), TRI_CHUNK)           # [32 C, 13]
+    corners = rows[:, 0:9].reshape(-1, TRI_CHUNK * 3, 3)
+    keep = cand.view(-1, TRI_CHUNK).repeat_interleave(3, dim=1)[..., None]
+    inf = torch.tensor(float("inf"), device=fplanes.device)
+    lo = torch.where(keep, corners, inf).amin(dim=1)
+    hi = torch.where(keep, corners, -inf).amax(dim=1)
+    box = torch.cat([lo, hi, _box_magnitude(lo, hi)[:, None]], dim=1)
+    chunks = torch.cat([box.view(torch.int32), _mask_words(cand)[:, None]],
+                       dim=1).view(torch.float32)
+    faces = torch.zeros((rows.shape[0], TRI_FACE_WORDS), dtype=torch.float32,
+                        device=fplanes.device)
+    faces[:, :13] = rows
+    return faces, chunks
+
+
+def tri_records(qlo, qhi, fplanes):
+    """The cull's face and chunk records (``tri_records_plain``): the
+    ``tri_records`` CUDA kernel for CUDA tensors, its plain version for
+    CPU tensors."""
+    _check_planes(fplanes, fplanes, "moller", "tri_records")
+    n_f = fplanes.shape[1]
+    for t in (qlo, qhi):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (3,)
+                or not t.is_contiguous() or t.device != fplanes.device):
+            raise ValueError("tri_records wants the query box as contiguous "
+                             "float32 [3] on %s, got %s %r on %s"
+                             % (fplanes.device, t.dtype, tuple(t.shape),
+                                t.device))
+    if fplanes.device.type == "cpu" or n_f == 0:
+        return tri_records_plain(qlo, qhi, fplanes)
+    from .. import _build
+
+    n_c = -(-n_f // TRI_CHUNK)
+    faces = torch.empty((n_c * TRI_CHUNK, TRI_FACE_WORDS),
+                        dtype=torch.float32, device=fplanes.device)
+    chunks = torch.empty((n_c, TRI_CHUNK_WORDS), dtype=torch.float32,
+                         device=fplanes.device)
+    _build.launch("tri_records", fplanes.device, qlo, qhi, fplanes, faces,
+                  chunks, n_f, n_c)
+    LAUNCHES["tri_records"] += 1
+    return faces, chunks
+
+
+def tri_any_hit_operands(qplanes, fplanes):
+    """The cull's operands for the Moller query operand ``qplanes`` [13, Q]
+    against the face operand ``fplanes`` [13, F] (Q, F > 0): a dict of
+    ``qlo`` / ``qhi`` (``tri_query_box``), ``faces`` / ``chunks``
+    (``tri_records``) and ``n_faces`` F; three launches on the card.  The
+    queries stay in their own order: a mesh's index order keeps the
+    neighbours on one side of its surface together, where a Morton order
+    would mix the two sides of a thin part."""
+    _check_planes(qplanes, fplanes, "moller", "tri_any_hit_operands")
+    if not (qplanes.shape[1] and fplanes.shape[1]):
+        raise ValueError("tri_any_hit_operands: no query or no face")
+    qlo, qhi = tri_query_box(qplanes)
+    faces, chunks = tri_records(qlo, qhi, fplanes)
+    return {"qlo": qlo, "qhi": qhi, "faces": faces, "chunks": chunks,
+            "n_faces": fplanes.shape[1]}
+
+
+def _check_tri_split(split):
+    split = TRI_SPLIT if split is None else split
+    if not 1 <= int(split) <= TRI_MAX_SPLIT:
+        raise ValueError("tri_tri_any_hit: split %r not in [1, %d]"
+                         % (split, TRI_MAX_SPLIT))
+    return int(split)
+
+
+def _check_tri_ops(qplanes, fplanes, ops):
+    n_f = fplanes.shape[1]
+    n_c = -(-n_f // TRI_CHUNK)
+    if ops.get("n_faces") != n_f:
+        raise ValueError("tri_tri_any_hit: operands of %r faces for %d"
+                         % (ops.get("n_faces"), n_f))
+    for key, shape in (("faces", (n_c * TRI_CHUNK, TRI_FACE_WORDS)),
+                       ("chunks", (n_c, TRI_CHUNK_WORDS))):
+        t = ops[key]
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != qplanes.device
+                or (t.device.type == "cuda" and t.data_ptr() % 16)):
+            raise ValueError("tri_tri_any_hit: want %s %s float32, "
+                             "contiguous and 16-byte aligned, on %s; got %s "
+                             "%s on %s" % (key, shape, qplanes.device,
+                                tuple(t.shape), t.dtype, t.device))
+
+
+def tri_tri_any_hit_culled_plain(qplanes, ops, split=None):
+    """Plain PyTorch version of the ``tri_tri_any_hit`` kernel's cull (the
+    Moller tile): (hit [Q] bool, tested [Q] int32: the first hit's index
+    plus one, else F, as ``tri_tri_any_hit_plain`` gives them; warp [ceil(Q
+    / 32), 2] int32: per warp of 32 queries the chunks it took and their
+    candidate slots; lane [Q, 2] int32: per query the pairs its lane ran
+    through the plane sides and those that reached the interval part), the
+    counts summed over the splits, on ``tri_any_hit_operands``' ``ops``.
+
+    Lane q takes query q, 32 lanes to a warp.  The chunks
+    are cut into ``split`` ranges [C s / split, C (s + 1) / split), each
+    walked from no hit.  In a range, a lane needs a chunk with a candidate
+    unless its plane clears the chunk's box (``moller_tile_needs``) or it
+    has hit in an earlier chunk of the range; a warp takes a chunk when one
+    of its lanes needs it, and each lane that needs it runs its candidates
+    in increasing index through the plane sides, and through the interval
+    part where neither side rejects, up to its first hit.  A query's first
+    hit is the least over the ranges."""
+    split = _check_tri_split(split)
+    faces, chunks = ops["faces"], ops["chunks"]
+    n_f, n_c = ops["n_faces"], chunks.shape[0]
+    n_q = qplanes.shape[1]
+    dev = qplanes.device
+    q_pad = -(-n_q // WARP) * WARP
+    first = torch.full((q_pad,), n_f, dtype=torch.int64, device=dev)
+    warp = torch.zeros((q_pad // WARP, 2), dtype=torch.int32, device=dev)
+    lane = torch.zeros((q_pad, 2), dtype=torch.int32, device=dev)
+    bits = _mask_bits(chunks)
+    cf = bits.nonzero()[:, 0]                    # candidate faces, in order
+    ck = cf // TRI_CHUNK
+    slots = bits.view(n_c, TRI_CHUNK).sum(dim=1, dtype=torch.int32)
+    nonempty = slots > 0
+    ranges = [n_c * s // split for s in range(split + 1)]
+    rows = tuple(faces[cf, r][None] for r in range(13))
+    step = max(WARP, _PLAIN_PAIRS[dev.type] // max(1, cf.numel())
+               // WARP * WARP)
+    for a in range(0, q_pad, step):
+        b = min(q_pad, a + step)
+        live = min(b, n_q) - a
+        need = torch.zeros((b - a, n_c), dtype=torch.bool, device=dev)
+        need[:live] = moller_tile_needs(qplanes, chunks, a,
+                                        a + live) & nonempty
+        hit = torch.zeros((b - a, cf.numel()), dtype=torch.bool, device=dev)
+        reject = torch.ones_like(hit)
+        if cf.numel():
+            q = _cols(qplanes, a, a + live)
+            hit[:live] = moller_hit_tile(q, rows)
+            reject[:live] = moller_sides(q[0:3], q[3:6], q[6:9], q[9:12],
+                                         q[12], rows[0:3], rows[3:6],
+                                         rows[6:9], rows[9:12], rows[12])[2]
+        need_f = need[:, ck]
+        for s in range(split):
+            k0, k1 = ranges[s], ranges[s + 1]
+            if k0 == k1:
+                continue                    # a range without a chunk
+            run = need_f & ((ck >= k0) & (ck < k1))[None]
+            first_s = torch.where(run & hit, cf[None], n_f).amin(
+                dim=1) if cf.numel() else first[a:b].new_full((b - a,), n_f)
+            tested = run & (cf[None] <= first_s[:, None])
+            lane[a:b, 0] += tested.sum(dim=1, dtype=torch.int32)
+            lane[a:b, 1] += (tested & ~reject).sum(dim=1, dtype=torch.int32)
+            # a lane that hit in an earlier chunk of the range needs no more
+            starts = TRI_CHUNK * torch.arange(k0, k1, device=dev)
+            cur = need[:, k0:k1] & ~(first_s[:, None] < starts)
+            taken = _warp_any(cur, 0)
+            warp[a // WARP:b // WARP, 0] += taken.sum(dim=1, dtype=torch.int32)
+            warp[a // WARP:b // WARP, 1] += (taken * slots[k0:k1]).sum(
+                dim=1, dtype=torch.int32)
+            first[a:b] = torch.minimum(first[a:b], first_s)
+    at = first[:n_q]
+    hit = at < n_f
+    tested = torch.where(hit, at + 1, at).to(torch.int32)
+    return hit, tested, warp, lane[:n_q]
+
+
+def tri_tri_any_hit(qplanes, fplanes, algorithm, ops=None, split=None,
+                    with_stats=False):
+    """Whether each query triangle meets any face, and the pairs a scan in
+    face order tests for it: (hit [Q] bool, tested [Q] int32).  For CUDA
+    tensors the ``tri_tri_any_hit`` kernel: in the Moller tile its cull on
+    ``ops`` (``tri_any_hit_operands``, made here when None) with ``split``
+    warps to a warp's chunks (``TRI_SPLIT`` when None), in the segment
+    tile every pair.  For CPU tensors ``tri_tri_any_hit_plain``.
+    ``with_stats`` (Moller only) adds the cull's warp and lane counts, as
+    ``tri_tri_any_hit_culled_plain`` returns them (which a CPU call runs
+    then).  No query or no face: all False, no launch.  A failed build or
+    launch raises: no other version stands in."""
+    _check_planes(qplanes, fplanes, algorithm, "tri_tri_any_hit")
+    split = _check_tri_split(split)
+    if with_stats and algorithm != "moller":
+        raise ValueError("tri_tri_any_hit: the segment tile has no cull "
+                         "and no statistics")
+    n_q, n_f = qplanes.shape[-1], fplanes.shape[-1]
+    dev = qplanes.device
+    if dev.type == "cpu" and not with_stats:
+        return tri_tri_any_hit_plain(qplanes, fplanes, algorithm)
+    stats = ((torch.zeros((-(-n_q // WARP), 2), dtype=torch.int32,
+                          device=dev),
+              torch.zeros((n_q, 2), dtype=torch.int32, device=dev))
+             if with_stats else ())
     if n_q == 0 or n_f == 0:
-        return (torch.zeros(n_q, dtype=torch.bool, device=qplanes.device),
-                torch.full((n_q,), n_f, dtype=torch.int32,
-                           device=qplanes.device))
+        return (torch.zeros(n_q, dtype=torch.bool, device=dev),
+                torch.full((n_q,), n_f, dtype=torch.int32, device=dev),
+                *stats)
+    if algorithm == "moller":
+        if ops is None:
+            ops = tri_any_hit_operands(qplanes, fplanes)
+        _check_tri_ops(qplanes, fplanes, ops)
+        if dev.type == "cpu":
+            return tri_tri_any_hit_culled_plain(qplanes, ops, split)
     from .. import _build
 
     # the kernel folds each query's first hit into ``first`` (F: none)
-    first = torch.full((n_q,), n_f, dtype=torch.int32, device=qplanes.device)
-    _build.launch("tri_tri_any_hit", qplanes.device, qplanes, fplanes, first,
-                  n_q, n_f, ALGORITHMS.index(algorithm), T_LO, T_HI)
+    first = torch.full((n_q,), n_f, dtype=torch.int32, device=dev)
+    if algorithm == "moller":
+        _build.launch("tri_tri_any_hit", dev, qplanes, ops["faces"],
+                      ops["chunks"], first,
+                      *(stats or (None, None)), n_q, n_f,
+                      ops["chunks"].shape[0], split, 1, T_LO, T_HI)
+    else:
+        _build.launch("tri_tri_any_hit", dev, qplanes, fplanes, None, first,
+                      None, None, n_q, n_f, 0, 1, 0, T_LO, T_HI)
     LAUNCHES["tri_tri_any_hit"] += 1
     TILE_LAUNCHES["tri_tri_any_hit[%s]" % algorithm] += 1
     hit = first < n_f
-    return hit, first + hit.to(torch.int32)
+    return (hit, first + hit, *stats)
 
 
 def _query_range(n_f, q0, q1):

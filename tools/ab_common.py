@@ -14,10 +14,15 @@ A side program is ``side_program(body, ...)``: ``SIDE_HEAD`` (its
 checkout's package first on the path, the inputs in ``inputs``, ``reps``,
 ``rounds``, the tool's own arguments in ``extra``, its kernels built with
 ``-Xptxas -v`` and their register and spill lines in ``ptxas``), the
-tool's ``body``, which sets ``variants`` (a list of (name, fn)) and
+tool's ``body``, which sets ``variants`` (a list of (name, fn)),
+``later`` (the same, for variants one side has and the other lacks) and
 ``answers`` (a dict of CPU tensors), and ``SIDE_TAIL``, which times each
 variant with CUDA events around ``reps`` back-to-back calls, in ``rounds``
 rounds that interleave the variants, and takes the median over the rounds.
+The ``later`` variants run in rounds of their own after those of
+``variants``: interleaved, they slowed the host-bound calls around them
+on both sides of an A/B of one checkout against its own copy (PERF.md,
+row 11), which biases a comparison with a side that lacks them.
 """
 
 import argparse
@@ -48,23 +53,24 @@ report = _build.build(verbose=True)
 ptxas = {name: [line.strip() for line in report.get(name, {}).get(
     "ptxas", "").splitlines() if "registers" in line or "spill" in line]
     for name in PTXAS}
-variants, answers = [], {}
+variants, later, answers = [], [], {}
 """
 
 SIDE_TAIL = r"""
-times = {name: [] for name, _ in variants}
-for _ in range(rounds):
-    for name, fn in variants:
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
+times = {name: [] for name, _ in variants + later}
+for group in (variants, later):
+    for _ in range(rounds):
+        for name, fn in group:
             fn()
-        end.record()
-        end.synchronize()
-        times[name].append(start.elapsed_time(end) / reps)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / reps)
 torch.save(answers, out_path)
 print(json.dumps({"ms": {k: statistics.median(v) for k, v in times.items()},
                   "rounds_ms": times, "ptxas": ptxas,

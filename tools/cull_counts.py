@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """What the chunk culls of closest_faces (row 1), normal_weighted_faces
-(row 7) and alongnormal_faces (row 9) test, counted on the CPU by their
-plain versions (``closest_kernel.argmin_faces_culled_plain``,
+(row 7), alongnormal_faces (row 9) and tri_tri_any_hit (row 11) test,
+counted on the CPU by their plain versions
+(``closest_kernel.argmin_faces_culled_plain``,
 ``normal_weighted.argmin_normal_weighted_culled_plain``,
-``ray_kernel.argmin_alongnormal_culled_plain``).
+``ray_kernel.argmin_alongnormal_culled_plain``,
+``tri_tri_kernel.tri_tri_any_hit_culled_plain``).
 
     python3 tools/cull_counts.py [--bodies 4] [--variant fast] [--tail]
     python3 tools/cull_counts.py --nw [--queries 65536] [--splits 1,32]
                                   [--eps 0.1]
     python3 tools/cull_counts.py --along [--queries 65536] [--splits 1,32]
+    python3 tools/cull_counts.py --tri [--splits 1,4,16,32,64]
 
 Row 1 (the default): the first bodies of chip_smoke.py's main path, its
 bodies, poses and queries (seed 0, 1024 N(0, 0.4) queries a body), made
@@ -41,8 +44,21 @@ test the shares that find a miss and that fall back to the faces'
 normals, with the bounds in milliseconds at 67e12 operations a second
 (chip_smoke.py's operation counts).
 
-Every run must give the every-face faces; it exits non-zero otherwise.
-Counts only: no time comes from here.
+Row 11 (``--tri``): chip_smoke.py phase 9's hand (1,552 faces) against
+its body (13,776 faces), the Moller operands.  Prints one JSON line per
+split and query order: the queries in their own index order (the shipped
+design) and in the Morton order of their centroids; and one line with the
+candidate faces compacted into dense chunks (index order, split 1): the
+shares of candidate faces and of chunks holding one, of warp-chunks taken
+(and the heaviest warp's chunks and candidate slots, summed over the
+splits), of the pairs the warps issue (the candidate slots of the chunks they take
+x 32 lanes), the pairs the lanes run and those reaching the interval part,
+with the bounds in milliseconds at 67e12 operations a second
+(chip_smoke.py's operation counts).
+
+Every run must give the every-face faces (row 11: the every-pair flags and
+first hits); it exits non-zero otherwise.  Counts only: no time comes from
+here.
 """
 
 import argparse
@@ -248,6 +264,77 @@ def along_counts(args):
                  % bad)
 
 
+def tri_counts(args):
+    """Row 11's lines (``--tri``)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from mesh_tpu_torch.query import tri_tri_kernel as tk
+
+    body_v, body_f, hand_v, hand_f = cs.contact_inputs(torch.device("cpu"))
+    hand = torch.as_tensor(hand_v.astype(np.float32))[
+        torch.as_tensor(hand_f.astype(np.int64))]
+    body = torch.as_tensor(body_v)[torch.as_tensor(body_f.astype(np.int64))]
+    qp, fp = tk.moller_planes(hand, body)
+    want = tk.tri_tri_any_hit_plain(qp, fp, "moller")
+    n_q, n_f = qp.shape[1], fp.shape[1]
+    morton = tk.morton_face_order(qp[0:9].t().reshape(-1, 3, 3))
+    cand = tk._mask_bits(tk.tri_any_hit_operands(qp, fp)["chunks"])[:n_f]
+    runs = [("index", split, qp, fp, None)
+            for split in (int(x) for x in args.splits.split(","))]
+    runs += [("morton", split, qp[:, morton].contiguous(), fp, morton)
+             for split in (int(x) for x in args.splits.split(","))]
+    runs.append(("index, compacted", 1, qp, fp[:, cand].contiguous(), None))
+    bad = []
+    for order, split, q, f, perm in runs:
+        ops = tk.tri_any_hit_operands(q, f)
+        hit, tested, warp, lane = tk.tri_tri_any_hit_culled_plain(q, ops,
+                                                                  split)
+        if perm is not None:
+            hit[perm], tested[perm] = hit.clone(), tested.clone()
+        if f is fp:
+            same = torch.equal(hit, want[0]) and torch.equal(tested, want[1])
+        else:       # compacted: the flags, the first hits' faces mapped
+            idx = cand.nonzero()[:, 0]
+            first = torch.where(hit, idx[(tested - 1).clamp(min=0).long()],
+                                n_f)
+            same = (torch.equal(hit, want[0])
+                    and torch.equal(torch.where(hit, first + 1, n_f).to(
+                        torch.int32), want[1]))
+        if not same:
+            bad.append((order, split))
+        bits = tk._mask_bits(ops["chunks"]).view(-1, tk.TRI_CHUNK)
+        n_c = bits.shape[0]
+        nonempty = int(bits.any(dim=1).sum())
+        pairs, deep = (int(x) for x in lane.sum(dim=0))
+        chunks, slots = (int(x) for x in warp.sum(dim=0))
+        tests = n_q * nonempty * cs.SELF_BOX_OPS
+
+        def ms(pairs_):
+            return (tests + pairs_ * cs.MOLLER_SIDES_OPS
+                    + deep * cs.MOLLER_INTERVAL_OPS) / cs.PEAK_FP32_OPS * 1e3
+
+        print(json.dumps({
+            "row": 11, "kernel": "tri_tri_any_hit", "queries": n_q,
+            "faces": n_f, "query_order": order, "split": split,
+            "flags_every_pair": same,
+            "candidate_share": int(cand.sum()) / n_f,
+            "chunks": n_c, "chunks_with_candidates": nonempty,
+            "warp_share": chunks / (warp.shape[0] * n_c),
+            "heaviest_warp_chunks": int(warp[:, 0].max()),
+            "heaviest_warp_slots": int(warp[:, 1].max()),
+            "issued_share": slots * tk.WARP / (n_q * n_f),
+            "lane_share": pairs / (n_q * n_f),
+            "deep_share": deep / (n_q * n_f),
+            "bound_ms": ms(pairs), "bound_issued_ms": ms(slots * tk.WARP)}),
+            flush=True)
+    if bad:
+        sys.exit("cull_counts: row 11's flags differ from every pair at %s"
+                 % bad)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bodies", type=int, default=4)
@@ -257,6 +344,8 @@ def main():
                     help="row 7 on phase 8's registration inputs")
     ap.add_argument("--along", action="store_true",
                     help="row 9 on phase 8's registration inputs")
+    ap.add_argument("--tri", action="store_true",
+                    help="row 11 on phase 9's hand and body")
     ap.add_argument("--queries", type=int, default=65536,
                     help="with --nw or --along: the last this many of "
                          "phase 8's queries (the planted miss among them)")
@@ -273,6 +362,8 @@ def main():
         return nw_counts(args)
     if args.along:
         return along_counts(args)
+    if args.tri:
+        return tri_counts(args)
     import numpy as np
     import torch
 
