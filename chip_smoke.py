@@ -82,9 +82,20 @@ Phases (any failure raises and exits non-zero; none catches its own):
    and sent to the interval part; leaf_boxes on phase
    11's two keyframes at leaf 256, the 98,304-face keyframe at leaf 8 (16,384
    leaves), phase 6's scan at leaves 256 and 8, a copy with planted NaN
-   corners and one with corners at +-0.0 (the 98,304-face keyframe at
-   leaves 256 and 8 timed with L2 flushed before each call, as the HBM
-   bound assumes; the row in the kernels line is leaf 256's); mxu_faces,
+   corners and one with corners at +-0.0, the keyframes at leaves 5 and 3
+   and the 98,304-face one in views 4 bytes past a 16-byte boundary at
+   leaves 256 and 8 (the kernel's corner items), each against its plain
+   version and the warp-a-leaf oracle (``leaf_boxes_warp``, which launches
+   on no driven path) (the 98,304-face keyframe at leaves 256 and 8 timed
+   with L2 flushed before each call, as the HBM bound assumes, and with
+   the operand in L2; the row in the kernels line is leaf 256's), and an
+   empty launch timed beside them; nearest_vertices at the main path's
+   batch, on body 0 (every split of the vertex axis), on its far queries
+   and on planted meshes (vertices duplicated across each split boundary,
+   queries equidistant from two vertices in different splits, a NaN query,
+   queries whose costs overflow to +inf), against its plain version and
+   the every-vertex oracle (``nearest_vertices_every``, which launches on
+   no driven path); mxu_faces,
    mxu_bound_culled (the bound pass) and mxu_repair at phase 12's shapes
    with and without the
    degenerate tail, the tail also on the planted mesh, and both tails on
@@ -471,6 +482,8 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "cull_records": ("main_path", "main_path_fused", "facade",
                                  "contact", "mxu", "registration"),
                 "nearest_vertices": ("facade",),
+                # the every-vertex kernel, phase 2's index oracle
+                "nearest_vertices_every": (),
                 "culled_faces": ("large_batch",),
                 "rope_faces_stream": ("scan",),
                 "rope_faces_resident": ("scan_resident", "anim"),
@@ -491,6 +504,8 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "tri_tri_any_hit_every": (),
                 "self_intersect": ("self_intersect",),
                 "leaf_boxes": ("anim",),
+                # the warp-a-leaf kernel, phase 2's box oracle
+                "leaf_boxes_warp": (),
                 "mxu_faces": ("mxu",),
                 "mxu_bound_culled": ("mxu",),
                 "mxu_repair": ("mxu",),
@@ -767,41 +782,127 @@ def cull_row(run, launches):
     return row
 
 
-def compare_vertices(ck, pts, vplanes, timing):
+def compare_vertices(ck, pts, vplanes, label, timing=False, splits=()):
+    """nearest_vertices on one operand against its plain version and the
+    every-vertex oracle (``nearest_vertices_every``): indices identical, at
+    the plan ``vertex_plan`` picks and at each of ``splits`` with each of
+    ``VERTEX_PER_THREAD`` queries a thread.  Timed when ``timing``: the
+    kernel and the oracle back to back (``ms``, ``every_ms``: CUDA events
+    around ``REPS`` calls, the clock of every row's ``ms``) and as device
+    time (``device_ms``, ``every_device_ms``, ``split_device_ms``:
+    ``queued_ms``, since a 1 x 4096 call is shorter than its host launch
+    path), the plain version and the library call (cdist + argmin)."""
+    n_b, n_q, n_v = pts.shape[0], pts.shape[1], vplanes.shape[-1]
+    per, split = ck.vertex_plan(n_b, n_q, n_v, ck._sm_count(pts.device))
     k = ck.argmin_vertices(pts, vplanes)
     p = ck.argmin_vertices_plain(pts, vplanes)
-    mism = int((k != p).sum())
-    check(mism == 0, "nearest_vertices: %d of %d indices differ from the "
-          "plain version" % (mism, k.numel()))
+    e = ck.argmin_vertices_every(pts, vplanes)
+    for name, other in (("plain version", p), ("every-vertex oracle", e)):
+        mism = int((k != other).sum())
+        check(mism == 0, "nearest_vertices on %s: %d of %d indices differ "
+              "from the %s" % (label, mism, k.numel(), name))
+    for s in splits:
+        for q in ck.VERTEX_PER_THREAD:
+            mism = int((ck.argmin_vertices(pts, vplanes, _plan=(q, s))
+                        != p).sum())
+            check(mism == 0, "nearest_vertices on %s at split %d, %d "
+                  "queries a thread: %d indices differ from the plain "
+                  "version" % (label, s, q, mism))
     vt = vplanes.transpose(-1, -2)
-    rows = torch.arange(pts.shape[0], device=pts.device)[:, None]
+    rows = torch.arange(n_b, device=pts.device)[:, None]
 
     def dist(idx):
         d = pts - vt[rows, idx.long()]
         return (d * d).sum(dim=-1).sqrt()
 
-    out = {"shape": list(pts.shape[:2]) + [vplanes.shape[-1]],
+    fin = torch.isfinite(dist(p))
+    out = {"on": label, "shape": [n_b, n_q, n_v], "per_thread": per,
+           "split": split, "splits_checked": list(splits),
            "indices_identical": True,
-           "max_abs_err": float((dist(k) - dist(p)).abs().max())}
+           "max_abs_err": float((dist(k) - dist(p))[fin].abs().max())
+           if bool(fin.any()) else 0.0}
     if timing:
         out["ms"] = cuda_ms(lambda: ck.argmin_vertices(pts, vplanes),
                             reps=REPS)
+        out["device_ms"] = queued_ms(
+            lambda: ck.argmin_vertices(pts, vplanes), 50)
+        out["split_device_ms"] = {s: queued_ms(
+            lambda s=s: ck.argmin_vertices(pts, vplanes, _plan=(per, s)),
+            50) for s in splits}
+        out["every_ms"] = cuda_ms(
+            lambda: ck.argmin_vertices_every(pts, vplanes), reps=REPS)
+        out["every_device_ms"] = queued_ms(
+            lambda: ck.argmin_vertices_every(pts, vplanes), 50)
         out["plain_ms"] = cuda_ms(
             lambda: ck.argmin_vertices_plain(pts, vplanes), reps=3)
         out["library_ms"] = cuda_ms(
             lambda: torch.cdist(pts, vt).argmin(dim=-1), reps=3)
         lib = torch.cdist(pts, vt).argmin(dim=-1)
         out["library_agree"] = float((lib == k.long()).float().mean())
-        n_b, n_q = pts.shape[:2]
-        pairs = n_b * n_q * vplanes.shape[-1]
+        pairs = n_b * n_q * n_v
         n_bytes = 4 * (pts.numel() + vplanes.numel() + n_b * n_q)
         out["bound_ms"], out["bound_by"] = bound_ms(pairs, VERTEX_PAIR_OPS,
                                                     n_bytes)
-    log("  nearest_vertices %s: indices identical%s" % (
-        out["shape"], "" if not timing else
-        ", %.3f ms (plain %.2f ms, cdist+argmin %.2f ms, bound %.4f ms)"
-        % (out["ms"], out["plain_ms"], out["library_ms"], out["bound_ms"])))
+    log("  nearest_vertices on %s %s (%d queries a thread, split %d): "
+        "indices identical to the plain version and the oracle%s%s" % (
+            label, out["shape"], per, split,
+            " and at splits %s" % list(splits) if splits else "",
+            "" if not timing else
+            "; %.4f ms back to back, %.4f device (oracle %.4f, %.4f; "
+            "splits, device: %s; plain %.2f ms, cdist+argmin %.2f ms, "
+            "bound %.4f ms)"
+            % (out["ms"], out["device_ms"], out["every_ms"],
+               out["every_device_ms"], ", ".join(
+                   "%d: %.4f" % kv for kv in out["split_device_ms"].items()),
+               out["plain_ms"], out["library_ms"], out["bound_ms"])))
     return out
+
+
+def vertex_planted(ck, verts0):
+    """nearest_vertices at the facade's shape (body ``verts0``'s vertices,
+    centered, and FACADE_QUERIES queries) with planted sets, one mesh for
+    each split of 2 to ``ck.VERTEX_MAX_SPLIT``: at each boundary b of the
+    split's ranges vertex b a copy of vertex b - 1 with a query on it, and
+    vertices b - 2 and b + 1 at m -+ (2^-10, 0, 0) for a dyadic m off the
+    body with a query at m (equidistant, exactly); then a NaN query and
+    queries whose costs overflow to +inf.  Each mesh at its own split and
+    at the one the plan picks, against the plain version and the oracle
+    (``compare_vertices``); the NaN and far queries must get index 0."""
+    vc = (verts0 - verts0.mean(dim=0)).contiguous()
+    n_v = vc.shape[0]
+    rng = np.random.RandomState(12)
+    runs = []
+    for split in range(2, ck.VERTEX_MAX_SPLIT + 1):
+        v = vc.clone()
+        q = torch.as_tensor(rng.randn(FACADE_QUERIES, 3) * 0.4,
+                            dtype=torch.float32, device=vc.device)
+        planted = []
+        for s, (b, _) in enumerate(ck.vertex_split_bounds(n_v, split)):
+            if not 2 <= b <= n_v - 2:
+                continue
+            v[b] = v[b - 1]
+            mid = torch.tensor([2.0 + 0.25 * s, 2.0, -2.0],
+                               device=vc.device)
+            step = torch.tensor([2.0 ** -10, 0.0, 0.0], device=vc.device)
+            v[b - 2], v[b + 1] = mid + step, mid - step
+            planted += [v[b - 1], mid]
+        far = torch.tensor([[float("nan"), 0.0, 0.0], [1e20, 0.0, 0.0],
+                            [0.0, -3e19, 1e20]], device=vc.device)
+        q[:len(planted)] = torch.stack(planted)
+        q[len(planted):len(planted) + 3] = far
+        pts = q[None].contiguous()
+        vplanes = v.t()[None].contiguous()
+        run = compare_vertices(ck, pts, vplanes, "planted, split %d"
+                               % split, splits=(split,))
+        got = ck.argmin_vertices(pts, vplanes, _plan=(
+            run["per_thread"], split))[0]
+        check(got[len(planted):len(planted) + 3].tolist() == [0, 0, 0],
+              "nearest_vertices, planted at split %d: the NaN and far "
+              "queries got %s, not 0" % (
+                  split, got[len(planted):len(planted) + 3].tolist()))
+        run["planted_queries"] = len(planted) + 3
+        runs.append(run)
+    return runs
 
 
 def check_facade_against_scan(v, f, q, faces, points):
@@ -2519,10 +2620,13 @@ def compare_leaf_boxes(tri_s, n_leaves, leaf, label, nan_leaves=None,
     klo, khi = fk.leaf_boxes_kernel(tri_s, n_leaves, leaf)
     (plo, phi), plain_ms = timed(
         lambda: fk.leaf_boxes_plain(tri_s, n_leaves, leaf))
-    check(boxes_equal(klo, plo) and boxes_equal(khi, phi),
-          "leaf_boxes on %s: %d of %d leaves differ from the plain version"
-          % (label, int(((klo != plo) | (khi != phi)).any(dim=1).sum()),
-             n_leaves))
+    wlo, whi = fk.leaf_boxes_warp_kernel(tri_s, n_leaves, leaf)
+    for name, (lo, hi) in (("plain version", (plo, phi)),
+                           ("warp-a-leaf oracle", (wlo, whi))):
+        check(boxes_equal(klo, lo) and boxes_equal(khi, hi),
+              "leaf_boxes on %s: %d of %d leaves differ from the %s"
+              % (label, int(((klo != lo) | (khi != hi)).any(dim=1).sum()),
+                 n_leaves, name))
     nan = (torch.isnan(klo) | torch.isnan(khi)).any(dim=1)
     if nan_leaves is not None:
         want = torch.zeros(n_leaves, dtype=torch.bool, device=nan.device)
@@ -2532,6 +2636,7 @@ def compare_leaf_boxes(tri_s, n_leaves, leaf, label, nan_leaves=None,
                                  sorted(nan_leaves)))
     fin = ~nan
     out = {"on": label, "shape": [tri_s.shape[0], n_leaves, leaf],
+           "plan": list(fk.leaf_plan(tri_s, leaf)),
            "leaves_identical": True, "nan_leaves": int(nan.sum()),
            "max_abs_err": float(torch.maximum(
                (klo[fin] - plo[fin]).abs().max(),
@@ -2549,6 +2654,11 @@ def compare_leaf_boxes(tri_s, n_leaves, leaf, label, nan_leaves=None,
                                     reps=100)
         out["l2_warm_ms"] = queued_ms(lambda: fk.leaf_boxes_kernel(
             tri_s, n_leaves, leaf), reps=100)
+        out["warp_ms"] = cold_ms(lambda: fk.leaf_boxes_warp_kernel(
+            tri_s, n_leaves, leaf), reps=100)
+        out["warp_l2_warm_ms"] = queued_ms(
+            lambda: fk.leaf_boxes_warp_kernel(tri_s, n_leaves, leaf),
+            reps=100)
         # the library calls in both regimes, beside the kernel's
         out["library_l2_warm_ms"] = queued_ms(
             lambda: torch.aminmax(blocks, dim=1), reps=100)
@@ -2559,14 +2669,18 @@ def compare_leaf_boxes(tri_s, n_leaves, leaf, label, nan_leaves=None,
         n_bytes = 4 * (tri_s.numel() + 6 * n_leaves)
         out["bound_ms"], out["bound_by"] = bound_ms(
             tri_s.numel(), LEAF_BOX_OPS, n_bytes)
-    log("  leaf_boxes on %s %s: every leaf identical (%d NaN)%s" % (
-        label, out["shape"], out["nan_leaves"], "" if not timing else
-        ", L2 flushed: %.4f ms (plain %.4f ms, aminmax %.4f ms, amin + amax "
-        "%.4f ms, HBM bound %.4f ms); L2 warm, back to back: %.4f ms "
-        "(aminmax %.4f ms, amin + amax %.4f ms)"
-        % (out["ms"], out["plain_ms"], out["library_ms"],
-           out["amin_amax_ms"], out["bound_ms"], out["l2_warm_ms"],
-           out["library_l2_warm_ms"], out["amin_amax_l2_warm_ms"])))
+    log("  leaf_boxes on %s %s, plan %s: every leaf identical to the plain "
+        "version and the oracle (%d NaN)%s" % (
+            label, out["shape"], out["plan"], out["nan_leaves"],
+            "" if not timing else
+            ", L2 flushed: %.4f ms (oracle %.4f ms, plain %.4f ms, aminmax "
+            "%.4f ms, amin + amax %.4f ms, HBM bound %.4f ms); L2 warm, back "
+            "to back: %.4f ms (oracle %.4f ms, aminmax %.4f ms, amin + amax "
+            "%.4f ms)"
+            % (out["ms"], out["warp_ms"], out["plain_ms"],
+               out["library_ms"], out["amin_amax_ms"], out["bound_ms"],
+               out["l2_warm_ms"], out["warp_l2_warm_ms"],
+               out["library_l2_warm_ms"], out["amin_amax_l2_warm_ms"])))
     return out
 
 
@@ -3608,11 +3722,19 @@ def main():
     vmean = verts.mean(dim=-2, keepdim=True)
     vplanes = (verts - vmean).transpose(-1, -2).contiguous()
     vert_batch = compare_vertices(ck, (queries - vmean).contiguous(),
-                                  vplanes, timing=True)
+                                  vplanes, "the main path's batch",
+                                  timing=True, splits=(1,))
     b0mean = verts[:1].mean(dim=-2, keepdim=True)
     vert_facade = compare_vertices(
         ck, (q1 - b0mean).contiguous(),
-        (verts[:1] - b0mean).transpose(-1, -2).contiguous(), timing=True)
+        (verts[:1] - b0mean).transpose(-1, -2).contiguous(), "body 0",
+        timing=True, splits=tuple(range(1, ck.VERTEX_MAX_SPLIT + 1)))
+    vert_far = compare_vertices(
+        ck, (far_queries(verts[0], FACADE_QUERIES,
+                         np.random.RandomState(13)) - b0mean).contiguous(),
+        (verts[:1] - b0mean).transpose(-1, -2).contiguous(),
+        "body 0, far queries")
+    vert_planted = vertex_planted(ck, verts[0])
     del vplanes
 
     # culled_faces at phase 5's shapes (every query tile of all 64 bodies)
@@ -3775,7 +3897,35 @@ def main():
     leaf_runs.append(compare_leaf_boxes(
         zeros_t, n_lv, ANIM_LEAF, "large keyframe with +-0.0 corners, leaf "
         "256", nan_leaves=[]))
-    del operands, planted_t, zeros_t
+    # the corner items: leaf sizes that are no multiple of 4, and tri_s
+    # views 4 bytes past a 16-byte boundary
+    for label, (v_np, f_np_), leaf in (
+            ("large keyframe", anim_keys["large"], 5),
+            ("smpl keyframe", anim_keys["smpl"], 3)):
+        index = build_bvh(v_np, f_np_, leaf_size=leaf)
+        leaf_runs.append(compare_leaf_boxes(
+            refit_tri_s(v_np, f_np_, index, dev),
+            int(index.meta["n_leaves"]), leaf,
+            "%s, leaf %d" % (label, leaf)))
+    for leaf in (ANIM_LEAF, 8):
+        tri_s, n_lv = operands["large keyframe", leaf]
+        buf = torch.empty(tri_s.numel() + 1, dtype=torch.float32,
+                          device=dev)
+        view = buf[1:].view(tri_s.shape)
+        view.copy_(tri_s)
+        check(view.data_ptr() % 16 == 4, "the misaligned view is aligned")
+        leaf_runs.append(compare_leaf_boxes(
+            view, n_lv, leaf,
+            "large keyframe 4 bytes off 16, leaf %d" % leaf,
+            timing=leaf == ANIM_LEAF))
+    del operands, planted_t, zeros_t, buf, view
+    # a launch that does no work: the floor under both rows' times
+    empty_launch = {
+        "queued_ms": queued_ms(lambda: torch.cuda._sleep(0), 100),
+        "event_ms": cold_ms(lambda: torch.cuda._sleep(0), 100)}
+    log("  an empty launch (torch.cuda._sleep(0)): %.4f ms back to back, "
+        "%.4f ms between events after an L2 flush"
+        % (empty_launch["queued_ms"], empty_launch["event_ms"]))
     # the three MXU kernels at phase 12's shapes, with and without the
     # degenerate tail (timed in the drive's own variant), and the tail on
     # the planted mesh
@@ -4550,12 +4700,29 @@ def main():
          "launches": launches["facade"]["nearest_vertices"],
          "launches_by_path": {p: launches[p]["nearest_vertices"]
                               for p in launches},
-         "max_abs_err": vert_facade["max_abs_err"],
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            [vert_facade, vert_batch, vert_far]
+                            + vert_planted),
          "ms": vert_facade["ms"], "plain_ms": vert_facade["plain_ms"],
          "bound_ms": vert_facade["bound_ms"],
          "bound_by": vert_facade["bound_by"],
          "library_ms": vert_facade["library_ms"],
-         "batch": vert_batch},
+         "per_thread": vert_facade["per_thread"],
+         "split": vert_facade["split"],
+         "device_ms": vert_facade["device_ms"],
+         "split_device_ms": vert_facade["split_device_ms"],
+         "empty_launch_ms": empty_launch,
+         "batch": vert_batch, "sets": [vert_far] + vert_planted,
+         # the every-vertex oracle beside the split kernel: no path runs it
+         "every": {
+             "name": "nearest_vertices_every", "route": "cuda",
+             "source": "mesh_tpu_torch/csrc/nearest_vertices_every.cu",
+             "ms": vert_facade["every_ms"],
+             "device_ms": vert_facade["every_device_ms"],
+             "batch_ms": vert_batch["every_ms"],
+             "batch_device_ms": vert_batch["every_device_ms"],
+             "launches_by_path": {p: launches[p]["nearest_vertices_every"]
+                                  for p in launches}}},
     ]
     main_l = next(r for r in culled_runs
                   if (r["variant"], r["degenerate_tail"]) == variant_l)
@@ -4732,8 +4899,17 @@ def main():
          "library_l2_warm_ms": main_lb["library_l2_warm_ms"],
          "amin_amax_ms": main_lb["amin_amax_ms"],
          "amin_amax_l2_warm_ms": main_lb["amin_amax_l2_warm_ms"],
+         "plan": main_lb["plan"], "empty_launch_ms": empty_launch,
          "on": main_lb["on"],
-         "detail": leaf_runs})
+         "detail": leaf_runs,
+         # the warp-a-leaf oracle beside the new kernel: no path runs it
+         "warp": {
+             "name": "leaf_boxes_warp", "route": "cuda",
+             "source": "mesh_tpu_torch/csrc/leaf_boxes_warp.cu",
+             "ms": main_lb["warp_ms"],
+             "l2_warm_ms": main_lb["warp_l2_warm_ms"],
+             "launches_by_path": {p: launches[p]["leaf_boxes_warp"]
+                                  for p in launches}}})
     main_m = next(r for r in mxu_runs if r["mesh"] == "sphere_surface"
                   and "ms" in r["faces"])
     for name, key, source, replaces in (

@@ -39,7 +39,10 @@ KERNELS = {
     "cull_records": ("cull_records.cu", "mt_cull_records",
                      [_PTR] * 2 + [_INT] * 5),
     "nearest_vertices": ("nearest_vertices.cu", "mt_nearest_vertices",
-                         [_PTR] * 3 + [_INT] * 3),
+                         [_PTR] * 3 + [_INT] * 5),
+    "nearest_vertices_every": ("nearest_vertices_every.cu",
+                               "mt_nearest_vertices_every",
+                               [_PTR] * 3 + [_INT] * 3),
     "culled_faces": ("culled_faces.cu", "mt_culled_faces",
                      [_PTR] * 10 + [_INT] * 9),
     "rope_faces": ("rope_faces.cu", "mt_rope_faces",
@@ -71,7 +74,9 @@ KERNELS = {
                     [_PTR] * 5 + [_INT] * 2),
     "self_intersect": ("self_intersect.cu", "mt_self_intersect",
                        [_PTR] * 6 + [_INT] * 4 + [_FLOAT] * 2),
-    "leaf_boxes": ("leaf_boxes.cu", "mt_leaf_boxes", [_PTR] * 3 + [_INT] * 2),
+    "leaf_boxes": ("leaf_boxes.cu", "mt_leaf_boxes", [_PTR] * 3 + [_INT] * 4),
+    "leaf_boxes_warp": ("leaf_boxes_warp.cu", "mt_leaf_boxes_warp",
+                        [_PTR] * 3 + [_INT] * 2),
     "mxu_faces": ("mxu_faces.cu", "mt_mxu_faces", [_PTR] * 11 + [_INT] * 5),
     "mxu_faces_every": ("mxu_faces_every.cu", "mt_mxu_faces_every",
                         [_PTR] * 3 + [_INT] * 5),

@@ -2,7 +2,7 @@
 their plain PyTorch versions, and the prologue and epilogue around them
 (counterpart of mesh_tpu/query/pallas_closest.py).
 
-Four kernels:
+Five kernels:
 
 - ``closest_faces`` (``csrc/closest_faces.cu`` over ``csrc/closest_cull.cuh``):
   for each query, the face with the least Ericson squared distance,
@@ -20,7 +20,15 @@ Four kernels:
   ``closest_faces``' cull, one warp per chunk (``cull_records_plain`` is
   its plain version).
 - ``nearest_vertices`` (``csrc/nearest_vertices.cu``): for each query, the
-  nearest mesh vertex.
+  nearest mesh vertex.  The vertex axis is split over the blocks of a
+  thread-block cluster, each folding a contiguous range, and the splits
+  merge by the least packed (distance, index) key (``vertex_plan``,
+  ``vertex_keys``; ``argmin_vertices_split_plain`` is the split and the
+  merge in plain PyTorch).
+- ``nearest_vertices_every`` (``csrc/nearest_vertices_every.cu`` over
+  ``csrc/argmin.cuh``): one query a thread over every vertex, the oracle
+  that ``chip_smoke.py`` holds ``nearest_vertices`` to; no path launches
+  it.
 
 The argmin kernels keep a running (distance, index) pair per query and
 take a face only when it is strictly closer, walking faces in increasing
@@ -50,6 +58,7 @@ every-face argmin; ``argmin_faces_culled_plain`` repeats the chunk cull's
 decisions and counts too.
 """
 
+import functools
 import hashlib
 
 import numpy as np
@@ -65,7 +74,7 @@ N_FACE_ROWS = 19
 #: launches of each CUDA kernel since the counts were last set to 0
 LAUNCHES = {"closest_faces": 0, "closest_faces_fused": 0,
             "closest_faces_every": 0, "cull_records": 0,
-            "nearest_vertices": 0}
+            "nearest_vertices": 0, "nearest_vertices_every": 0}
 
 TILE_VARIANTS = ("fast", "safe")
 REDUCTIONS = ("exact", "fused")
@@ -860,18 +869,140 @@ def argmin_vertices_plain(pts, vplanes):
     return out
 
 
-def argmin_vertices(pts, vplanes):
+#: threads of a ``nearest_vertices`` block (csrc/nearest_vertices.cu
+#: kThreads)
+VERTEX_THREADS = 128
+
+#: vertices of one shared-memory tile (kTile): a split gets at least one
+VERTEX_TILE = 256
+
+#: the most splits of the vertex axis, the blocks of one cluster
+#: (kMaxSplit: above 8, a cluster size the H100 allows but does not
+#: promise to other cards)
+VERTEX_MAX_SPLIT = 16
+
+#: the queries a thread that the kernel is built for (kPer)
+VERTEX_PER_THREAD = (2, 4)
+
+
+def vertex_plan(n_b, n_q, n_v, sms):
+    """(queries a thread, splits of the vertex axis) of a
+    ``nearest_vertices`` launch over ``n_b`` meshes x ``n_q`` queries x
+    ``n_v`` vertices on a card of ``sms`` SMs.  The plans are the fastest
+    of ``tools/vertex_plan_sweep.py`` on an H100 (PERF.md, row 2), by the
+    query blocks of 2 queries a thread, ``n_b * ceil(n_q / 256)``: up to an
+    eighth of the SMs (1 x 4096 x 6,890) 2 a thread and 12 splits; below
+    one and a half times the SMs (8 to 48 x 1024) 2 a thread and 7
+    splits; from there on, where the blocks fill the card (64 to 256 x
+    1024), 4 a thread and 2 splits.  A split keeps at least
+    ``VERTEX_TILE`` vertices."""
+    blocks = n_b * -(-n_q // (2 * VERTEX_THREADS))
+    if blocks <= sms // 8:
+        per, split = 2, 12
+    elif 2 * blocks < 3 * sms:
+        per, split = 2, 7
+    else:
+        per, split = 4, 2
+    return per, min(split, max(1, n_v // VERTEX_TILE))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    """The SMs of the CUDA ``device``, which ``vertex_plan`` fills: read
+    once a device, so that a call does not pay the lookup's host time
+    (``tools/vertex_plan_sweep.py`` times both, ``host_us``)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def vertex_split_bounds(n_v, split):
+    """The contiguous vertex range [v0, v1) of each of ``split`` splits, as
+    the kernel cuts them: ``chunk = ceil(n_v / split)``, split s from
+    ``min(n_v, s * chunk)``."""
+    chunk = -(-n_v // split)
+    out = []
+    for s in range(split):
+        v0 = min(n_v, s * chunk)
+        out.append((v0, min(n_v, v0 + chunk)))
+    return out
+
+
+def vertex_keys(d, i):
+    """The ``nearest_vertices`` merge's keys of distances ``d`` (float32)
+    and indices ``i`` (int, 0 <= i < 2^31), as int64 that order as the
+    kernel's unsigned 64-bit ``(bits(d) << 32) | i``: the top bit flipped,
+    ``(int32(bits(d) ^ 0x80000000) << 32) + i``.  As unsigned integers,
+    finite non-negative distances order as their values, below +inf,
+    below every NaN; at an equal distance the lower index is the lower
+    key."""
+    bits = d.contiguous().view(torch.int32) ^ torch.tensor(
+        -2 ** 31, dtype=torch.int32)
+    return bits.to(torch.int64) * (1 << 32) + i.to(torch.int64)
+
+
+def argmin_vertices_split_plain(pts, vplanes, split):
+    """The ``nearest_vertices`` kernel's split and merge in plain PyTorch:
+    each of ``split`` contiguous ranges (``vertex_split_bounds``) folded
+    as the kernel's strict < from (+inf, 0) folds it (a NaN cost never
+    taken; a range with no finite cost keeps (+inf, 0)), and the least of
+    the ranges' ``vertex_keys``.  [B, Q] int32."""
+    best = None
+    for v0, v1 in vertex_split_bounds(vplanes.shape[-1], split):
+        if v1 > v0:
+            cost = _vertex_sqdist_tile(
+                pts[..., 0:1], pts[..., 1:2], pts[..., 2:3],
+                *[vplanes[:, k, None, v0:v1] for k in range(3)])
+            cost = torch.where(torch.isnan(cost), float("inf"), cost)
+            d, i = cost.min(dim=-1)
+            i = torch.where(d < float("inf"), i + v0, torch.zeros_like(i))
+        else:
+            d = pts.new_full(pts.shape[:2], float("inf"))
+            i = torch.zeros(pts.shape[:2], dtype=torch.int64,
+                            device=pts.device)
+        key = vertex_keys(d, i)
+        best = key if best is None else torch.minimum(best, key)
+    return (best & 0xffffffff).to(torch.int32)
+
+
+def argmin_vertices(pts, vplanes, _plan=None):
     """Index of the nearest vertex per query: the ``nearest_vertices``
-    CUDA kernel for CUDA tensors, its plain version for CPU tensors."""
+    CUDA kernel for CUDA tensors, its plain version for CPU tensors.
+    ``_plan``, (queries a thread, splits), replaces ``vertex_plan``'s: a
+    hook for the checks and the sweep that hold the kernel at each plan."""
     _check_operands(pts, vplanes, 3, "nearest_vertices")
+    n_b, n_q, n_v = _grid(pts, vplanes, "nearest_vertices")
+    if _plan is not None:
+        per, split = (int(x) for x in _plan)
+        if per not in VERTEX_PER_THREAD or not 1 <= split <= VERTEX_MAX_SPLIT:
+            raise ValueError(
+                "nearest_vertices: plan (%d, %d), not %s queries a thread "
+                "and a split of 1 to %d" % (per, split, VERTEX_PER_THREAD,
+                                            VERTEX_MAX_SPLIT))
+    if pts.device.type == "cpu":
+        return argmin_vertices_plain(pts, vplanes)
+    if _plan is None:
+        per, split = vertex_plan(n_b, n_q, n_v, _sm_count(pts.device))
+    from .. import _build
+
+    out = torch.empty((n_b, n_q), dtype=torch.int32, device=pts.device)
+    _build.launch("nearest_vertices", pts.device, pts, vplanes, out, n_b,
+                  n_q, n_v, per, split)
+    LAUNCHES["nearest_vertices"] += 1
+    return out
+
+
+def argmin_vertices_every(pts, vplanes):
+    """``argmin_vertices`` through the ``nearest_vertices_every`` CUDA
+    kernel, one query a thread over every vertex (the oracle; no path
+    launches it), for CUDA tensors; the plain version for CPU tensors."""
+    _check_operands(pts, vplanes, 3, "nearest_vertices_every")
     if pts.device.type == "cpu":
         return argmin_vertices_plain(pts, vplanes)
     from .. import _build
 
     out = torch.empty(pts.shape[:2], dtype=torch.int32, device=pts.device)
-    _build.launch("nearest_vertices", pts.device, pts, vplanes, out,
-                  *_grid(pts, vplanes, "nearest_vertices"))
-    LAUNCHES["nearest_vertices"] += 1
+    _build.launch("nearest_vertices_every", pts.device, pts, vplanes, out,
+                  *_grid(pts, vplanes, "nearest_vertices_every"))
+    LAUNCHES["nearest_vertices_every"] += 1
     return out
 
 

@@ -15,10 +15,15 @@ checkout's package first on the path, the inputs in ``inputs``, ``reps``,
 ``rounds``, the tool's own arguments in ``extra``, its kernels built with
 ``-Xptxas -v`` and their register and spill lines in ``ptxas``), the
 tool's ``body``, which sets ``variants`` (a list of (name, fn)),
-``later`` (the same, for variants one side has and the other lacks) and
-``answers`` (a dict of CPU tensors), and ``SIDE_TAIL``, which times each
+``later`` (the same, for variants one side has and the other lacks),
+``answers`` (a dict of CPU tensors) and ``queued`` (the names of variants
+shorter than their host launch path), and ``SIDE_TAIL``, which times each
 variant with CUDA events around ``reps`` back-to-back calls, in ``rounds``
 rounds that interleave the variants, and takes the median over the rounds.
+A queued variant's calls wait behind a spin of ``QUEUE_SPIN_MS`` on the
+card, so the events time the card's runs and not the host's launches; a
+round whose host took longer to queue them than the spin lasted is
+listed in ``spin_overrun``.
 The ``later`` variants run in rounds of their own after those of
 ``variants``: interleaved, they slowed the host-bound calls around them
 on both sides of an A/B of one checkout against its own copy (PERF.md,
@@ -53,37 +58,55 @@ report = _build.build(verbose=True)
 ptxas = {name: [line.strip() for line in report.get(name, {}).get(
     "ptxas", "").splitlines() if "registers" in line or "spill" in line]
     for name in PTXAS}
-variants, later, answers = [], [], {}
+variants, later, answers, queued = [], [], {}, set()
 """
 
 SIDE_TAIL = r"""
+import time
 times = {name: [] for name, _ in variants + later}
+overrun = []
 for group in (variants, later):
     for _ in range(rounds):
         for name, fn in group:
             fn()
             torch.cuda.synchronize()
+            spin = torch.cuda.Event(enable_timing=True)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            spin.record()
+            if name in queued:
+                torch.cuda._sleep(int(QUEUE_SPIN_MS * 1e-3 * SPIN_CLOCK_HZ))
+            t0 = time.perf_counter()
             start.record()
             for _ in range(reps):
                 fn()
             end.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
             end.synchronize()
+            if name in queued and host_ms > spin.elapsed_time(start):
+                overrun.append(name)
             times[name].append(start.elapsed_time(end) / reps)
 torch.save(answers, out_path)
 print(json.dumps({"ms": {k: statistics.median(v) for k, v in times.items()},
                   "rounds_ms": times, "ptxas": ptxas,
+                  "queued": sorted(queued), "spin_overrun": overrun,
                   "libs": {name: _build._library_path(name)
                            for name in SASS}}))
 """
+
+#: ``SIDE_TAIL``'s spin before a queued variant's calls, and the SM clock
+#: that converts it to cycles (the H100 SXM's boost clock; a lower clock
+#: only spins longer)
+QUEUE_SPIN_MS = 20.0
+SPIN_CLOCK_HZ = 1.98e9
 
 
 def side_program(body, ptxas=(), sass=()):
     """The program a side's process runs: ``body`` between SIDE_HEAD and
     SIDE_TAIL, with the kernels whose ptxas lines it reports (``ptxas``)
     and whose libraries it names for the SASS comparison (``sass``)."""
-    return ("PTXAS = %r\nSASS = %r\n" % (tuple(ptxas), tuple(sass))
+    return ("PTXAS = %r\nSASS = %r\nQUEUE_SPIN_MS = %r\nSPIN_CLOCK_HZ = %r\n"
+            % (tuple(ptxas), tuple(sass), QUEUE_SPIN_MS, SPIN_CLOCK_HZ)
             + SIDE_HEAD + body + SIDE_TAIL)
 
 
@@ -142,6 +165,22 @@ def same_as_first(key):
         return sorted({name for run in runs for name, got in run.items()
                        if not torch.equal(got, want)})
     return check
+
+
+def same_per_name(paths):
+    """A check of the answers: each answer equal to the first process's
+    answer of the same name, where that process has one (the names of
+    those that differ)."""
+    import torch
+
+    runs = [torch.load(p) for p in paths]
+    bad = set()
+    for run in runs[1:]:
+        for name, got in run.items():
+            want = runs[0].get(name)
+            if want is not None and not torch.equal(got, want):
+                bad.add(name)
+    return sorted(bad)
 
 
 def sass_functions(lib):
