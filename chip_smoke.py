@@ -206,7 +206,31 @@ Phases (any failure raises and exits non-zero; none catches its own):
    series moved by the screen's skipped visits; the environment is
    restored afterwards.
 
-After phase 13, the four closest-point routes (brute, culled, resident and
+14. fit: the training path on ``synthetic_body_model(seed=0)`` (6,890
+   vertices, 13,776 faces, 24 joints, 10 betas), at bench.py's
+   fit_step_latency shape (1 body x 256 N(0, 0.3) scan points) and at
+   BASELINE.json config 5's (1 body x 100,000 surface samples of posed
+   body 0): ``scan_to_model_loss`` forward and value-and-grad times
+   (``cuda_ms``) and their ratio, one closest_faces launch a forward and
+   a value-and-grad (the backward re-runs no search), whether two
+   backwards were bit-identical, 10 steps of ``make_fit_step`` with a
+   falling loss, and the kernel route's gradients against the plain
+   scan's on the queries whose faces agree; ``torch.func.jvp`` through
+   ``diff.closest_point(mode="recompute")`` with the kernel launching
+   inside, against the gradient's projection; ``diff.
+   nearest_normal_weighted`` on phase 8's set (faces equal to the plain
+   version's); ``diff.closest_point`` over a BVH index on phase 6's scan
+   mesh (the streamed rope walk) against the default route (the culled
+   kernel) where the faces agree; ``register_vertices`` from the rest
+   template to posed body 0, 30 steps with a burst every 5; then, after
+   the checks, the step's stages at 1 x 100,000 (lbs, search,
+   recomposition, backward, Adam);
+14b. empty: a set of no queries through every entry point (the Mesh
+   facade on the brute, culled and BVH rungs, nearest vertices, both
+   trees, the batched and fused facades, the diff wrappers), each with
+   the reference's empty shapes and dtypes, and no kernel launched.
+
+After phase 14b, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
 brute-force kernel: the crossover evidence; then each drive's stages (the
@@ -214,7 +238,7 @@ large batch's culled prologue in its parts, each anim session's resident
 rope kernel alone, held to its plain version at every sub-lane count
 as on the scan).
 
-Phases 3-13 and 3b are the driven paths (phases 6 and 13 twice).  Kernel
+Phases 3-14, 3b and 14b are the driven paths (phases 6 and 13 twice).  Kernel
 launch counts are set to 0 just before each and read just after it, and
 every kernel must have launched on each path of ``KERNEL_PATHS`` and on no
 other path.  The last lines are the card's name and power limit (nvidia-smi),
@@ -472,20 +496,39 @@ SCREEN_PAIR_OPS = 25
 MIXED_QUERIES = 8192
 MIXED_RADIUS = 1.6
 
+#: phase 14: the scan-fit step at bench.py's fit_step_latency shape (1 body
+#: x 256 N(0, 0.3) points) and BASELINE.json config 5's (1 body x 100,000
+#: surface samples of posed body 0 with N(0, SCAN_NOISE) noise)
+FIT_SHAPES = {"bench_256": ("randn", 256),
+              "config5_100k": ("surface", 100000)}
+FIT_MAIN = "config5_100k"
+FIT_REPS = 10
+#: phase 14's times: FIT_ROUNDS rounds of FIT_REPS calls of each timed call,
+#: interleaved after a shared warm-up of FIT_WARMUP calls of each
+FIT_ROUNDS = 7
+FIT_WARMUP = 3
+FIT_STEPS = 10
+#: phase 14: the jvp's queries, the first of FIT_MAIN's scan
+JVP_QUERIES = 4096
+#: phase 14: free-vertex ICP from the rest template to posed body 0
+REGISTER_SCAN = 4096
+REGISTER_STEPS = 30
+REGISTER_EVERY = 5
+
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
 #: (a kernel with no path has its row in its successor's)
-KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
+KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit"),
                 "closest_faces_fused": ("main_path_fused",),
                 # the every-face kernel, phase 2's face oracle
                 "closest_faces_every": (),
                 "cull_records": ("main_path", "main_path_fused", "facade",
-                                 "contact", "mxu", "registration"),
+                                 "contact", "mxu", "registration", "fit"),
                 "nearest_vertices": ("facade",),
                 # the every-vertex kernel, phase 2's index oracle
                 "nearest_vertices_every": (),
-                "culled_faces": ("large_batch",),
-                "rope_faces_stream": ("scan",),
+                "culled_faces": ("large_batch", "fit"),
+                "rope_faces_stream": ("scan", "fit"),
                 "rope_faces_resident": ("scan_resident", "anim"),
                 "rope_mxu_stream": ("mxu_bvh",),
                 "rope_mxu_resident": ("mxu_bvh_resident",),
@@ -495,7 +538,7 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact"),
                 "alongnormal_faces": ("registration",),
                 # the every-face kernel, phase 2's face oracle
                 "alongnormal_faces_every": (),
-                "normal_weighted_faces": ("registration",),
+                "normal_weighted_faces": ("registration", "fit"),
                 # the every-face kernel, phase 2's face oracle
                 "normal_weighted_faces_every": (),
                 "tri_tri_any_hit": ("contact",),
@@ -3516,6 +3559,521 @@ def check_mxu_bvh(runs, v, f, pts, vpu, walks, dev):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the training path.
+
+def _layout(x):
+    """Shapes and dtype names of a result: arrays, tensors, tuples, dicts."""
+    if isinstance(x, tuple):
+        return tuple(_layout(y) for y in x)
+    if isinstance(x, dict):
+        return {k: _layout(y) for k, y in x.items()}
+    if torch.is_tensor(x):
+        return (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+    return (tuple(x.shape), str(x.dtype))
+
+
+def fit_inputs(model, verts0, dev):
+    """Phase 14's scans, by FIT_SHAPES: bench.py's fit_step_latency scan
+    (N(0, 0.3) points) and BASELINE.json config 5's (surface samples of
+    posed body 0 ``verts0`` with N(0, SCAN_NOISE) noise), each [1, S, 3]."""
+    rng = np.random.RandomState(14)
+    scans = {}
+    for label, (kind, n) in FIT_SHAPES.items():
+        if kind == "randn":
+            scans[label] = torch.as_tensor(rng.randn(1, n, 3) * 0.3,
+                                           dtype=torch.float32, device=dev)
+        else:
+            scans[label] = surface_queries(verts0[None], model.faces, n,
+                                           rng)[0]
+    return scans
+
+
+def fit_zero_params(model, dev):
+    """Zero (betas, pose, trans) of one body, leaves that require grad."""
+    return [torch.zeros(shape, dtype=torch.float32, device=dev,
+                        requires_grad=True)
+            for shape in ((1, model.num_betas), (1, model.num_joints, 3),
+                          (1, 3))]
+
+
+def fit_calls(model, scan, dev):
+    """(params, forward, value_and_grad) of ``scan_to_model_loss`` at zero
+    parameters, both under ``no_tf32`` as ``make_fit_step`` runs them."""
+    from mesh_tpu_torch.models.body_model import no_tf32
+    from mesh_tpu_torch.parallel import fit
+
+    params = fit_zero_params(model, dev)
+
+    def forward():
+        with torch.no_grad(), no_tf32():
+            return fit.scan_to_model_loss(model, *params, scan, device=dev)
+
+    def value_and_grad():
+        with no_tf32():
+            loss = fit.scan_to_model_loss(model, *params, scan, device=dev)
+            return loss, torch.autograd.grad(loss, params)
+
+    return params, forward, value_and_grad
+
+
+def fit_shape(label, model, scan, dev):
+    """One fit shape: the closest_faces launches of one forward and one
+    value-and-grad, two value-and-grads' gradients (bit-identical or not),
+    and FIT_STEPS steps of ``make_fit_step`` (times: ``fit_times``)."""
+    from mesh_tpu_torch.parallel import fit
+    from mesh_tpu_torch.query import closest_kernel as ck
+
+    _, forward, value_and_grad = fit_calls(model, scan, dev)
+    run = {"scan_points": scan.shape[1]}
+    n0 = ck.LAUNCHES["closest_faces"]
+    loss_f = forward()
+    run["launches_per_forward"] = ck.LAUNCHES["closest_faces"] - n0
+    n0 = ck.LAUNCHES["closest_faces"]
+    loss_v, grads = value_and_grad()
+    run["launches_per_value_and_grad"] = ck.LAUNCHES["closest_faces"] - n0
+    _, grads2 = value_and_grad()
+    run["backward_bit_identical"] = all(
+        torch.equal(a, b) for a, b in zip(grads, grads2))
+    run["loss"] = float(loss_v.detach())
+    check(float(loss_f) == run["loss"], "fit %s: the forward's loss %r, the "
+          "value and grad's %r" % (label, float(loss_f), run["loss"]))
+    state, opt = fit.init_fit_state(model, 1, device=dev)
+    step = fit.make_fit_step(model, opt, device=dev)
+    losses = []
+    n0 = ck.LAUNCHES["closest_faces"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FIT_STEPS):
+        state, loss = step(state, scan)
+        losses.append(float(loss))
+    run["step_ms"] = (time.perf_counter() - t0) * 1e3 / FIT_STEPS
+    run["launches_per_step"] = (ck.LAUNCHES["closest_faces"] - n0) / FIT_STEPS
+    run["losses"] = losses
+    log("  fit %s (1 x %d): closest_faces launches %d a forward, %d a "
+        "value and grad; two backwards bit-identical: %s; %d steps of "
+        "make_fit_step %.3f ms each (host clock), loss %.6g -> %.6g"
+        % (label, scan.shape[1], run["launches_per_forward"],
+           run["launches_per_value_and_grad"], run["backward_bit_identical"],
+           FIT_STEPS, run["step_ms"], losses[0], losses[-1]))
+    return run, grads
+
+
+def drive_fit(model, verts0, scans, reg_pts, reg_nrm, scan_mesh, dev):
+    """Phase 14's drive, counts set to 0 just before it and read just
+    after: the fit at each shape, ``torch.func.jvp`` through recompute
+    mode, ``diff.nearest_normal_weighted`` on phase 8's set,
+    ``diff.closest_point`` over a BVH index and by the default route on
+    phase 6's scan mesh, and ``register_vertices``.  Returns (runs, what
+    the checks after the window need, launches)."""
+    from mesh_tpu_torch import diff
+    from mesh_tpu_torch.accel.build import get_index
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import normal_weighted as nw
+
+    f = model.faces
+    reset_launches()
+    runs, keep = {}, {}
+    for label, scan in scans.items():
+        runs[label], keep[label] = fit_shape(label, model, scan, dev)
+
+    # torch.func.jvp through recompute mode, the kernel launching inside
+    q = scans[FIT_MAIN][0, :JVP_QUERIES]
+    dv = torch.as_tensor(np.random.RandomState(16).randn(*verts0.shape),
+                         dtype=torch.float32, device=dev)
+
+    def prim(v_):
+        return diff.closest_point(v_, f, q, mode="recompute",
+                                  device=dev)["sqdist"]
+
+    n0 = ck.LAUNCHES["closest_faces"]
+    _, tangent = torch.func.jvp(prim, (verts0,), (dv,))
+    jvp_launches = ck.LAUNCHES["closest_faces"] - n0
+    grad = torch.func.grad(lambda v_: prim(v_).sum())(verts0)
+    runs["jvp"] = {"queries": JVP_QUERIES, "launches": jvp_launches,
+                   "tangent_sum": float(tangent.sum()),
+                   "grad_dot": float((grad * dv).sum())}
+
+    # the normal-weighted query on phase 8's registration set (row 7)
+    v_nw = verts0.clone().requires_grad_(True)
+    n0 = nw.LAUNCHES["normal_weighted_faces"]
+    res_nw = diff.nearest_normal_weighted(v_nw, f, reg_pts, reg_nrm,
+                                          eps=REG_EPS, device=dev)
+    (g_nw,) = torch.autograd.grad(res_nw["sqdist"].sum(), v_nw)
+    runs["normal_weighted"] = {
+        "queries": reg_pts.shape[0],
+        "launches": nw.LAUNCHES["normal_weighted_faces"] - n0,
+        "grad_finite": bool(torch.isfinite(g_nw).all())}
+    keep["normal_weighted"] = res_nw["face"]
+
+    # closest point over a BVH index on phase 6's scan mesh (rows 12 / 14)
+    v_s, f_s, p_s = scan_mesh
+    index = get_index(v_s, f_s, "bvh")
+    vt = torch.as_tensor(v_s, dtype=torch.float32, device=dev)
+    pt = torch.as_tensor(p_s, device=dev)
+    faces = {}
+    for route, idx in (("accel", index), ("default", None)):
+        n0 = read_launches()
+        faces[route] = diff.closest_point(vt, f_s, pt, accel_index=idx,
+                                          device=dev)["face"]
+        n1 = read_launches()
+        runs["scan_" + route] = {
+            "launches": {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}}
+    same = faces["accel"] == faces["default"]
+    grads = {}
+    for route, idx in (("accel", index), ("default", None)):
+        vq = vt.clone().requires_grad_(True)
+        res = diff.closest_point(vq, f_s, pt, accel_index=idx, device=dev)
+        (grads[route],) = torch.autograd.grad(
+            (res["sqdist"] * same).sum(), vq)
+    keep["scan"] = (same, grads)
+    runs["scan_accel"]["faces_equal_share"] = float(same.float().mean())
+
+    # free-vertex ICP: REGISTER_STEPS steps, a burst every REGISTER_EVERY
+    rng = np.random.RandomState(15)
+    reg_scan = surface_queries(verts0[None], f, REGISTER_SCAN, rng)[0][0]
+    n0 = ck.LAUNCHES["closest_faces"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    icp = diff.register_vertices(model.v_template, f, reg_scan,
+                                 steps=REGISTER_STEPS,
+                                 recorrespond_every=REGISTER_EVERY,
+                                 device=dev)
+    runs["register"] = {
+        "ms": (time.perf_counter() - t0) * 1e3, "scan_points": REGISTER_SCAN,
+        "steps": REGISTER_STEPS,
+        "recorrespondences": icp.recorrespondences,
+        "launches": ck.LAUNCHES["closest_faces"] - n0,
+        "loss_first": icp.losses[0], "loss_last": icp.losses[-1],
+        "residual_rms": icp.residual_rms}
+    launches = read_launches()
+    return runs, keep, launches
+
+
+def check_fit(runs, keep, model, verts0, scans, reg_pts, reg_nrm, dev):
+    """Phase 14's checks, after the counted window: one closest_faces
+    launch a forward, a value-and-grad and a step, falling losses; at each
+    fit shape, the kernel's faces identical to its plain versions on the
+    fit's own operands (``compare_faces``), and the kernel route against
+    the plain scan (``use_pallas=False``, another distance formula): sqdist
+    within 1e-5 on every query, every face that differs a tie (the two
+    faces' distances by one formula within 1e-6, ``check_against_brute``),
+    the gradient of the mean sqdist with respect to the vertices within
+    rtol 1e-4, atol 1e-5 of its largest over the agreeing queries, and its
+    gap over all queries recorded (a near-tie may put the closest point on
+    an edge in one route and just inside a face in the other); the jvp's tangent against the
+    gradient's projection (rtol 1e-4), the normal-weighted faces equal to
+    the kernel's plain version's, the BVH route's gradients equal to the
+    default route's where the faces agree, and the ICP bursts."""
+    from mesh_tpu_torch import diff
+    from mesh_tpu_torch.models import lbs
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import normal_weighted as nw
+
+    f = model.faces
+    with torch.no_grad():
+        # the parameters the gradients were taken at (zero: the rest pose)
+        verts, _ = lbs(model, *fit_zero_params(model, dev), device=dev)
+    for label, scan in scans.items():
+        run = runs[label]
+        check(run["launches_per_forward"] == 1
+              and run["launches_per_value_and_grad"] == 1
+              and run["launches_per_step"] == 1,
+              "fit %s: closest_faces launched %s a forward, %s a value and "
+              "grad, %s a step, not once each" % (
+                  label, run["launches_per_forward"],
+                  run["launches_per_value_and_grad"],
+                  run["launches_per_step"]))
+        check(np.isfinite(run["losses"]).all()
+              and run["losses"][-1] < run["losses"][0],
+              "fit %s: the loss did not fall: %s" % (label, run["losses"]))
+        check(all(bool(torch.isfinite(g).all()) for g in keep[label]),
+              "fit %s: gradients not finite" % label)
+        # the fit's route: the brute kernel, the fast tile with its tail
+        ops = ck.closest_point_operands(verts, f, scan, "fast")
+        run["kernel_vs_plain"] = compare_faces(ck, *ops, "fast", True,
+                                               timing=False)
+        del ops
+        res, vq, grads = {}, {}, {}
+        for route in (None, False):
+            vq[route] = verts.clone().requires_grad_(True)
+            res[route] = diff.closest_point_batched(vq[route], f, scan,
+                                                    use_pallas=route,
+                                                    device=dev)
+            grads[route] = torch.autograd.grad(
+                res[route]["sqdist"].mean(), vq[route], retain_graph=True)[0]
+        same = res[None]["face"] == res[False]["face"]
+        for route in (None, False):
+            grads[route, "agree"] = torch.autograd.grad(
+                (res[route]["sqdist"] * same).mean(), vq[route])[0]
+        # every query: sqdist within 1e-5; a face that differs must be a tie
+        # (its distance and the plain face's, one formula, within 1e-6)
+        ties = check_against_brute(
+            "fit %s kernel route" % label, verts, f, scan, res[None]["face"],
+            res[None]["sqdist"].detach(),
+            {k: res[False][k].detach() for k in ("face", "sqdist")},
+            quiet=True, against="the plain scan")
+        pt_gap = (res[None]["point"] - res[False]["point"]).detach().norm(
+            dim=-1)[~same]
+        g_k, g_p = grads[None, "agree"], grads[False, "agree"]
+        run["faces_equal_plain_share"] = float(same.float().mean())
+        run["sqdist_max_abs_err_vs_plain"] = ties["sqdist_gap"]
+        run["mismatched_tie_max_gap"] = ties["tie_gap"]
+        run["mismatched_point_max_gap"] = float(pt_gap.max()) if (
+            pt_gap.numel()) else 0.0
+        run["grad_max_abs_err_vs_plain"] = float((g_k - g_p).abs().max())
+        run["grad_all_queries_max_abs_err_vs_plain"] = float(
+            (grads[None] - grads[False]).abs().max())
+        run["grad_max_abs"] = float(grads[False].abs().max())
+        log("  fit %s: the plain scan picks the kernel's face for %.4f of "
+            "the queries; on every query sqdist within %.3g; the others are "
+            "ties (their two faces' distances within %.3g, closest points "
+            "%.3g apart); vertex gradients within %.3g of the plain route's "
+            "on the agreeing queries, %.3g on all (largest %.3g)"
+            % (label, run["faces_equal_plain_share"],
+               run["sqdist_max_abs_err_vs_plain"],
+               run["mismatched_tie_max_gap"],
+               run["mismatched_point_max_gap"],
+               run["grad_max_abs_err_vs_plain"],
+               run["grad_all_queries_max_abs_err_vs_plain"],
+               run["grad_max_abs"]))
+        check(torch.allclose(g_k, g_p, rtol=1e-4,
+                             atol=1e-5 * float(g_p.abs().max())),
+              "fit %s: kernel-route vertex gradients differ from the plain "
+              "scan's by %.3g on the agreeing queries"
+              % (label, run["grad_max_abs_err_vs_plain"]))
+    jvp = runs["jvp"]
+    check(jvp["launches"] > 0, "jvp: the closest_faces kernel never "
+          "launched inside torch.func.jvp")
+    check(abs(jvp["tangent_sum"] - jvp["grad_dot"])
+          <= 1e-4 * max(1.0, abs(jvp["grad_dot"])),
+          "jvp: tangent %r against the gradient's %r" % (
+              jvp["tangent_sum"], jvp["grad_dot"]))
+    run_nw = runs["normal_weighted"]
+    plain_nw = nw.nearest_normal_weighted_plain(verts0, model.faces, reg_pts,
+                                                reg_nrm, eps=REG_EPS)[0]
+    run_nw["faces_equal_plain"] = bool(torch.equal(keep["normal_weighted"],
+                                                   plain_nw))
+    check(run_nw["launches"] > 0 and run_nw["grad_finite"]
+          and run_nw["faces_equal_plain"],
+          "diff.nearest_normal_weighted: %s" % run_nw)
+    same, grads = keep["scan"]
+    err = float((grads["accel"] - grads["default"]).abs().max())
+    tol = 1e-5 * float(grads["default"].abs().max())
+    runs["scan_accel"]["grad_max_abs_err_vs_default"] = err
+    check(err <= tol and runs["scan_accel"]["faces_equal_share"] > 0.99,
+          "diff.closest_point(accel_index): faces equal for %.4f, gradients "
+          "differ by %.3g (tolerance %.3g)" % (
+              runs["scan_accel"]["faces_equal_share"], err, tol))
+    reg = runs["register"]
+    check(reg["recorrespondences"] == REGISTER_STEPS // REGISTER_EVERY
+          and reg["launches"] == reg["recorrespondences"]
+          and reg["loss_last"] < reg["loss_first"],
+          "register_vertices: %s" % reg)
+    log("  jvp through recompute on %d queries: %d closest_faces launches, "
+        "tangent %.6g against %.6g; nearest_normal_weighted on %d queries: "
+        "%d launches, faces equal to the plain version's; BVH route on the "
+        "scan: launches %s, faces equal to the default route's (%s) for "
+        "%.4f, gradients within %.3g; register_vertices: %d bursts, %d "
+        "launches, loss %.6g -> %.6g in %.1f ms" % (
+            jvp["queries"], jvp["launches"], jvp["tangent_sum"],
+            jvp["grad_dot"], run_nw["queries"], run_nw["launches"],
+            runs["scan_accel"]["launches"], runs["scan_default"]["launches"],
+            runs["scan_accel"]["faces_equal_share"], err,
+            reg["recorrespondences"], reg["launches"], reg["loss_first"],
+            reg["loss_last"], reg["ms"]))
+    return runs
+
+
+def round_ms(fns):
+    """{name: [ms of each round]}: ``cuda_ms`` of FIT_REPS calls of each
+    function of ``fns`` in FIT_ROUNDS interleaved rounds, after a shared
+    warm-up of FIT_WARMUP calls of each, so no name is timed colder or in
+    another stretch of the run than the others."""
+    for _ in range(FIT_WARMUP):
+        for fn in fns.values():
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(FIT_ROUNDS):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(fn, FIT_REPS, warmup=0))
+    return times
+
+
+def spread(ms):
+    """The median of round times ``ms`` and their least and most."""
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}
+
+
+def fit_times(model, scans, runs, dev):
+    """Forward and value-and-grad ms at every fit shape (``round_ms``),
+    written into ``runs[label]``: medians, spreads, the ratio of the
+    medians and the least and most ratio of one round."""
+    calls = {label: fit_calls(model, scan, dev)[1:]
+             for label, scan in scans.items()}
+    fns = {}
+    for label, (forward, value_and_grad) in calls.items():
+        fns[label + "/forward"] = forward
+        fns[label + "/value_and_grad"] = value_and_grad
+    times = round_ms(fns)
+    for label in scans:
+        fwd = times[label + "/forward"]
+        vg = times[label + "/value_and_grad"]
+        ratios = [b / a for a, b in zip(fwd, vg)]
+        run = runs[label]
+        run["forward_ms"] = statistics.median(fwd)
+        run["value_and_grad_ms"] = statistics.median(vg)
+        run["forward_ms_rounds"], run["value_and_grad_ms_rounds"] = fwd, vg
+        run["backward_over_forward"] = (run["value_and_grad_ms"]
+                                        / run["forward_ms"])
+        run["backward_over_forward_range"] = [min(ratios), max(ratios)]
+        log("  fit %s: forward %.3f ms (rounds %.3f-%.3f), value and grad "
+            "%.3f ms (%.3f-%.3f), ratio %.2f (a round's %.2f-%.2f); medians "
+            "of %d rounds of %d calls after a shared warm-up"
+            % (label, run["forward_ms"], min(fwd), max(fwd),
+               run["value_and_grad_ms"], min(vg), max(vg),
+               run["backward_over_forward"], min(ratios), max(ratios),
+               FIT_ROUNDS, FIT_REPS))
+
+
+def fit_stages(model, scan, dev):
+    """Where one fit step's time goes at one shape, in separate CUDA-event
+    runs after the counted window (``round_ms``; median, least and most):
+    lbs of one body, the search (``closest_point_dispatch``: prologue,
+    closest_faces, epilogue), the recomposition at the winning faces
+    (``_Frozen``'s forward), the backward of the whole loss, one Adam
+    update."""
+    from mesh_tpu_torch.diff import queries as dq
+    from mesh_tpu_torch.models import lbs
+    from mesh_tpu_torch.models.body_model import no_tf32
+    from mesh_tpu_torch.parallel import fit
+    from mesh_tpu_torch.query.closest_point import closest_point_dispatch
+
+    params = fit_zero_params(model, dev)
+    f = model.faces.long()
+    with no_tf32():
+        verts, _ = lbs(model, *params, device=dev)
+        vd = verts.detach()
+        corners = f[closest_point_dispatch(vd, f, scan)["face"].long()]
+        loss = fit.scan_to_model_loss(model, *params, scan, device=dev)
+        grads = torch.autograd.grad(loss, params, retain_graph=True)
+        # Adam steps copies, so the retained graph's leaves stay as they were
+        moved = [p_.detach().clone().requires_grad_(True) for p_ in params]
+        for p_, g in zip(moved, grads):
+            p_.grad = g
+        times = round_ms({
+            "lbs": lambda: lbs(model, *params, device=dev),
+            "search": lambda: closest_point_dispatch(vd, f, scan),
+            "recompose": lambda: dq._Frozen.apply(vd, scan, corners),
+            "backward": lambda: torch.autograd.grad(loss, params,
+                                                    retain_graph=True),
+            "adam_step": fit.adam(moved).step})
+    return {name: spread(ms) for name, ms in times.items()}
+
+
+def empty_expected(n_v):
+    """Phase 14b: what an empty query set returns at each entry point, the
+    reference's shapes and dtypes, for a mesh of ``n_v`` vertices."""
+    face_pts = (((1, 0), "uint32"), ((0, 3), "float64"))
+    diff_res = {"bary": ((0, 3), "float32"), "face": ((0,), "int32"),
+                "part": ((0,), "int32"), "point": ((0, 3), "float32"),
+                "sqdist": ((0,), "float32")}
+    return {
+        "Mesh.closest_faces_and_points": face_pts,
+        "Mesh.closest_faces_and_points[culled]": face_pts,
+        "Mesh.closest_faces_and_points[bvh]": face_pts,
+        "Mesh.closest_points": ((0, 3), "float64"),
+        "Mesh.closest_vertices": (((0,), "int32"), ((0,), "float64")),
+        "AabbTree.nearest": (((1, 0), "uint32"), ((1, 0), "uint32"),
+                             ((0, 3), "float64")),
+        "AabbTree.nearest_alongnormal": (((0,), "float64"),
+                                         ((0,), "uint32"),
+                                         ((0, 3), "float64")),
+        "AabbNormalsTree.nearest": (((0, 1), "uint32"),
+                                    ((0, 3), "float64")),
+        "batched_closest_faces_and_points": (((2, 1, 0), "uint32"),
+                                             ((2, 0, 3), "float64")),
+        "fused_normals_and_closest_points": (((n_v, 3), "float64"),)
+        + face_pts,
+        "fused_normals_and_closest_points[batch]": (
+            ((2, n_v, 3), "float64"), ((2, 1, 0), "uint32"),
+            ((2, 0, 3), "float64")),
+        "diff.closest_point": diff_res,
+        "diff.closest_point[recompute]": diff_res,
+        "diff.closest_point[accel]": diff_res,
+        "diff.closest_point_batched": {
+            k: ((2,) + s, d) for k, (s, d) in diff_res.items()},
+        "diff.nearest_normal_weighted": diff_res,
+        "diff.point_to_triangle": {k: v for k, v in diff_res.items()
+                                   if k != "face"},
+    }
+
+
+def drive_empty(posed0, f_np, large0, f_l, scan_mesh, dev):
+    """Phase 14b: an empty query set through every entry point on the
+    card, counts set to 0 just before and read just after (no kernel may
+    launch: an empty grid is a launch error, so the wrappers return
+    first).  Returns (layouts, launches)."""
+    from mesh_tpu_torch import (
+        Mesh,
+        batched_closest_faces_and_points,
+        diff,
+        fused_normals_and_closest_points,
+    )
+    from mesh_tpu_torch.accel.build import get_index
+
+    e = np.zeros((0, 3), np.float32)
+    v_s, f_s, _ = scan_mesh
+    reset_launches()
+    m = Mesh(posed0, f_np, device=dev)
+    got = {
+        "Mesh.closest_faces_and_points": m.closest_faces_and_points(e),
+        "Mesh.closest_faces_and_points[culled]": Mesh(
+            large0, f_l, device=dev).closest_faces_and_points(e),
+        "Mesh.closest_faces_and_points[bvh]": Mesh(
+            v_s, f_s, device=dev).closest_faces_and_points(e),
+        "Mesh.closest_points": m.closest_points(e),
+        "Mesh.closest_vertices": m.closest_vertices(e),
+        "AabbTree.nearest": m.compute_aabb_tree().nearest(e, True),
+        "AabbTree.nearest_alongnormal":
+            m.compute_aabb_tree().nearest_alongnormal(e, e),
+        "AabbNormalsTree.nearest": m.compute_aabb_normals_tree().nearest(e,
+                                                                         e),
+        "batched_closest_faces_and_points": batched_closest_faces_and_points(
+            [m, m], e, device=dev),
+        "fused_normals_and_closest_points": fused_normals_and_closest_points(
+            m, e, device=dev),
+        "fused_normals_and_closest_points[batch]":
+            fused_normals_and_closest_points([m, m], np.zeros((2, 0, 3)),
+                                             device=dev),
+        "diff.closest_point": diff.closest_point(posed0, f_np, e,
+                                                 device=dev),
+        "diff.closest_point[recompute]": diff.closest_point(
+            posed0, f_np, e, mode="recompute", device=dev),
+        "diff.closest_point[accel]": diff.closest_point(
+            v_s.astype(np.float32), f_s, e,
+            accel_index=get_index(v_s, f_s, "bvh"), device=dev),
+        "diff.closest_point_batched": diff.closest_point_batched(
+            np.stack([posed0, posed0]), f_np, np.zeros((2, 0, 3), np.float32),
+            device=dev),
+        "diff.nearest_normal_weighted": diff.nearest_normal_weighted(
+            posed0, f_np, e, e, device=dev),
+        "diff.point_to_triangle": diff.point_to_triangle(e, e, e, e,
+                                                         device=dev),
+    }
+    torch.cuda.synchronize()
+    launches = read_launches()
+    layouts = {k: _layout(x) for k, x in got.items()}
+    expected = empty_expected(posed0.shape[0])
+    for name, want in expected.items():
+        check(layouts[name] == want,
+              "empty queries, %s: %s, not the reference's %s"
+              % (name, layouts[name], want))
+    log("  %d entry points returned the reference's empty shapes and "
+        "dtypes, with no kernel launched" % len(expected))
+    return layouts, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4568,6 +5126,36 @@ def main():
         {k[1:]: r for k, r in rope_mxu_runs.items() if k[0] == "scan"}, dev)
     del mxu_bvh_runs
 
+    # -- 14. fit: the training path ------------------------------------------
+    log("== fit: scan_to_model_loss and make_fit_step on the SMPL-sized model "
+        "at %s; torch.func.jvp, nearest_normal_weighted, the BVH route and "
+        "register_vertices" % ", ".join(
+            "1 x %d" % n for _, n in FIT_SHAPES.values()))
+    verts0 = verts[0].detach()
+    scans_fit = fit_inputs(model, verts0, dev)
+    fit_runs, fit_keep, launches["fit"] = drive_fit(
+        model, verts0, scans_fit, reg_pts, reg_nrm, (v_s, f_s, p_s), dev)
+    fit_runs = check_fit(fit_runs, fit_keep, model, verts0, scans_fit,
+                         reg_pts, reg_nrm, dev)
+    log("  card: %s" % nvidia_smi(CARD_STATE))
+    fit_times(model, scans_fit, fit_runs, dev)
+    fit_runs["stages_ms"] = {}
+    for label, scan in scans_fit.items():
+        stages = fit_runs["stages_ms"][label] = fit_stages(model, scan, dev)
+        log("fit %s stage breakdown (ms, separate runs; median of %d rounds "
+            "(least-most)): %s" % (label, FIT_ROUNDS, ", ".join(
+                "%s %.3f (%.3f-%.3f)" % (k, t["median"], t["min"], t["max"])
+                for k, t in stages.items())))
+    log("  card: %s" % nvidia_smi(CARD_STATE))
+    del fit_keep, scans_fit
+
+    # -- 14b. empty: no queries through every entry point ---------------------
+    log("== empty: Q = 0 through every entry point of the facades, the trees "
+        "and diff, on the brute, culled and BVH rungs")
+    empty_layouts, launches["empty"] = drive_empty(
+        posed[0], f_np, verts_l[0].cpu().numpy(), f_l.cpu().numpy(),
+        (v_s, f_s, p_s), dev)
+
     for name, paths in KERNEL_PATHS.items():
         for path, counts in launches.items():
             if path in paths:
@@ -5035,7 +5623,8 @@ def main():
         "registration": registration, "contact": contact,
         "self_intersect": self_int, "anim": anim,
         "mxu": {"calls": mxu, "crossover": dict(MXU_CALIBRATION)},
-        "mxu_bvh": mxu_bvh}),
+        "mxu_bvh": mxu_bvh, "fit": fit_runs,
+        "empty": {"entry_points": sorted(empty_layouts)}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -19,7 +19,9 @@ normal-weighted kernels behind ``Mesh.vertex_visibility``,
 self-intersection kernels, each with a segment and a Moller tile, behind
 ``AabbTree.intersections_indices``, ``query.intersections_mask`` and
 ``query.self_intersection_count``, with the SMPL-family synthetic models of
-``models.synthetic_family_model``).
+``models.synthetic_family_model``), and training: the envelope-theorem
+gradients of those searches, registration energies and ICP (``diff``) and
+the single-device scan-fit step (``parallel.fit``).
 """
 
 from .batch import (  # noqa: F401

@@ -421,6 +421,15 @@ def picked_lanes(tile_q, tile_f):
                and tile_q * s <= MAX_LANE_THREADS)
 
 
+def _no_walk(dev, n_out):
+    """The outputs of a walk with no queries, made without a launch (an
+    empty grid is a launch error): best distances [0] float32, then
+    ``n_out - 1`` int32 outputs [0]."""
+    return (torch.empty(0, dtype=torch.float32, device=dev),) + tuple(
+        torch.empty(0, dtype=torch.int32, device=dev)
+        for _ in range(n_out - 1))
+
+
 def rope_argmin(ops, n_buffers=None, lanes=None):
     """(best squared distance, sorted face position, leaves per query
     tile): the ``rope_faces`` CUDA kernel for CUDA operands (the resident
@@ -443,9 +452,11 @@ def rope_argmin(ops, n_buffers=None, lanes=None):
             raise ValueError("rope_faces: the streamed entry reads the face "
                              "records [Fp, %d] float32 of rope_operands(..., "
                              "records=True)" % FAST_RECORD)
+    q_pad = ops["seed"].shape[0]
+    if not q_pad:
+        return _no_walk(dev, 3)
     from .. import _build
 
-    q_pad = ops["seed"].shape[0]
     n_tiles = q_pad // ops["tile_q"]
     out_d = torch.empty(q_pad, dtype=torch.float32, device=dev)
     out_i = torch.empty(q_pad, dtype=torch.int32, device=dev)
@@ -537,9 +548,11 @@ def rope_mxu_argmin(ops, n_buffers=None, use_bf16=False, lanes=None):
     dev = ops["seed"].device
     if dev.type == "cpu":
         return rope_mxu_argmin_plain(ops, n_buffers, use_bf16, lanes=lanes)
+    q_pad = ops["seed"].shape[0]
+    if not q_pad:
+        return _no_walk(dev, 4)
     from .. import _build
 
-    q_pad = ops["seed"].shape[0]
     n_t = q_pad // ops["tile_q"]
     out_d = torch.empty(q_pad, dtype=torch.float32, device=dev)
     out_i = torch.empty(q_pad, dtype=torch.int32, device=dev)

@@ -89,7 +89,7 @@ def _check_model_device(model, dev):
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """Full float32 matmuls and cuDNN inside the block; the caller's TF32
     settings are restored on the way out."""
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
@@ -116,7 +116,7 @@ def lbs(model, betas, pose, trans=None, device="cuda"):
     """
     dev = resolve_device(device)
     _check_model_device(model, dev)
-    with _no_tf32():
+    with no_tf32():
         return _lbs(model, betas, pose, trans, dev)
 
 

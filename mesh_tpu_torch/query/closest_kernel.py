@@ -719,10 +719,11 @@ def argmin_faces_culled_plain(pts, planes, cull, tile_variant="fast",
 # The argmin steps: plain version, and the wrapper that launches the kernel.
 
 def _chunks(n_b, n_q, n_cols, device):
-    """(b0, b1, q0, q1) blocks of at most _PLAIN_PAIRS pairs each."""
+    """(b0, b1, q0, q1) blocks of at most _PLAIN_PAIRS pairs each; none
+    when there are no queries."""
     budget = _PLAIN_PAIRS[device.type]
     if n_q * n_cols <= budget:
-        nb, nq = max(1, budget // max(1, n_q * n_cols)), n_q
+        nb, nq = max(1, budget // max(1, n_q * n_cols)), max(1, n_q)
     else:
         nb, nq = 1, max(1, budget // max(1, n_cols))
     for b0 in range(0, n_b, nb):
@@ -793,6 +794,16 @@ def _grid(pts, cols, name):
     return n_b, n_q, cols.shape[-1]
 
 
+def no_queries(n_b, device, n_out=1):
+    """``n_out`` empty [B, 0] int32 outputs of a call with no queries.  A
+    kernel's grid is sized by its queries and an empty grid is a launch
+    error, so each wrapper returns these before it launches, and counts no
+    launch."""
+    out = tuple(torch.empty((n_b, 0), dtype=torch.int32, device=device)
+                for _ in range(n_out))
+    return out if n_out > 1 else out[0]
+
+
 def argmin_faces(pts, planes, tile_variant="fast", degenerate_tail=True,
                  reduction="exact", tile_f=FUSED_TILE_F, cull=None,
                  with_stats=False):
@@ -807,6 +818,8 @@ def argmin_faces(pts, planes, tile_variant="fast", degenerate_tail=True,
     if pts.device.type == "cpu" and not with_stats:
         return argmin_faces_plain(pts, planes, tile_variant, degenerate_tail,
                                   reduction, tile_f)
+    if not pts.shape[1]:
+        return no_queries(pts.shape[0], pts.device, 4 if with_stats else 1)
     if cull is None:
         cull = cull_operands(pts, planes, tile_variant, degenerate_tail)
     _check_cull(pts, planes, cull, tile_variant, degenerate_tail)
@@ -979,6 +992,8 @@ def argmin_vertices(pts, vplanes, _plan=None):
                                             VERTEX_MAX_SPLIT))
     if pts.device.type == "cpu":
         return argmin_vertices_plain(pts, vplanes)
+    if not n_q:
+        return no_queries(n_b, pts.device)
     if _plan is None:
         per, split = vertex_plan(n_b, n_q, n_v, _sm_count(pts.device))
     from .. import _build

@@ -50,6 +50,7 @@ from .closest_kernel import (
     _sqdist_tile_fast,
     _sqdist_tile_safe,
     face_planes,
+    no_queries,
     winner_epilogue,
 )
 
@@ -109,6 +110,9 @@ def _morton_codes(xyz, box=None):
         ramp = torch.arange(1024, dtype=torch.int64, device=xyz.device)
         spread = _SPREAD[xyz.device] = torch.stack(
             [_part1by2(ramp) << 2, _part1by2(ramp) << 1, _part1by2(ramp)], 1)
+    if not xyz.shape[-2]:
+        return torch.zeros(xyz.shape[:-1], dtype=torch.int64,
+                           device=xyz.device)
     if box is None:
         box = (xyz.amin(dim=-2, keepdim=True), xyz.amax(dim=-2, keepdim=True))
     lo = box[0]
@@ -140,7 +144,8 @@ def _pad_rows_edge(x, multiple, dim=0):
 def _tile_spheres(pts, tile):
     """Bounding sphere (center [..., G, 3], radius [..., G]) of each
     contiguous tile of ``tile`` rows of pts [..., N, 3]."""
-    t = pts.reshape(*pts.shape[:-2], -1, tile, pts.shape[-1])
+    t = pts.reshape(*pts.shape[:-2], pts.shape[-2] // tile, tile,
+                    pts.shape[-1])
     cen = t.mean(dim=-2)
     diff = t - cen[..., None, :]
     rad = torch.sqrt((diff * diff).sum(dim=-1).amax(dim=-1))
@@ -440,6 +445,12 @@ def argmin_culled(ops, tile_variant="fast", degenerate_tail=True,
     n_b, q_pad = ops["seed"].shape
     tile_q, tile_f = ops["tile_q"], ops["tile_f"]
     dev = ops["seed"].device
+    if not q_pad:
+        out = no_queries(n_b, dev, 2)
+        if with_stats:
+            out += (torch.empty((n_b, 0, tile_q // WARP), dtype=torch.int32,
+                                device=dev), no_queries(n_b, dev))
+        return out
     out = torch.empty((n_b, q_pad), dtype=torch.int32, device=dev)
     visits = torch.empty((n_b, q_pad // tile_q), dtype=torch.int32,
                          device=dev)

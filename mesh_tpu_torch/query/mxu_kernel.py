@@ -84,6 +84,7 @@ from .closest_kernel import (
     _warp_vote,
     cull_records,
     fast_tile_rows,
+    no_queries,
     query_order,
     winner_epilogue,
 )
@@ -624,9 +625,12 @@ def _launch_cull(name, p, rec, cull, surv, tile_q, tile_f, degenerate_tail,
     """Launch the culled kernel ``name`` (``surv`` None for the dense scan);
     returns the faces, then the counts summed over the splits when
     ``with_stats``."""
+    n_q, n_f = p.shape[0], rec.shape[0]
+    if not n_q:
+        out = no_queries(1, p.device, 4 if with_stats else 1)
+        return tuple(x[0] for x in out) if with_stats else out[0]
     from .. import _build
 
-    n_q, n_f = p.shape[0], rec.shape[0]
     out = torch.empty(n_q, dtype=torch.int32, device=p.device)
     seeds = torch.empty(n_q, dtype=torch.float32, device=p.device)
     part = ((torch.empty((split, n_q), dtype=torch.float32, device=p.device),
@@ -924,10 +928,14 @@ def mxu_bound_culled(p, rec, tile_f=TILE_F, cull=None, split=None,
     if p.device.type == "cpu":
         res = _bound_culled(p, rec, cull, tile_f, split)
         return res if with_stats else res[:2]
-    from .. import _build
-
     n_q, n_f = p.shape[0], rec.shape[0]
     dev = p.device
+    if not n_q:
+        empty = torch.empty(0, dtype=torch.float32, device=dev)
+        bounds = (empty, empty.reshape(0, _n_tiles(rec, tile_f)))
+        return bounds + (no_queries(1, dev, 3) if with_stats else ())
+    from .. import _build
+
     ub = torch.empty(n_q, dtype=torch.float32, device=dev)
     cert = torch.empty((n_q, _n_tiles(rec, tile_f)), dtype=torch.float32,
                        device=dev)

@@ -56,6 +56,7 @@ from .closest_kernel import (
     _warp_vote,
     cull_records,
     fast_tile_rows,
+    no_queries,
     query_order,
 )
 from .point_triangle import closest_point_on_triangle
@@ -340,6 +341,8 @@ def argmin_normal_weighted(pts, normals, planes, eps=0.1,
     if pts.device.type == "cpu" and not with_stats:
         return argmin_normal_weighted_plain(pts, normals, planes, eps,
                                             degenerate_tail)
+    if not pts.shape[1]:
+        return no_queries(pts.shape[0], pts.device, 4 if with_stats else 1)
     if cull is None:
         cull = normal_weighted_cull_operands(pts, planes, degenerate_tail)
     _check_cull(pts, planes, cull, degenerate_tail)

@@ -53,6 +53,7 @@ from .closest_kernel import (
     _chunks,
     _grid,
     _warp_vote,
+    no_queries,
 )
 from .culled_kernel import (
     WARP,
@@ -891,6 +892,8 @@ def argmin_alongnormal(pts, normals, planes=None, cull=None,
             raise ValueError("alongnormal_faces: a CPU call takes the "
                              "every-face plain version, which needs planes")
         return argmin_alongnormal_plain(pts, normals, planes)
+    if not pts.shape[1]:
+        return no_queries(pts.shape[0], pts.device, 5 if with_stats else 1)
     if cull is None:
         raise ValueError("alongnormal_faces: the chunk cull needs its face "
                          "operands, alongnormal_cull_operands(tri)")

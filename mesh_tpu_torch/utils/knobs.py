@@ -1,7 +1,8 @@
 """The ``MESH_TPU_*`` environment knobs the port reads, and the routing
 predicates built on them (counterpart of mesh_tpu/utils/knobs.py and
 mesh_tpu/utils/dispatch.py, for the knobs of the closest-point ladder and
-its MXU rung, the observability modules and the animated-mesh sessions).
+its MXU rung, the observability modules, the animated-mesh sessions and the
+fit loss's data term).
 
 Every knob is declared in ``KNOBS`` with its type and default, and read
 through the accessors below, which re-read ``os.environ`` on every call so
@@ -45,6 +46,8 @@ KNOBS = {
     # animated meshes (anim/)
     "MESH_TPU_ANIM": True,
     "MESH_TPU_ANIM_REFIT_MAX_INFLATION": None,
+    # the fit loss's data term (parallel/fit.py)
+    "MESH_TPU_VERTEX_CHAMFER": False,
 }
 
 _UNSET = object()
@@ -153,3 +156,10 @@ def mxu_bf16_enabled():
     f32 exact repair in front of the MXU rung's scan; only consulted on
     calls already routed to the MXU rung."""
     return flag("MESH_TPU_MXU_BF16")
+
+
+def vertex_chamfer():
+    """True when ``MESH_TPU_VERTEX_CHAMFER`` pins the fit loss's data term to
+    the min-over-vertices chamfer instead of the point-to-surface energy
+    (``parallel/fit.py``); read when a step is built."""
+    return flag("MESH_TPU_VERTEX_CHAMFER")
