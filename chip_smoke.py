@@ -125,17 +125,20 @@ Phases (any failure raises and exits non-zero; none catches its own):
    "fused")`` (bench.py's MESH_TPU_BENCH_REDUCTION=fused step), median step
    time over 10 reps; every winner's exact sqdist within (1 + 4 x 2^-12) of
    phase 3's;
-4. facade: ``mesh_tpu_torch.Mesh`` closest faces/points, nearest vertices,
-   vertex normals and the fused call on one body, with the reference's
-   dtypes and shapes; the closest faces/points against the plain
-   reconstruction-form scan;
+4. facade: ``mesh_tpu_torch.Mesh`` closest faces/points (through the
+   query engine: a CUDA-graph plan of the brute-force step), nearest
+   vertices, vertex normals and the fused call on one body, with the
+   reference's dtypes and shapes; the closest faces/points against the
+   plain reconstruction-form scan;
 5. large batch: ``batch_step`` on 64 posed bodies of a 98,304-face
    template (``_uv_sphere(256, 192)``) with 4096 surface-proximal queries
    each, which routes to the sphere-culled kernel; median step time over
    10 reps, and the result against the brute-force kernel on the same
    inputs (sqdist within 1e-5, faces equal except at ties);
 6. scan: ``Mesh.closest_faces_and_points`` on a 209,304-face sphere with
-   65,536 surface-proximal queries, which routes to the BVH rope kernels:
+   65,536 surface-proximal queries under ``MESH_TPU_NO_ENGINE=1`` (the
+   engine would take the culled kernel; its direct route, the auto ladder,
+   takes the BVH rope kernels):
    the streamed entry by default (path ``scan``) and the resident one
    under ``MESH_TPU_BVH_STREAM_VMEM_MB=32`` (path ``scan_resident``); the
    two must be bit-identical, and both are held against the brute-force
@@ -185,7 +188,8 @@ Phases (any failure raises and exits non-zero; none catches its own):
    and the actions and inflations of a ``kernel="host"`` session fed the
    same frames;
 12. mxu: ``Mesh.closest_faces_and_points`` under ``MESH_TPU_MXU=1``, then
-   with ``MESH_TPU_MXU_BF16=1`` too, on posed body 0 with phase 4's 4096
+   with ``MESH_TPU_MXU_BF16=1`` too (both under ``MESH_TPU_NO_ENGINE=1``:
+   the engine never takes the MXU rung), on posed body 0 with phase 4's 4096
    queries and on a 32,512-face ``_sphere_mesh(32768)`` with 65,536
    surface-proximal and 65,536 N(0, 0.4) queries (cold first call, median
    of 5 warm calls; the surface queries in bench.py's patches of 256, one
@@ -196,6 +200,7 @@ Phases (any failure raises and exits non-zero; none catches its own):
    equal to the dense scan's, fewer face tiles repaired than screened on
    the surface-proximal queries; the environment is restored afterwards;
 13. mxu_bvh: ``Mesh.closest_faces_and_points`` on phase 6's scan under
+   ``MESH_TPU_NO_ENGINE=1`` and
    ``MESH_TPU_MXU=1`` with ``MESH_TPU_MXU_CROSSOVER_FACES=8192`` (the
    card's saved calibration puts the crossover past this mesh), streamed
    (path ``mxu_bvh``) and resident under ``MESH_TPU_BVH_STREAM_VMEM_MB=32``
@@ -222,15 +227,40 @@ Phases (any failure raises and exits non-zero; none catches its own):
    version's); ``diff.closest_point`` over a BVH index on phase 6's scan
    mesh (the streamed rope walk) against the default route (the culled
    kernel) where the faces agree; ``register_vertices`` from the rest
-   template to posed body 0, 30 steps with a burst every 5; then, after
+   template to posed body 0, 30 steps with a burst every 5 (each burst
+   through the query engine); then, after
    the checks, the step's stages at 1 x 100,000 (lbs, search,
    recomposition, backward, Adam);
 14b. empty: a set of no queries through every entry point (the Mesh
    facade on the brute, culled and BVH rungs, nearest vertices, both
    trees, the batched and fused facades, the diff wrappers), each with
    the reference's empty shapes and dtypes, and no kernel launched.
+15. engine: the query engine (``mesh_tpu_torch.engine``), every plan a
+   CUDA graph, from an empty plan cache: the numpy facades
+   (``batched_closest_faces_and_points``, ``fused_normals_and_closest_
+   points`` and ``batched_vertex_normals`` five times at phase 3's 256 x
+   1024, ``batched_vertex_visibility`` at phase 7's 64 x 4 cameras), Mesh
+   on body 0 at Q = 1100, 1500, 2048 (one bucket) and 2049 (the next:
+   exactly two plans made), Mesh on phase 6's scan sphere (above the
+   crossover: ``culled_faces``), ``warmup()`` on the SMPL and FLAME shapes
+   and then SMPL-shaped bodies (no plan made), 16 requests to the executor
+   inside ``coalesce()`` (Q 700-1024: one dispatch) with one past its
+   deadline and one cancelled, phase 14's ICP, and the large batch's
+   normals five times.  After the counted drive, each answer against the
+   same call under ``MESH_TPU_NO_ENGINE=1`` and, for the graphs, against
+   the eager step on the request's own shape, bit for bit (the scan's
+   culled answer against the eager culled kernel, and against the direct
+   route's rope walk under the tie contract), every answer a graph's
+   replay, a plan miss's too; every executor future equal
+   to its facade call; ICP losses equal; normals bit-identical run to run
+   and within 1e-5 of a float64 recompute; the centering's vertex mean
+   of a body alone equal to its row in the batch and within 1e-6 of the
+   float64 mean; then each op's engine call
+   against its direct call on the host clock in interleaved rounds, with
+   each plan's capture seconds, launches per replay, the graph pool's
+   bytes and ``torch.cuda.memory_reserved`` around the phase.
 
-After phase 14b, the four closest-point routes (brute, culled, resident and
+After phase 15, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
 brute-force kernel: the crossover evidence; then each drive's stages (the
@@ -238,7 +268,9 @@ large batch's culled prologue in its parts, each anim session's resident
 rope kernel alone, held to its plain version at every sub-lane count
 as on the scan).
 
-Phases 3-14, 3b and 14b are the driven paths (phases 6 and 13 twice).  Kernel
+Phases 3-15, 3b and 14b are the driven paths (phases 6 and 13 twice).  A
+CUDA-graph plan's launches count once a replay (its capture counts none;
+the warm-up run before it counts as the launches it is).  Kernel
 launch counts are set to 0 just before each and read just after it, and
 every kernel must have launched on each path of ``KERNEL_PATHS`` and on no
 other path.  The last lines are the card's name and power limit (nvidia-smi),
@@ -248,6 +280,7 @@ one JSON line describing every kernel with its launches per path, and
 Imports neither JAX nor mesh_tpu.  Needs one CUDA card.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -515,24 +548,37 @@ REGISTER_SCAN = 4096
 REGISTER_STEPS = 30
 REGISTER_EVERY = 5
 
+# phase 15 (engine): Mesh on body 0 at these query counts (three in the
+# 2048 bucket, then one past it), SMPL-shaped bodies (index, Q) after
+# warmup(), the executor's requests and their query counts, the normals'
+# repeat runs and the timing rounds
+ENGINE_FACADE_QS = (1100, 1500, 2048, 2049)
+ENGINE_WARM_BODIES = ((1, 1000), (2, 700), (3, 300))
+ENGINE_REQUESTS = 16
+ENGINE_REQUEST_QS = (700, 1024)
+ENGINE_NORMAL_RUNS = 5
+ENGINE_ROUNDS = 5
+
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
 #: (a kernel with no path has its row in its successor's)
-KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit"),
+KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit",
+                                  "engine"),
                 "closest_faces_fused": ("main_path_fused",),
                 # the every-face kernel, phase 2's face oracle
                 "closest_faces_every": (),
                 "cull_records": ("main_path", "main_path_fused", "facade",
-                                 "contact", "mxu", "registration", "fit"),
+                                 "contact", "mxu", "registration", "fit",
+                                 "engine"),
                 "nearest_vertices": ("facade",),
                 # the every-vertex kernel, phase 2's index oracle
                 "nearest_vertices_every": (),
-                "culled_faces": ("large_batch", "fit"),
+                "culled_faces": ("large_batch", "fit", "engine"),
                 "rope_faces_stream": ("scan", "fit"),
                 "rope_faces_resident": ("scan_resident", "anim"),
                 "rope_mxu_stream": ("mxu_bvh",),
                 "rope_mxu_resident": ("mxu_bvh_resident",),
-                "ray_any_hit_culled": ("visibility",),
+                "ray_any_hit_culled": ("visibility", "engine"),
                 # the every-face kernel, phase 2's flag oracle
                 "ray_any_hit": (),
                 "alongnormal_faces": ("registration",),
@@ -1426,9 +1472,10 @@ def scan_inputs():
 
 
 def drive_scan(path, v, f, pts, dev):
-    """One scan path: the Mesh facade (first call cold, then warm calls)
-    and the accel rung with its stats, counts reset just before and read
-    just after."""
+    """One scan path: the Mesh facade under MESH_TPU_NO_ENGINE=1 (its
+    direct route, the auto ladder; first call cold, then warm calls) and
+    the accel rung with its stats, counts reset just before and read just
+    after."""
     from mesh_tpu_torch import Mesh
     from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
     from mesh_tpu_torch.query import culled as auto
@@ -1436,14 +1483,15 @@ def drive_scan(path, v, f, pts, dev):
     reset_launches()
     auto.STRATEGY.clear()
     m = Mesh(v, f, device=dev)
-    t0 = time.perf_counter()
-    faces, points = m.closest_faces_and_points(pts)
-    first_s = time.perf_counter() - t0
-    times = []
-    for _ in range(5):
+    with no_engine():       # the engine would take the culled kernel
         t0 = time.perf_counter()
-        faces2, points2 = m.closest_faces_and_points(pts)
-        times.append((time.perf_counter() - t0) * 1e3)
+        faces, points = m.closest_faces_and_points(pts)
+        first_s = time.perf_counter() - t0
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            faces2, points2 = m.closest_faces_and_points(pts)
+            times.append((time.perf_counter() - t0) * 1e3)
     vt, ft = m.device_arrays()
     res, stats = closest_faces_and_points_accel(vt, ft, pts, with_stats=True,
                                                 device=dev)
@@ -3310,18 +3358,20 @@ def drive_mxu(cases, dev):
     (label, v, f, q as numpy) under MESH_TPU_MXU=1, then under
     MESH_TPU_MXU_BF16=1 as well: a cold first call (staging cache emptied)
     and MXU_WARM warm calls each, the repair series read around each
-    case.  The two knobs are restored afterwards.  Returns the runs by
+    case, all under MESH_TPU_NO_ENGINE=1 (the engine never takes the MXU
+    rung).  The knobs are restored afterwards.  Returns the runs by
     (label, mode)."""
     from mesh_tpu_torch import Mesh
     from mesh_tpu_torch.obs.metrics import REGISTRY
     from mesh_tpu_torch.query import mxu_kernel as mk
 
     series = REGISTRY.counter("mesh_tpu_query_mxu_repair_total")
-    saved = {k: os.environ.get(k) for k in ("MESH_TPU_MXU",
-                                            "MESH_TPU_MXU_BF16")}
+    saved = {k: os.environ.get(k) for k in (
+        "MESH_TPU_MXU", "MESH_TPU_MXU_BF16", "MESH_TPU_NO_ENGINE")}
     runs = {}
     try:
         os.environ["MESH_TPU_MXU"] = "1"
+        os.environ["MESH_TPU_NO_ENGINE"] = "1"
         for mode in ("dense", "repair"):
             if mode == "repair":
                 os.environ["MESH_TPU_MXU_BF16"] = "1"
@@ -3422,9 +3472,11 @@ def drive_mxu_bvh(v, f, pts, dev):
     MESH_TPU_BVH_STREAM_VMEM_MB=32 (path ``mxu_bvh_resident``), each f32
     and then under MESH_TPU_MXU_BF16=1: per mode a cold call (index cache
     emptied), MXU_BVH_WARM warm calls and one accel-rung call with its
-    stats, the repair series read around them.  Launch counts are reset
-    just before each path and read just after it; the knobs are restored
-    afterwards.  Returns (runs by (path, mode), launches by path)."""
+    stats, the repair series read around them, all under
+    MESH_TPU_NO_ENGINE=1 (the engine never takes the BVH).  Launch counts
+    are reset just before each path and read just after it; the knobs are
+    restored afterwards.  Returns (runs by (path, mode), launches by
+    path)."""
     from mesh_tpu_torch import Mesh
     from mesh_tpu_torch.accel.build import clear_index_cache
     from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
@@ -3433,11 +3485,13 @@ def drive_mxu_bvh(v, f, pts, dev):
 
     series = REGISTRY.counter("mesh_tpu_query_mxu_repair_total")
     names = ("MESH_TPU_MXU", "MESH_TPU_MXU_BF16",
-             "MESH_TPU_MXU_CROSSOVER_FACES", "MESH_TPU_BVH_STREAM_VMEM_MB")
+             "MESH_TPU_MXU_CROSSOVER_FACES", "MESH_TPU_BVH_STREAM_VMEM_MB",
+             "MESH_TPU_NO_ENGINE")
     saved = {k: os.environ.get(k) for k in names}
     runs, launches = {}, {}
     try:
         os.environ["MESH_TPU_MXU"] = "1"
+        os.environ["MESH_TPU_NO_ENGINE"] = "1"
         os.environ["MESH_TPU_MXU_CROSSOVER_FACES"] = str(MXU_BVH_CROSSOVER)
         for path, kind in (("mxu_bvh", "stream"), ("mxu_bvh_resident", "bvh")):
             if kind == "bvh":
@@ -4072,6 +4126,429 @@ def drive_empty(posed0, f_np, large0, f_l, scan_mesh, dev):
     log("  %d entry points returned the reference's empty shapes and "
         "dtypes, with no kernel launched" % len(expected))
     return layouts, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the query engine.
+
+@contextlib.contextmanager
+def no_engine():
+    """The block under MESH_TPU_NO_ENGINE=1: the facades' direct routes
+    (the auto ladder's BVH and MXU rungs included); the knob is restored
+    afterwards."""
+    saved = os.environ.get("MESH_TPU_NO_ENGINE")
+    os.environ["MESH_TPU_NO_ENGINE"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["MESH_TPU_NO_ENGINE"]
+        else:
+            os.environ["MESH_TPU_NO_ENGINE"] = saved
+
+
+def same_arrays(a, b):
+    """Equal bit for bit: the same shapes, dtypes and values (NaN where
+    NaN), for arrays, tensors and tuples of them."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_arrays(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_arrays(a[k], b[k])
+                                            for k in a)
+    a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = b.cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"))
+
+
+def engine_misses():
+    from mesh_tpu_torch import engine
+
+    return engine.stats()["plan_cache"]["misses"]
+
+
+def drive_engine(inp, dev):
+    """Phase 15's drive, counts set to 0 just before and read just after:
+    every engine route on the card, from an empty plan cache.  ``inp``
+    holds phase 3's, 6's, 7's and 14's inputs.  Returns (runs, launches,
+    plan facts)."""
+    from mesh_tpu_torch import (
+        Mesh,
+        batched_closest_faces_and_points,
+        batched_vertex_normals,
+        batched_vertex_visibility,
+        diff,
+        engine,
+        fused_normals_and_closest_points,
+    )
+    from mesh_tpu_torch.obs.clock import monotonic
+
+    planner = engine.get_planner()
+    planner.clear()
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    engine.reset_stats()
+    posed, f_np, q_np = inp["posed"], inp["f_np"], inp["queries"]
+    runs = {}
+    captures = {}
+
+    def run(name, fn):
+        """fn() with the seconds of any plan it made."""
+        before = engine.STATS._compile_seconds.value()
+        misses = engine_misses()
+        out = fn()
+        if engine_misses() > misses:
+            captures[name] = engine.STATS._compile_seconds.value() - before
+        return out
+
+    reset_launches()
+    t_drive = time.perf_counter()
+    # 1. the numpy facades at the main path's and phase 7's shapes
+    runs["closest"] = run("closest 256x1024", lambda: (
+        batched_closest_faces_and_points((posed, f_np), q_np, device=dev)))
+    runs["fused"] = run("fused 256x1024", lambda: (
+        fused_normals_and_closest_points((posed, f_np), q_np, device=dev)))
+    runs["normals"] = [run("normals 256", lambda: batched_vertex_normals(
+        (posed, f_np), device=dev)) for _ in range(ENGINE_NORMAL_RUNS)]
+    runs["visibility"] = run("visibility 64x4", lambda: (
+        batched_vertex_visibility((inp["vis_posed"], f_np), inp["cams"],
+                                  min_dist=VIS_MIN_DIST, device=dev)))
+    # 2. Mesh on body 0: three counts in one bucket, then the next bucket
+    body0 = Mesh(posed[0], f_np, device=dev)
+    runs["facade"] = {}
+    for n_q in ENGINE_FACADE_QS:
+        misses = engine_misses()
+        runs["facade"][n_q] = (run("Mesh Q=%d" % n_q, lambda: (
+            body0.closest_faces_and_points(inp["q_facade"][:n_q]))),
+            engine_misses() - misses)
+    # 3. the scan sphere: F above the crossover -> culled_faces
+    v_s, f_s, p_s = inp["scan"]
+    runs["scan"] = run("Mesh scan 65536", lambda: Mesh(
+        v_s, f_s, device=dev).closest_faces_and_points(p_s))
+    # 4. warmup() on MODEL_SHAPES, then real SMPL-shaped bodies
+    t0 = time.perf_counter()
+    runs["warmup_made"] = engine.warmup(device=dev)
+    runs["warmup_s"] = time.perf_counter() - t0
+    misses = engine_misses()
+    runs["warm_bodies"] = [
+        (Mesh(posed[i], f_np, device=dev).closest_faces_and_points(
+            q_np[i, :n_q]),
+         fused_normals_and_closest_points(Mesh(posed[i], f_np, device=dev),
+                                          q_np[i, :n_q], device=dev))
+        for i, n_q in ENGINE_WARM_BODIES]
+    runs["warm_misses"] = engine_misses() - misses
+    # 5. the executor: ENGINE_REQUESTS requests in one coalesced dispatch,
+    # one past its deadline and one cancelled
+    ex = engine.get_executor()
+    bodies = [Mesh(posed[i], f_np, device=dev)
+              for i in range(ENGINE_REQUESTS)]
+    n_qs = [int(n) for n in np.linspace(*ENGINE_REQUEST_QS, ENGINE_REQUESTS)]
+    co0 = engine.stats()["coalesced"]
+    with ex.coalesce():
+        futs = [ex.submit("closest_point", m, q_np[i, :n])
+                for i, (m, n) in enumerate(zip(bodies, n_qs))]
+        late = ex.submit("closest_point", bodies[0], q_np[0, :700],
+                         deadline=monotonic() - 1.0)
+        dropped = ex.submit("closest_point", bodies[1], q_np[1, :700])
+        runs["cancelled"] = dropped.cancel()
+    ex.drain()
+    co1 = engine.stats()["coalesced"]
+    runs["coalesced"] = {k: co1[k] - co0[k]
+                         for k in ("dispatches", "requests")}
+    runs["futures"] = [fu.result(timeout=60) for fu in futs]
+    try:
+        late.result(timeout=60)
+        runs["late"] = "answered"
+    except Exception as e:       # the check reads which error came back
+        runs["late"] = type(e).__name__
+    runs["requests"] = (bodies, n_qs)
+    # 6. phase 14's ICP through the engine
+    runs["icp"] = diff.register_vertices(
+        inp["icp"][0], inp["icp"][1], inp["icp"][2], steps=REGISTER_STEPS,
+        recorrespond_every=REGISTER_EVERY, device=dev).losses
+    # 7. the large-batch template's normals (valence-256 poles)
+    runs["normals_large"] = [run("normals large", lambda: (
+        batched_vertex_normals(inp["large"], device=dev)))
+        for _ in range(ENGINE_NORMAL_RUNS)]
+    torch.cuda.synchronize()
+    runs["drive_s"] = time.perf_counter() - t_drive
+    launches = read_launches()
+    facts = {"captures_s": captures, "plans": planner.plan_info(),
+             "pool_bytes": planner.pool_bytes(dev),
+             "reserved_before": reserved0,
+             "reserved_after": torch.cuda.memory_reserved(),
+             "stats": engine.stats()}
+    return runs, launches, facts
+
+
+def check_engine(runs, facts, inp, dev):
+    """Phase 15's checks, after the counted drive: engine against the
+    direct path (MESH_TPU_NO_ENGINE=1) and, for the graphs, against the
+    eager step on each request's own shape, bit for bit; the plan counts;
+    the coalesced dispatch; ICP; the normals' run-to-run bits and their
+    float64 recompute.  Returns the record of the phase."""
+    from mesh_tpu_torch import (
+        Mesh,
+        batched_closest_faces_and_points,
+        batched_vertex_normals,
+        batched_vertex_visibility,
+        diff,
+        fused_normals_and_closest_points,
+    )
+    from mesh_tpu_torch.batch import batch_step, visibility_step
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import culled_kernel as qk
+    from mesh_tpu_torch.utils.knobs import tile_variant
+
+    posed, f_np, q_np = inp["posed"], inp["f_np"], inp["queries"]
+    verts, f, queries = inp["verts"], inp["f"], inp["queries_t"]
+    variant = tile_variant()
+    nondegen = ck.mesh_is_nondegenerate(posed, f_np.astype(np.int32))
+    rec = {}
+    # 0. every answer of the drive was its plan's run, a miss's too (on
+    # the card, a graph's replay): as many runs as dispatches, the scan's
+    # culled plan and the visibility plan among them
+    plans = facts["plans"]
+    dispatches = sum(row["count"] for row
+                     in facts["stats"]["dispatch_latency"].values())
+    replays = sum(p["runs"] for p in plans)
+    check(all(p["backend"] == dev.type for p in plans)
+          and replays == dispatches,
+          "engine: %d plan runs for %d dispatches" % (replays, dispatches))
+    n_scan = str(len(inp["scan"][1]))
+    rec["replays"] = {
+        "dispatches": dispatches,
+        "scan_culled": [p["runs"] for p in plans
+                        if p["key"][0] == "closest_point"
+                        and p["key"][4] == n_scan],
+        "visibility": [p["runs"] for p in plans
+                       if p["key"][0] == "visibility"]}
+    # (a CPU rehearsal's scan is above the crossover: the direct route)
+    check(rec["replays"]["scan_culled"] == ([1] if dev.type == "cuda"
+                                            else [])
+          and rec["replays"]["visibility"] == [1],
+          "engine: the scan's and the visibility plan's replays are %s"
+          % rec["replays"])
+    log("  %d dispatches, each a %s plan's run (the scan's culled plan and "
+        "the visibility plan ran once each in the drive)"
+        % (dispatches, dev.type))
+    # 1. the facades against the direct path and against the eager step
+    with no_engine():
+        direct = {
+            "closest": batched_closest_faces_and_points((posed, f_np), q_np,
+                                                        device=dev),
+            "fused": fused_normals_and_closest_points((posed, f_np), q_np,
+                                                      device=dev),
+            "normals": batched_vertex_normals((posed, f_np), device=dev),
+            "visibility": batched_vertex_visibility(
+                (inp["vis_posed"], f_np), inp["cams"], min_dist=VIS_MIN_DIST,
+                device=dev)}
+    for name in ("closest", "fused", "visibility"):
+        check(same_arrays(runs[name], direct[name]),
+              "engine %s differs from the direct path" % name)
+    check(all(same_arrays(n, direct["normals"]) for n in runs["normals"]),
+          "engine normals differ from the direct path or between runs")
+    _, eager = batch_step(verts, f, queries, with_normals=False,
+                          assume_nondegenerate=nondegen, tile_variant=variant)
+    check(same_arrays(runs["closest"][0][:, 0], eager["face"].cpu().numpy()
+                      .astype(np.uint32))
+          and same_arrays(runs["closest"][1], eager["point"].cpu().numpy()
+                          .astype(np.float64)),
+          "engine closest differs from the eager batch_step")
+    normals_e, eager_f = batch_step(verts, f, queries,
+                                    assume_nondegenerate=nondegen,
+                                    tile_variant=variant)
+    check(same_arrays(runs["fused"][0], normals_e.cpu().numpy().astype(
+        np.float64)) and same_arrays(runs["fused"][1][:, 0],
+                                     eager_f["face"].cpu().numpy().astype(
+                                         np.uint32)),
+          "engine fused differs from the eager batch_step")
+    vis_e, ndc_e = visibility_step(inp["verts_v"], f, inp["cams_t"],
+                                   min_dist=VIS_MIN_DIST)
+    check(same_arrays(runs["visibility"][0], vis_e.cpu().numpy().astype(
+        np.uint32)) and same_arrays(runs["visibility"][1],
+                                    ndc_e.cpu().numpy().astype(np.float64)),
+          "engine visibility differs from the eager visibility_step")
+    del eager, eager_f, normals_e, vis_e, ndc_e
+    log("  facades (closest, fused, normals x %d, visibility) bit-identical "
+        "to the direct path and to the eager step" % ENGINE_NORMAL_RUNS)
+    # 2. Mesh on body 0: two plans made, the rest hits, bits the direct's
+    body0 = Mesh(posed[0], f_np, device=dev)
+    made = [runs["facade"][n][1] for n in ENGINE_FACADE_QS]
+    check(made == [1, 0, 0, 1], "Mesh on body 0 at Q = %s made %s plans, "
+          "not [1, 0, 0, 1]" % (ENGINE_FACADE_QS, made))
+    for n_q in ENGINE_FACADE_QS:
+        q = inp["q_facade"][:n_q]
+        with no_engine():
+            want = body0.closest_faces_and_points(q)
+        got = runs["facade"][n_q][0]
+        check(same_arrays(got, want), "Mesh Q=%d: engine differs from the "
+              "direct route" % n_q)
+        _, eager = batch_step(verts[:1], f, torch.as_tensor(
+            q, device=dev)[None], with_normals=False,
+            assume_nondegenerate=ck.mesh_is_nondegenerate(posed[0], f_np),
+            tile_variant=variant)
+        check(same_arrays(got[0][0], eager["face"][0].cpu().numpy().astype(
+            np.uint32)), "Mesh Q=%d: engine differs from the eager step"
+              % n_q)
+    log("  Mesh on body 0 at Q = %s: plans made %s, every answer the "
+        "direct route's and the eager step's" % (ENGINE_FACADE_QS, made))
+    # 3. the scan through culled_faces: the eager kernel bit for bit, the
+    # direct route (the streamed rope walk) under the tie contract
+    v_s, f_s, p_s = inp["scan"]
+    vt = torch.as_tensor(v_s, dtype=torch.float32, device=dev)
+    ft = torch.as_tensor(f_s.astype(np.int64), device=dev)
+    pt = torch.as_tensor(p_s, device=dev)
+    eager = qk.closest_point_culled_kernel(
+        vt, ft, pt, assume_nondegenerate=ck.mesh_is_nondegenerate(
+            v_s.astype(np.float32), f_s.astype(np.int64)),
+        tile_variant=variant)
+    faces_s, points_s = runs["scan"]
+    check(same_arrays(faces_s[0], eager["face"].cpu().numpy().astype(
+        np.uint32)) and same_arrays(points_s, eager["point"].cpu().numpy()
+                                    .astype(np.float64)),
+          "scan: engine differs from the eager culled kernel")
+    with no_engine():
+        faces_d, points_d = Mesh(v_s, f_s, device=dev).closest_faces_and_points(
+            p_s)
+    sq = lambda p: torch.as_tensor(((p_s - p) ** 2).sum(-1), device=dev)[None]
+    rec["scan_vs_direct"] = check_against_brute(
+        "scan through the engine", vt[None], ft, pt[None],
+        torch.as_tensor(faces_s.astype(np.int64), device=dev),
+        sq(points_s), {"face": torch.as_tensor(faces_d.astype(np.int64),
+                                               device=dev),
+                       "sqdist": sq(points_d)},
+        against="the direct route (streamed rope walk)")
+    del vt, ft, pt, eager
+    # 4. warmup, then real bodies: no plan made, the direct answers
+    check(runs["warm_misses"] == 0, "after warmup() %d plans were made for "
+          "SMPL-shaped bodies" % runs["warm_misses"])
+    for (i, n_q), (cfp, fused) in zip(ENGINE_WARM_BODIES, runs["warm_bodies"]):
+        m = Mesh(posed[i], f_np, device=dev)
+        with no_engine():
+            want = (m.closest_faces_and_points(q_np[i, :n_q]),
+                    fused_normals_and_closest_points(m, q_np[i, :n_q],
+                                                     device=dev))
+        check(same_arrays((cfp, fused), want), "body %d after warmup(): the "
+              "placeholder-captured plan differs from the direct path" % i)
+    log("  warmup(): %d plans made in %.3f s; %d SMPL-shaped bodies then "
+        "made none, answers the direct path's" % (
+            runs["warmup_made"], runs["warmup_s"], len(ENGINE_WARM_BODIES)))
+    # 5. the executor
+    bodies, n_qs = runs["requests"]
+    check(runs["coalesced"] == {"dispatches": 1,
+                                "requests": ENGINE_REQUESTS},
+          "executor: %s, not %d requests in one dispatch" % (
+              runs["coalesced"], ENGINE_REQUESTS))
+    check(runs["late"] == "DeadlineExceeded" and runs["cancelled"],
+          "executor: the late request gave %s, cancelled %s" % (
+              runs["late"], runs["cancelled"]))
+    for i, (m, n, fut) in enumerate(zip(bodies, n_qs, runs["futures"])):
+        check(same_arrays(fut, m.closest_faces_and_points(q_np[i, :n])),
+              "executor request %d (Q=%d) differs from its facade call"
+              % (i, n))
+    log("  executor: %d requests (Q %d-%d) in 1 dispatch, each its facade "
+        "call's bits; the late one DeadlineExceeded, the cancelled one "
+        "skipped" % (ENGINE_REQUESTS, min(n_qs), max(n_qs)))
+    # 6. ICP
+    with no_engine():
+        losses = diff.register_vertices(
+            inp["icp"][0], inp["icp"][1], inp["icp"][2],
+            steps=REGISTER_STEPS, recorrespond_every=REGISTER_EVERY,
+            device=dev).losses
+    check(losses == runs["icp"], "ICP: the engine's losses differ from the "
+          "direct route's")
+    log("  ICP: %d losses bit-identical to the direct route's (%.6g -> "
+        "%.6g)" % (len(losses), losses[0], losses[-1]))
+    # 7. normals: run to run, and against a float64 recompute
+    rec["normals"] = {}
+    for label, outs, (v_np, f_n) in (
+            ("smpl", runs["normals"], (posed, f_np)),
+            ("large", runs["normals_large"], inp["large"])):
+        check(all(same_arrays(n, outs[0]) for n in outs),
+              "%s normals differ between runs" % label)
+        gap = normals_gap64(outs[0], v_np, f_n, dev)
+        check(gap <= 1e-5, "%s normals %.3g from the float64 recompute"
+              % (label, gap))
+        rec["normals"][label] = gap
+    log("  normals: %d runs bit-identical; float64 gaps %s" % (
+        ENGINE_NORMAL_RUNS, rec["normals"]))
+    # 8. the centering's mean: each body's bits alone its row's in the
+    # batch, near the float64 mean
+    center = ck.vertex_mean(verts)
+    check(all(torch.equal(ck.vertex_mean(verts[i:i + 1]), center[i:i + 1])
+              for i in range(0, verts.shape[0], 17)),
+          "vertex_mean: a body alone differs from its row in the batch")
+    rec["center_gap64"] = float((center.double() - verts.double().mean(
+        dim=1, keepdim=True)).abs().max())
+    check(rec["center_gap64"] <= 1e-6, "vertex_mean %.3g from the float64 "
+          "mean" % rec["center_gap64"])
+    log("  vertex_mean: bodies alone equal to their batch rows; %.3g from "
+        "the float64 mean" % rec["center_gap64"])
+    return rec
+
+
+def normals_gap64(normals, v_np, f_np, dev):
+    """Largest component gap of unit ``normals`` [B, V, 3] from a float64
+    recompute (area-weighted face normals summed per vertex)."""
+    v = torch.as_tensor(v_np, device=dev).double()
+    f = torch.as_tensor(np.asarray(f_np, np.int64), device=dev)
+    tri = v[:, f]
+    fn = torch.cross(tri[:, :, 1] - tri[:, :, 0], tri[:, :, 2] - tri[:, :, 0],
+                     dim=-1)
+    acc = torch.zeros_like(v)
+    for k in range(3):
+        acc.index_add_(1, f[:, k], fn)
+    norm = acc.norm(dim=-1, keepdim=True)
+    n64 = torch.where(norm > 0, acc / norm.clamp_min(1e-300), acc)
+    return float((torch.as_tensor(normals, device=dev) - n64).abs().max())
+
+
+def engine_times(inp, dev):
+    """Host-clock ms of each op's warm engine call against its direct call
+    (MESH_TPU_NO_ENGINE=1), in ENGINE_ROUNDS interleaved rounds after one
+    warm call of each: {op: {"engine": spread, "direct": spread}}."""
+    from mesh_tpu_torch import (
+        Mesh,
+        batched_closest_faces_and_points,
+        batched_vertex_normals,
+        batched_vertex_visibility,
+        fused_normals_and_closest_points,
+    )
+
+    posed, f_np, q_np = inp["posed"], inp["f_np"], inp["queries"]
+    body0 = Mesh(posed[0], f_np, device=dev)
+    ops = {
+        "closest_256x1024": lambda: batched_closest_faces_and_points(
+            (posed, f_np), q_np, device=dev),
+        "fused_256x1024": lambda: fused_normals_and_closest_points(
+            (posed, f_np), q_np, device=dev),
+        "normals_256": lambda: batched_vertex_normals((posed, f_np),
+                                                      device=dev),
+        "visibility_64x4": lambda: batched_vertex_visibility(
+            (inp["vis_posed"], f_np), inp["cams"], min_dist=VIS_MIN_DIST,
+            device=dev),
+        "mesh_body0_q1500": lambda: body0.closest_faces_and_points(
+            inp["q_facade"][:1500]),
+    }
+    out = {}
+    for name, fn in ops.items():
+        fn()
+        with no_engine():
+            fn()
+        times = {"engine": [], "direct": []}
+        for _ in range(ENGINE_ROUNDS):
+            for side in ("engine", "direct"):
+                t0 = time.perf_counter()
+                if side == "direct":
+                    with no_engine():
+                        fn()
+                else:
+                    fn()
+                times[side].append((time.perf_counter() - t0) * 1e3)
+        out[name] = {side: spread(ms) for side, ms in times.items()}
+    return out
 
 
 def main():
@@ -5156,6 +5633,50 @@ def main():
         posed[0], f_np, verts_l[0].cpu().numpy(), f_l.cpu().numpy(),
         (v_s, f_s, p_s), dev)
 
+    # -- 15. engine: the facades, Mesh, the executor and ICP through plans ----
+    log("== engine: the batched facades at %d x %d and %d x %d cameras, Mesh "
+        "at Q = %s and on the scan sphere, warmup(), %d coalesced requests, "
+        "ICP and the normals, each plan a CUDA graph" % (
+            BATCH, QUERIES_PER_MESH, VIS_BATCH, len(VIS_CAMERAS),
+            ENGINE_FACADE_QS, ENGINE_REQUESTS))
+    eng_inp = {
+        "posed": posed, "f_np": f_np, "queries": queries.cpu().numpy(),
+        "q_facade": q1_np, "verts": verts, "f": f, "queries_t": queries,
+        "vis_posed": posed[:VIS_BATCH], "verts_v": verts_v,
+        "cams": np.asarray(VIS_CAMERAS, np.float32), "cams_t": cams,
+        "scan": (v_s, f_s, p_s),
+        "icp": (model.v_template, f, surface_queries(
+            verts[:1].detach(), f, REGISTER_SCAN,
+            np.random.RandomState(15))[0][0]),
+        "large": (verts_l.cpu().numpy(), f_l.cpu().numpy())}
+    t0 = time.perf_counter()
+    engine_runs, launches["engine"], engine_facts = drive_engine(eng_inp,
+                                                                 dev)
+    engine_rec = dict(check_engine(engine_runs, engine_facts, eng_inp, dev),
+                      **engine_facts)
+    engine_rec["drive_s"] = engine_runs["drive_s"]
+    engine_rec["times_ms"] = engine_times(eng_inp, dev)
+    del engine_runs, eng_inp
+    log("  plans: %d made, pool %.1f MiB, memory_reserved %.1f -> %.1f MiB; "
+        "capture seconds %s; launches per replay and replays %s" % (
+            len(engine_rec["plans"]), engine_rec["pool_bytes"] / 2 ** 20,
+            engine_rec["reserved_before"] / 2 ** 20,
+            engine_rec["reserved_after"] / 2 ** 20,
+            ", ".join("%s %.4f" % kv
+                      for kv in engine_rec["captures_s"].items()),
+            "; ".join("%s: %s x %d runs" % ("/".join(p["key"][:5]),
+                                            p["replay_launches"], p["runs"])
+                      for p in engine_rec["plans"])))
+    log("engine against direct, host clock (ms, median (min-max) of %d "
+        "interleaved rounds): %s, on %s" % (ENGINE_ROUNDS, "; ".join(
+            "%s engine %.3f (%.3f-%.3f) direct %.3f (%.3f-%.3f)" % (
+                op, t["engine"]["median"], t["engine"]["min"],
+                t["engine"]["max"], t["direct"]["median"],
+                t["direct"]["min"], t["direct"]["max"])
+            for op, t in engine_rec["times_ms"].items()), smi))
+    log("engine phase: %.1f s (drive %.1f s)" % (
+        time.perf_counter() - t0, engine_rec["drive_s"]))
+
     for name, paths in KERNEL_PATHS.items():
         for path, counts in launches.items():
             if path in paths:
@@ -5624,7 +6145,8 @@ def main():
         "self_intersect": self_int, "anim": anim,
         "mxu": {"calls": mxu, "crossover": dict(MXU_CALIBRATION)},
         "mxu_bvh": mxu_bvh, "fit": fit_runs,
-        "empty": {"entry_points": sorted(empty_layouts)}}),
+        "empty": {"entry_points": sorted(empty_layouts)},
+        "engine": engine_rec}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -6,9 +6,13 @@ static ``parents`` tree.  Hand its fields over as numpy arrays, e.g.::
 
     fields = {name: np.asarray(getattr(jax_model, name))
               for name in WEIGHT_NAMES}
+    fields.update({name: np.asarray(getattr(jax_model, name))
+                   for name in PCA_NAMES
+                   if getattr(jax_model, name) is not None})
     model = body_model_from_fields(fields, jax_model.parents, device="cuda")
 
-Every array keeps its dtype, so float32 weights arrive bit for bit.  A
+Every array keeps its dtype, so float32 weights arrive bit for bit; the
+MANO / SMPL-H pose-PCA basis (PCA_NAMES) comes along where it is given.  A
 ``mesh_tpu.parallel.fit.FitState`` made with ``optax.adam`` crosses the
 same way (``fit_state_from_arrays``): its parameters, and its
 ``ScaleByAdamState(count, mu, nu)`` as ``torch.optim.Adam``'s ``step``,
@@ -18,7 +22,11 @@ This module never imports JAX: the caller does the ``np.asarray``.
 
 import torch
 
-from .models.body_model import WEIGHT_NAMES, body_model_from_arrays
+from .models.body_model import (  # noqa: F401
+    PCA_NAMES,
+    WEIGHT_NAMES,
+    body_model_from_arrays,
+)
 from .utils.device import as_tensor
 
 #: the parameters of a fit state, in the optimizer's order
@@ -27,7 +35,8 @@ FIT_PARAMS = ("betas", "pose", "trans")
 
 def body_model_from_fields(fields, parents, device="cuda"):
     """The port's ``BodyModel`` from a JAX ``BodyModel``'s fields (a dict
-    of numpy arrays keyed by WEIGHT_NAMES) and its ``parents``."""
+    of numpy arrays keyed by WEIGHT_NAMES, and PCA_NAMES where the model
+    has its pose-PCA basis) and its ``parents``."""
     missing = [name for name in WEIGHT_NAMES if name not in fields]
     if missing:
         raise KeyError("body model fields missing: %s" % ", ".join(missing))

@@ -28,8 +28,6 @@ from ..geometry.tri_normals import normalize_rows, tri_normals_scaled_t
 from ..obs import counter as obs_counter
 from ..obs import histogram as obs_histogram
 from ..obs.trace import span as obs_span
-from ..query.closest_kernel import mesh_is_nondegenerate
-from ..query.closest_point import closest_point_dispatch
 from ..query.point_triangle import closest_point_barycentric
 from ..utils.device import as_tensor, resolve_device
 from ..utils.knobs import tile_variant
@@ -52,18 +50,21 @@ class RegisterResult:
     recorrespondences: int  # correspondence bursts issued
 
 
-def _correspond(v, f, scan):
-    """One correspondence burst -> winning face [S] int32, by the batched
-    facade's route: ``closest_point_dispatch`` (brute-force or culled
-    kernel) with the data-derived nondegeneracy and the tile variant.  The
-    reference routes this through its query engine
-    (``batch._run_batch_step``); the engine is not ported (ROADMAP.md,
-    Queue 1 item 2), which is to reroute this call."""
+def _correspond(v, f, scan, chunk):
+    """One engine-routed correspondence burst -> winning face [S] int32.
+
+    Goes through the batched facade's route (``batch._run_batch_step``:
+    strategy pick, data-derived nondegeneracy, tile variant, the bucket's
+    plan), so ICP bursts share the plans of any other engine traffic."""
+    from ..batch import _batch_nondegen, _run_batch_step, _strategy
+
     v32 = v.detach().float()
-    nondegen = mesh_is_nondegenerate(v32.cpu().numpy(), f.cpu().numpy())
-    return closest_point_dispatch(
-        v32[None], f, scan[None], assume_nondegenerate=nondegen,
-        tile_variant=tile_variant())["face"][0]
+    use_pallas, use_culled = _strategy(f, v32.device)
+    _, res = _run_batch_step(
+        v32[None], f, scan[None], use_pallas, use_culled, chunk, False,
+        nondegen=_batch_nondegen(v32.cpu().numpy(), f.cpu().numpy()),
+        variant=tile_variant(), op="closest_point")
+    return res["face"][0]
 
 
 def _leaves(params, dev):
@@ -105,7 +106,8 @@ def icp_register(verts_fn, params, f, scan, *, steps=30,
         ``("huber"|"geman_mcclure", scale)`` pair.
     :param landmarks: optional ``(idx, bary, target_xyz)`` triple from
         ``parallel.fit.landmark_arrays``.
-    :param chunk: the reference's scan chunk; the kernel route takes none.
+    :param chunk: the reference's scan chunk; part of the engine's plan
+        key (the kernels take none).
     :returns: :class:`RegisterResult`.
     """
     if energy not in ("point_to_point", "point_to_plane"):
@@ -155,7 +157,7 @@ def icp_register(verts_fn, params, f, scan, *, steps=30,
                 verts = verts_fn(params)
                 with obs_span("diff.recorrespond", step=step,
                               q=scan.shape[0]):
-                    face = _correspond(verts, f, scan)
+                    face = _correspond(verts, f, scan, chunk)
                 corners = f[face.long()]
                 tri = verts[corners]
                 bary, _ = closest_point_barycentric(

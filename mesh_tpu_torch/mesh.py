@@ -14,8 +14,8 @@ import torch
 
 from .batch import fused_normals_and_closest_points
 from .geometry.vert_normals import vert_normals_t
+from .obs.trace import span as obs_span
 from .query.closest_kernel import nearest_vertices_kernel
-from .query.culled import closest_faces_and_points_auto
 from .query.visibility import visibility_compute
 from .search import (
     AabbNormalsTree,
@@ -61,13 +61,24 @@ class Mesh(object):
 
     def closest_faces_and_points(self, vertices):
         """Nearest face and point per query (reference AabbTree.nearest
-        convention): (faces [1, Q] uint32, points [Q, 3] float64)."""
-        vt, ft = self.device_arrays()
-        res = closest_faces_and_points_auto(
-            vt, ft, np.asarray(vertices, np.float32).reshape(-1, 3),
-            device=self.device)
-        return (res["face"].astype(np.uint32).reshape(1, -1),
-                res["point"].astype(np.float64))
+        convention): (faces [1, Q] uint32, points [Q, 3] float64).
+
+        Routed through the query engine (``engine``), so repeated calls
+        with varying query counts replay one plan per bucket; the direct
+        route, ``compute_aabb_tree().nearest`` (the auto ladder), serves
+        under MESH_TPU_NO_ENGINE=1, for no queries, and on the CPU above
+        ``crossover_faces()`` faces."""
+        from .engine import facade_closest_faces_and_points
+
+        with obs_span("facade.closest_faces_and_points",
+                      q=int(np.asarray(vertices).reshape(-1, 3).shape[0])
+                      ) as sp:
+            res = facade_closest_faces_and_points(self, vertices)
+            if res is not None:
+                sp.set(route="engine")
+                return res
+            sp.set(route="aabb_tree")
+            return self.compute_aabb_tree().nearest(vertices)
 
     def closest_points(self, vertices):
         return self.closest_faces_and_points(vertices)[1]

@@ -1,7 +1,9 @@
 """Linear-blend-skinning body model, SMPL architecture (counterpart of
 mesh_tpu/models/body_model.py: ``BodyModel``, ``lbs``, ``_uv_sphere``,
 ``smpl_sized_sphere``, ``synthetic_body_model``, ``_parametric_sphere``,
-``MODEL_FAMILIES`` and ``synthetic_family_model``).
+``MODEL_FAMILIES``, ``synthetic_family_model``, the SMPL-family .npz
+interchange ``save_body_model_npz`` / ``load_body_model_npz`` and the MANO
+pose PCA ``mano_pose_from_pca``).
 
 ``BodyModel`` is an ``nn.Module`` whose weights are buffers, so ``.to()``
 moves them together.  ``synthetic_body_model`` draws its weights with the
@@ -22,6 +24,9 @@ from ..utils.device import resolve_device
 WEIGHT_NAMES = ("v_template", "shapedirs", "posedirs", "joint_regressor",
                 "lbs_weights", "faces")
 
+#: the optional MANO / SMPL-H pose-PCA buffers, None when a model has none
+PCA_NAMES = ("hands_components", "hands_mean")
+
 
 class BodyModel(nn.Module):
     """Model weights as buffers; ``parents`` is the static kinematic tree
@@ -29,15 +34,18 @@ class BodyModel(nn.Module):
 
     Buffers: v_template (V, 3), shapedirs (V, 3, B), posedirs
     (V, 3, 9*(J-1)), joint_regressor (J, V), lbs_weights (V, J), faces
-    (F, 3) int32.
+    (F, 3) int32, and the MANO / SMPL-H pose-PCA basis when the model
+    ships one (None otherwise): hands_components (45, 45), stored full
+    rank (``mano_pose_from_pca`` takes the first n), and hands_mean (45,).
     """
 
     def __init__(self, v_template, shapedirs, posedirs, joint_regressor,
-                 lbs_weights, faces, parents):
+                 lbs_weights, faces, parents, hands_components=None,
+                 hands_mean=None):
         super().__init__()
-        for name, value in zip(WEIGHT_NAMES, (
+        for name, value in zip(WEIGHT_NAMES + PCA_NAMES, (
                 v_template, shapedirs, posedirs, joint_regressor,
-                lbs_weights, faces)):
+                lbs_weights, faces, hands_components, hands_mean)):
             self.register_buffer(name, value)
         self.parents = tuple(int(p) for p in parents)
 
@@ -55,21 +63,26 @@ class BodyModel(nn.Module):
 
 
 def body_model_from_arrays(arrays, parents, device="cuda", dtype=None):
-    """A ``BodyModel`` from a dict of numpy arrays keyed by WEIGHT_NAMES.
+    """A ``BodyModel`` from a dict of numpy arrays keyed by WEIGHT_NAMES,
+    plus PCA_NAMES where the dict holds them (absent or None: no basis).
 
     With ``dtype=None`` every array keeps its own dtype, so float32 weights
     arrive bit for bit; otherwise the float weights are cast to ``dtype``
     by numpy (faces are always int32)."""
     dev = resolve_device(device)
-    tensors = []
-    for name in WEIGHT_NAMES:
+    tensors = {}
+    for name in WEIGHT_NAMES + PCA_NAMES:
+        if arrays.get(name) is None:
+            if name in WEIGHT_NAMES:
+                raise KeyError("body model array %r missing" % name)
+            continue
         a = np.asarray(arrays[name])
         if name == "faces":
             a = a.astype(np.int32)
         elif dtype is not None:
             a = a.astype(torch.empty((), dtype=dtype).numpy().dtype)
-        tensors.append(torch.from_numpy(np.array(a, order="C")).to(dev))
-    return BodyModel(*tensors, parents=parents)
+        tensors[name] = torch.from_numpy(np.array(a, order="C")).to(dev)
+    return BodyModel(parents=parents, **tensors)
 
 
 def _with_homogeneous_row(R, t):
@@ -312,3 +325,141 @@ def synthetic_family_model(family, seed=0, dtype=torch.float32,
         template = (v * np.array(_FAMILY_SCALE[family]), f)
     return synthetic_body_model(seed=seed, n_betas=n_betas, n_joints=n_joints,
                                 template=template, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The SMPL-family .npz interchange and the MANO pose PCA.
+
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+def save_body_model_npz(model, path):
+    """Write a ``BodyModel`` as a standard SMPL-family .npz (the key set
+    ``load_body_model_npz`` reads: v_template, shapedirs, posedirs,
+    J_regressor, weights, f, kintree_table, and hands_components /
+    hands_mean when the model has them), so synthetic or converted models
+    round-trip through the ecosystem's interchange format."""
+    parents = np.asarray(model.parents, np.int64)
+    kintree = np.stack([parents, np.arange(len(parents))])
+    kintree[0, 0] = 2 ** 32 - 1   # SMPL files mark the root this way
+    extras = {name: _host(getattr(model, name)) for name in PCA_NAMES
+              if getattr(model, name) is not None}
+    np.savez(
+        path,
+        v_template=_host(model.v_template),
+        shapedirs=_host(model.shapedirs),
+        posedirs=_host(model.posedirs),
+        J_regressor=_host(model.joint_regressor),
+        weights=_host(model.lbs_weights),
+        f=_host(model.faces),
+        kintree_table=kintree,
+        **extras,
+    )
+
+
+def _densify(name, value):
+    """A plain numeric ndarray from whatever a released SMPL-family file
+    stored under ``name``: a numeric array as it is, a 0-d object array
+    holding a scipy.sparse matrix (``toarray``), a chumpy ``Ch`` object
+    (its ``.r`` dense view; np.load still needs the pickled object's
+    module importable to unpickle it), or an object array of equal-length
+    rows.  The caller converts the dtype."""
+    a = np.asarray(value)
+    if a.dtype != object:
+        return a
+    obj = a.item() if a.ndim == 0 else value
+    if hasattr(obj, "toarray"):            # scipy.sparse.*_matrix
+        return np.asarray(obj.toarray())
+    if hasattr(obj, "r"):                  # chumpy.Ch duck type
+        return np.asarray(obj.r)
+    try:
+        return np.asarray([np.asarray(row, np.float64) for row in obj])
+    except (TypeError, ValueError):
+        raise TypeError(
+            "key %r holds %r, which is not convertible to a dense array"
+            % (name, type(obj).__name__)
+        ) from None
+
+
+#: canonical keys as written by the official distributions, and the
+#: aliases of common conversions of the family files
+_KEY_ALIASES = {
+    "v_template": ("v_template",),
+    "shapedirs": ("shapedirs",),
+    "posedirs": ("posedirs",),
+    "J_regressor": ("J_regressor",),
+    "weights": ("weights", "lbs_weights"),
+    "f": ("f", "faces"),
+    "kintree_table": ("kintree_table",),
+}
+
+
+def _fetch(data, canonical):
+    for key in _KEY_ALIASES[canonical]:
+        if key in data:
+            return _densify(key, data[key])
+    raise KeyError(
+        "SMPL-family file is missing %r (accepted aliases: %s; file keys: "
+        "%s)" % (canonical, list(_KEY_ALIASES[canonical]),
+                 sorted(getattr(data, "files", data.keys()))))
+
+
+def load_body_model_npz(path, dtype=torch.float32, device="cuda"):
+    """Load a SMPL-family .npz from the local file ``path`` (canonical
+    keys: v_template, shapedirs, posedirs, J_regressor, weights, f,
+    kintree_table) onto ``device``.
+
+    Tolerates the layout quirks of real released files: scipy-sparse
+    J_regressor, chumpy object arrays, float64 payloads (cast to
+    ``dtype``), the uint32 root sentinel in kintree_table, the ``faces`` /
+    ``lbs_weights`` aliases, flattened (V*3, B) shapedirs and (V, 3, P)
+    posedirs, and extra keys (MANO's ``hands_components`` / ``hands_mean``
+    pose-PCA basis is kept; anything else is ignored)."""
+    if isinstance(path, str) and "://" in path:
+        raise ValueError("load_body_model_npz reads local files only, got "
+                         "%r" % path)
+    data = np.load(path, allow_pickle=True)
+    kintree = _fetch(data, "kintree_table")
+    parents = kintree[0].astype(np.int64)
+    parents[0] = -1
+    posedirs = _fetch(data, "posedirs")
+    if posedirs.ndim == 3:
+        posedirs = posedirs.reshape(posedirs.shape[0], 3, -1)
+    shapedirs = _fetch(data, "shapedirs")
+    if shapedirs.ndim == 2:                # some exports flatten (V*3, B)
+        shapedirs = shapedirs.reshape(-1, 3, shapedirs.shape[-1])
+    arrays = {
+        "v_template": _fetch(data, "v_template"), "shapedirs": shapedirs,
+        "posedirs": posedirs, "joint_regressor": _fetch(data, "J_regressor"),
+        "lbs_weights": _fetch(data, "weights"),
+        "faces": _fetch(data, "f").astype(np.int64)}
+    if "hands_components" in data:
+        arrays["hands_components"] = _densify("hands_components",
+                                              data["hands_components"])
+        if "hands_mean" in data:
+            arrays["hands_mean"] = _densify("hands_mean", data["hands_mean"])
+    return body_model_from_arrays(arrays, parents, device=device, dtype=dtype)
+
+
+def mano_pose_from_pca(model, coeffs, flat_hand_mean=False):
+    """(..., n) MANO pose-PCA coefficients -> (..., J, 3) axis-angle pose
+    on the model's device.
+
+    The released MANO / SMPL-H files parameterize the 45-dim hand pose by
+    a full-rank PCA basis (``hands_components`` (45, 45), ``hands_mean``
+    (45,)); callers use the first ``n <= 45`` components.  The mean is
+    added unless ``flat_hand_mean``.  The global rotation (joint 0) is
+    returned as zeros; set it on the result."""
+    if model.hands_components is None:
+        raise ValueError("model has no pose-PCA basis (hands_components)")
+    comps = model.hands_components
+    coeffs = torch.as_tensor(coeffs, dtype=comps.dtype, device=comps.device)
+    n = coeffs.shape[-1]
+    with no_tf32():
+        flat = torch.einsum("...n,nk->...k", coeffs, comps[:n])
+    if not flat_hand_mean and model.hands_mean is not None:
+        flat = flat + model.hands_mean
+    flat = flat.reshape(coeffs.shape[:-1] + (-1, 3))
+    root = flat.new_zeros(flat.shape[:-2] + (1, 3))
+    return torch.cat([root, flat], dim=-2)

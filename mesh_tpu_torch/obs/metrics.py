@@ -8,9 +8,8 @@ rebuild, frame and deadline-miss series.
 
 Unlike spans (gated by MESH_TPU_OBS), metrics are ALWAYS on: they are
 plain locked dict updates.  ``Registry.snapshot()`` is the JSON-able
-export.  The reference's Prometheus text and CLI exporters, its histogram
-exemplars and the readers no port code calls yet (``set_max``, ``total``,
-``stat``) are not copied (ROADMAP.md, Queue 1).
+export.  The reference's Prometheus text and CLI exporters and its
+histogram exemplars are not copied (ROADMAP.md, Queue 1).
 """
 
 import threading
@@ -102,6 +101,12 @@ class Gauge(_Metric):
         with self._lock:
             self._series[key] = self._series.get(key, 0) + amount
 
+    def set_max(self, value, **labels):
+        """Keep the running maximum (the engine's max-batch gauge)."""
+        key = _label_key(labels)
+        with self._lock:
+            self._series[key] = max(self._series.get(key, value), value)
+
     def value(self, **labels):
         with self._lock:
             return self._series.get(_label_key(labels), 0)
@@ -141,6 +146,22 @@ class Histogram(_Metric):
                     break
             else:
                 state["bucket_counts"][-1] += 1     # +Inf bucket
+
+    def stat(self, **labels):
+        """{count, sum, min, max, mean} of one labeled series (zeros when
+        it has never been observed)."""
+        with self._lock:
+            state = self._series.get(_label_key(labels))
+            if state is None:
+                return {"count": 0, "sum": 0.0, "min": 0.0, "max": 0.0,
+                        "mean": 0.0}
+            return {"count": state["count"], "sum": state["sum"],
+                    "min": state["min"], "max": state["max"],
+                    "mean": state["sum"] / state["count"]}
+
+    def label_sets(self):
+        with self._lock:
+            return [dict(key) for key in self._series]
 
     def snapshot(self):
         out = {"type": self.kind, "help": self.help, "series": []}

@@ -20,9 +20,11 @@ and fan out to sinks (the trace tail, obs/context.py).  Under
 opens a ``torch.profiler.record_function``, so a ``torch.profiler`` trace
 shows the framework's phases on its timeline.
 
-The reference's ``timed_span``, ``traced`` decorator and JSON-lines sink
-(with its rotation knobs) have no caller in the port yet and are not
-copied (ROADMAP.md, Queue 1).
+``timed_span`` is ``span`` that measures its elapsed time (device work
+included, through ``watch``) even while tracing is off: the engine's
+always-on dispatch latency reads it.  The reference's ``traced``
+decorator and JSON-lines sink (with its rotation knobs) have no caller in
+the port yet and are not copied (ROADMAP.md, Queue 1).
 """
 
 import itertools
@@ -32,7 +34,7 @@ from collections import deque
 from .clock import enabled, env_flag, monotonic, wall
 from .context import TRACE_TAIL, current_context
 
-__all__ = ["Span", "Tracer", "TRACER", "span", "device_sync"]
+__all__ = ["Span", "Tracer", "TRACER", "span", "timed_span", "device_sync"]
 
 #: torch.profiler.record_function bridge gate (adds real per-span cost on
 #: the profiler timeline, so it is opt-in on top of MESH_TPU_OBS); the
@@ -56,15 +58,19 @@ def _cuda_devices(out, found):
 
 
 def device_sync(out):
-    """Wait for the work that produces ``out``: ``torch.cuda.synchronize``
-    on each CUDA device holding one of its tensors (none for CPU tensors,
-    which are ready when they are returned)."""
+    """Wait for the work that produces ``out``: on each CUDA device holding
+    one of its tensors, an event recorded on that device's current stream
+    (where the tensors were made, or handed over to with a stream wait)
+    and waited for.  Nothing device-wide: other streams' and threads' work
+    is not waited for.  CPU tensors are ready when they are returned."""
     devices = _cuda_devices(out, set())
     if devices:
         import torch
 
         for device in devices:
-            torch.cuda.synchronize(device)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            done.synchronize()
 
 
 class Span(object):
@@ -197,6 +203,39 @@ class _NoopSpan(object):
 _NOOP = _NoopSpan()
 
 
+class _TimedOnlySpan(object):
+    """``timed_span()`` while tracing is off: measures ``elapsed`` (and the
+    sync of ``watch``ed tensors) but records nothing anywhere."""
+
+    __slots__ = ("elapsed", "sync_elapsed", "_t0", "_watched")
+
+    def __init__(self):
+        self.elapsed = None
+        self.sync_elapsed = None
+        self._watched = None
+
+    def set(self, **attrs):
+        return self
+
+    def watch(self, out):
+        self._watched = out
+        return out
+
+    def __enter__(self):
+        self._t0 = monotonic()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        t_end = monotonic()
+        self.elapsed = t_end - self._t0
+        if exc_type is None and self._watched is not None:
+            device_sync(self._watched)
+            t_sync = monotonic()
+            self.sync_elapsed = t_sync - t_end
+            self.elapsed = t_sync - self._t0
+        return False
+
+
 class Tracer(object):
     """Per-process span collector: thread-local nesting stacks, a bounded
     ring of finished spans, and push sinks."""
@@ -262,3 +301,11 @@ def span(name, **attrs):
         return _NOOP
     return TRACER.span(name, **attrs)
 
+
+def timed_span(name, **attrs):
+    """Like ``span``, but ``elapsed`` / ``sync_elapsed`` are measured even
+    while tracing is off, so always-on latency counters never read raw
+    clocks themselves; ``watch`` the outputs to cover their device work."""
+    if not enabled():
+        return _TimedOnlySpan()
+    return TRACER.span(name, **attrs)

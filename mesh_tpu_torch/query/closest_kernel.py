@@ -60,6 +60,7 @@ decisions and counts too.
 
 import functools
 import hashlib
+import math
 
 import numpy as np
 import torch
@@ -338,13 +339,64 @@ def mesh_is_nondegenerate(v, f, margin=100.0):
     return result
 
 
+#: (V, device) -> the two passes' segment offsets of ``vertex_mean``;
+#: never dropped, since a CUDA graph captured on them reads them on every
+#: replay (a few hundred bytes a topology size)
+_MEAN_OFFSETS = {}
+
+
+def _mean_offsets(n, device):
+    """``vertex_mean``'s segment offsets over V = ``n`` rows: runs of
+    ``isqrt(n)`` rows ([runs + 1]), then one segment of every run ([2]).
+    Kept per V and device, except when made inside a CUDA graph capture,
+    whose tensors hold nothing until the graph is replayed."""
+    key = (n, str(device))
+    hit = _MEAN_OFFSETS.get(key)
+    if hit is not None:
+        return hit
+    run = math.isqrt(n)
+    n_runs = -(-n // run)
+    both = ((torch.arange(n_runs + 1, dtype=torch.int64, device=device)
+             * run).clamp_(max=n),
+            torch.arange(2, dtype=torch.int64, device=device) * n_runs)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return both
+    return _MEAN_OFFSETS.setdefault(key, both)
+
+
+def vertex_mean(v):
+    """Per-mesh vertex mean of ``v`` [..., V, 3] -> [..., 1, 3], summed in
+    an order that V alone fixes, so a mesh's mean has the same bits alone
+    or in any batch (a ``torch.mean`` over V splits its sum by the batch's
+    size on the card).  ``torch.segment_reduce`` adds a segment's rows one
+    after the other (one thread per output on the card): first runs of
+    ``isqrt(V)`` rows, then the runs' sums, so no thread adds more than
+    about 2 sqrt(V) rows in a chain.  Its offsets are cached
+    (``_mean_offsets``), and ``unsafe=True`` skips their checks, which
+    read them on the host."""
+    n = v.shape[-2]
+    if not n:
+        return v.mean(dim=-2, keepdim=True)
+    rows = v.reshape((-1,) + v.shape[-2:])
+    runs, total = _mean_offsets(n, v.device)
+    sums = torch.segment_reduce(rows, "sum",
+                                offsets=runs.expand(rows.shape[0],
+                                                    -1).contiguous(),
+                                axis=1, unsafe=True)
+    sums = torch.segment_reduce(sums, "sum",
+                                offsets=total.expand(rows.shape[0],
+                                                     -1).contiguous(),
+                                axis=1, unsafe=True)
+    return (sums / n).reshape(v.shape[:-2] + (1, v.shape[-1]))
+
+
 def _center_inputs(v, f, points):
     """Shared query prologue: float32 cast, centering on the per-mesh
-    vertex mean (the float32 conditioning every kernel relies on), face
-    corner gather.  ``v`` [B, V, 3], ``points`` [B, Q, 3] ->
-    (points, center, tri), centered."""
+    vertex mean (``vertex_mean``; the float32 conditioning every kernel
+    relies on), face corner gather.  ``v`` [B, V, 3], ``points`` [B, Q, 3]
+    -> (points, center, tri), centered."""
     v = v.to(torch.float32)
-    center = v.mean(dim=-2, keepdim=True)
+    center = vertex_mean(v)
     return (points.to(torch.float32) - center, center,
             (v - center)[..., f.long(), :])
 

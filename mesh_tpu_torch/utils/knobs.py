@@ -1,8 +1,8 @@
 """The ``MESH_TPU_*`` environment knobs the port reads, and the routing
 predicates built on them (counterpart of mesh_tpu/utils/knobs.py and
 mesh_tpu/utils/dispatch.py, for the knobs of the closest-point ladder and
-its MXU rung, the observability modules, the animated-mesh sessions and the
-fit loss's data term).
+its MXU rung, the observability modules, the animated-mesh sessions, the
+fit loss's data term and the query engine).
 
 Every knob is declared in ``KNOBS`` with its type and default, and read
 through the accessors below, which re-read ``os.environ`` on every call so
@@ -48,6 +48,11 @@ KNOBS = {
     "MESH_TPU_ANIM_REFIT_MAX_INFLATION": None,
     # the fit loss's data term (parallel/fit.py)
     "MESH_TPU_VERTEX_CHAMFER": False,
+    # the query engine (engine/)
+    "MESH_TPU_NO_ENGINE": False,
+    "MESH_TPU_COALESCE_WINDOW_MS": None,
+    "MESH_TPU_FLEET_SHARD": True,
+    "MESH_TPU_FLEET_SHARD_MIN_Q": None,
 }
 
 _UNSET = object()
@@ -163,3 +168,10 @@ def vertex_chamfer():
     the min-over-vertices chamfer instead of the point-to-surface energy
     (``parallel/fit.py``); read when a step is built."""
     return flag("MESH_TPU_VERTEX_CHAMFER")
+
+
+def no_engine():
+    """True when ``MESH_TPU_NO_ENGINE`` routes the facades around the query
+    engine (``engine/``) to their direct paths.  Read per call, so a
+    misbehaving plan can be routed around without a restart."""
+    return flag("MESH_TPU_NO_ENGINE")

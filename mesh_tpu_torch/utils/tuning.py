@@ -1,5 +1,7 @@
 """Runtime-tunable knobs, the subset of mesh_tpu/utils/tuning.py that the
-animated-mesh refit reads (``anim_refit_max_inflation``).
+port reads: the query engine's coalescing window and sharded-lane
+threshold (``coalesce_window_ms``, ``shard_min_q``) and the animated-mesh
+refit's crossover (``anim_refit_max_inflation``).
 
 A tunable is declared once with its default, bounds, step and the
 environment variable that hard-pins it.  ``get`` reads the pin when it is
@@ -42,6 +44,18 @@ def _declare_tunable(name, kind, default, lo, hi, step, pin_env, doc):
     return name
 
 
+COALESCE_WINDOW_MS = _declare_tunable(
+    "coalesce_window_ms", "float", 0.0, 0.0, 20.0, 1.0,
+    "MESH_TPU_COALESCE_WINDOW_MS",
+    "Executor drain-loop coalescing window (ms): how long the drain "
+    "thread lingers after the first pending request to let a batch "
+    "accumulate.  0 (default) drains immediately.")
+SHARD_MIN_Q = _declare_tunable(
+    "shard_min_q", "int", None, 1024, 1048576, 4096,
+    "MESH_TPU_FLEET_SHARD_MIN_Q",
+    "Query count at which the engine routes a single-mesh closest-point "
+    "dispatch through the sharded big-batch lane (also gated by "
+    "MESH_TPU_FLEET_SHARD); None (default) keeps the lane off.")
 ANIM_REFIT_MAX_INFLATION = _declare_tunable(
     "anim_refit_max_inflation", "float", 1.5, 1.05, 4.0, 0.05,
     "MESH_TPU_ANIM_REFIT_MAX_INFLATION",

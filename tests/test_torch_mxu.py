@@ -565,7 +565,11 @@ def test_bvh_rung_under_mxu(clean_knobs, setting):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_mesh_facade_under_mxu(clean_knobs, bf16):
     """The slice end to end: ``Mesh.closest_faces_and_points`` on the MXU
-    rung against the reference's scan, under the tie contract."""
+    rung against the reference's scan, under the tie contract.  The MXU
+    rung is on the facade's direct route (the auto ladder), which
+    MESH_TPU_NO_ENGINE=1 selects: the query engine takes the brute-force
+    kernel at every face count, as the reference's does."""
+    clean_knobs.setenv("MESH_TPU_NO_ENGINE", "1")
     v, f = small_body(2, n_seg=24, n_ring=20)
     q = np.vstack([clustered(96, seed=4) * np.float32([0.3, 0.2, 0.9]),
                    scattered(64, seed=9, spread=0.4)]).astype(np.float32)

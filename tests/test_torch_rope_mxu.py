@@ -243,7 +243,10 @@ def test_accel_rung_routes_to_mxu_rope(clean_knobs, walk, use_bf16):
 def test_mesh_facade_reaches_mxu_rope(clean_knobs, use_bf16):
     """``Mesh.closest_faces_and_points`` through the auto ladder's accel
     rung to the MXU rope under the knob, and to the VPU rope below the
-    MXU crossover."""
+    MXU crossover.  The auto ladder is the facade's direct route, which
+    MESH_TPU_NO_ENGINE=1 selects (the query engine never takes the
+    BVH)."""
+    clean_knobs.setenv("MESH_TPU_NO_ENGINE", "1")
     v, f, q = _mixed_case()
     clean_knobs.setenv("MESH_TPU_ACCEL_MIN_FACES", "4096")
     clean_knobs.setenv("MESH_TPU_MXU", "1")

@@ -389,13 +389,15 @@ def test_shape_bucket_rejects_empty_batches():
 
 
 def test_tunable_declaration_matches_reference():
-    mine = tuning.lookup("anim_refit_max_inflation")
-    theirs = jtuning.lookup("anim_refit_max_inflation")
-    for key in ("kind", "default", "lo", "hi", "step", "pin_env"):
-        assert getattr(mine, key) == getattr(theirs, key), key
+    names = [t.name for t in tuning.tunables()]
+    assert names == ["coalesce_window_ms", "shard_min_q",
+                     "anim_refit_max_inflation"]
+    for name in names:
+        mine, theirs = tuning.lookup(name), jtuning.lookup(name)
+        for key in ("kind", "default", "lo", "hi", "step", "pin_env"):
+            assert getattr(mine, key) == getattr(theirs, key), (name, key)
     with pytest.raises(KeyError):
         tuning.lookup("nope")
-    assert [t.name for t in tuning.tunables()] == ["anim_refit_max_inflation"]
 
 
 def test_errors_match_reference():
