@@ -259,8 +259,41 @@ Phases (any failure raises and exits non-zero; none catches its own):
    against its direct call on the host clock in interleaved rounds, with
    each plan's capture seconds, launches per replay, the graph pool's
    bytes and ``torch.cuda.memory_reserved`` around the phase.
+16. fallback: the reference's fallback routes, counts set to 0 just before
+   each sub-drive and read just after it, every knob restored.  16a:
+   ``Mesh(body 0).compute_aabb_tree(strategy="anchored")`` on phase 8's
+   65,536 scan points and on phase 5's 98,304-face body 0 with its 4096
+   queries: the table build (first call) and 5 warm calls on the host
+   clock, the tight share, closest_faces (and cull_records) launched once
+   a call that had a loose query and nothing else, every answer against
+   the brute-force kernel.  16b: under ``MESH_TPU_FORCE_XLA=1``, Mesh
+   closest faces/points on body 0 x 4096 (an engine plan of the plain
+   scan), ``batched_closest_faces_and_points`` on 16 bodies x 1024,
+   ``closest_vertices``, ``batched_vertex_visibility`` on 4 bodies x 4
+   cameras, both trees on phase 8's set, ``intersections_indices`` on
+   phase 9's meshes, ``self_intersection_count`` of body 0 and
+   ``diff.closest_point`` on 4096: no kernel launched, every decision
+   counted as forced, and each answer against the kernel route's (faces
+   but at ties, flags but on float64-borderline rays or faces, the
+   intersection and self-intersection counts against their float64
+   segment predicate).  16c: the auto facade's top-k culled rung under the
+   knob on phase 5's body 0 x 4096: the route once a call, the fallback
+   counted, the answers against the brute kernel.  16d: the accel
+   facade's plain walks on phase 6's scan, under
+   ``MESH_TPU_ACCEL_KIND=grid`` and under ``MESH_TPU_BVH_STREAM=0`` (the
+   leaf-8 BVH): the index build, one call once it is built and on the
+   card (the kernel route's call timed beside it), the tight share,
+   fallback and steps, no kernel launched, the answers against the brute
+   kernel and the first 4096 bit for bit against the plain scan.  16e:
+   ``calibrate_crossover``, ``calibrate_accel_crossover``,
+   ``calibrate_stream_tiles`` and ``calibrate_mxu_crossover`` with
+   ``save=False``, each ladder logged; the measurements they set are
+   restored and every threshold must read as before.  Run with
+   ``MESH_TPU_FORCE_XLA=1`` set, the script builds the kernels and runs
+   phase 16 alone, without 16e: every facade under the knob, each answer
+   held against the kernels, which it calls by name.
 
-After phase 15, the four closest-point routes (brute, culled, resident and
+After phase 16, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
 brute-force kernel: the crossover evidence; then each drive's stages (the
@@ -268,7 +301,8 @@ large batch's culled prologue in its parts, each anim session's resident
 rope kernel alone, held to its plain version at every sub-lane count
 as on the scan).
 
-Phases 3-15, 3b and 14b are the driven paths (phases 6 and 13 twice).  A
+Phases 3-15, 3b and 14b are the driven paths (phases 6 and 13 twice);
+phase 16 drives no kernel path of its own and holds its launches itself.  A
 CUDA-graph plan's launches count once a replay (its capture counts none;
 the warm-up run before it counts as the launches it is).  Kernel
 launch counts are set to 0 just before each and read just after it, and
@@ -558,6 +592,13 @@ ENGINE_REQUESTS = 16
 ENGINE_REQUEST_QS = (700, 1024)
 ENGINE_NORMAL_RUNS = 5
 ENGINE_ROUNDS = 5
+
+# phase 16: the fallback routes
+FALLBACK_WARM = 5
+FALLBACK_BATCH = 16
+FALLBACK_VIS_BATCH = 4
+WALK_WARM = 2
+WALK_CHECK = 4096
 
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
@@ -4008,7 +4049,8 @@ def fit_stages(model, scan, dev):
     with no_tf32():
         verts, _ = lbs(model, *params, device=dev)
         vd = verts.detach()
-        corners = f[closest_point_dispatch(vd, f, scan)["face"].long()]
+        corners = f[closest_point_dispatch(vd, f, scan, use_pallas=True)[
+            "face"].long()]
         loss = fit.scan_to_model_loss(model, *params, scan, device=dev)
         grads = torch.autograd.grad(loss, params, retain_graph=True)
         # Adam steps copies, so the retained graph's leaves stay as they were
@@ -4017,7 +4059,8 @@ def fit_stages(model, scan, dev):
             p_.grad = g
         times = round_ms({
             "lbs": lambda: lbs(model, *params, device=dev),
-            "search": lambda: closest_point_dispatch(vd, f, scan),
+            "search": lambda: closest_point_dispatch(vd, f, scan,
+                                                      use_pallas=True),
             "recompose": lambda: dq._Frozen.apply(vd, scan, corners),
             "backward": lambda: torch.autograd.grad(loss, params,
                                                     retain_graph=True),
@@ -4132,19 +4175,26 @@ def drive_empty(posed0, f_np, large0, f_l, scan_mesh, dev):
 # Phase 15: the query engine.
 
 @contextlib.contextmanager
+def knobs_set(**values):
+    """The block with the environment knobs ``values`` set; each is
+    restored afterwards."""
+    saved = {name: os.environ.get(name) for name in values}
+    os.environ.update({name: str(v) for name, v in values.items()})
+    try:
+        yield
+    finally:
+        for name, old in saved.items():
+            if old is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = old
+
+
 def no_engine():
     """The block under MESH_TPU_NO_ENGINE=1: the facades' direct routes
     (the auto ladder's BVH and MXU rungs included); the knob is restored
     afterwards."""
-    saved = os.environ.get("MESH_TPU_NO_ENGINE")
-    os.environ["MESH_TPU_NO_ENGINE"] = "1"
-    try:
-        yield
-    finally:
-        if saved is None:
-            del os.environ["MESH_TPU_NO_ENGINE"]
-        else:
-            os.environ["MESH_TPU_NO_ENGINE"] = saved
+    return knobs_set(MESH_TPU_NO_ENGINE=1)
 
 
 def same_arrays(a, b):
@@ -4551,6 +4601,554 @@ def engine_times(inp, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the reference's fallback routes.
+
+def host_calls(fn, warm):
+    """(first answer, first call ms, median warm call ms, warm answers) on
+    the host clock: one cold call, then ``warm`` calls."""
+    t0 = time.perf_counter()
+    out = fn()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    times, again = [], []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        again.append(fn())
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, first_ms, statistics.median(times) if times else None, again
+
+
+def counted_only(launches, allowed, what):
+    """Every kernel but ``allowed`` launched 0 times in ``launches``."""
+    extra = {k: n for k, n in launches.items() if n and k not in allowed}
+    check(not extra, "%s launched %s" % (what, extra))
+
+
+def drive_anchored(label, v, f, q, dev):
+    """16a: one ``Mesh(v, f).compute_aabb_tree(strategy="anchored")``,
+    its first ``nearest`` (the table build) and FALLBACK_WARM warm calls,
+    counts set to 0 just before and read just after; then, outside the
+    window, the tight share and every answer against the brute-force
+    kernel.  The brute kernel launches once a call with a loose query
+    (with its cull records)."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query.anchored import (
+        closest_point_anchored,
+        closest_point_anchored_auto,
+    )
+    from mesh_tpu_torch.utils.dispatch import force_xla
+
+    q_np = q.cpu().numpy() if torch.is_tensor(q) else q
+    m = Mesh(v, f, device=dev)
+    reset_launches()
+    tree = m.compute_aabb_tree(strategy="anchored")
+    (faces, points), first_ms, warm_ms, again = host_calls(
+        lambda: tree.nearest(q_np), FALLBACK_WARM)
+    launches = read_launches()
+    check(all(np.array_equal(faces, a[0]) and np.array_equal(points, a[1])
+              for a in again), "anchored %s: repeated calls disagree" % label)
+    vt, ft = m.device_arrays()
+    qt = torch.as_tensor(q_np, device=dev)
+    res = closest_point_anchored(vt, ft, qt, *tree._tables, device=dev)
+    tight = res["tight"]
+    loose = int((~tight).sum())
+    calls = 1 + FALLBACK_WARM
+    # the loose queries re-run through the brute kernel, or under the knob
+    # (a forced run) through the plain scan
+    want = calls if loose and not force_xla() else 0
+    check(launches["closest_faces"] == want
+          and launches["cull_records"] == want,
+          "anchored %s: %d loose queries, closest_faces launched %d times "
+          "in %d calls" % (label, loose, launches["closest_faces"], calls))
+    counted_only(launches, ("closest_faces", "cull_records"),
+                 "anchored %s" % label)
+    # the same call with its distances, against the brute kernel (a planted
+    # far query's sqdist is held relatively: its float32 ulp passes 1e-5)
+    auto = closest_point_anchored_auto(vt, ft, qt, tables=tree._tables,
+                                       device=dev)
+    check(np.array_equal(auto["face"].astype(np.uint32), faces[0])
+          and np.array_equal(auto["point"].astype(np.float64), points),
+          "anchored %s: the tree and closest_point_anchored_auto disagree"
+          % label)
+    brute = ck.closest_point_kernel(vt[None], ft, qt[None])
+    near = torch.as_tensor(brute["sqdist"][0] < 1.0)
+    far = ~near
+    if bool(far.any()):
+        rel = float(((torch.as_tensor(auto["sqdist"], device=dev)[far.to(dev)]
+                      - brute["sqdist"][0][far.to(dev)]).abs()
+                     / brute["sqdist"][0][far.to(dev)]).max())
+        check(rel <= 1e-6, "anchored %s: far sqdist %.3g off" % (label, rel))
+    sel = near.nonzero()[:, 0].to(dev)
+    vs = check_against_brute(
+        "anchored %s" % label, vt[None], ft, qt[sel][None],
+        torch.as_tensor(auto["face"].astype(np.int64), device=dev)[sel][None],
+        torch.as_tensor(auto["sqdist"], device=dev)[sel][None],
+        {k: x[:, sel] for k, x in brute.items()})
+    # the kernel route's call: the default tree (the auto ladder)
+    auto_tree = m.compute_aabb_tree()
+    with knobs_set(MESH_TPU_FORCE_XLA=0):
+        kernel_ms = host_calls(lambda: auto_tree.nearest(q_np),
+                               FALLBACK_WARM)[2]
+    rec = {"faces": int(ft.shape[0]), "queries": int(qt.shape[0]),
+           "first_call_ms": first_ms, "warm_call_ms": warm_ms,
+           "kernel_route_warm_ms": kernel_ms,
+           "tight_share": float(tight.float().mean()), "loose": loose,
+           "closest_faces_launches": launches["closest_faces"],
+           "vs_brute": vs}
+    log("  anchored %s: %d faces x %d queries, first call (tables) %.1f ms, "
+        "warm %.3f ms (the default tree's %.3f; host clock); tight %.4f, %d "
+        "loose -> closest_faces %d launches in %d calls" % (
+            label, rec["faces"], rec["queries"], first_ms, warm_ms,
+            kernel_ms, rec["tight_share"], loose, launches["closest_faces"],
+            calls))
+    return rec
+
+
+def entry_calls(inp, dev):
+    """16b's entry points on phases 3-9's inputs -> {name: call}; the
+    caller sets the knob (or not) and holds the counts."""
+    from mesh_tpu_torch import Mesh, diff
+    from mesh_tpu_torch.batch import (
+        batched_closest_faces_and_points,
+        batched_vertex_visibility,
+    )
+    from mesh_tpu_torch.query.closest_point import (
+        closest_vertices_with_distance,
+    )
+    from mesh_tpu_torch.query.ray import self_intersection_count
+
+    body0, f_np, q1 = inp["body0"], inp["f_np"], inp["q1"]
+    m0 = Mesh(body0, f_np, device=dev)
+    m_r = Mesh(body0, f_np, device=dev)
+    body = Mesh(inp["body_v"], inp["body_f"], device=dev)
+    calls = {
+        "Mesh.closest_faces_and_points":
+            lambda: m0.closest_faces_and_points(q1),
+        "batched_closest_faces_and_points":
+            lambda: batched_closest_faces_and_points(
+                (inp["posed"][:FALLBACK_BATCH], f_np),
+                inp["queries"][:FALLBACK_BATCH], device=dev),
+        "closest_vertices": lambda: tuple(
+            x.cpu().numpy() for x in closest_vertices_with_distance(
+                body0, q1, device=dev)),
+        "batched_vertex_visibility": lambda: batched_vertex_visibility(
+            (inp["posed"][:FALLBACK_VIS_BATCH], f_np), inp["cams"],
+            device=dev),
+        "AabbTree.nearest_alongnormal":
+            lambda: m_r.compute_aabb_tree().nearest_alongnormal(
+                inp["reg_pts"], inp["reg_nrm"]),
+        "AabbNormalsTree.nearest":
+            lambda: m_r.compute_aabb_normals_tree().nearest(
+                inp["reg_pts"], inp["reg_nrm"]),
+        "intersections_indices":
+            lambda: body.compute_aabb_tree().intersections_indices(
+                inp["hand_v"], inp["hand_f"]),
+        "self_intersection_count": lambda: int(self_intersection_count(
+            body0, f_np, device=dev)),
+        "diff.closest_point": lambda: {
+            k: x.detach().cpu().numpy() for k, x in diff.closest_point(
+                body0, f_np.astype(np.int64), q1, device=dev).items()},
+    }
+    return calls
+
+
+def run_calls(calls):
+    """{name: (answer, first call ms, second call ms)}, each call ended by
+    a synchronize, on the host clock."""
+    out = {}
+    for name, fn in calls.items():
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ans = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = (ans, *times)
+    return out
+
+
+def check_forced(forced, kernel, inp, dev):
+    """16b's checks, after the window: each forced answer against the
+    kernel route's answer to the same call (``kernel``, run with the knob
+    unset), under the fallback contracts; returns {name: what was
+    found}."""
+    from mesh_tpu_torch.query.visibility import visibility_rays
+
+    from mesh_tpu_torch.query import closest_kernel as ck
+
+    body0, f_np, q1 = inp["body0"], inp["f_np"], inp["q1"]
+    v0 = torch.as_tensor(body0, device=dev)
+    ft = torch.as_tensor(f_np.astype(np.int64), device=dev)
+    q1_t = torch.as_tensor(q1, device=dev)
+    found = {}
+
+    def faces_points(name, faces, points, k_faces, k_points, v_b, q_b):
+        """Faces but at ties, sqdist within 1e-5, both from the points."""
+        q64 = q_b.cpu().numpy().astype(np.float64)
+
+        def sq(p):
+            return torch.as_tensor(((p - q64) ** 2).sum(-1),
+                                   dtype=torch.float32, device=dev)
+
+        def face(x):
+            return torch.as_tensor(x.astype(np.int64), device=dev)
+        found[name] = check_against_brute(
+            "forced %s" % name, v_b, ft, q_b, face(faces), sq(points),
+            {"face": face(k_faces), "sqdist": sq(k_points)}, quiet=True,
+            against="the kernel route")
+
+    name = "Mesh.closest_faces_and_points"
+    (faces, points), (k_faces, k_points) = forced[name][0], kernel[name][0]
+    faces_points(name, faces, points[None], k_faces, k_points[None],
+                 v0[None], q1_t[None])
+    name = "batched_closest_faces_and_points"
+    (faces, points), (k_faces, k_points) = forced[name][0], kernel[name][0]
+    faces_points(name, faces[:, 0], points, k_faces[:, 0], k_points,
+                 torch.as_tensor(inp["posed"][:FALLBACK_BATCH], device=dev),
+                 torch.as_tensor(inp["queries"][:FALLBACK_BATCH],
+                                 device=dev))
+    name = "diff.closest_point"
+    res, k_res = forced[name][0], kernel[name][0]
+    faces_points(name, res["face"][None], res["point"][None].astype(
+        np.float64), k_res["face"][None], k_res["point"][None].astype(
+            np.float64), v0[None], q1_t[None])
+    # nearest vertices: the same index but at equidistant vertices
+    idx, dist = forced["closest_vertices"][0]
+    k_idx, k_dist = kernel["closest_vertices"][0]
+    gap = float(np.abs(dist - k_dist).max())
+    differ = idx != k_idx
+    if differ.any():
+        v64 = body0.astype(np.float64)
+        q64 = q1.astype(np.float64)[differ]
+        tie = np.abs(np.linalg.norm(q64 - v64[idx[differ]], axis=1)
+                     - np.linalg.norm(q64 - v64[k_idx[differ]], axis=1))
+        check(tie.max() <= 1e-6, "forced closest_vertices: %d differ, %.3g "
+              "apart" % (int(differ.sum()), tie.max()))
+    check(gap <= 1e-5, "forced closest_vertices: distance %.3g from the "
+          "kernel's" % gap)
+    found["closest_vertices"] = {"dist_gap": gap,
+                                 "differ": int(differ.sum())}
+    # visibility: flags equal but on rays borderline in float64
+    vis, ndc = forced["batched_vertex_visibility"][0]
+    k_vis, k_ndc = kernel["batched_vertex_visibility"][0]
+    check(np.abs(ndc - k_ndc).max() <= 1e-5, "forced visibility: n.dir")
+    differ = np.argwhere(vis != k_vis)
+    border = 0
+    verts_b = torch.as_tensor(inp["posed"][:FALLBACK_VIS_BATCH], device=dev)
+    cams_t = torch.as_tensor(inp["cams"], device=dev)
+    origins, dirs = visibility_rays(verts_b, cams_t, VIS_MIN_DIST)
+    for b in np.unique(differ[:, 0]) if differ.size else ():
+        rows = differ[differ[:, 0] == b]
+        ray = torch.as_tensor(rows[:, 1] * body0.shape[0] + rows[:, 2],
+                              device=dev)
+        _, near = any_hit64(origins[b][ray], dirs[b].reshape(-1, 3)[ray],
+                            verts_b[b][ft])
+        check(bool(near.all()), "forced visibility, body %d: %d flags "
+              "differ from the kernel's away from the float64 borderline"
+              % (b, int((~near).sum())))
+        border += int(near.sum())
+    found["batched_vertex_visibility"] = {"differ": int(len(differ)),
+                                          "borderline": border}
+    # along-normal: hit flags equal but on borderline lines, distances near
+    k_d, k_f, _ = kernel["AabbTree.nearest_alongnormal"][0]
+    a_d, a_f, _ = forced["AabbTree.nearest_alongnormal"][0]
+    hit, k_hit = a_d < 1e100, k_d < 1e100
+    flip = np.nonzero(hit != k_hit)[0]
+    if flip.size:
+        sel = torch.as_tensor(flip, device=dev)
+        pts = torch.as_tensor(inp["reg_pts"], device=dev)[sel]
+        nrm = torch.as_tensor(inp["reg_nrm"], device=dev)[sel]
+        tri = v0[ft]
+        near = any_hit64(pts, nrm, tri, t_lo=-1e30)[1]
+        check(bool(near.all()), "forced along-normal: %d hits differ from "
+              "the kernel's away from the borderline" % int((~near).sum()))
+    both = hit & k_hit
+    d_gap = float(np.abs(a_d[both] - k_d[both]).max())
+    check(d_gap <= 1e-4, "forced along-normal: distance %.3g from the "
+          "kernel's" % d_gap)
+    found["AabbTree.nearest_alongnormal"] = {
+        "hits": int(hit.sum()), "hit_flips": int(flip.size),
+        "dist_gap": d_gap, "faces_differ": int((a_f != k_f)[both].sum())}
+    # normal-weighted: faces but at blended-cost ties, points near
+    n_f, n_p = forced["AabbNormalsTree.nearest"][0]
+    k_nf, k_np = kernel["AabbNormalsTree.nearest"][0]
+    same = n_f[:, 0] == k_nf[:, 0]
+    p_gap = float(np.abs(n_p[same] - k_np[same]).max())
+    check(p_gap <= 1e-5, "forced normal-weighted: points %.3g from the "
+          "kernel's" % p_gap)
+    tie = 0.0
+    if not same.all():
+        sel = torch.as_tensor(np.nonzero(~same)[0], device=dev)
+        pts = torch.as_tensor(inp["reg_pts"], device=dev)[sel]
+        nrm = torch.as_tensor(inp["reg_nrm"], device=dev)[sel]
+        mine = blended_min64(v0, ft, pts, nrm, torch.as_tensor(
+            n_f[~same, 0].astype(np.int64), device=dev))[0]
+        theirs = blended_min64(v0, ft, pts, nrm, torch.as_tensor(
+            k_nf[~same, 0].astype(np.int64), device=dev))[0]
+        tie = float((mine - theirs).abs().max())
+        check(tie <= 1e-5, "forced normal-weighted: %d faces differ, "
+              "%.3g apart in blended cost" % (int((~same).sum()), tie))
+    found["AabbNormalsTree.nearest"] = {"differ": int((~same).sum()),
+                                        "point_gap": p_gap, "tie_gap": tie}
+    # intersections and self-intersection: the divided segment form against
+    # its float64 predicate (phase 9 / 10's decide64)
+    hand_tri = torch.as_tensor(inp["hand_v"].astype(np.float32),
+                               device=dev)[torch.as_tensor(
+                                   inp["hand_f"].astype(np.int64),
+                                   device=dev)]
+    body_tri = torch.as_tensor(inp["body_v"], device=dev)[torch.as_tensor(
+        inp["body_f"].astype(np.int64), device=dev)]
+    mask = torch.zeros(hand_tri.shape[0], dtype=torch.bool)
+    mask[torch.as_tensor(forced["intersections_indices"][0])] = True
+    differ_i, border_i = check_against64(
+        "forced intersections", mask, decide64("segment", hand_tri,
+                                               body_tri))
+    found["intersections_indices"] = {"intersecting": int(mask.sum()),
+                                      "differ64": differ_i,
+                                      "borderline64": border_i}
+    count = forced["self_intersection_count"][0]
+    ids = ft.to(torch.int32)
+    tri0 = v0[ft]
+    exact, border = decide64("segment", tri0, tri0, ids, ids,
+                             torch.arange(ft.shape[0], device=dev))
+    n_exact, n_border = int(exact.sum()), int(border.sum())
+    check(abs(count - n_exact) <= n_border, "forced self-intersection: %d "
+          "faces, the float64 segment predicate %d (%d borderline)"
+          % (count, n_exact, n_border))
+    found["self_intersection_count"] = {
+        "count": count, "count64": n_exact, "borderline64": n_border,
+        "kernel_count": kernel["self_intersection_count"][0]}
+    found["intersections_indices"]["kernel_intersecting"] = int(
+        kernel["intersections_indices"][0].size)
+    return found
+
+
+def drive_xla_culled(v, f, q, dev):
+    """16c: the auto facade's top-k culled rung under the knob on one
+    large body: counts set to 0 before and read after, the route once a
+    call, the fallback reported, the answers against the brute kernel."""
+    from mesh_tpu_torch.obs.metrics import REGISTRY
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query import culled as auto
+
+    fallback = REGISTRY.counter("mesh_tpu_query_certificate_fallback_total")
+    strategy = REGISTRY.counter("mesh_tpu_query_strategy_total")
+    before = fallback.value(), strategy.value(path="xla_culled")
+    auto.STRATEGY.clear()
+    reset_launches()
+    with knobs_set(MESH_TPU_FORCE_XLA=1):
+        res, first_ms, warm_ms, again = host_calls(
+            lambda: auto.closest_faces_and_points_auto(v, f, q, device=dev),
+            FALLBACK_WARM)
+    launches = read_launches()
+    calls = 1 + FALLBACK_WARM
+    counted_only(launches, (), "xla_culled")
+    check(dict(auto.STRATEGY) == {"xla_culled": calls}
+          and strategy.value(path="xla_culled") - before[1] == calls,
+          "xla_culled: routes %s" % auto.STRATEGY)
+    check(all(np.array_equal(res["face"], a["face"]) for a in again),
+          "xla_culled: repeated calls disagree")
+    fell_back = (fallback.value() - before[0]) // calls
+    vt = torch.as_tensor(v, device=dev)[None]
+    ft = torch.as_tensor(np.asarray(f, np.int64), device=dev)
+    qt = torch.as_tensor(q, device=dev)[None]
+    brute = ck.closest_point_kernel(vt, ft, qt)
+    vs = check_against_brute(
+        "xla_culled", vt, ft, qt,
+        torch.as_tensor(res["face"].astype(np.int64), device=dev)[None],
+        torch.as_tensor(res["sqdist"], device=dev)[None], brute)
+    # the kernel route's call: the same facade without the knob
+    with knobs_set(MESH_TPU_FORCE_XLA=0):
+        kernel_ms = host_calls(lambda: auto.closest_faces_and_points_auto(
+            v, f, q, device=dev), FALLBACK_WARM)[2]
+    rec = {"faces": int(ft.shape[0]), "queries": int(qt.shape[1]),
+           "first_call_ms": first_ms, "warm_call_ms": warm_ms,
+           "kernel_route_warm_ms": kernel_ms,
+           "fallback_per_call": int(fell_back), "vs_brute": vs}
+    log("  xla_culled: %d faces x %d queries, route once a call (%d), "
+        "%d loose queries re-run a call; first %.1f ms, warm %.3f ms (the "
+        "kernel route's %.3f; host clock)" % (
+            rec["faces"], rec["queries"], calls, fell_back, first_ms,
+            warm_ms, kernel_ms))
+    return rec
+
+
+def drive_walk(label, knob, kind, v, f, q, dev):
+    """16d: the accel facade's plain walk (``knob`` set: the index ``kind``
+    it reads or the rope walks it turns off) on the scan: the index build
+    and its upload, then one call with its stats (warm: nothing is left to
+    build), counts set to 0 before and read after (no kernel may launch);
+    then the answers against the brute kernel, and the first WALK_CHECK
+    queries bit for bit against the plain scan on the card."""
+    from mesh_tpu_torch.accel.build import clear_index_cache, get_index
+    from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query.closest_point import closest_faces_and_points_t
+
+    clear_index_cache()
+    reset_launches()
+    with knobs_set(**knob):
+        t0 = time.perf_counter()
+        index = get_index(v, f, kind=kind)
+        build_s = time.perf_counter() - t0
+        index.on(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, stats = closest_faces_and_points_accel(v, f, q, with_stats=True,
+                                                    device=dev)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    counted_only(launches, (), "walk %s" % label)
+    check(stats["backend"] == "xla", "walk %s took %s" % (label,
+                                                          stats["backend"]))
+    vt = torch.as_tensor(v, device=dev)
+    ft = torch.as_tensor(np.asarray(f, np.int64), device=dev)
+    qt = torch.as_tensor(q, device=dev)
+    brute = ck.closest_point_kernel(vt[None], ft, qt[None])
+    vs = check_against_brute(
+        "walk %s" % label, vt[None], ft, qt[None],
+        torch.as_tensor(res["face"].astype(np.int64), device=dev)[None],
+        torch.as_tensor(res["sqdist"], device=dev)[None], brute)
+    del brute
+    scan = closest_faces_and_points_t(vt, ft, qt[:WALK_CHECK])
+    check(all(np.array_equal(res[k][:WALK_CHECK], x.cpu().numpy())
+              for k, x in scan.items()),
+          "walk %s: the first %d answers differ from the plain scan"
+          % (label, WALK_CHECK))
+    # the kernel route's call: the same facade without the knob
+    with knobs_set(MESH_TPU_FORCE_XLA=0):
+        kernel_ms = host_calls(lambda: closest_faces_and_points_accel(
+            v, f, q, device=dev), WALK_WARM)[2]
+    rec = dict(stats, build_s=build_s, warm_call_ms=warm_ms,
+               kernel_route_warm_ms=kernel_ms,
+               vs_brute=vs, index=dict(index.meta),
+               scan_bit_equal=WALK_CHECK)
+    log("  walk %s (%s): build %.3f s; tight %.4f, %d loose re-run through "
+        "the plain scan, %d pair tests%s; a call %.1f ms (the kernel route's "
+        "%.1f; host clock); first %d answers bit-equal to the plain scan" % (
+            label, kind, build_s, stats["tight_frac"], stats["fallback"],
+            stats["pair_tests"],
+            ", steps max %d mean %.1f" % (stats["steps_max"],
+                                          stats["steps_mean"])
+            if "steps_max" in stats else "", warm_ms, kernel_ms,
+            WALK_CHECK))
+    return rec
+
+
+def drive_calibrations(dev):
+    """16e: the four calibrations with ``save=False``, each ladder logged;
+    the in-process measurements they set are restored, and the thresholds
+    must read as before."""
+    from mesh_tpu_torch.query import autotune
+
+    names = ("_measured", "_accel_measured", "_stream_measured",
+             "_mxu_measured")
+    accessors = (autotune.crossover_faces, autotune.accel_crossover_faces,
+                 autotune.stream_tile_params, autotune.mxu_crossover_faces)
+    saved = {name: getattr(autotune, name) for name in names}
+    before = [fn() for fn in accessors]
+    rec = {}
+    for name, run in (
+            ("crossover", autotune.calibrate_crossover),
+            ("accel_crossover", autotune.calibrate_accel_crossover),
+            ("stream_tiles", autotune.calibrate_stream_tiles),
+            ("mxu_crossover", autotune.calibrate_mxu_crossover)):
+        t0 = time.perf_counter()
+        got = run(save=False, device=dev)
+        rec[name] = dict(autotune.CALIBRATIONS[name],
+                         seconds=time.perf_counter() - t0)
+        rows = rec[name].get("ladder") or rec[name].get("sweep")
+        log("  calibrate %s(save=False): %s in %.1f s (stable %s); %s" % (
+            name, got, rec[name]["seconds"], rec[name]["stable"],
+            "; ".join(", ".join("%s %s" % (k, ("%.3f ms" % (x * 1e3))
+                                           if k == "t" or k.startswith("t_")
+                                           else x)
+                                for k, x in row.items()) for row in rows)))
+    for name, value in saved.items():
+        setattr(autotune, name, value)
+    after = [fn() for fn in accessors]
+    check(after == before, "calibrations left the thresholds %s, were %s"
+          % (after, before))
+    rec["thresholds"] = after
+    return rec
+
+
+def fallback_inputs(posed, f_np, q1_np, queries, reg_pts, reg_nrm, verts_l,
+                    f_l, queries_l, scan, contact):
+    """Phase 16's inputs, as numpy arrays: phases 3-9's."""
+    body_v, body_f, hand_v, hand_f = contact
+    return {"body0": posed[0], "f_np": f_np, "q1": q1_np, "posed": posed,
+            "queries": queries.cpu().numpy(),
+            "cams": np.asarray(VIS_CAMERAS, np.float32),
+            "reg_pts": reg_pts.cpu().numpy(),
+            "reg_nrm": reg_nrm.cpu().numpy(),
+            "large0": verts_l[0].cpu().numpy(), "f_l": f_l.cpu().numpy(),
+            "large_q": queries_l[0].cpu().numpy(), "scan": scan,
+            "body_v": body_v, "body_f": body_f, "hand_v": hand_v,
+            "hand_f": hand_f}
+
+
+def drive_fallback(inp, dev, smi, calibrate=True):
+    """Phase 16 (16e only with ``calibrate``) -> its record."""
+    from mesh_tpu_torch.accel.build import clear_index_cache
+    from mesh_tpu_torch.obs.metrics import REGISTRY
+
+    log("== fallback: anchored tables, MESH_TPU_FORCE_XLA at every entry "
+        "point, the top-k culled rung, the plain grid and BVH walks%s"
+        % (", the calibrations" if calibrate else ""))
+    t_fb = time.perf_counter()
+    fallback = {"anchored": {
+        "scan": drive_anchored("scan", inp["body0"], inp["f_np"],
+                               inp["reg_pts"], dev),
+        "large": drive_anchored("large", inp["large0"], inp["f_l"],
+                                inp["large_q"], dev)}}
+    backend = REGISTRY.counter("mesh_tpu_dispatch_backend_total")
+    before = (backend.value(backend="xla", reason="forced"),
+              backend.value(backend="pallas", reason="platform"))
+    calls = entry_calls(inp, dev)
+    reset_launches()
+    with knobs_set(MESH_TPU_FORCE_XLA=1):
+        forced = run_calls(calls)
+    launches = read_launches()
+    counted_only(launches, (), "MESH_TPU_FORCE_XLA's window")
+    decisions = backend.value(backend="xla", reason="forced") - before[0]
+    check(decisions >= len(forced)
+          and backend.value(backend="pallas", reason="platform")
+          == before[1], "MESH_TPU_FORCE_XLA: %d forced decisions for %d "
+          "entry points" % (decisions, len(forced)))
+    with knobs_set(MESH_TPU_FORCE_XLA=0):
+        kernel = run_calls(calls)
+        checks = check_forced(forced, kernel, inp, dev)
+    fallback["forced"] = {
+        "decisions": decisions, "checks": checks,
+        "ms": {name: {"xla_first": run[1], "xla_second": run[2],
+                      "kernel_first": kernel[name][1],
+                      "kernel_second": kernel[name][2]}
+               for name, run in forced.items()}}
+    log("  MESH_TPU_FORCE_XLA: %d entry points, %d forced decisions, no "
+        "kernel launched; second call, XLA form against the kernel route "
+        "(host clock, ms): %s" % (len(forced), decisions, ", ".join(
+            "%s %.1f / %.1f" % (name, t["xla_second"], t["kernel_second"])
+            for name, t in fallback["forced"]["ms"].items())))
+    del forced, kernel
+    fallback["xla_culled"] = drive_xla_culled(inp["large0"], inp["f_l"],
+                                              inp["large_q"], dev)
+    fallback["walks"] = {
+        "grid": drive_walk("grid", {"MESH_TPU_ACCEL_KIND": "grid"}, "grid",
+                           *inp["scan"], dev),
+        "bvh": drive_walk("bvh", {"MESH_TPU_BVH_STREAM": "0"}, "bvh",
+                          *inp["scan"], dev)}
+    clear_index_cache()
+    if calibrate:
+        fallback["calibrations"] = drive_calibrations(dev)
+    fallback["wall_s"] = time.perf_counter() - t_fb
+    log("fallback record (%.1f s on %s): %s" % (
+        fallback["wall_s"], smi, json.dumps(fallback)))
+    return fallback
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4584,6 +5182,7 @@ def main():
     )
     from mesh_tpu_torch.query.closest_point import closest_faces_and_points_t
     from mesh_tpu_torch.query.visibility import visibility_rays
+    from mesh_tpu_torch.utils.dispatch import force_xla
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -4700,6 +5299,21 @@ def main():
     log("mxu: %s faces, %s queries; degenerate tail %s" % (
         [c[2].shape[0] for c in mxu_cases], [c[3].shape[0] for c in mxu_cases],
         mxu_tails))
+
+    if force_xla():
+        # the knob held for the whole run: phases 2-15 and 16e check the
+        # kernel route and are left out; phase 16 holds the XLA forms
+        # against the kernels, which it calls by name
+        log("MESH_TPU_FORCE_XLA is set: phase 16 alone (without 16e)")
+        drive_fallback(fallback_inputs(
+            posed, f_np, q1_np, queries, reg_pts, reg_nrm, verts_l, f_l,
+            queries_l, (v_s, f_s, p_s), (body_v, body_f, hand_v, hand_f)),
+            dev, smi, calibrate=False)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": card,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 2. kernels vs plain on the card -------------------------------------
     log("== kernels vs plain")
@@ -5688,6 +6302,12 @@ def main():
                       % (name, counts[name], path))
     log("launches per path: %s" % launches)
 
+    # -- 16. fallback: the reference's XLA routes and the calibrations ---------
+    fallback = drive_fallback(fallback_inputs(
+        posed, f_np, q1_np, queries, reg_pts, reg_nrm, verts_l, f_l,
+        queries_l, (v_s, f_s, p_s), (body_v, body_f, hand_v, hand_f)),
+        dev, smi)
+
     # -- crossover evidence ---------------------------------------------------
     log("== crossover: every route at both drives' shapes")
     crossover_rows = crossover(dev, (verts_l, f_l, queries_l, nondegen_l),
@@ -6146,7 +6766,7 @@ def main():
         "mxu": {"calls": mxu, "crossover": dict(MXU_CALIBRATION)},
         "mxu_bvh": mxu_bvh, "fit": fit_runs,
         "empty": {"entry_points": sorted(empty_layouts)},
-        "engine": engine_rec}),
+        "engine": engine_rec, "fallback": fallback}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

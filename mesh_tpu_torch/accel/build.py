@@ -1,5 +1,6 @@
-"""Host-side (numpy) construction of the flattened BVH the rope kernels
-walk: a copy of the BVH half of mesh_tpu/accel/build.py.
+"""Host-side (numpy) construction of the spatial indexes: a copy of
+mesh_tpu/accel/build.py's flattened BVH (which the rope kernels and the
+plain walk use) and uniform grid (which the plain grid probe uses).
 
 Faces are Morton-sorted by centroid and grouped into contiguous
 ``leaf_size`` blocks; a complete binary tree over the (power-of-two
@@ -8,9 +9,16 @@ pointer per node.  Traversal is stackless: descending into a surviving
 node is ``node + 1``; pruning a node, or finishing a leaf, is
 ``node = skip[node]``; ``skip == n_nodes`` is the exit sentinel.
 
+The uniform grid bins faces conservatively, by triangle-box overlap, into
+cells over the mesh's box: the canonical cell -> face map is CSR
+(``cell_start`` / ``cell_faces``), and the probe reads its fixed-capacity
+dense twin (``cell_table`` [ncells, cap], -1-padded) with the true
+per-cell counts (``cell_count``), so an overflowing cell makes the
+certificate loose instead of the answer wrong.
+
 Boxes are built from float32 data in a mesh-centered frame whose center is
-numpy's float32 mean (``arrays["center"]``); the rope kernels query in
-that same frame.  The arrays are bit-equal to the reference builder's.
+numpy's float32 mean (``arrays["center"]``); the walks query in that same
+frame.  The arrays are bit-equal to the reference's.
 ``get_index`` keeps the last 8 indexes built in this process, keyed by a
 digest of the vertex and face bytes and the build parameters.
 """
@@ -23,12 +31,16 @@ import numpy as np
 import torch
 
 __all__ = [
-    "AccelIndex", "topology_digest", "build_bvh", "get_index",
+    "AccelIndex", "topology_digest", "build_bvh", "build_grid", "get_index",
     "clear_index_cache", "index_cache_info", "DEFAULT_LEAF_SIZE",
+    "DEFAULT_FACES_PER_CELL",
 ]
 
 #: faces per BVH leaf block (a leaf visit tests exactly this many pairs)
 DEFAULT_LEAF_SIZE = 8
+
+#: grid sizing target: mean faces per axis-uniform cell
+DEFAULT_FACES_PER_CELL = 4.0
 
 #: scene-relative pruning slack (fraction of max |v - center|)
 PRUNE_SLACK_REL = 1e-4
@@ -205,10 +217,85 @@ def build_bvh(v, f, leaf_size=DEFAULT_LEAF_SIZE):
     )
 
 
+def build_grid(v, f, faces_per_cell=DEFAULT_FACES_PER_CELL, cap=None,
+               max_res=64):
+    """Uniform grid over the mesh's box with conservative box binning.
+
+    ``cell_start`` / ``cell_faces`` is the CSR map (face ids ascending in
+    each cell); ``cell_table`` [ncells, cap] its fixed-shape twin,
+    -1-padded and cut at ``cap`` (default: the 98th percentile of the
+    occupied cells' counts, at most 64), with the true counts in
+    ``cell_count``; ``grid_lo`` and ``width`` [3] the cells' frame."""
+    vc, fi, center, scale = _centered_f32(v, f)
+    n_faces = int(fi.shape[0])
+    if n_faces == 0:
+        raise ValueError("build_grid needs at least one face")
+    tri = vc[fi]
+    lo = tri.min(axis=(0, 1))
+    hi = tri.max(axis=(0, 1))
+    res = int(np.clip(
+        round((n_faces / max(float(faces_per_cell), 0.25)) ** (1.0 / 3.0)),
+        1, int(max_res)))
+    width = np.maximum((hi - lo) / res, 1e-30).astype(np.float32)
+
+    flo = tri.min(axis=1)
+    fhi = tri.max(axis=1)
+    c0 = np.clip(((flo - lo) / width).astype(np.int64), 0, res - 1)
+    c1 = np.clip(((fhi - lo) / width).astype(np.int64), 0, res - 1)
+    span = c1 - c0 + 1                             # (F, 3)
+    per_face = span.prod(axis=1)
+    total = int(per_face.sum())
+    face_rep = np.repeat(np.arange(n_faces, dtype=np.int64), per_face)
+    offs = np.concatenate([[0], np.cumsum(per_face)])
+    local = np.arange(total, dtype=np.int64) - np.repeat(offs[:-1], per_face)
+    sp = span[face_rep]
+    iz = local % sp[:, 2]
+    iy = (local // sp[:, 2]) % sp[:, 1]
+    ix = local // (sp[:, 2] * sp[:, 1])
+    cells = c0[face_rep] + np.stack([ix, iy, iz], axis=1)
+    cell_id = (cells[:, 0] * res + cells[:, 1]) * res + cells[:, 2]
+
+    ncells = res ** 3
+    sort = np.argsort(cell_id, kind="stable")      # keeps face ids ascending
+    cells_sorted = cell_id[sort]
+    faces_sorted = face_rep[sort].astype(np.int32)
+    cell_count = np.bincount(cells_sorted, minlength=ncells).astype(np.int32)
+    cell_start = np.concatenate(
+        [[0], np.cumsum(cell_count)]).astype(np.int32)
+
+    if cap is None:
+        occupied = cell_count[cell_count > 0]
+        cap = int(np.clip(
+            np.percentile(occupied, 98.0) if occupied.size else 1, 1, 64))
+    cap = max(1, int(cap))
+    rank = np.arange(total, dtype=np.int64) - cell_start[cells_sorted]
+    keep = rank < cap
+    cell_table = np.full((ncells, cap), -1, np.int32)
+    cell_table[cells_sorted[keep], rank[keep]] = faces_sorted[keep]
+
+    return AccelIndex(
+        "grid", topology_digest(v, f),
+        arrays={
+            "cell_table": cell_table,
+            "cell_count": cell_count,
+            "cell_start": cell_start,
+            "cell_faces": faces_sorted,
+            "grid_lo": lo.astype(np.float32),
+            "width": width,
+            "center": center,
+        },
+        meta={
+            "n_faces": n_faces, "res": res, "cap": cap,
+            "overflow_cells": int(np.count_nonzero(cell_count > cap)),
+            "scale": scale, "prune_slack": PRUNE_SLACK_REL * scale,
+        },
+    )
+
+
 # ---------------------------------------------------------------------------
 # digest-keyed process cache: one host build per mesh and parameters
 
-_BUILDERS = {"bvh": build_bvh}
+_BUILD_BY_KIND = {"bvh": build_bvh, "grid": build_grid}
 _CACHE = OrderedDict()
 _CACHE_LOCK = threading.RLock()
 
@@ -217,18 +304,18 @@ def get_index(v, f, kind="bvh", **params):
     """The :class:`AccelIndex` of ``(v, f)``: from the cache when this
     mesh was built with these parameters in this process, else built on
     the host.  Thread-safe; the build runs inside the lock, so two threads
-    racing on a new mesh pay one build.  Only ``kind="bvh"`` exists in
-    the port."""
-    if kind not in _BUILDERS:
+    racing on a new mesh pay one build.  ``kind`` is ``"bvh"`` or
+    ``"grid"``."""
+    if kind not in _BUILD_BY_KIND:
         raise ValueError("unknown accel index kind %r (have %s)"
-                         % (kind, sorted(_BUILDERS)))
+                         % (kind, sorted(_BUILD_BY_KIND)))
     key = (topology_digest(v, f), kind, tuple(sorted(params.items())))
     with _CACHE_LOCK:
         idx = _CACHE.get(key)
         if idx is not None:
             _CACHE.move_to_end(key)
             return idx
-        idx = _BUILDERS[kind](v, f, **params)
+        idx = _BUILD_BY_KIND[kind](v, f, **params)
         _CACHE[key] = idx
         while len(_CACHE) > _MAX_CACHED:
             _CACHE.popitem(last=False)

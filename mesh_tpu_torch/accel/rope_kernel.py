@@ -421,6 +421,23 @@ def picked_lanes(tile_q, tile_f):
                and tile_q * s <= MAX_LANE_THREADS)
 
 
+def stream_fits(tile_q, tile_f, n_buffers):
+    """Whether the streamed ``rope_faces`` entry launches at these tiles
+    (at its picked sub-lanes): ``tile_f`` a multiple of 128, a ring of 2
+    to ``MAX_BUFFERS`` slots, and the ring and the partials within
+    ``MAX_RING_BYTES`` of shared memory."""
+    if int(tile_f) % 128 or not 2 <= int(n_buffers) <= MAX_BUFFERS:
+        return False
+    fits = [s for s in LANES if s <= PICKED_LANES_MAX and tile_f % s == 0
+            and tile_q * s <= MAX_LANE_THREADS]
+    if not fits:
+        return False
+    lanes = max(fits)
+    staged = (int(n_buffers) * FAST_RECORD * int(tile_f) * 4
+              + (int(tile_q) * lanes * 8 if lanes > 1 else 0))
+    return staged <= MAX_RING_BYTES
+
+
 def _no_walk(dev, n_out):
     """The outputs of a walk with no queries, made without a launch (an
     empty grid is a launch error): best distances [0] float32, then

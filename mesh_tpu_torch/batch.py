@@ -12,7 +12,9 @@ The facades route each step through the query engine (``engine/``): B and
 Q pad up a bucket ladder and the step runs as that bucket's plan (a CUDA
 graph on the card), with results bit-identical to the direct step in
 every real row.  ``MESH_TPU_NO_ENGINE=1``, an empty query set or an empty
-camera set take the direct step.
+camera set take the direct step.  Under ``MESH_TPU_FORCE_XLA`` both steps
+take the reference's XLA forms (``use_pallas=False``): the plain scan per
+mesh and the XLA visibility tiling, launching no kernel.
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from .query.closest_kernel import mesh_is_nondegenerate
 from .query.closest_point import closest_point_dispatch
 from .query.visibility import visibility_local
 from .utils.device import as_tensor, resolve_device
+from .utils.dispatch import pallas_default
 from .utils.knobs import no_engine, tile_variant
 
 __all__ = [
@@ -66,39 +69,43 @@ def stack_mesh_batch(meshes):
 
 
 def batch_step(vs, f, pts, with_normals=True, assume_nondegenerate=False,
-               tile_variant="fast", csr=None):
+               tile_variant="fast", csr=None, use_pallas=True, chunk=512):
     """One batched step on tensors on their own device: vertex normals of
     ``vs`` [B, V, 3] (when ``with_normals``) and, when ``pts`` [B, Q, 3] is
     given, the closest-point result dict of every (mesh, query set) pair
-    from one kernel launch (``closest_point_dispatch`` picks the kernel).
-    ``csr``: the faces' ``vertex_csr`` (made from ``f`` when None).
-    Returns (normals or None, result or None)."""
+    (``closest_point_dispatch``: with ``use_pallas`` one kernel launch, the
+    kernel picked by the crossover; without, the plain scan per mesh,
+    ``chunk`` queries a step).  ``csr``: the faces' ``vertex_csr`` (made
+    from ``f`` when None).  Returns (normals or None, result or None)."""
     normals = vert_normals_t(vs, f, csr) if with_normals else None
     res = None if pts is None else closest_point_dispatch(
-        vs, f, pts, assume_nondegenerate=assume_nondegenerate,
-        tile_variant=tile_variant)
+        vs, f, pts, chunk, use_pallas, assume_nondegenerate, tile_variant)
     return normals, res
 
 
-def visibility_step(vs, f, cams, normals=None, min_dist=1e-3, csr=None):
+def visibility_step(vs, f, cams, normals=None, min_dist=1e-3, csr=None,
+                    use_pallas=True, chunk=1024):
     """One batched visibility step on tensors on their own device: every
     mesh of ``vs`` [B, V, 3], self-occluded by its own faces ``f`` [F, 3],
-    from every camera of ``cams`` [C, 3], in one ``ray_any_hit_culled``
-    launch.  ``normals`` [B, V, 3] for n.dir; None computes vertex normals
-    in the step (over ``csr``, as ``batch_step``).  Returns (visible
-    [B, C, V] bool, n_dot_cam [B, C, V])."""
+    from every camera of ``cams`` [C, 3]: with ``use_pallas`` in one
+    ``ray_any_hit_culled`` launch, without by the reference's XLA tiling
+    (``chunk`` vertices a step).  ``normals`` [B, V, 3] for n.dir; None
+    computes vertex normals in the step (over ``csr``, as ``batch_step``).
+    Returns (visible [B, C, V] bool, n_dot_cam [B, C, V])."""
     if normals is None:
         normals = vert_normals_t(vs, f, csr)
     return visibility_local(vs, vs[..., f.long(), :], cams, normals,
-                            min_dist=min_dist)
+                            min_dist=min_dist, chunk=chunk,
+                            use_pallas=use_pallas)
 
 
 def _strategy(f, device):
-    """(use_pallas, use_culled) of a face array on ``device``: with kernels
-    (the card) the brute-force kernel up to ``crossover_faces()`` faces and
-    the sphere-culled one above it; on the CPU (plain versions) neither.
-    Reads only ``f.shape[0]``, never the faces themselves."""
-    if torch.device(device).type != "cuda":
+    """(use_pallas, use_culled) of a face array on ``device``: on the
+    kernel route (``pallas_default``) the brute-force kernel up to
+    ``crossover_faces()`` faces and the sphere-culled one above it; under
+    ``MESH_TPU_FORCE_XLA`` the plain scan, never culled.  Reads only
+    ``f.shape[0]``, never the faces themselves."""
+    if not pallas_default(device):
         return False, False
     return True, int(f.shape[0]) > crossover_faces()
 
@@ -133,7 +140,8 @@ def _run_batch_step(v, f, pts, use_pallas, use_culled, chunk, with_normals,
         as_tensor(v, dev), as_tensor(f, dev),
         None if pts is None else as_tensor(
             pts if torch.is_tensor(pts) else np.array(pts), dev),
-        with_normals, assume_nondegenerate=nondegen, tile_variant=variant)
+        with_normals, assume_nondegenerate=nondegen, tile_variant=variant,
+        use_pallas=use_pallas, chunk=chunk)
 
 
 def _broadcast_points(points, batch):
@@ -208,18 +216,18 @@ def batched_vertex_visibility(meshes, cams, min_dist=1e-3, chunk=1024, *,
         cams_np = np.atleast_2d(np.asarray(cams, np.float32))
         sp.set(b=v.shape[0], cams=cams_np.shape[0])
         dev = resolve_device(device)
+        use_pallas = pallas_default(dev)
         if not no_engine() and v.shape[0] and cams_np.shape[0]:
             from .engine.planner import get_planner
 
             vis, ndc = get_planner().run_visibility_step(
-                v, f, cams_np, stored_vn, min_dist,
-                use_pallas=dev.type == "cuda", chunk=chunk,
-                with_normals=stored_vn is None, device=dev)
+                v, f, cams_np, stored_vn, min_dist, use_pallas=use_pallas,
+                chunk=chunk, with_normals=stored_vn is None, device=dev)
         else:
             vis, ndc = visibility_step(
                 as_tensor(v, dev), as_tensor(f, dev), as_tensor(cams_np, dev),
                 None if stored_vn is None else as_tensor(stored_vn, dev),
-                min_dist)
+                min_dist, use_pallas=use_pallas, chunk=chunk)
         return (vis.cpu().numpy().astype(np.uint32),
                 ndc.cpu().numpy().astype(np.float64))
 

@@ -1,5 +1,5 @@
-"""Carry a body model's weights and a fit's state across from the JAX
-package.
+"""Carry a body model's weights, a fit's state, a spatial index and anchor
+tables across from the JAX package.
 
 ``mesh_tpu.models.BodyModel`` is a dataclass of device arrays plus the
 static ``parents`` tree.  Hand its fields over as numpy arrays, e.g.::
@@ -17,8 +17,15 @@ MANO / SMPL-H pose-PCA basis (PCA_NAMES) comes along where it is given.  A
 same way (``fit_state_from_arrays``): its parameters, and its
 ``ScaleByAdamState(count, mu, nu)`` as ``torch.optim.Adam``'s ``step``,
 ``exp_avg`` and ``exp_avg_sq``, so a fit resumes mid-run in the port.
-This module never imports JAX: the caller does the ``np.asarray``.
+A ``mesh_tpu.accel.AccelIndex`` (BVH or grid) crosses as its ``kind``,
+``digest``, ``arrays`` and ``meta`` (``accel_index_from_arrays``), and
+the anchor tables of ``mesh_tpu.query.build_anchor_tables`` as their two
+arrays (``anchor_tables_from_arrays``), so both packages walk the same
+state.  This module never imports JAX: the caller does the
+``np.asarray``.
 """
+
+import numpy as np
 
 import torch
 
@@ -64,3 +71,22 @@ def fit_state_from_arrays(params, count, mu, nu, lr=1e-2, *, device="cuda"):
             "exp_avg_sq": as_tensor(nu[name], leaf.device,
                                     leaf.dtype).clone()}
     return FitState(*leaves, opt_state=opt)
+
+
+def accel_index_from_arrays(kind, digest, arrays, meta):
+    """The port's ``AccelIndex`` from a JAX one's ``kind``, ``digest``,
+    ``meta`` and ``arrays`` (a dict of numpy arrays): each array keeps its
+    dtype and bits."""
+    from .accel.build import AccelIndex
+
+    return AccelIndex(kind, digest,
+                      {name: np.asarray(arr) for name, arr in arrays.items()},
+                      meta)
+
+
+def anchor_tables_from_arrays(table, safe, *, device="cuda"):
+    """``(table [V, K] int32, safe [V] float32)`` on ``device``, as
+    ``query.anchored.closest_point_anchored_auto`` takes them, from the
+    JAX ``build_anchor_tables``' two arrays."""
+    return (as_tensor(np.array(table, np.int32), device),
+            as_tensor(np.array(safe, np.float32), device))

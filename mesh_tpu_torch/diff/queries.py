@@ -17,7 +17,10 @@ The search runs AD-opaquely (``_Search``) on float32 copies of the inputs,
 the kernels' type: on the card the hand-written kernels (the brute-force
 ``closest_faces`` or the sphere-culled ``culled_faces`` through
 ``closest_point_dispatch``, ``normal_weighted_faces``, the rope walks for an
-``accel_index``), on the CPU their plain versions.  Only the winning face
+``accel_index``), on the CPU their plain versions; under
+``MESH_TPU_FORCE_XLA`` (or ``use_pallas=False``) the plain scan, or for an
+``accel_index`` the plain BVH walk (``accel.traverse.bvh_search_faces``).
+Only the winning face
 is taken from it: point, sqdist and bary are recomposed from (face, bary)
 in the caller's dtype, so the output and the backward linearize one
 expression.  (On the CPU the search's own epilogue carries an autograd
@@ -50,6 +53,7 @@ from ..query.closest_point import (
 )
 from ..query.point_triangle import closest_point_barycentric
 from ..utils.device import as_tensor
+from ..utils.dispatch import pallas_default
 
 __all__ = ["closest_point", "point_to_triangle", "nearest_normal_weighted",
            "surface_normals_frozen", "closest_point_batched"]
@@ -190,17 +194,29 @@ def _from_face(v, f, face, points, mode):
 
 def _face_search(f, chunk, use_pallas, nondegen, variant, accel_index):
     """The search ``(v [B, V, 3], points [B, Q, 3]) -> faces [B, Q] int32``
-    in float32: the rope walks over ``accel_index``, the plain scan when
-    ``use_pallas`` is False, else ``closest_point_dispatch`` (the kernel on
-    the card, in one launch for the whole batch)."""
+    in float32.  ``use_pallas`` (default ``pallas_default``) takes the
+    kernel route: the rope walks over ``accel_index``, else
+    ``closest_point_dispatch`` (one launch for the whole batch); without
+    it, the plain BVH walk over ``accel_index``, else the plain scan."""
+    if use_pallas is None:
+        use_pallas = pallas_default()
     if accel_index is not None:
-        from ..accel.traverse import closest_faces_and_points_accel
+        from ..accel.traverse import (
+            bvh_search_faces,
+            closest_faces_and_points_accel,
+        )
 
         if accel_index.kind != "bvh":
             # the reference's grid fallback is a host re-run, which an
             # opaque search inside autodiff cannot make
             raise ValueError("closest_point wants a 'bvh' accel_index, got %r"
                              % (accel_index.kind,))
+        if not use_pallas:
+            def search(v, pts):
+                return torch.stack([
+                    bvh_search_faces(accel_index, vb.float(), f, pb.float())
+                    for vb, pb in zip(v, pts)])
+            return search
 
         def search(v, pts):
             # the rope walks take one mesh a call
@@ -209,7 +225,7 @@ def _face_search(f, chunk, use_pallas, nondegen, variant, accel_index):
                     vb.float(), f, pb.float(), kind="bvh", index=accel_index,
                     device=vb.device)["face"], device=vb.device)
                 for vb, pb in zip(v, pts)])
-    elif use_pallas is False:
+    elif not use_pallas:
         def search(v, pts):
             return torch.stack([
                 closest_faces_and_points_t(vb.float(), f, pb.float(),
@@ -217,9 +233,8 @@ def _face_search(f, chunk, use_pallas, nondegen, variant, accel_index):
                 for vb, pb in zip(v, pts)])
     else:
         def search(v, pts):
-            return closest_point_dispatch(
-                v.float(), f, pts.float(), assume_nondegenerate=nondegen,
-                tile_variant=variant)["face"]
+            return closest_point_dispatch(v.float(), f, pts.float(), chunk,
+                                          True, nondegen, variant)["face"]
     return search
 
 
@@ -251,8 +266,8 @@ def closest_point(v, f, points, *, mode="frozen", chunk=512,
         (differentiable re-derivation; jvp and second order)
     :param chunk: query rows a step of the plain scan
     :param use_pallas: False takes the plain scan (the reference's XLA
-        scan); the default and True take ``closest_point_dispatch``, the
-        kernel on the card
+        scan); True takes ``closest_point_dispatch``, the kernel on the
+        card; the default is ``pallas_default()``
     :param nondegen: ``assume_nondegenerate`` for the kernel tile
     :param variant: the kernel's tile variant (``"fast"`` / ``"safe"``)
     :param accel_index: a BVH ``AccelIndex`` of this topology

@@ -14,10 +14,12 @@ It sits between the ``Mesh`` facade / ``mesh_tpu_torch.batch`` entry points
 - **stats**: hits / misses / retraces, pad waste, coalesced batch sizes,
   per-op dispatch latency (``engine.stats()``).
 
-With kernels on (the card), every face count goes to the brute-force or
-the sphere-culled closest-point kernel, never to the BVH or MXU rungs of
-the direct route.  ``MESH_TPU_NO_ENGINE=1`` bypasses everything: the
-facades take their direct paths.
+On the kernel route, every face count goes to the brute-force or the
+sphere-culled closest-point kernel, never to the BVH or MXU rungs of the
+direct route.  Under ``MESH_TPU_FORCE_XLA`` (``use_pallas`` False in the
+plan key) a plan on the card is a CUDA graph of the plain step: the plain
+scan per mesh, or the XLA visibility tiling.  ``MESH_TPU_NO_ENGINE=1``
+bypasses everything: the facades take their direct paths.
 """
 
 import numpy as np
@@ -60,8 +62,9 @@ def facade_closest_faces_and_points(mesh, points):
     Returns the reference AabbTree.nearest convention, ``(faces [1, Q]
     uint32, points [Q, 3] f64)``, or None where the direct path serves:
     the engine is off (MESH_TPU_NO_ENGINE=1), there are no queries, or the
-    mesh is on the CPU (no kernels) with more than ``crossover_faces()``
-    faces, where the direct route's auto ladder culls.
+    mesh has more than ``crossover_faces()`` faces and is on the CPU (no
+    kernels) or under ``MESH_TPU_FORCE_XLA``, where the direct route's
+    auto ladder culls with its certificate re-runs.
     """
     if not engine_enabled():
         return None
@@ -79,7 +82,7 @@ def facade_closest_faces_and_points(mesh, points):
         vt = as_tensor(np.asarray(mesh.v, np.float32), dev)
         ft = as_tensor(np.asarray(mesh.f, np.int64), dev)
     use_pallas, use_culled = _strategy(ft, vt.device)
-    if not use_pallas:
+    if not use_pallas or vt.device.type != "cuda":
         from ..query.autotune import crossover_faces
 
         if int(ft.shape[0]) > crossover_faces():

@@ -397,14 +397,16 @@ class Planner(object):
                 variant, str(device))
 
     @staticmethod
-    def _batch_step_fn(with_normals, nondegen, variant):
+    def _batch_step_fn(with_normals, nondegen, variant, use_pallas=True,
+                       chunk=512):
         from ..batch import batch_step
 
         def step(vs, f, pts, offsets, slot_faces):
             return batch_step(
                 vs, f, pts, with_normals=with_normals,
                 assume_nondegenerate=nondegen, tile_variant=variant,
-                csr=None if offsets is None else (offsets, slot_faces))
+                csr=None if offsets is None else (offsets, slot_faces),
+                use_pallas=use_pallas, chunk=chunk)
         return step
 
     def run_batch_step(self, v, f, pts, *, use_pallas, use_culled, chunk,
@@ -452,7 +454,8 @@ class Planner(object):
             for rec in records or ():
                 rec.stamp("compile")
             (normals, res), seconds, backend = self._dispatch(
-                key, self._batch_step_fn(with_normals, nondegen, variant),
+                key, self._batch_step_fn(with_normals, nondegen, variant,
+                                         use_pallas, chunk),
                 (vs, f, pts_p) + tuple(csr), dev, extract, op)
             for rec in records or ():
                 rec.stamp("device")
@@ -495,7 +498,8 @@ class Planner(object):
         def step(vs, f, cams, nrm, offsets, slot_faces):
             return visibility_step(
                 vs, f, cams, nrm, min_dist,
-                csr=None if offsets is None else (offsets, slot_faces))
+                csr=None if offsets is None else (offsets, slot_faces),
+                use_pallas=use_pallas, chunk=chunk)
 
         def extract(out):
             return out[0][:n_batch, :n_cams], out[1][:n_batch, :n_cams]
@@ -597,7 +601,8 @@ def warmup(mesh_shapes=None, q_buckets=(512, 1024), b_buckets=(1,),
                             nondegen, variant, dev)
                         before = STATS.snapshot()["plan_cache"]["misses"]
                         fn = planner._batch_step_fn(with_normals, nondegen,
-                                                    variant)
+                                                    variant, use_pallas,
+                                                    chunk)
                         planner._get_or_compile(
                             key, lambda fn=fn, zeros=zeros:
                             planner._make_plan(fn, zeros, dev))

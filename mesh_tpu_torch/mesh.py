@@ -15,7 +15,7 @@ import torch
 from .batch import fused_normals_and_closest_points
 from .geometry.vert_normals import vert_normals_t
 from .obs.trace import span as obs_span
-from .query.closest_kernel import nearest_vertices_kernel
+from .query.closest_point import closest_vertices_with_distance
 from .query.visibility import visibility_compute
 from .search import (
     AabbNormalsTree,
@@ -90,7 +90,8 @@ class Mesh(object):
         pts = torch.as_tensor(
             np.asarray(vertices, np.float32).reshape(-1, 3),
             device=self.device)
-        idx, dist = nearest_vertices_kernel(vt, pts)
+        idx, dist = closest_vertices_with_distance(vt, pts,
+                                                   device=self.device)
         return idx.cpu().numpy(), dist.cpu().numpy().astype(np.float64)
 
     def normals_and_closest_points(self, vertices):

@@ -1,6 +1,11 @@
 """Closest-point, normal-weighted, ray, visibility and
 triangle-triangle queries of the PyTorch port."""
 
+from .anchored import (  # noqa: F401
+    build_anchor_tables,
+    closest_point_anchored,
+    closest_point_anchored_auto,
+)
 from .closest_kernel import (  # noqa: F401
     closest_point_kernel,
     mesh_is_nondegenerate,
@@ -11,7 +16,11 @@ from .closest_point import (  # noqa: F401
     closest_vertices,
     closest_vertices_with_distance,
 )
-from .culled import closest_faces_and_points_auto  # noqa: F401
+from .culled import (  # noqa: F401
+    closest_faces_and_points_auto,
+    closest_faces_and_points_culled,
+    triangle_bounds,
+)
 from .culled_kernel import closest_point_culled_kernel  # noqa: F401
 from .normal_weighted import (  # noqa: F401
     nearest_normal_weighted,

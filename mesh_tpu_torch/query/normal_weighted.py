@@ -41,8 +41,9 @@ with its counts, on request).  ``LAUNCHES`` counts the kernels' launches.
 import torch
 
 from ..geometry.cross_product import cross3
-from ..geometry.tri_normals import normalize_rows
+from ..geometry.tri_normals import normalize_rows, tri_normals_scaled_t
 from ..utils.device import as_tensor
+from ..utils.dispatch import pallas_default
 from .closest_kernel import (
     CULL_CHUNK,
     N_FACE_ROWS,
@@ -59,7 +60,7 @@ from .closest_kernel import (
     no_queries,
     query_order,
 )
-from .point_triangle import closest_point_on_triangle
+from .point_triangle import closest_point_barycentric, closest_point_on_triangle
 from .ray_kernel import check_with_vectors
 
 #: the fast tile's planes, then the unit face normal
@@ -442,13 +443,45 @@ def nearest_normal_weighted_plain(v, f, points, normals, eps=0.1,
                                     argmin_normal_weighted_plain)
 
 
+def nearest_normal_weighted_xla(v, f, points, normals, eps=0.1, chunk=512):
+    """The reference's XLA form (mesh_tpu/query/normal_weighted.py:24) on
+    tensors on their own device: ``v`` [V, 3], ``f`` [F, 3], ``points``
+    and ``normals`` [Q, 3] -> (face [Q] int32, point [Q, 3]).  Each chunk
+    of queries materializes [chunk, F] reconstruction-form closest points
+    and costs; the lowest face wins an exact tie."""
+    points = points.to(v.dtype)
+    normals = normals.to(v.dtype)
+    f = f.long()
+    tri = v[f]
+    a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+    tn = normalize_rows(tri_normals_scaled_t(v, f))            # [F, 3] unit
+    faces, pts_out = [], []
+    for q0 in range(0, max(points.shape[0], 1), chunk):
+        pts = points[q0:q0 + chunk]
+        nrm = normals[q0:q0 + chunk]
+        bary, _ = closest_point_barycentric(pts[:, None, :], a[None],
+                                            b[None], c[None])
+        cp = (bary[..., 0:1] * a[None] + bary[..., 1:2] * b[None]
+              + bary[..., 2:3] * c[None])                   # [chunk, F, 3]
+        diff = pts[:, None, :] - cp
+        d_euclid = (diff * diff).sum(dim=-1).sqrt()
+        penalty = eps * (1.0 - (nrm[:, None, :] * tn[None]).sum(dim=-1))
+        best = torch.argmin(d_euclid + penalty, dim=-1)
+        faces.append(best.to(torch.int32))
+        pts_out.append(cp.gather(1, best[:, None, None].expand(-1, 1, 3))[:, 0])
+    return torch.cat(faces), torch.cat(pts_out)
+
+
 def nearest_normal_weighted(v, f, points, normals, eps=0.1,
                             assume_nondegenerate=False, device="cuda"):
     """``nearest_normal_weighted_kernel`` on ``device`` for numpy arrays or
     tensors: ``v`` [V, 3], ``f`` [F, 3], ``points`` and ``normals``
-    [Q, 3] -> tensors (face [Q] int32, point [Q, 3])."""
+    [Q, 3] -> tensors (face [Q] int32, point [Q, 3]); under
+    ``MESH_TPU_FORCE_XLA`` the reference's XLA form."""
+    args = (as_tensor(v, device, torch.float32), as_tensor(f, device),
+            as_tensor(points, device, torch.float32).reshape(-1, 3),
+            as_tensor(normals, device, torch.float32).reshape(-1, 3))
+    if not pallas_default(device):
+        return nearest_normal_weighted_xla(*args, eps=eps)
     return nearest_normal_weighted_kernel(
-        as_tensor(v, device, torch.float32), as_tensor(f, device),
-        as_tensor(points, device, torch.float32).reshape(-1, 3),
-        as_tensor(normals, device, torch.float32).reshape(-1, 3), eps=eps,
-        assume_nondegenerate=assume_nondegenerate)
+        *args, eps=eps, assume_nondegenerate=assume_nondegenerate)

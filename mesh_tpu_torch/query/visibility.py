@@ -15,14 +15,19 @@ for the whole batch of meshes and cameras (``ray_kernel.py``), on rays
 whose vertices are sorted by Morton code per mesh, so that a warp's 32
 rays leave neighbouring vertices towards one camera and need the same few
 chunks of faces; the flags are scattered back to the caller's order and
-equal the every-face ``ray_any_hit`` kernel's.
+equal the every-face ``ray_any_hit`` kernel's.  Under
+``MESH_TPU_FORCE_XLA`` the blocked test is the reference's XLA tiling
+instead (``_visibility_kernel``): per mesh and camera, ``chunk`` vertices
+a step against every face in the divided form.
 """
 
 import numpy as np
 import torch
 
 from ..utils.device import as_tensor
+from ..utils.dispatch import pallas_default
 from .culled_kernel import _morton_codes
+from .ray import ray_triangle_hits
 from .ray_kernel import any_hit_operands, ray_any_hit_culled
 
 
@@ -88,12 +93,50 @@ def unsort_flags(flags, order, n_c):
                         flags.reshape(n_b, n_c, n_v))
 
 
+def _visibility_kernel(verts, occ_a, occ_b, occ_c, cams, normals, sensors,
+                       min_dist, chunk=1024):
+    """The reference's XLA form for one mesh: ``verts`` [V, 3] against the
+    occluder corners ``occ_a``/``occ_b``/``occ_c`` [F, 3] from ``cams``
+    [C, 3], ``chunk`` vertices a step against every face.  Returns
+    (visible [C, V] bool, n_dot_cam [C, V])."""
+    vis, ndc = [], []
+    for ci in range(cams.shape[0]):
+        dirs = cams[ci][None] - verts
+        dirs = dirs / (dirs * dirs).sum(dim=-1, keepdim=True).sqrt()
+        origin = verts + min_dist * dirs
+        blocked = torch.cat([
+            (lambda t, hit: (hit & (t >= 0.0)).any(dim=-1))(
+                *ray_triangle_hits(origin[v0:v0 + chunk, None, :],
+                                   dirs[v0:v0 + chunk, None, :],
+                                   occ_a[None], occ_b[None], occ_c[None]))
+            for v0 in range(0, max(verts.shape[0], 1), chunk)])
+        reach = ~blocked
+        if sensors is not None:
+            reach = reach & sensor_mask(verts[None], dirs[None, None],
+                                        cams[ci:ci + 1],
+                                        sensors[ci:ci + 1])[0, 0]
+        vis.append(reach)
+        ndc.append((normals * dirs).sum(dim=-1))
+    return torch.stack(vis), torch.stack(ndc)
+
+
 def visibility_local(verts, occ_tri, cams, normals, sensors=None,
-                     min_dist=1e-3):
+                     min_dist=1e-3, chunk=1024, use_pallas=None):
     """The visibility core on tensors on their own device: ``verts``
     [B, V, 3] tested against occluders ``occ_tri`` [B, F, 3, 3] from
     ``cams`` [C, 3]; ``normals`` [B, V, 3] for n.dir; ``sensors`` [C, 9] or
-    None.  Returns (visible [B, C, V] bool, n_dot_cam [B, C, V])."""
+    None.  Returns (visible [B, C, V] bool, n_dot_cam [B, C, V]).
+    ``use_pallas`` (default ``pallas_default``) takes the culled any-hit
+    kernel; False the reference's XLA tiling per mesh, ``chunk`` vertices a
+    step."""
+    if use_pallas is None:
+        use_pallas = pallas_default(verts.device)
+    if not use_pallas and verts.shape[0]:
+        per_mesh = [_visibility_kernel(vb, ob[:, 0], ob[:, 1], ob[:, 2], cams,
+                                       nb, sensors, min_dist, chunk)
+                    for vb, ob, nb in zip(verts, occ_tri, normals)]
+        return (torch.stack([r[0] for r in per_mesh]),
+                torch.stack([r[1] for r in per_mesh]))
     origins, dirs = visibility_rays(verts, cams, min_dist)
     order = vertex_order(verts)
     blocked, _ = ray_any_hit_culled(any_hit_operands(

@@ -20,6 +20,8 @@ OFF_VALUES = ("", "0", "false", "no", "off")
 #: name -> default (flags read by ``flag``, numbers by ``get_int`` /
 #: ``get_float``, strings by ``get_str``)
 KNOBS = {
+    # the escape hatch to the reference's XLA forms (utils/dispatch.py)
+    "MESH_TPU_FORCE_XLA": False,
     "MESH_TPU_SAFE_TILES": False,
     "MESH_TPU_NO_ACCEL": False,
     "MESH_TPU_ACCEL_KIND": "bvh",

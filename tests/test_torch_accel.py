@@ -85,8 +85,9 @@ def test_get_index_cache_is_an_lru_of_eight():
     info = tbuild.index_cache_info()
     assert info["entries"] == 8 and info["bytes"] > 0
     assert tbuild.get_index(v, f, leaf_size=16) is not first   # evicted
+    assert tbuild.get_index(v, f, kind="grid").kind == "grid"
     with pytest.raises(ValueError):
-        tbuild.get_index(v, f, kind="grid")
+        tbuild.get_index(v, f, kind="octree")
     tbuild.clear_index_cache()
     assert tbuild.index_cache_info()["entries"] == 0
 
@@ -255,9 +256,19 @@ def test_accel_rung_resident_and_stream_identical(monkeypatch):
 
 def test_accel_rung_kinds(monkeypatch):
     v, f, q, _ = _case()
-    with pytest.raises(NotImplementedError, match="grid"):
-        ttraverse.closest_faces_and_points_accel(v, f, q, kind="grid",
-                                                 device="cpu")
+    # the grid kind: the plain probe, the plain scan's answer bit for bit,
+    # held to mesh_tpu's grid facade on the distances
+    from mesh_tpu_torch.query.closest_point import closest_faces_and_points_t
+
+    grid, stats = ttraverse.closest_faces_and_points_accel(
+        v, f, q, kind="grid", with_stats=True, device="cpu")
+    assert stats["kind"] == "grid" and stats["backend"] == "xla"
+    scan = closest_faces_and_points_t(*(torch.from_numpy(x) for x in (
+        v, f.astype(np.int64), q)))
+    for key, val in scan.items():
+        np.testing.assert_array_equal(grid[key], val.numpy())
+    ref = jtraverse.closest_faces_and_points_accel(v, f, q, kind="grid")
+    np.testing.assert_allclose(grid["sqdist"], ref["sqdist"], atol=1e-5)
     idx = tbuild.build_bvh(v, f, leaf_size=8)
     out = ttraverse.closest_faces_and_points_accel(v, f, q, index=idx,
                                                    device="cpu")

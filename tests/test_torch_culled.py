@@ -271,21 +271,31 @@ def test_auto_ladder_safe_tiles_and_no_accel(monkeypatch):
 
 
 def test_grid_kind_and_stream_hole_raise(monkeypatch):
+    """Once refused, now parity: MESH_TPU_ACCEL_KIND=grid takes the grid
+    rung, and MESH_TPU_BVH_STREAM=0 above the resident ceiling the plain
+    BVH walk; each equals the plain scan bit for bit and mesh_tpu's auto
+    answer under the tie contract."""
+    from mesh_tpu_torch.accel import traverse
+    from mesh_tpu_torch.query.closest_point import closest_faces_and_points_t
+
     v, f = sphere(2)
-    q = surface_queries(v, f, 10, seed=8)
+    q = surface_queries(v, f, 60, seed=8)
+    scan = _np(closest_faces_and_points_t(*_t(v, f.astype(np.int64), q)))
     monkeypatch.setenv("MESH_TPU_ACCEL_MIN_FACES", "10")
     monkeypatch.setenv("MESH_TPU_ACCEL_KIND", "grid")
     tculled.STRATEGY.clear()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tculled.closest_faces_and_points_auto(v, f, q, device="cpu")
-    assert tculled.STRATEGY == {}
+    out = tculled.closest_faces_and_points_auto(v, f, q, device="cpu")
+    assert tculled.STRATEGY == {"accel_grid": 1}
+    assert_tie_contract(jax_auto(v, f, q), out, v, f, q)
+    for key in scan:
+        np.testing.assert_array_equal(out[key], scan[key])
     monkeypatch.delenv("MESH_TPU_ACCEL_KIND")
     monkeypatch.setenv("MESH_TPU_BVH_STREAM", "0")
-    from mesh_tpu_torch.accel import traverse
-
     monkeypatch.setattr(traverse, "PALLAS_BVH_MAX_FACES", 100)
-    with pytest.raises(NotImplementedError, match="MESH_TPU_BVH_STREAM=0"):
-        tculled.closest_faces_and_points_auto(v, f, q, device="cpu")
+    out = tculled.closest_faces_and_points_auto(v, f, q, device="cpu")
+    assert tculled.STRATEGY == {"accel_grid": 1, "accel_bvh": 1}
+    for key in scan:
+        np.testing.assert_array_equal(out[key], scan[key])
 
 
 # -- the batched path ---------------------------------------------------------
@@ -312,8 +322,8 @@ def test_batch_step_above_crossover_matches_per_mesh(monkeypatch):
                             vs[b], f, qs[b])
     monkeypatch.setenv("MESH_TPU_BRUTE_MAX_FACES", "5000")
     tculled.STRATEGY.clear()
-    brute = closest_point_dispatch(*_t(vs, f, qs), assume_nondegenerate=True,
-                                   tile_variant="safe")
+    brute = closest_point_dispatch(*_t(vs, f, qs), use_pallas=True,
+                                   nondegen=True, variant="safe")
     assert tculled.STRATEGY == {"brute_safe": 1}
     for b in range(3):
         assert_tie_contract({k: x[b] for k, x in _np(brute).items()},

@@ -121,11 +121,18 @@ def test_trees_take_a_mesh_device_or_their_own():
 
 
 def test_unported_queries_raise():
-    v, f, _, _ = _mesh()
+    """The anchored strategy, once refused, now answers as mesh_tpu's
+    anchored tree; an unknown strategy still raises."""
+    v, f, q, _ = _mesh()
     m = mesh_tpu_torch.Mesh(v, f, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"closest_point_anchored_auto.*Queue 1\)"):
-        m.compute_aabb_tree(strategy="anchored")
+    ref_f, ref_p = JaxAabbTree(_M(v, f), strategy="anchored").nearest(q)
+    out_f, out_p = m.compute_aabb_tree(strategy="anchored").nearest(q)
+    assert out_f.dtype == np.uint32 and out_f.shape == ref_f.shape
+    assert_tie_contract(
+        {"face": ref_f[0], "part": np.zeros(len(q), np.int32),
+         "point": ref_p, "sqdist": ((ref_p - q) ** 2).sum(-1)},
+        {"face": out_f[0], "part": np.zeros(len(q), np.int32),
+         "point": out_p, "sqdist": ((out_p - q) ** 2).sum(-1)}, v, f, q)
     with pytest.raises(ValueError):
         m.compute_aabb_tree(strategy="exact")
     # the reference's surface exists on the JAX side too
