@@ -293,7 +293,33 @@ Phases (any failure raises and exits non-zero; none catches its own):
    phase 16 alone, without 16e: every facade under the knob, each answer
    held against the kernels, which it calls by name.
 
-After phase 16, the four closest-point routes (brute, culled, resident and
+17. domain: a psbody-style workflow through the ``Mesh`` facade on
+   ``synthetic_body_model(seed=0)``'s rest template and posed body 0, with
+   a segmentation into the joints' parts (each face takes the argmax of its
+   corners' summed skinning weights) and 20 seeded landmarks: a. posed body
+   0 written as binary and ascii PLY, OBJ and JSON and read back through
+   ``Mesh(filename=...)``, the native reader (which must have built) and
+   the Python reader, each bit-equal to what the file holds; b.
+   ``set_landmarks_from_xyz`` and ``recompute_landmark_indices`` (the
+   nearest-vertex and closest-face kernels); c. a Loop level
+   (``topology.loop_subdivider``, 55,104 faces) carrying the segmentation
+   (``transfer_segm``: 55,104 centroid queries) and the landmarks; d. on
+   the card only, a second level (220,416 faces; its centroids against the
+   55,104-face donor, above the brute/culled crossover: culled_faces),
+   4096 seeded faces held to a float64 scan of the donor (the part of a
+   donor face at the least distance, up to ties); e. ``simplified(
+   factor=0.5)`` applied, ``uniquified_mesh``, ``keep_vertices``,
+   ``remove_faces``, ``concatenate_mesh``, ``reorder_vertices``,
+   ``flip_faces`` (landmarks recomputed on the card by the edits),
+   ``subdivide_triangles``, ``estimate_circumference`` at three planes and
+   ``visible_mesh`` (the culled any-hit kernel).  Counts set to 0 just
+   before the card run and read just after it; then the same workflow
+   (without d) with ``device="cpu"``, the port's plain versions: numpy
+   outputs bit for bit, landmark indices and parts equal but at float64
+   ties, regressor coefficients within 1e-5, normals within 1e-6,
+   visibility flags equal but on float64-borderline rays.
+
+After phase 17, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
 brute-force kernel: the crossover evidence; then each drive's stages (the
@@ -301,7 +327,7 @@ large batch's culled prologue in its parts, each anim session's resident
 rope kernel alone, held to its plain version at every sub-lane count
 as on the scan).
 
-Phases 3-15, 3b and 14b are the driven paths (phases 6 and 13 twice);
+Phases 3-15, 3b, 14b and 17 are the driven paths (phases 6 and 13 twice);
 phase 16 drives no kernel path of its own and holds its launches itself.  A
 CUDA-graph plan's launches count once a replay (its capture counts none;
 the warm-up run before it counts as the launches it is).  Kernel
@@ -600,26 +626,44 @@ FALLBACK_VIS_BATCH = 4
 WALK_WARM = 2
 WALK_CHECK = 4096
 
+# phase 17: the psbody-style domain workflow
+DOMAIN_LANDMARKS = 20
+DOMAIN_LANDMARK_SIGMA = 0.01
+DOMAIN_CHECK_FACES = 4096
+#: float64 distance within which two donor faces or vertices tie (1 um on
+#: a body of about 1.8 m: float32 rounding of the kernels' centered frame)
+DOMAIN_TIE = 1e-6
+DOMAIN_COEFF_TOL = 1e-5
+DOMAIN_NORMAL_TOL = 1e-6
+DOMAIN_BUDGET_S = 60.0
+#: the files of step a: (extension, writer keywords)
+DOMAIN_FORMATS = {"ply_binary": ("ply", {}),
+                  "ply_ascii": ("ply", {"ascii": True}),
+                  "obj": ("obj", {}), "json": ("json", {})}
+DOMAIN_CAMERA = (0.0, 0.0, 3.0)
+
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
 #: (a kernel with no path has its row in its successor's)
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit",
-                                  "engine"),
+                                  "engine", "domain"),
                 "closest_faces_fused": ("main_path_fused",),
                 # the every-face kernel, phase 2's face oracle
                 "closest_faces_every": (),
                 "cull_records": ("main_path", "main_path_fused", "facade",
                                  "contact", "mxu", "registration", "fit",
-                                 "engine"),
-                "nearest_vertices": ("facade",),
+                                 "engine", "domain"),
+                "nearest_vertices": ("facade", "domain"),
                 # the every-vertex kernel, phase 2's index oracle
                 "nearest_vertices_every": (),
-                "culled_faces": ("large_batch", "fit", "engine"),
+                # on the domain path only where a donor mesh crosses the
+                # brute/culled crossover (step d's, at the default)
+                "culled_faces": ("large_batch", "fit", "engine", "domain"),
                 "rope_faces_stream": ("scan", "fit"),
                 "rope_faces_resident": ("scan_resident", "anim"),
                 "rope_mxu_stream": ("mxu_bvh",),
                 "rope_mxu_resident": ("mxu_bvh_resident",),
-                "ray_any_hit_culled": ("visibility", "engine"),
+                "ray_any_hit_culled": ("visibility", "engine", "domain"),
                 # the every-face kernel, phase 2's flag oracle
                 "ray_any_hit": (),
                 "alongnormal_faces": ("registration",),
@@ -5149,6 +5193,363 @@ def drive_fallback(inp, dev, smi, calibrate=True):
     return fallback
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the psbody-style domain workflow.
+
+def domain_inputs(model, posed0):
+    """Phase 17's inputs: the rest template and posed body 0 (float64), the
+    faces, a segmentation into the joints' parts (each face takes the
+    argmax of its three corners' summed skinning weights) and
+    DOMAIN_LANDMARKS landmarks (template vertices plus
+    N(0, DOMAIN_LANDMARK_SIGMA), from a seeded generator)."""
+    rest = model.v_template.cpu().numpy().astype(np.float64)
+    f_np = model.faces.cpu().numpy().astype(np.uint32)
+    w = model.lbs_weights.cpu().numpy().astype(np.float64)
+    part = w[f_np.astype(np.int64)].sum(axis=1).argmax(axis=1)
+    segm = {"part%02d" % j: np.flatnonzero(part == j).tolist()
+            for j in range(w.shape[1]) if (part == j).any()}
+    rng = np.random.RandomState(17)
+    picks = rng.choice(len(rest), DOMAIN_LANDMARKS, replace=False)
+    landmarks = {"lm%02d" % i: rest[k] + rng.randn(3) * DOMAIN_LANDMARK_SIGMA
+                 for i, k in enumerate(picks)}
+    return {"rest": rest, "posed0": np.asarray(posed0, np.float64),
+            "f": f_np, "segm": segm, "landmarks": landmarks}
+
+
+def held_values(kind, v):
+    """What a file of DOMAIN_FORMATS ``kind`` holds of float64 ``v``: float32
+    (binary PLY), C's %g of the float32 (ascii PLY), %f (OBJ), the value
+    itself (JSON)."""
+    if kind == "ply_binary":
+        return v.astype(np.float32).astype(np.float64)
+    if kind == "ply_ascii":
+        text = ["%g" % c for c in v.astype(np.float32).ravel()]
+    elif kind == "obj":
+        text = ["%f" % c for c in v.ravel()]
+    else:
+        return v
+    return np.array([float(c) for c in text]).reshape(v.shape)
+
+
+def domain_files(inp, dev, folder):
+    """Step a: posed body 0 written in every format of DOMAIN_FORMATS and
+    read back through ``Mesh(filename=...)`` and, for PLY and OBJ, by the
+    native and the Python readers: each ``v`` / ``f`` bit-equal to what the
+    file holds, with the reference's dtypes."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.serialization import native
+    from mesh_tpu_torch.serialization import obj as obj_io
+    from mesh_tpu_torch.serialization import ply as ply_io
+
+    check(native.available(), "the native reader did not build: %s"
+          % native.library_path())
+    body = Mesh(v=inp["posed0"], f=inp["f"], device=dev)
+    readers = {"ply": (("native", native.load_ply_native, "pts", "tri"),
+                       ("python", ply_io.read_ply, "pts", "tri")),
+               "obj": (("native", native.load_obj_native, "v", "f"),
+                       ("python", obj_io.load_obj, "v", "f")),
+               "json": ()}
+    rec = {}
+    for kind, (ext, kw) in DOMAIN_FORMATS.items():
+        path = os.path.join(folder, "body0_%s.%s" % (kind, ext))
+        getattr(body, "write_" + ext)(path, **kw)
+        want_v, want_f = held_values(kind, body.v), body.f.astype(np.int64)
+        back = Mesh(filename=path, device=dev)
+        check(back.v.dtype == np.float64 and back.f.dtype == np.uint32,
+              "step a, %s: dtypes %s, %s" % (kind, back.v.dtype, back.f.dtype))
+        got = {"facade": (back.v, back.f)}
+        for name, read, vk, fk in readers[ext]:
+            data = read(path)
+            got[name] = (data[vk], data[fk])
+        for name, (v_, f_) in got.items():
+            check(np.array_equal(v_, want_v)
+                  and np.array_equal(np.asarray(f_, np.int64), want_f),
+                  "step a, %s through the %s reader: v or f differs from "
+                  "what the file holds" % (kind, name))
+        rec[kind] = {"bytes": os.path.getsize(path), "readers": sorted(got)}
+    return rec
+
+
+def domain_planes(v):
+    """Three planes across the longest axis of ``v``'s box, at 30, 50 and
+    70 percent of its extent: (normal, distance) pairs."""
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    axis = int(np.argmax(hi - lo))
+    normal = np.eye(3)[axis]
+    return [(normal, float(lo[axis] + t * (hi[axis] - lo[axis])))
+            for t in (0.3, 0.5, 0.7)]
+
+
+def domain_workflow(inp, dev, folder, second_level):
+    """Steps a-e on ``dev`` (d only with ``second_level``) -> (meshes and
+    answers, seconds a step)."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.topology import loop_subdivider
+
+    out, times = {}, {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return result
+
+    out["files"] = step("a_files", lambda: domain_files(inp, dev, folder))
+
+    def landmarks():
+        body = Mesh(v=inp["rest"], f=inp["f"],
+                    segm={k: list(x) for k, x in inp["segm"].items()},
+                    device=dev)
+        body.set_landmarks_from_xyz(dict(inp["landmarks"]))
+        body.recompute_landmark_indices()
+        return body
+
+    body = out["body"] = step("b_landmarks", landmarks)
+    s1 = out["s1"] = step("c_subdivide", lambda: loop_subdivider(body)(body))
+    if second_level:
+        out["s2"] = step("d_subdivide", lambda: loop_subdivider(s1)(s1))
+
+    def edits():
+        dec = body.simplified(factor=0.5)(body)
+        uniq = dec.uniquified_mesh()
+        work = Mesh(v=body.v, f=body.f, device=dev)
+        work.set_landmarks_from_xyz(dict(inp["landmarks"]))
+        work.keep_vertices(np.flatnonzero(np.arange(len(work.v)) % 10 != 0))
+        work.remove_faces(np.arange(0, len(work.f), 7))
+        work.concatenate_mesh(dec)
+        work.reorder_vertices(np.random.RandomState(18).permutation(
+            len(work.v)))
+        work.flip_faces()
+        cent = Mesh(v=body.v, f=body.f, device=dev)
+        cent.subdivide_triangles()
+        circ = [body.estimate_circumference(n, d)
+                for n, d in domain_planes(body.v)]
+        flags = np.asarray(body.vertex_visibility(DOMAIN_CAMERA))
+        seen = body.visible_mesh(DOMAIN_CAMERA)
+        return {"dec": dec, "uniq": uniq, "work": work, "cent": cent,
+                "circumference": circ, "flags": flags, "seen": seen}
+
+    out.update(step("e_edits", edits))
+    return out, times
+
+
+def part_gaps64(centroids, donor_v, donor_f, donor_parts, parts, dev):
+    """For each centroid [N, 3], in float64 on ``dev``: the distance to the
+    nearest donor face of its part (``parts`` [N]) less the distance to the
+    nearest donor face of any part."""
+    from mesh_tpu_torch.query.point_triangle import closest_point_on_triangle
+
+    tri = torch.as_tensor(np.asarray(donor_v, np.float64), device=dev)[
+        torch.as_tensor(np.asarray(donor_f, np.int64), device=dev)]
+    code = {n: i for i, n in enumerate(sorted(set(donor_parts) | set(parts)))}
+    dp = torch.as_tensor([code[n] for n in donor_parts], device=dev)
+    qp = torch.as_tensor([code[n] for n in parts], device=dev)
+    c = torch.as_tensor(np.asarray(centroids, np.float64), device=dev)
+    gaps = []
+    for i in range(0, c.shape[0], 128):
+        d = closest_point_on_triangle(c[i:i + 128, None], tri[None, :, 0],
+                                      tri[None, :, 1], tri[None, :, 2])[1]
+        own = d.masked_fill(dp[None] != qp[i:i + 128, None], float("inf"))
+        gaps.append(own.min(dim=1).values.clamp_min(0).sqrt()
+                    - d.min(dim=1).values.clamp_min(0).sqrt())
+    return torch.cat(gaps).cpu().numpy()
+
+
+def check_parts(label, card, cpu, donor, dev):
+    """``transfer_segm``'s parts on the card against the CPU run's: equal
+    face for face, except where both parts hold a donor face at the least
+    float64 distance from the face's centroid (a tie)."""
+    check(sorted(card.segm) == sorted(cpu.segm), "%s: parts %s against %s"
+          % (label, sorted(card.segm), sorted(cpu.segm)))
+    mine, theirs = np.array(card.parts_by_face()), np.array(cpu.parts_by_face())
+    differ = np.flatnonzero(mine != theirs)
+    gap = 0.0
+    if differ.size:
+        cen = cpu.v[cpu.f[differ].astype(np.int64)].mean(axis=1)
+        for parts in (mine[differ], theirs[differ]):
+            gaps = part_gaps64(cen, donor.v, donor.f, donor.parts_by_face(),
+                               parts.tolist(), dev)
+            gap = max(gap, float(gaps.max()))
+        check(gap <= DOMAIN_TIE, "%s: %d faces take another part than on "
+              "the CPU, %.3g beyond a float64 tie" % (label, differ.size, gap))
+    return {"faces": int(len(mine)), "differ": int(differ.size),
+            "tie_gap": gap}
+
+
+def check_landmarks(label, card, cpu):
+    """Landmark indices equal but at float64 ties of the nearest vertex;
+    regressors on the same face (or a float64 tie), coefficients within
+    DOMAIN_COEFF_TOL."""
+    from mesh_tpu_torch.query.point_triangle import closest_point_on_triangle
+
+    check(list(card.landm) == list(cpu.landm), "%s: landmark names" % label)
+    xyz = {k: np.asarray(cpu.landm_raw_xyz[k], np.float64)
+           for k in cpu.landm}
+    differ, coeff_gap = 0, 0.0
+    for name in cpu.landm:
+        a, b = card.landm[name], cpu.landm[name]
+        if a != b:
+            gap = abs(np.linalg.norm(xyz[name] - cpu.v[a])
+                      - np.linalg.norm(xyz[name] - cpu.v[b]))
+            check(gap <= DOMAIN_TIE, "%s: landmark %s at vertex %d, on the "
+                  "CPU %d, %.3g beyond a tie" % (label, name, a, b, gap))
+            differ += 1
+    check(list(card.landm_regressors) == list(cpu.landm_regressors),
+          "%s: regressor names" % label)
+    for name in cpu.landm_regressors:
+        (ci, cc), (pi, pc) = card.landm_regressors[name], \
+            cpu.landm_regressors[name]
+        if np.array_equal(ci, pi):
+            coeff_gap = max(coeff_gap, float(np.abs(cc - pc).max()))
+            continue
+        tri = torch.as_tensor(cpu.v[np.stack([ci, pi]).astype(np.int64)])
+        p = torch.as_tensor(xyz[name])[None]
+        d = closest_point_on_triangle(p, tri[:, 0], tri[:, 1], tri[:, 2])[1]
+        gap = float(abs(d[0].sqrt() - d[1].sqrt()))
+        check(gap <= DOMAIN_TIE, "%s: landmark %s regressed on another face "
+              "than on the CPU, %.3g beyond a tie" % (label, name, gap))
+        differ += 1
+    check(coeff_gap <= DOMAIN_COEFF_TOL, "%s: regressor coefficients %.3g "
+          "from the CPU's" % (label, coeff_gap))
+    return {"landmarks": len(cpu.landm), "differ": differ,
+            "coeff_gap": coeff_gap}
+
+
+def same_mesh(label, a, b, attrs=("v", "f")):
+    for name in attrs:
+        check(same_arrays(getattr(a, name), getattr(b, name)),
+              "%s: %s differs from the CPU run's" % (label, name))
+
+
+def check_domain(card, cpu, inp, dev):
+    """Steps a-c and e on the card against the same workflow on the CPU
+    (the port's plain versions): numpy outputs bit for bit, the kernels'
+    answers under the tie contract."""
+    from mesh_tpu_torch.query.visibility import visibility_rays
+
+    checks = {"files": card["files"]}
+    body_c, body_h = card["body"], cpu["body"]
+    checks["landmarks"] = check_landmarks("step b", body_c, body_h)
+    same_mesh("step c", card["s1"], cpu["s1"])
+    check(len(card["s1"].f) == 4 * len(inp["f"]), "step c: %d faces"
+          % len(card["s1"].f))
+    check(card["s1"].landm == cpu["s1"].landm, "step c: landmarks")
+    checks["subdivide_parts"] = check_parts("step c", card["s1"], cpu["s1"],
+                                            body_h, dev)
+    same_mesh("step e, simplified", card["dec"], cpu["dec"])
+    checks["simplified_parts"] = check_parts("step e, simplified",
+                                             card["dec"], cpu["dec"],
+                                             body_h, dev)
+    same_mesh("step e, uniquified", card["uniq"], cpu["uniq"])
+    gap = float(np.abs(card["uniq"].vn - cpu["uniq"].vn).max())
+    check(gap <= DOMAIN_NORMAL_TOL, "step e, uniquified: normals %.3g from "
+          "the CPU's" % gap)
+    checks["uniquified_normal_gap"] = gap
+    same_mesh("step e, edited", card["work"], cpu["work"])
+    checks["edited_landmarks"] = check_landmarks("step e, edited",
+                                                 card["work"], cpu["work"])
+    same_mesh("step e, centroid split", card["cent"], cpu["cent"])
+    check(card["circumference"] == cpu["circumference"],
+          "step e: circumferences %s against %s"
+          % (card["circumference"], cpu["circumference"]))
+    flags_c, flags_h = card["flags"], cpu["flags"]
+    differ = np.flatnonzero(flags_c != flags_h)
+    if differ.size:
+        v = torch.as_tensor(body_h.v[differ].astype(np.float32),
+                            device=dev)[None]
+        cam = torch.tensor([DOMAIN_CAMERA], dtype=torch.float32, device=dev)
+        origins, dirs = visibility_rays(v, cam, VIS_MIN_DIST)
+        tri = torch.as_tensor(body_h.v.astype(np.float32), device=dev)[
+            torch.as_tensor(body_h.f.astype(np.int64), device=dev)]
+        near = any_hit64(origins[0], dirs[0].reshape(-1, 3), tri)[1]
+        check(bool(near.all()), "step e: %d visibility flags differ from "
+              "the CPU's away from the float64 borderline"
+              % int((~near).sum()))
+    else:
+        same_mesh("step e, visible part", card["seen"], cpu["seen"])
+    check(len(card["seen"].v) == int(flags_c.astype(bool).sum()),
+          "step e: the visible mesh's vertices")
+    checks["visibility"] = {"visible": int(flags_c.astype(bool).sum()),
+                            "differ": int(differ.size)}
+    return checks
+
+
+def check_second_level(s1, s2, dev):
+    """Step d: 16 times the template's faces, every face in a part, and on
+    DOMAIN_CHECK_FACES seeded faces the part of a donor face at the least
+    float64 distance from the face's centroid (up to ties)."""
+    check(len(s2.f) == 4 * len(s1.f), "step d: %d faces from %d"
+          % (len(s2.f), len(s1.f)))
+    parts = np.array(s2.parts_by_face())
+    check(bool((parts != "").all()), "step d: faces without a part")
+    sample = np.random.RandomState(19).choice(len(s2.f), DOMAIN_CHECK_FACES,
+                                              replace=False)
+    cen = s2.v[s2.f[sample].astype(np.int64)].mean(axis=1)
+    gaps = part_gaps64(cen, s1.v, s1.f, s1.parts_by_face(),
+                       parts[sample].tolist(), dev)
+    check(float(gaps.max()) <= DOMAIN_TIE, "step d: %d of %d sampled faces "
+          "take a part with no donor face at the least float64 distance "
+          "(gap %.3g)" % (int((gaps > DOMAIN_TIE).sum()), len(sample),
+                          float(gaps.max())))
+    return {"faces": int(len(s2.f)), "donor_faces": int(len(s1.f)),
+            "checked": int(len(sample)), "max_gap": float(gaps.max()),
+            "ties": int((gaps > 0).sum())}
+
+
+def drive_domain(model, posed0, dev, smi):
+    """Phase 17 -> (its record, launches on its card run)."""
+    import shutil
+
+    from mesh_tpu_torch.query.autotune import crossover_faces
+
+    inp = domain_inputs(model, posed0)
+    log("== domain: posed body 0 through PLY, OBJ and JSON, %d landmarks, "
+        "a %d-part segmentation, two Loop levels, decimation and the edits"
+        % (DOMAIN_LANDMARKS, len(inp["segm"])))
+    folder = os.path.join(_REPO, "build", "chip_smoke_domain")
+    shutil.rmtree(folder, ignore_errors=True)
+    for side in ("card", "cpu"):
+        os.makedirs(os.path.join(folder, side))
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        card, times = domain_workflow(inp, dev, os.path.join(folder, "card"),
+                                      second_level=True)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        t0 = time.perf_counter()
+        cpu, cpu_times = domain_workflow(inp, torch.device("cpu"),
+                                         os.path.join(folder, "cpu"),
+                                         second_level=False)
+        cpu_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    rec = {"checks": check_domain(card, cpu, inp, dev)}
+    rec["second_level"] = check_second_level(card["s1"], card["s2"], dev)
+    culled = len(card["s1"].f) > crossover_faces()
+    needed = {"closest_faces", "cull_records", "nearest_vertices",
+              "ray_any_hit_culled"} | ({"culled_faces"} if culled else set())
+    for name in sorted(needed):
+        check(launches[name] > 0, "kernel %s never launched on the domain "
+              "path" % name)
+    counted_only(launches, needed, "the domain path")
+    rec.update({"wall_s": wall, "steps_s": times, "cpu_wall_s": cpu_wall,
+                "cpu_steps_s": cpu_times, "budget_s": DOMAIN_BUDGET_S,
+                "launches": {k: n for k, n in launches.items() if n},
+                "faces": {"template": int(len(inp["f"])),
+                          "level1": int(len(card["s1"].f)),
+                          "level2": int(len(card["s2"].f)),
+                          "simplified": int(len(card["dec"].f))}})
+    log("  domain on the card %.1f s (budget %.0f s): %s; the CPU run %.1f s"
+        % (wall, DOMAIN_BUDGET_S, ", ".join(
+            "%s %.2f" % kv for kv in times.items()), cpu_wall))
+    log("  launches: %s" % rec["launches"])
+    log("domain record (on %s): %s" % (smi, json.dumps(rec)))
+    return rec, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6308,6 +6709,9 @@ def main():
         queries_l, (v_s, f_s, p_s), (body_v, body_f, hand_v, hand_f)),
         dev, smi)
 
+    # -- 17. domain: the psbody-style workflow on the card ---------------------
+    domain, launches["domain"] = drive_domain(model, posed[0], dev, smi)
+
     # -- crossover evidence ---------------------------------------------------
     log("== crossover: every route at both drives' shapes")
     crossover_rows = crossover(dev, (verts_l, f_l, queries_l, nondegen_l),
@@ -6766,7 +7170,7 @@ def main():
         "mxu": {"calls": mxu, "crossover": dict(MXU_CALIBRATION)},
         "mxu_bvh": mxu_bvh, "fit": fit_runs,
         "empty": {"entry_points": sorted(empty_layouts)},
-        "engine": engine_rec, "fallback": fallback}),
+        "engine": engine_rec, "fallback": fallback, "domain": domain}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

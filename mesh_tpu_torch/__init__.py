@@ -21,17 +21,38 @@ self-intersection kernels, each with a segment and a Moller tile, behind
 ``query.self_intersection_count``, with the SMPL-family synthetic models of
 ``models.synthetic_family_model``), and training: the envelope-theorem
 gradients of those searches, registration energies and ICP (``diff``) and
-the single-device scan-fit step (``parallel.fit``).
+the single-device scan-fit step (``parallel.fit``), and the rest of the
+``Mesh`` facade with the host-side domain modules behind it: topology
+(connectivity, Loop subdivision, quadric decimation), ``processing``,
+``landmarks``, ``serialization`` (PLY, OBJ, JSON, with the native reader
+``native/meshio.cpp``), ``texture``, ``colors``, ``lines``, ``sphere``,
+``metrics`` and the ``MeshArrays`` container (``core``).
+
+``texture_path`` is the folder of the shipped textured templates;
+``mesh_package_cache_folder`` holds the crc32-keyed topology pickles
+(``MESH_TPU_CACHE``, else ``PSBODY_MESH_CACHE``, else the port's own
+``build/mesh_tpu_torch/cache`` beside the package).
 """
 
-from .batch import (  # noqa: F401
+import os
+
+from .utils import knobs
+
+texture_path = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "ressources", "textures"))
+
+mesh_package_cache_folder = knobs.cache_folder()
+os.makedirs(mesh_package_cache_folder, exist_ok=True)
+
+from .batch import (  # noqa: E402,F401
     batched_closest_faces_and_points,
     batched_vertex_normals,
     batched_vertex_visibility,
     fused_normals_and_closest_points,
 )
-from .mesh import Mesh  # noqa: F401
-from .search import (  # noqa: F401
+from .core import MeshArrays  # noqa: E402,F401
+from .mesh import Mesh  # noqa: E402,F401
+from .search import (  # noqa: E402,F401
     AabbNormalsTree,
     AabbTree,
     CGALClosestPointTree,

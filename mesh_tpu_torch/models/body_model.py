@@ -102,34 +102,65 @@ def _check_model_device(model, dev):
 
 
 @contextlib.contextmanager
-def no_tf32():
-    """Full float32 matmuls and cuDNN inside the block; the caller's TF32
-    settings are restored on the way out."""
+def tf32(enabled):
+    """Matmuls and cuDNN with TF32 allowed (``enabled``) or not inside the
+    block; the caller's TF32 settings are restored on the way out."""
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
     saved = matmul.allow_tf32, cudnn.allow_tf32
-    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    matmul.allow_tf32 = cudnn.allow_tf32 = bool(enabled)
     try:
         yield
     finally:
         matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
-def lbs(model, betas, pose, trans=None, device="cuda"):
+def no_tf32():
+    """Full float32 matmuls and cuDNN inside the block."""
+    return tf32(False)
+
+
+#: the reference's matmul precisions (``jax.lax.Precision`` names and the
+#: strings JAX accepts for them) -> whether TF32 may serve the products
+_TF32_BY_PRECISION = {"HIGHEST": False, "FLOAT32": False,
+                      "HIGH": True, "TENSORFLOAT32": True,
+                      "DEFAULT": True, "BFLOAT16": True}
+
+
+def tf32_allowed(precision):
+    """Whether ``precision`` lets TF32 serve float32 products: False for
+    ``HIGHEST`` (the reference's default; also its string forms), True for
+    ``DEFAULT`` and ``HIGH``, which trade accuracy for throughput.  A
+    ``jax.lax.Precision`` member is read by its name, so a reference
+    caller's argument works without this package importing JAX."""
+    name = getattr(precision, "name", precision)
+    key = str(name).upper() if name is not None else None
+    if key not in _TF32_BY_PRECISION:
+        raise ValueError("precision must be one of %s (or a "
+                         "jax.lax.Precision member), got %r"
+                         % (sorted(_TF32_BY_PRECISION), precision))
+    return _TF32_BY_PRECISION[key]
+
+
+def lbs(model, betas, pose, trans=None, precision="HIGHEST", *,
+        device="cuda"):
     """Linear blend skinning forward pass.
 
     :param betas: (..., B) shape coefficients
     :param pose: (..., J, 3) axis-angle per joint (joint 0 = global rotation)
     :param trans: optional (..., 3) root translation
+    :param precision: the reference's matmul precision: ``HIGHEST`` (the
+        default) runs the products in full float32 with TF32 off for
+        matmuls and cuDNN during the call; ``DEFAULT`` or ``HIGH`` allow
+        TF32 there (about three decimal digits: the reference trades
+        accuracy for throughput the same way).  Names or
+        ``jax.lax.Precision`` members (``tf32_allowed``).
     :param device: where to run; the model must already live there
     :returns: (vertices (..., V, 3), joints (..., J, 3))
-
-    The reference runs its products at ``Precision.HIGHEST``; here TF32 is
-    off for matmuls and cuDNN during the call, so float32 products stay
-    float32.
     """
+    allow = tf32_allowed(precision)
     dev = resolve_device(device)
     _check_model_device(model, dev)
-    with no_tf32():
+    with tf32(allow):
         return _lbs(model, betas, pose, trans, dev)
 
 

@@ -2,7 +2,7 @@
 predicates built on them (counterpart of mesh_tpu/utils/knobs.py and
 mesh_tpu/utils/dispatch.py, for the knobs of the closest-point ladder and
 its MXU rung, the observability modules, the animated-mesh sessions, the
-fit loss's data term and the query engine).
+fit loss's data term, the query engine and the topology cache folder).
 
 Every knob is declared in ``KNOBS`` with its type and default, and read
 through the accessors below, which re-read ``os.environ`` on every call so
@@ -55,6 +55,9 @@ KNOBS = {
     "MESH_TPU_COALESCE_WINDOW_MS": None,
     "MESH_TPU_FLEET_SHARD": True,
     "MESH_TPU_FLEET_SHARD_MIN_Q": None,
+    # the crc32-keyed topology cache and the native reader's build
+    # (topology/connectivity.py; the reference's $PSBODY_MESH_CACHE idea)
+    "MESH_TPU_CACHE": None,
 }
 
 _UNSET = object()
@@ -98,6 +101,22 @@ def get_float(name, default=_UNSET):
 
 def get_str(name, default=_UNSET):
     return _parsed(name, default, str)
+
+
+#: the port's own default cache folder, beside its kernel builds: the
+#: reference's pickles live under ``~/.mesh_tpu/cache``, so the two
+#: packages' defaults never mix
+DEFAULT_CACHE_FOLDER = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "build", "mesh_tpu_torch", "cache")
+
+
+def cache_folder():
+    """The topology cache folder: ``MESH_TPU_CACHE`` when set, else
+    ``PSBODY_MESH_CACHE`` (the reference psbody name), else
+    ``DEFAULT_CACHE_FOLDER``."""
+    return get_str("MESH_TPU_CACHE") or (
+        os.environ.get("PSBODY_MESH_CACHE") or DEFAULT_CACHE_FOLDER)
 
 
 # -- routing predicates (mesh_tpu/utils/dispatch.py) --------------------------
