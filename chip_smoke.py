@@ -319,7 +319,43 @@ Phases (any failure raises and exits non-zero; none catches its own):
    ties, regressor coefficients within 1e-5, normals within 1e-6,
    visibility flags equal but on float64-borderline rays.
 
-After phase 17, the four closest-point routes (brute, culled, resident and
+18. serve: the serving tier (``mesh_tpu_torch.serve``) over posed body 0
+   (1024 N(0, 0.4) queries a request, bench.py's) and phase 5's posed
+   98,304-face body 0 (4096 scan-like queries), counts set to 0 just before
+   step a and read just after step g, each step's apart: a. a
+   ``QueryService(workers=2)`` with the real watchdog warms every rung of
+   the default ladder (engine, culled, anchored); b. one-rung ladders
+   (``MESH_TPU_SERVE_LADDER``) engine on both meshes, culled, anchored and
+   accel on the body, and anchored again on 1024 queries within about 1
+   mm of the body's vertices, each warmed and then one request, answered
+   by its rung with no retry: engine launches closest_faces and
+   cull_records on the body and culled_faces on the template, accel the
+   resident rope walk, culled and anchored nothing; c. bench.py
+   serve_load's closed loop (4 clients x 24 requests, a 0.5 s deadline,
+   three rounds; per round the plans made, the garbage collector's pauses,
+   the slowest request's stages and each tenant's longest queue wait); d.
+   its open loop (40 qps for 1 s); e. ``run_periodic``: 6 avatar streams
+   at 30 Hz with a 1/30 s frame deadline for 1 s; f. ``run_trace_replay``
+   of ``synth_mix(seed=7)`` at speed 1; g. a wedge: a ladder of a top rung
+   blocked on an Event and the engine, a 0.2 s watchdog threshold.  After
+   the window: every rung's answer against the brute-force kernel (sqdist
+   within 1e-5, faces equal except at float64 ties within 1e-6; culled and
+   anchored on their tight queries, with ``certified`` equal to every query
+   tight, and most of the request near the surface tight); c-f answered
+   by the engine with no retry, no shed and the retries counter at 0, the
+   replay's checksum the null replay's; in g the first request answered
+   by the engine with one retry within twice its deadline and health
+   DEGRADED, the next started at rung 1, and after the release and 3
+   successes health HEALTHY and the top rung answering; every closed-loop
+   request a closed ledger row with its stages,
+   ``mesh_tpu_serve_requests_total`` the requests issued, the stats sink
+   read back, an ``SLOMonitor``'s availability good / total of the
+   counters; the phase within 60 s.  Then the engine rung's dispatch on
+   the card: each cached plan of the body's 1024-query bucket replayed 50
+   times between CUDA events, the one-request plan's kernels by
+   ``torch.profiler``.
+
+After phase 18, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
 brute-force kernel: the crossover evidence; then each drive's stages (the
@@ -327,7 +363,8 @@ large batch's culled prologue in its parts, each anim session's resident
 rope kernel alone, held to its plain version at every sub-lane count
 as on the scan).
 
-Phases 3-15, 3b, 14b and 17 are the driven paths (phases 6 and 13 twice);
+Phases 3-15, 3b, 14b, 17 and 18 are the driven paths (phases 6 and 13
+twice);
 phase 16 drives no kernel path of its own and holds its launches itself.  A
 CUDA-graph plan's launches count once a replay (its capture counts none;
 the warm-up run before it counts as the launches it is).  Kernel
@@ -341,11 +378,13 @@ Imports neither JAX nor mesh_tpu.  Needs one CUDA card.
 """
 
 import contextlib
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -642,25 +681,57 @@ DOMAIN_FORMATS = {"ply_binary": ("ply", {}),
                   "obj": ("obj", {}), "json": ("json", {})}
 DOMAIN_CAMERA = (0.0, 0.0, 3.0)
 
+# phase 18: the serving tier (bench.py serve_load's shape: N(0, 0.4)
+# queries, a closed loop of 4 clients x 24 requests at a 0.5 s deadline,
+# three rounds; an open loop at 40 qps for 1 s), the avatar shape of
+# run_periodic (6 sessions at 30 Hz, a 1/30 s frame deadline, 1 s), a
+# replay of synth_mix(seed=7) at speed 1 and a wedge of the top rung
+SERVE_QUERIES = 1024
+SERVE_WORKERS = 2
+SERVE_DEADLINE_S = 0.5
+SERVE_CLIENTS = 4
+SERVE_REQUESTS_PER_CLIENT = 24
+SERVE_ROUNDS = 3
+SERVE_OPEN_QPS = 40.0
+SERVE_OPEN_S = 1.0
+SERVE_SESSIONS = 6
+SERVE_HZ = 30.0
+SERVE_PERIODIC_S = 1.0
+SERVE_TRACE_SEED = 7
+#: the wedge: the watchdog's threshold, the request's deadline and the
+#: successes that bring health back
+SERVE_WEDGE_S = 0.2
+SERVE_WEDGE_DEADLINE_S = 0.5
+SERVE_RECOVER_AFTER = 3
+#: one-rung ladders answer within this deadline (no fall-through exists)
+SERVE_RUNG_DEADLINE_S = 5.0
+#: the anchored rung's second request: random vertices of the body with
+#: this much N(0, s) noise (K 16 tables certify most of them)
+SERVE_NEAR_NOISE = 0.001
+SERVE_BUDGET_S = 60.0
+
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
 #: (a kernel with no path has its row in its successor's)
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit",
-                                  "engine", "domain"),
+                                  "engine", "domain", "serve"),
                 "closest_faces_fused": ("main_path_fused",),
                 # the every-face kernel, phase 2's face oracle
                 "closest_faces_every": (),
                 "cull_records": ("main_path", "main_path_fused", "facade",
                                  "contact", "mxu", "registration", "fit",
-                                 "engine", "domain"),
+                                 "engine", "domain", "serve"),
                 "nearest_vertices": ("facade", "domain"),
                 # the every-vertex kernel, phase 2's index oracle
                 "nearest_vertices_every": (),
                 # on the domain path only where a donor mesh crosses the
-                # brute/culled crossover (step d's, at the default)
-                "culled_faces": ("large_batch", "fit", "engine", "domain"),
+                # brute/culled crossover (step d's, at the default); on the
+                # serve path the engine rung's, on the 98,304-face template
+                "culled_faces": ("large_batch", "fit", "engine", "domain",
+                                 "serve"),
                 "rope_faces_stream": ("scan", "fit"),
-                "rope_faces_resident": ("scan_resident", "anim"),
+                # on the serve path the accel rung's, on the SMPL-sized body
+                "rope_faces_resident": ("scan_resident", "anim", "serve"),
                 "rope_mxu_stream": ("mxu_bvh",),
                 "rope_mxu_resident": ("mxu_bvh_resident",),
                 "ray_any_hit_culled": ("visibility", "engine", "domain"),
@@ -5550,6 +5621,627 @@ def drive_domain(model, posed0, dev, smi):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the serving tier.
+
+def serve_inputs(posed0, f_np, template_v, template_f, template_q):
+    """Phase 18's meshes and requests: posed body 0 with SERVE_QUERIES
+    N(0, 0.4) queries (bench.py's) and as many near its surface (random
+    vertices with N(0, SERVE_NEAR_NOISE) noise, for the anchored rung: most
+    of them tight), phase 5's posed 98,304-face body 0 with its
+    LARGE_QUERIES scan-like queries."""
+    rng = np.random.RandomState(18)
+    body_v = np.asarray(posed0, np.float32)
+    near = body_v[rng.randint(0, len(body_v), SERVE_QUERIES)]
+    return {"body": (body_v, np.asarray(f_np)),
+            "body_q": np.asarray(rng.randn(SERVE_QUERIES, 3) * 0.4,
+                                 np.float32),
+            "body_q_near": np.asarray(
+                near + rng.randn(SERVE_QUERIES, 3) * SERVE_NEAR_NOISE,
+                np.float32),
+            "template": (np.asarray(template_v, np.float32),
+                         np.asarray(template_f)),
+            "template_q": np.asarray(template_q, np.float32)}
+
+
+class _Launches(object):
+    """Per-step launch counts inside one counted window: the difference of
+    the counts around each step (nothing is set to 0 inside the window)."""
+
+    def __init__(self):
+        self.steps = {}
+        self._last = read_launches()
+
+    def mark(self, step):
+        now = read_launches()
+        self.steps[step] = {k: now[k] - self._last.get(k, 0) for k in now
+                            if now[k] != self._last.get(k, 0)}
+        self._last = now
+
+
+def serve_rung(make_service, name, mesh, q):
+    """(b): a one-rung ladder ``name`` (picked by MESH_TPU_SERVE_LADDER)
+    warmed, then one request: (rung names warmed, the response, the
+    request's ledger row)."""
+    from mesh_tpu_torch.obs import get_ledger
+    from mesh_tpu_torch.serve import default_ladder
+
+    with knobs_set(MESH_TPU_SERVE_LADDER=name):
+        ladder = default_ladder()
+    service = make_service(ladder=ladder,
+                           default_deadline_s=SERVE_RUNG_DEADLINE_S)
+    rows = []
+    try:
+        warmed = service.warmup(mesh, queries=256)
+        get_ledger().add_listener(rows.append)
+        try:
+            resp = service.query(mesh, q, tenant="rung-" + name)
+        finally:
+            get_ledger().remove_listener(rows.append)
+    finally:
+        service.stop(write_stats=False)
+    return warmed, resp, rows[-1]
+
+
+class _GcPauses(object):
+    """A ``gc.callbacks`` hook: per round, the collections of each
+    generation and their pauses (ms, host clock)."""
+
+    def __init__(self):
+        self._t0 = None
+        self.start_round()
+
+    def start_round(self):
+        self.round = {"gc_collections": [0, 0, 0], "gc_ms": 0.0,
+                      "gc_max_ms": 0.0}
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            ms = (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+            self.round["gc_collections"][info["generation"]] += 1
+            self.round["gc_ms"] += ms
+            self.round["gc_max_ms"] = max(self.round["gc_max_ms"], ms)
+
+
+def gate_rung(release):
+    """(g)'s top rung: the engine rung behind an Event, bounded by its
+    slice like every built-in rung (the wedge a stuck dispatch makes)."""
+    from mesh_tpu_torch.serve import Rung, ServeResult, call_with_timeout
+    from mesh_tpu_torch.serve import deadline as deadline_mod
+
+    def fn(mesh, points, chunk, timeout):
+        def blocked():
+            release.wait()
+            res = deadline_mod._rung_engine(mesh, points, chunk, timeout)
+            return ServeResult(res.faces, res.points, "gate", res.certified)
+        return call_with_timeout(blocked, timeout)
+    return Rung("gate", fn)
+
+
+def drive_serve(inp, dev, folder):
+    """Phase 18 steps a-g: launch counts set to 0 just before and read just
+    after, each step's launches apart; the answers, reports and rows for
+    the checks, which run after the window."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.obs import REGISTRY, get_ledger, list_incidents
+    from mesh_tpu_torch.obs.replay import null_replay, synth_mix
+    from mesh_tpu_torch.serve import (
+        HealthMonitor, QueryService, default_ladder, run_closed_loop,
+        run_open_loop, run_periodic, run_trace_replay)
+
+    body = Mesh(*inp["body"], device=dev)
+    template = Mesh(*inp["template"], device=dev)
+    q, q_t = inp["body_q"], inp["template_q"]
+    out = {"times_s": {}}
+    times = out["times_s"]
+
+    def make_service(**kw):
+        kw.setdefault("workers", SERVE_WORKERS)
+        kw.setdefault("stats_path", os.path.join(folder, "stats.json"))
+        return QueryService(**kw)
+
+    reset_launches()
+    marks = _Launches()
+    t_phase = time.perf_counter()
+    main = make_service(default_deadline_s=SERVE_DEADLINE_S)
+    try:
+        # a. warmup of the default ladder
+        t0 = time.perf_counter()
+        out["warmed"] = main.warmup(body, queries=SERVE_QUERIES)
+        out["ladder"] = [r.name for r in main.ladder]
+        times["a_warmup"] = time.perf_counter() - t0
+        marks.mark("a_warmup")
+        # b. one-rung ladders
+        out["rungs"] = {}
+        for label, name, mesh, pts in (
+                ("engine", "engine", body, q),
+                ("engine_template", "engine", template, q_t),
+                ("culled", "culled", body, q),
+                ("anchored", "anchored", body, q),
+                ("anchored_near", "anchored", body, inp["body_q_near"]),
+                ("accel", "accel", body, q)):
+            t0 = time.perf_counter()
+            out["rungs"][label] = serve_rung(make_service, name, mesh, pts)
+            times["b_" + label] = time.perf_counter() - t0
+            marks.mark("b_" + label)
+        # c. the closed loop, three rounds; its ledger rows kept, and per
+        # round the plans made and the garbage collector's pauses
+        rows = []
+        gc_pauses = _GcPauses()
+        get_ledger().add_listener(rows.append)
+        gc.callbacks.append(gc_pauses)
+        out["closed"], out["closed_rounds"] = [], []
+        try:
+            t0 = time.perf_counter()
+            for _ in range(SERVE_ROUNDS):
+                first, misses = len(rows), engine_misses()
+                gc_pauses.start_round()
+                out["closed"].append(run_closed_loop(
+                    main, body, q, clients=SERVE_CLIENTS,
+                    requests_per_client=SERVE_REQUESTS_PER_CLIENT,
+                    deadline_s=SERVE_DEADLINE_S))
+                out["closed_rounds"].append(dict(
+                    gc_pauses.round, rows=(first, len(rows)),
+                    plans_made=engine_misses() - misses))
+            times["c_closed"] = time.perf_counter() - t0
+        finally:
+            gc.callbacks.remove(gc_pauses)
+            get_ledger().remove_listener(rows.append)
+        out["closed_rows"] = rows
+        marks.mark("c_closed")
+        # d. the open loop
+        t0 = time.perf_counter()
+        out["open"] = run_open_loop(main, body, q, rate_qps=SERVE_OPEN_QPS,
+                                    duration_s=SERVE_OPEN_S,
+                                    deadline_s=SERVE_DEADLINE_S)
+        times["d_open"] = time.perf_counter() - t0
+        marks.mark("d_open")
+        # e. avatar streams: deadline-hard periodic arrivals
+        t0 = time.perf_counter()
+        out["periodic"] = run_periodic(
+            main, body, q, sessions=SERVE_SESSIONS, hz=SERVE_HZ,
+            frames_per_session=int(round(SERVE_HZ * SERVE_PERIODIC_S)))
+        times["e_periodic"] = time.perf_counter() - t0
+        marks.mark("e_periodic")
+        # f. replay of the adversarial mix at speed 1
+        trace = synth_mix(seed=SERVE_TRACE_SEED)
+        t0 = time.perf_counter()
+        out["replay"] = run_trace_replay(main, body, q, trace, speed=1.0)
+        times["f_replay"] = time.perf_counter() - t0
+        out["null_replay"] = null_replay(trace, speed=1.0)
+        marks.mark("f_replay")
+        out["retries_healthy"] = REGISTRY.counter(
+            "mesh_tpu_serve_retries_total").total()
+        out["health_healthy"] = main.health.snapshot()
+    finally:
+        main.stop(write_stats=False)
+    # g. the wedge: the top rung blocked until released
+    release = threading.Event()
+    health = HealthMonitor(wedge_after_s=SERVE_WEDGE_S,
+                           recover_after=SERVE_RECOVER_AFTER)
+    wedge = make_service(health=health,
+                         default_deadline_s=SERVE_WEDGE_DEADLINE_S,
+                         ladder=[gate_rung(release), default_ladder()[0]])
+    steps = []
+    try:
+        t0 = time.perf_counter()
+        for i in range(SERVE_RECOVER_AFTER + 1):
+            if i == 2:
+                release.set()
+            t1 = time.perf_counter()
+            resp = wedge.query(body, q, tenant="wedge")
+            steps.append({"rung": resp.rung, "retries": resp.retries,
+                          "wall_s": time.perf_counter() - t1,
+                          "state_after": health.state_name})
+        times["g_wedge"] = time.perf_counter() - t0
+    finally:
+        release.set()
+        wedge.stop(write_stats=False)
+    out["wedge"] = steps
+    out["incidents"] = [os.path.basename(p) for p in list_incidents()]
+    marks.mark("g_wedge")
+    out["phase_s"] = time.perf_counter() - t_phase
+    launches = read_launches()
+    out["step_launches"] = marks.steps
+    return out, launches
+
+
+def serve_answer_check(label, resp, v, f, q, dev, subset=None):
+    """One served answer against the brute-force kernel on the same inputs
+    (``subset``: a mask of the queries held, default all)."""
+    from mesh_tpu_torch.query import closest_kernel as ck
+
+    v_t = torch.as_tensor(v, device=dev)[None]
+    f_t = torch.as_tensor(np.asarray(f, np.int64), device=dev)
+    pts = np.asarray(q, np.float32)
+    sq = ((pts.astype(np.float64) - resp.points) ** 2).sum(-1)
+    faces = resp.faces[0].astype(np.int64)
+    if subset is not None:
+        pts, sq, faces = pts[subset], sq[subset], faces[subset]
+    if not len(pts):
+        return {"held": 0}
+    q_t = torch.as_tensor(pts, device=dev)[None]
+    brute = ck.closest_point_kernel(
+        v_t, f_t, q_t, assume_nondegenerate=ck.mesh_is_nondegenerate(v, f))
+    res = check_against_brute(
+        label, v_t, f_t, q_t, torch.as_tensor(faces, device=dev)[None],
+        torch.as_tensor(sq, dtype=torch.float32, device=dev)[None], brute)
+    res["held"] = int(len(pts))
+    return res
+
+
+def serve_tight(name, v, f, q, dev):
+    """The per-query ``tight`` mask and the faces of the culled or anchored
+    rung's search on one request, recomputed with the rung's own settings
+    (k 64 and chunks of 256; K 16 and chunks of 512)."""
+    from mesh_tpu_torch.query.anchored import (build_anchor_tables,
+                                               closest_point_anchored)
+    from mesh_tpu_torch.query.culled import closest_faces_and_points_culled
+
+    v_t = torch.as_tensor(v, device=dev)
+    f_t = torch.as_tensor(np.asarray(f, np.int64), device=dev)
+    q_t = torch.as_tensor(q, device=dev)
+    if name == "culled":
+        res = closest_faces_and_points_culled(v_t, f_t, q_t, k=64, chunk=256)
+    else:
+        table, safe = build_anchor_tables(v_t, f_t, k=16, device=dev)
+        res = closest_point_anchored(v_t, f_t, q_t, table, safe, chunk=512,
+                                     device=dev)
+    return res["tight"].cpu().numpy(), res["face"].cpu().numpy()
+
+
+def check_serve_rungs(out, inp, dev):
+    """(a) and (b): every rung of the default ladder warmed; each one-rung
+    ladder's answer from its rung with no retry, its launches, its ledger
+    row, and its answer against the brute-force kernel (the culled and
+    anchored rungs' on their tight queries, with ``certified`` equal to
+    every query tight; on the request near the surface most are tight)."""
+    from mesh_tpu_torch.accel.traverse import pallas_bvh_variant
+
+    check(out["warmed"] == out["ladder"] == ["engine", "culled", "anchored"],
+          "serve: warmup returned %s of the ladder %s"
+          % (out["warmed"], out["ladder"]))
+    variant = pallas_bvh_variant(len(inp["body"][1]))
+    check(variant == "resident", "serve: the accel rung's route on the "
+          "body is %s, not the resident walk" % variant)
+    expected = {"engine": {"closest_faces", "cull_records"},
+                "engine_template": {"culled_faces"},
+                "culled": set(), "anchored": set(),
+                "anchored_near": set(),
+                "accel": {"rope_faces_resident"}}
+    rungs = {}
+    for label, (warmed, resp, row) in out["rungs"].items():
+        name = label.split("_")[0]
+        on_template = label == "engine_template"
+        v, f = inp["template"] if on_template else inp["body"]
+        q = (inp["template_q"] if on_template else inp["body_q_near"]
+             if label == "anchored_near" else inp["body_q"])
+        check(warmed == [name] and resp.rung == name and resp.retries == 0,
+              "serve %s: warmed %s, answered by %s with %d retries"
+              % (label, warmed, resp.rung, resp.retries))
+        check(row["outcome"] == "ok" and row["rung"] == name
+              and "device" in row["stages"], "serve %s: ledger row %s"
+              % (label, row))
+        step = out["step_launches"]["b_" + label]
+        for kernel in sorted(expected[label]):
+            check(step.get(kernel, 0) > 0, "serve %s: %s never launched"
+                  % (label, kernel))
+        counted_only(step, expected[label], "serve %s" % label)
+        info = {"certified": resp.certified,
+                "latency_ms": resp.latency_s * 1e3, "launches": step,
+                "backend": row.get("backend")}
+        if name in ("engine", "accel"):
+            check(resp.certified, "serve %s: not certified" % label)
+            info["vs_brute"] = serve_answer_check("serve " + label, resp, v,
+                                                  f, q, dev)
+        else:
+            tight, faces = serve_tight(name, v, f, q, dev)
+            check(np.array_equal(faces, resp.faces[0].astype(np.int64)),
+                  "serve %s: the served faces are not the search's" % label)
+            check(resp.certified == bool(tight.all()),
+                  "serve %s: certified %s with %d of %d queries tight"
+                  % (label, resp.certified, int(tight.sum()), len(tight)))
+            info["tight"] = int(tight.sum())
+            if label == "anchored_near":
+                check(2 * info["tight"] > len(tight), "serve %s: %d of %d "
+                      "queries near the surface tight"
+                      % (label, info["tight"], len(tight)))
+            info["vs_brute"] = serve_answer_check(
+                "serve %s (tight queries)" % label, resp, v, f, q, dev,
+                subset=tight)
+        if name == "accel":
+            check(row.get("backend") == "rope_resident", "serve accel: "
+                  "backend %s" % row.get("backend"))
+        rungs[label] = info
+    return rungs
+
+
+def check_serve_loads(out, rec):
+    """(c)-(f): the healthy drives answered from the engine, no retry,
+    nothing shed; the replay's checksum the null replay's."""
+    reports = out["closed"] + [out["open"], out["periodic"], out["replay"]]
+    for report in reports:
+        check(report["errors"] == 0 and report["retries"] == 0
+              and report["shed"] == 0 and report["approximate"] == 0
+              and set(report["rungs"]) <= {"engine"},
+              "serve %s loop: %s" % (report["loop"], report))
+    check(out["retries_healthy"] == 0, "serve: %s retries on the healthy "
+          "drives" % out["retries_healthy"])
+    check(out["health_healthy"]["state"] == "healthy"
+          and out["health_healthy"]["trips"] == 0,
+          "serve: health after the healthy drives %s" % out["health_healthy"])
+    for report in out["closed"]:
+        check(report["ok"] == report["requests"] == SERVE_CLIENTS
+              * SERVE_REQUESTS_PER_CLIENT and report["rungs"] == {
+                  "engine": report["requests"]},
+              "serve closed loop: %s" % report)
+    check(out["replay"]["checksum"] == out["null_replay"]["checksum"]
+          and out["replay"]["admissions"] == out["null_replay"]["admissions"],
+          "serve replay: checksum %s, the null replay's %s"
+          % (out["replay"]["checksum"], out["null_replay"]["checksum"]))
+    best = min(out["closed"], key=lambda r: r["p99_ms"])
+    rec["closed_loop"] = {k: best[k] for k in (
+        "p50_ms", "p95_ms", "p99_ms", "goodput_qps", "deadline_miss_rate",
+        "shed_rate", "requests", "rungs")}
+    rec["closed_loop"]["rounds"] = []
+    for report, diag in zip(out["closed"], out["closed_rounds"]):
+        lo, hi = diag["rows"]
+        slowest = max(out["closed_rows"][lo:hi], key=lambda r: r["total_s"])
+        rnd = {k: report[k] for k in ("p50_ms", "p95_ms", "p99_ms",
+                                      "goodput_qps", "deadline_miss_rate")}
+        rnd.update({k: diag[k] for k in ("plans_made", "gc_collections",
+                                         "gc_ms", "gc_max_ms")})
+        rnd["slowest_ms"] = slowest["total_s"] * 1e3
+        rnd["slowest_tenant"] = slowest.get("tenant")
+        rnd["slowest_stages_ms"] = {k: sec * 1e3 for k, sec
+                                    in slowest["stages"].items()}
+        queue_max = {}
+        for r in out["closed_rows"][lo:hi]:
+            queue_max[r.get("tenant")] = max(queue_max.get(r.get("tenant"),
+                                                           0.0),
+                                             r["stages"]["queue"] * 1e3)
+        rnd["queue_max_ms_by_tenant"] = queue_max
+        rec["closed_loop"]["rounds"].append(rnd)
+    rec["open_loop"] = {k: out["open"][k] for k in (
+        "p50_ms", "p95_ms", "p99_ms", "goodput_qps", "deadline_miss_rate",
+        "shed_rate", "requests", "rate_qps")}
+    rec["periodic"] = {k: out["periodic"][k] for k in (
+        "p50_ms", "p99_ms", "frame_miss_rate", "deadline_miss_rate",
+        "requests", "sessions", "hz")}
+    rec["replay"] = {k: out["replay"][k] for k in (
+        "p50_ms", "p99_ms", "goodput_qps", "deadline_miss_rate", "requests",
+        "admissions", "checksum", "paced_s")}
+    return reports
+
+
+def check_serve_wedge(out, rec):
+    """(g): the first request answers from the engine with one retry within
+    2x its deadline and leaves health DEGRADED; the next starts at rung 1;
+    after the release and SERVE_RECOVER_AFTER successes health is HEALTHY
+    and the top rung answers again."""
+    from mesh_tpu_torch.obs import REGISTRY
+
+    steps = out["wedge"]
+    check(steps[0]["rung"] == "engine" and steps[0]["retries"] == 1
+          and steps[0]["wall_s"] < 2.0 * SERVE_WEDGE_DEADLINE_S
+          and steps[0]["state_after"] == "degraded",
+          "serve wedge: first request %s" % steps[0])
+    check(steps[1]["rung"] == "engine" and steps[1]["retries"] == 0
+          and steps[1]["state_after"] == "degraded",
+          "serve wedge: the degraded request %s did not start at rung 1"
+          % steps[1])
+    check(steps[-2]["state_after"] == "healthy"
+          and (steps[-1]["rung"], steps[-1]["retries"],
+               steps[-1]["state_after"]) == ("gate", 0, "healthy"),
+          "serve wedge: health did not recover: %s" % steps)
+    check(any("watchdog_trip" in name for name in out["incidents"]),
+          "serve wedge: no watchdog_trip incident in %s" % out["incidents"])
+    trips = REGISTRY.get("mesh_tpu_serve_watchdog_trips_total")
+    rec["wedge"] = {"steps": steps, "trips": {
+        labels["reason"]: n for labels, n in trips._labelled()},
+        "incidents": len(out["incidents"])}
+
+
+def check_serve_books(out, reports, rec, folder):
+    """(h): every closed-loop request has a closed ledger row with its
+    stages; ``mesh_tpu_serve_requests_total`` equals the requests issued;
+    the stats sink reads back; an SLOMonitor's availability compliance is
+    good / total from the counters."""
+    from mesh_tpu_torch.obs import REGISTRY
+    from mesh_tpu_torch.obs.slo import SLOMonitor, compliance, default_slos
+    from mesh_tpu_torch.serve import QueryService
+
+    rows = out["closed_rows"]
+    issued = SERVE_ROUNDS * SERVE_CLIENTS * SERVE_REQUESTS_PER_CLIENT
+    check(len(rows) == issued and all(
+        r["outcome"] == "ok" and r["rung"] == "engine"
+        and {"queue", "device", "respond"} <= set(r["stages"])
+        and r["total_s"] > 0 and r.get("request_id") for r in rows),
+        "serve: %d ledger rows for %d closed-loop requests, or a row "
+        "without its stages" % (len(rows), issued))
+    stages = {}
+    for r in rows:
+        for stage, sec in r["stages"].items():
+            stages.setdefault(stage, []).append(sec * 1e3)
+    rec["closed_loop_stages_ms"] = {
+        k: {"p50": float(np.percentile(v, 50)),
+            "p99": float(np.percentile(v, 99)), "n": len(v)}
+        for k, v in stages.items()}
+    requests = REGISTRY.get("mesh_tpu_serve_requests_total")
+    total = requests.total()
+    sent = (len(out["rungs"]) + sum(r["requests"] for r in reports)
+            + len(out["wedge"]))
+    check(total == sent, "serve: mesh_tpu_serve_requests_total %d, %d "
+          "requests issued" % (total, sent))
+    sink = os.path.join(folder, "stats_check.json")
+    stats_service = QueryService(workers=1, stats_path=sink)
+    try:
+        stats_service.write_stats()
+    finally:
+        stats_service.stop(write_stats=False)
+    with open(sink) as fh:
+        data = json.load(fh)
+    check(data["metrics"]["mesh_tpu_serve_requests_total"]["series"]
+          == requests.snapshot()["series"], "serve: the stats sink")
+    avail = [s for s in default_slos() if s.kind == "availability"][0]
+    monitor = SLOMonitor()
+    monitor.tick()
+    monitor.evaluate()
+    snap = REGISTRY.snapshot()
+    good = REGISTRY.get("mesh_tpu_serve_good_total")
+    compl = {}
+    for tenant in sorted({lb["tenant"] for lb, _ in requests._labelled()}):
+        n = sum(v for lb, v in requests._labelled() if lb["tenant"] == tenant)
+        row = compliance(snap, avail, tenant)
+        check(row["total"] == n and row["good"] == good.value(tenant=tenant)
+              and row["compliance"] == good.value(tenant=tenant) / n,
+              "serve: availability of %s %s against the counters %d / %d"
+              % (tenant, row, good.value(tenant=tenant), n))
+        compl[tenant] = row["compliance"]
+    rec["availability"] = compl
+    rec["requests_total"] = total
+
+
+def replay_kernels(plan, reps=10):
+    """What one replay of ``plan`` runs on the card, by ``torch.profiler``
+    (CUPTI) over ``reps`` replays: its kernels and copies, launches and
+    device ms a replay, the costliest first; {"error": ...} where the
+    profiler cannot trace the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with torch.cuda.stream(plan.stream):
+                for _ in range(reps):
+                    plan.graph.replay()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as e:          # noqa: BLE001 - reported, not raised
+        return {"error": "%s: %s" % (type(e).__name__, str(e)[:200])}
+    rows = []
+    for e in events:
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0 and e.count:
+            rows.append({"name": e.key[:80], "launches": e.count / reps,
+                         "ms": us / 1e3 / reps})
+    rows.sort(key=lambda r: -r["ms"])
+    return {"launches": sum(r["launches"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "top": rows[:8]}
+
+
+def serve_replay_device(inp, rec, reps=50):
+    """The device time of the engine rung's dispatch on the body: each
+    cached plan of the body's SERVE_QUERIES bucket (one request a dispatch,
+    and two where the workers' requests coalesced) replayed ``reps`` times
+    back to back on its own stream between CUDA events, after the counted
+    window, the one-request plan's kernels by ``replay_kernels``; and,
+    derived, the device's busy share of the closed loop (its dispatches x
+    the one-request replay over its wall time)."""
+    from mesh_tpu_torch.engine import get_planner
+
+    planner = get_planner()
+    n_verts, n_faces = len(inp["body"][0]), len(inp["body"][1])
+    out, kernels = {}, None
+    with planner._lock:
+        plans = [(key, plan) for key, plan in planner._plans.items()
+                 if plan.backend == "cuda" and key[2:5] == (
+                     SERVE_QUERIES, n_verts, n_faces)]
+        for key, plan in plans:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(plan.stream):
+                plan.graph.replay()
+                start.record()
+                for _ in range(reps):
+                    plan.graph.replay()
+                end.record()
+            end.synchronize()
+            out["b%d" % key[1]] = start.elapsed_time(end) / reps
+            if key[1] == 1:
+                kernels = replay_kernels(plan)
+    check("b1" in out, "serve: no plan of the body's %d-query bucket among "
+          "%s" % (SERVE_QUERIES, planner.cached_keys()))
+    dispatches = rec["step_launches"]["c_closed"]["closest_faces"]
+    wall_ms = rec["times_s"]["c_closed"] * 1e3
+    return {"replay_ms": out, "replay_b1_kernels": kernels,
+            "closed_dispatches": dispatches,
+            "closed_wall_ms": wall_ms,
+            "closed_busy_share_derived": dispatches * out["b1"] / wall_ms}
+
+
+def check_serve(out, launches, inp, dev, folder):
+    """Phase 18's checks, after the counted window."""
+    rec = {"times_s": out["times_s"], "phase_s": out["phase_s"]}
+    rec["rungs"] = check_serve_rungs(out, inp, dev)
+    reports = check_serve_loads(out, rec)
+    check_serve_wedge(out, rec)
+    check_serve_books(out, reports, rec, folder)
+    needed = {k for k, paths in KERNEL_PATHS.items() if "serve" in paths}
+    for name in sorted(needed):
+        check(launches[name] > 0, "kernel %s never launched on the serve "
+              "path" % name)
+    counted_only(launches, needed, "the serve path")
+    rec["launches"] = {k: n for k, n in launches.items() if n}
+    rec["step_launches"] = out["step_launches"]
+    rec["replay_device"] = serve_replay_device(inp, rec)
+    return rec
+
+
+def drive_serve_phase(inp, dev, smi):
+    """Phase 18 -> (its record, launches on its counted window)."""
+    import shutil
+
+    folder = os.path.join(_REPO, "build", "chip_smoke_serve")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    log("== serve: QueryService(workers=%d) over posed body 0 (%d faces) and "
+        "the %d-face template: warmup, one-rung ladders, a closed loop of "
+        "%d x %d x %d rounds, an open loop, %d avatar streams at %g Hz, a "
+        "replay of synth_mix(seed=%d) and a wedge" % (
+            SERVE_WORKERS, len(inp["body"][1]), len(inp["template"][1]),
+            SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT, SERVE_ROUNDS,
+            SERVE_SESSIONS, SERVE_HZ, SERVE_TRACE_SEED))
+    incidents = os.path.join(folder, "incidents")
+    try:
+        with knobs_set(MESH_TPU_INCIDENT_DIR=incidents):
+            out, launches = drive_serve(inp, dev, folder)
+        rec = check_serve(out, launches, inp, dev, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    check(out["phase_s"] <= SERVE_BUDGET_S, "serve: %.1f s, budget %.0f s"
+          % (out["phase_s"], SERVE_BUDGET_S))
+    log("  steps (s): %s; phase %.1f s (budget %.0f s)" % (", ".join(
+        "%s %.2f" % kv for kv in out["times_s"].items()), out["phase_s"],
+        SERVE_BUDGET_S))
+    for label, info in rec["rungs"].items():
+        log("  rung %s: certified %s, %.3f ms, launches %s, %s" % (
+            label, info["certified"], info["latency_ms"], info["launches"],
+            info["vs_brute"]))
+    c = rec["closed_loop"]
+    log("  closed loop (best of %d rounds by p99): p50 %.3f ms, p95 %.3f ms, "
+        "p99 %.3f ms, goodput %.1f qps, deadline-miss rate %.4f, rungs %s, "
+        "on %s" % (SERVE_ROUNDS, c["p50_ms"], c["p95_ms"], c["p99_ms"],
+                   c["goodput_qps"], c["deadline_miss_rate"], c["rungs"],
+                   smi))
+    log("  open loop: %s" % rec["open_loop"])
+    log("  periodic: frame_miss_rate %.4f, %s" % (
+        rec["periodic"]["frame_miss_rate"], rec["periodic"]))
+    log("  replay: %s" % rec["replay"])
+    log("  wedge: %s" % rec["wedge"])
+    log("  closed-loop rounds: %s" % rec["closed_loop"]["rounds"])
+    log("  closed-loop stages (ms): %s" % rec["closed_loop_stages_ms"])
+    log("  engine dispatch on the card (CUDA events): %s"
+        % rec["replay_device"])
+    log("  launches: %s" % rec["launches"])
+    log("serve record (on %s): %s" % (smi, json.dumps(rec)))
+    return rec, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6712,6 +7404,11 @@ def main():
     # -- 17. domain: the psbody-style workflow on the card ---------------------
     domain, launches["domain"] = drive_domain(model, posed[0], dev, smi)
 
+    # -- 18. serve: the serving tier over the engine and the rungs ------------
+    serve, launches["serve"] = drive_serve_phase(serve_inputs(
+        posed[0], f_np, verts_l[0].cpu().numpy(), f_l.cpu().numpy(),
+        queries_l[0].cpu().numpy()), dev, smi)
+
     # -- crossover evidence ---------------------------------------------------
     log("== crossover: every route at both drives' shapes")
     crossover_rows = crossover(dev, (verts_l, f_l, queries_l, nondegen_l),
@@ -7170,7 +7867,8 @@ def main():
         "mxu": {"calls": mxu, "crossover": dict(MXU_CALIBRATION)},
         "mxu_bvh": mxu_bvh, "fit": fit_runs,
         "empty": {"entry_points": sorted(empty_layouts)},
-        "engine": engine_rec, "fallback": fallback, "domain": domain}),
+        "engine": engine_rec, "fallback": fallback, "domain": domain,
+        "serve": serve}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

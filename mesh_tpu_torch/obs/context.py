@@ -1,22 +1,23 @@
 """End-to-end request identity: RequestContext + tail-sampled traces (a
-copy of mesh_tpu/obs/context.py; in the port ``AvatarSession.frame`` is the
-one admission that mints a context so far).
+copy of mesh_tpu/obs/context.py).
 
-- :class:`RequestContext` is minted once per admission and propagated
-  *explicitly*: the session stamps it into the ledger record's meta
-  (``request_id``/``seq``/``routing_key``/``session_id``) and binds it
-  around the frame, so spans opened under it tag ``request_id`` and
+- :class:`RequestContext` is minted once per admission
+  (``QueryService.submit``, ``AvatarSession.frame``) and propagated
+  *explicitly*: the serving tier stamps it into the ledger record's meta
+  (``request_id``/``seq``/``routing_key``/...), rides it on the record
+  through the engine executor's thread hop, and binds it around
+  worker-side work, so spans opened on any thread tag ``request_id`` and
   parent under the request's root span (obs/trace.py's context fallback).
 - **Tail sampling** (:class:`TraceTail`): full span *trees* are retained
   per request only for the tail — every deadline-miss/error/cancelled/
-  spilled request — in a bounded ring, joining ledger row + span tree by
-  request_id.  The reference's reservoir of the slowest ``ok`` requests
-  (``MESH_TPU_TRACE_RESERVOIR``) and the incident dumps that embed the
-  ring are not copied (ROADMAP.md, Queue 1).
+  spilled request, plus a bounded reservoir of the slowest ``ok`` ones
+  (``MESH_TPU_TRACE_RESERVOIR``) — in a bounded ring that flight-recorder
+  incidents embed as their ``requests`` tail, joining ledger row + span
+  tree by request_id.
 
 ``request_id`` is a seeded CRC of ``(tenant, seq, admit)``: cheap to mint
-per request and carrying no request payload.  It belongs in ledger meta
-and span attrs, never in metric label values.
+per request and carrying no request payload.  It belongs in ledger meta,
+span attrs and histogram *exemplars*, never in metric label values.
 
 Kill switch: ``MESH_TPU_TRACE_CONTEXT=0`` makes :func:`mint` return
 ``None`` and every propagation site no-op — bit-identical to the
@@ -36,7 +37,7 @@ from ..utils import knobs
 
 __all__ = [
     "RequestContext", "TraceTail", "TRACE_TAIL", "mint", "bind_context",
-    "current_context", "trace_context_enabled",
+    "current_context", "trace_context_enabled", "get_trace_tail",
 ]
 
 
@@ -148,15 +149,17 @@ class TraceTail(object):
 
     Retention policy (the tail-sampling contract, doc/observability.md):
     every request whose outcome is not ``ok`` — deadline misses, errors,
-    cancellations — and every spilled request keeps its full trace.  The
-    ring is bounded (``MESH_TPU_TRACE_TAIL``), so a storm of misses ages
-    out the oldest traces instead of growing.
+    cancellations — and every spilled request keeps its full trace;
+    ``ok`` requests compete for a small reservoir that keeps the
+    slowest ones.  The ring is bounded (``MESH_TPU_TRACE_TAIL``), so a
+    storm of misses ages out the oldest traces instead of growing.
     """
 
     def __init__(self):
         self._lock = threading.Lock()
         self._pending = {}            # request_id -> [span dict, ...]
         self._ring = deque()          # retained entries, oldest first
+        self._reservoir = []          # (total_s, request_id) of slow-ok
 
     # -- feed: tracer sink --------------------------------------------
 
@@ -190,11 +193,12 @@ class TraceTail(object):
             outcome = row.get("outcome")
             tail = (outcome is not None and outcome != "ok") \
                 or bool(row.get("spilled"))
-            if not tail:
+            if not tail and not self._reserve_locked(rid, row):
                 return
             self._ring.append({
                 "request_id": rid,
                 "outcome": outcome,
+                "retained": "tail" if tail else "reservoir",
                 "row": row,
                 "spans": spans or [],
             })
@@ -202,19 +206,58 @@ class TraceTail(object):
             while len(self._ring) > capacity:
                 self._ring.popleft()
 
+    def _reserve_locked(self, rid, row):
+        # slow-ok reservoir: keep the N slowest ok closes seen so far
+        slots = knobs.get_int("MESH_TPU_TRACE_RESERVOIR")
+        slots = 0 if slots is None else max(0, slots)
+        if slots <= 0:
+            return False
+        total = row.get("total_s")
+        if total is None:
+            return False
+        total = float(total)
+        if len(self._reservoir) < slots:
+            self._reservoir.append((total, rid))
+            self._reservoir.sort()
+            return True
+        if total <= self._reservoir[0][0]:
+            return False
+        evicted = self._reservoir[0][1]
+        self._reservoir[0] = (total, rid)
+        self._reservoir.sort()
+        # the evicted request's retained entry leaves the ring too
+        for i, entry in enumerate(self._ring):
+            if entry["request_id"] == evicted \
+                    and entry["retained"] == "reservoir":
+                del self._ring[i]
+                break
+        return True
+
     # -- query ---------------------------------------------------------
 
     def retained(self):
-        """Retained entries, oldest first."""
+        """Retained entries, oldest first (what incidents embed)."""
         with self._lock:
             return [dict(e) for e in self._ring]
+
+    def lookup(self, request_id):
+        """The retained entry for one request_id, or ``None``."""
+        with self._lock:
+            for entry in reversed(self._ring):
+                if entry["request_id"] == request_id:
+                    return dict(entry)
+        return None
 
     def clear(self):
         with self._lock:
             self._pending.clear()
             self._ring.clear()
+            del self._reservoir[:]
 
 
 #: process singleton (obs.reset() clears it)
 TRACE_TAIL = TraceTail()
 
+
+def get_trace_tail():
+    return TRACE_TAIL

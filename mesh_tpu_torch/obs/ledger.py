@@ -1,7 +1,10 @@
 """Per-request latency ledger: where inside each request the time went (a
-copy of mesh_tpu/obs/ledger.py).  In the port the avatar session is the one
-caller so far: each frame opens a record (``op="anim_frame"``) and stamps
-``queue``, ``refit`` and, in the accel traversal, ``device``.
+copy of mesh_tpu/obs/ledger.py).  Its callers in the port: the serving
+tier (``QueryService`` opens a record per admission and the ladder's rungs
+stamp it through ``bind_current``), the query engine's executor
+(``coalesce`` / ``pad`` / ``compile`` / ``device``) and the avatar session
+(``op="anim_frame"``: ``queue``, ``refit`` and, in the accel traversal,
+``device``).
 
 The SLO engine says latency is bad; the flight recorder says what events
 surrounded it; neither says WHICH STAGE of a request ate the budget.
@@ -13,36 +16,36 @@ finishes —
           -> dispatch -> device -> respond
 
 (``queue`` = serve-queue wait, ``page_in`` = store-key resolution
-through the mesh-store page cache (store-keyed requests only,
-doc/store.md), ``coalesce`` = the engine executor's batching window,
-``pad`` = stack/bucket-pad cost, ``compile`` = plan-cache lookup or
-trace+compile, ``dispatch`` = host-side launch, ``device`` = on-device
-wall time, ``respond`` = split + response build).
-Stages a request never visits (cache hits, non-engine ladder rungs) are
-simply absent; durations chain across the gap, so the per-record stage
-seconds always sum to the full admit-to-respond latency.
+(store-keyed requests only; the store is not ported yet), ``coalesce`` =
+the engine executor's batching window, ``pad`` = stack/bucket-pad cost,
+``compile`` = plan-cache lookup or capture, ``dispatch`` = host-side
+launch, ``device`` = on-device wall time, ``respond`` = split + response
+build).  Stages a request never visits (cache hits, non-engine ladder
+rungs) are simply absent; durations chain across the gap, so the
+per-record stage seconds always sum to the full admit-to-respond latency.
 
 Records carry provenance — tenant, op, query-shape bucket, accel
-backend, degradation-ladder rung, certified/approximate — so breakdowns
-separate pallas vs pallas_stream vs xla and certified vs degraded
-traffic.  Closing a record feeds each stage duration into the
-``mesh_tpu_request_stage_seconds{stage,backend}`` histogram and appends
-one JSON-able row to a bounded ring (``records()``) and to the trace tail
-(obs/context.py).
+backend, degradation-ladder rung, certified/approximate.  Closing a record
+feeds each stage duration into the
+``mesh_tpu_request_stage_seconds{stage,backend}`` histogram (windowed
+percentiles via obs/series.py), appends one JSON-able row to a bounded
+ring and to the trace tail (obs/context.py), calls every close listener,
+and under ``MESH_TPU_REPLAY_TRACE=path`` streams the row into a replayable
+trace (obs/replay.py ``capture_row``); the flight recorder copies the ring
+tail into incident dumps, ``dump_jsonl()`` saves it as JSON lines.
 
 Always on; kill switch ``MESH_TPU_LEDGER=0``; ring capacity
-``MESH_TPU_LEDGER_CAPACITY`` (default 512).  Hot-path cost is one knob
-read at open, one perf_counter read per stamp, and one locked append plus
-a handful of histogram observes at close.  Stdlib-only; every clock read
+``MESH_TPU_LEDGER_CAPACITY`` (default 512); incident tail length
+``MESH_TPU_LEDGER_TAIL`` (default 32).  Hot-path cost is one knob read at
+open, one perf_counter read per stamp, and one locked append plus a
+handful of histogram observes at close.  Stdlib-only; every clock read
 goes through the injected ``clock`` for fake-clock tests.
-
-The reference's close listeners, incident tail (``MESH_TPU_LEDGER_TAIL``),
-``dump_jsonl`` and thread-bound current record have no caller in the port
-yet and are not copied (ROADMAP.md, Queue 1).
 """
 
+import json
 import threading
 from collections import deque
+from contextlib import contextmanager
 
 from ..utils import knobs
 from .clock import monotonic
@@ -50,9 +53,11 @@ from .context import TRACE_TAIL
 from .metrics import REGISTRY
 
 __all__ = [
-    "LEDGER_STAGES", "LEDGER_OUTCOMES", "RequestRecord", "LatencyLedger",
-    "LEDGER", "get_ledger", "ledger_enabled", "LEDGER_ENV",
-    "LEDGER_CAPACITY_ENV", "REPLAY_TRACE_ENV",
+    "LEDGER_STAGES", "LEDGER_OUTCOMES", "LEDGER_SCHEMA",
+    "RequestRecord", "LatencyLedger", "LEDGER",
+    "get_ledger", "ledger_enabled", "bind_current", "current_record",
+    "LEDGER_ENV", "LEDGER_CAPACITY_ENV", "LEDGER_TAIL_ENV",
+    "REPLAY_TRACE_ENV",
 ]
 
 #: kill switch: set to 0/false/no/off to disable record creation
@@ -61,9 +66,16 @@ LEDGER_ENV = "MESH_TPU_LEDGER"
 #: bounded-ring capacity in request records (default 512)
 LEDGER_CAPACITY_ENV = "MESH_TPU_LEDGER_CAPACITY"
 
-#: stream every close into a replayable trace at this path (the reference's
-#: obs/replay.py; not ported: setting it makes ``close`` raise)
+#: how many ring-tail records ride along in flight-recorder incidents
+LEDGER_TAIL_ENV = "MESH_TPU_LEDGER_TAIL"
+
+#: stream every close into a replayable trace at this path (obs/replay)
 REPLAY_TRACE_ENV = "MESH_TPU_REPLAY_TRACE"
+
+#: dumped-row schema version, stamped into every ``dump_jsonl`` line so
+#: readers (obs/prof.py, obs/replay.py) can refuse rows from a future
+#: shape instead of misparsing them; bump on incompatible row changes
+LEDGER_SCHEMA = 1
 
 #: stage names in request order; each is stamped when that stage ENDS
 #: (the record's open time is the admit stamp).  The meshlint OBS rule
@@ -93,6 +105,11 @@ def ledger_enabled():
 
 def _ring_capacity():
     return max(16, knobs.get_int(LEDGER_CAPACITY_ENV))
+
+
+def tail_length():
+    """How many ring-tail records incident dumps carry (min 1)."""
+    return max(1, knobs.get_int(LEDGER_TAIL_ENV))
 
 
 class RequestRecord(object):
@@ -172,6 +189,22 @@ class LatencyLedger(object):
         self._capacity = capacity
         self._lock = threading.Lock()
         self._ring = deque(maxlen=capacity or _ring_capacity())
+        self._listeners = []
+
+    # -- close listeners -----------------------------------------------
+
+    def add_listener(self, fn):
+        """Register ``fn(row)`` to observe every closed row (trace
+        capture, tests).  Listener failures are swallowed: observers
+        must never be able to fail a request that already served."""
+        with self._lock:
+            self._listeners.append(fn)
+        return fn
+
+    def remove_listener(self, fn):
+        with self._lock:
+            if fn in self._listeners:
+                self._listeners.remove(fn)
 
     # -- lifecycle of one record ---------------------------------------
 
@@ -199,20 +232,30 @@ class LatencyLedger(object):
             "mesh_tpu_request_stage_seconds",
             "Per-request wall seconds by ledger stage and accel backend.",
         )
+        exemplar = record.meta.get("request_id")
         for stage, seconds in stages.items():
-            hist.observe(seconds, stage=stage, backend=backend)
+            hist.observe(seconds, exemplar=exemplar,
+                         stage=stage, backend=backend)
         row = record.to_dict()
         with self._lock:
             self._ring.append(row)
+            listeners = tuple(self._listeners)
         try:
             TRACE_TAIL.observe_close(row)
         except Exception:               # noqa: BLE001 — retention can't fail serving
             self._observer_error("tail")
-        if knobs.get_str(REPLAY_TRACE_ENV):
-            raise NotImplementedError(
-                "MESH_TPU_REPLAY_TRACE: traffic capture (the reference's "
-                "capture_row, obs/replay.py) is not ported (ROADMAP.md, "
-                "Queue 1); unset the knob")
+        for fn in listeners:
+            try:
+                fn(row)
+            except Exception:           # noqa: BLE001 — observers can't fail serving
+                self._observer_error("listener")
+        trace_path = knobs.get_str(REPLAY_TRACE_ENV)
+        if trace_path:
+            from .replay import capture_row
+            try:
+                capture_row(row, trace_path)
+            except Exception:           # noqa: BLE001 — capture can't fail serving
+                self._observer_error("capture")
         return row
 
     def _observer_error(self, where):
@@ -222,12 +265,20 @@ class LatencyLedger(object):
             self._registry.counter(
                 "mesh_tpu_ledger_observer_errors_total",
                 "Ledger close-path observer failures swallowed to protect "
-                "serving (label `where`: listener / tail).",
+                "serving (label `where`: listener / capture / tail).",
             ).inc(where=where)
         except Exception:               # noqa: BLE001 — last-resort guard
             pass
 
     # -- consumption ---------------------------------------------------
+
+    def tail(self, n=None):
+        """The newest ``n`` closed rows (default: the incident tail
+        length), oldest first."""
+        n = tail_length() if n is None else int(n)
+        with self._lock:
+            rows = list(self._ring)
+        return rows[-n:] if n < len(rows) else rows
 
     def records(self):
         """Every retained row, oldest first."""
@@ -243,6 +294,47 @@ class LatencyLedger(object):
         via env + obs.reset())."""
         with self._lock:
             self._ring = deque(maxlen=self._capacity or _ring_capacity())
+
+    def dump_jsonl(self, path, n=None):
+        """Write the newest ``n`` rows (default: everything retained) as
+        JSON lines (the reference's ``mesh-tpu prof diff`` input format).  Each line
+        is stamped with ``schema`` = :data:`LEDGER_SCHEMA` (the in-ring
+        rows stay unstamped; the version belongs to the file format).
+        Returns the row count written."""
+        rows = self.records() if n is None else self.tail(n)
+        with open(path, "w") as fh:
+            for row in rows:
+                fh.write(json.dumps(dict(row, schema=LEDGER_SCHEMA),
+                                    sort_keys=True))
+                fh.write("\n")
+        return len(rows)
+
+
+# -- current-record binding -------------------------------------------------
+
+_TLS = threading.local()
+
+
+@contextmanager
+def bind_current(record):
+    """Bind ``record`` as this thread's in-flight request for the block.
+
+    The degradation ladder (serve/deadline.py) keeps its
+    ``fn(mesh, points, chunk, timeout)`` rung signature — custom rungs
+    stay source-compatible — so built-in rungs reach the record through
+    this binding instead of a threaded parameter.  Nesting restores the
+    previous binding on exit; binding None is a no-op-shaped guard."""
+    prev = getattr(_TLS, "record", None)
+    _TLS.record = record
+    try:
+        yield record
+    finally:
+        _TLS.record = prev
+
+
+def current_record():
+    """The record bound on THIS thread, or None."""
+    return getattr(_TLS, "record", None)
 
 
 #: the process-wide ledger every serve/engine stamp site feeds

@@ -3,13 +3,16 @@ mesh_tpu/obs/metrics.py).
 
 One process-wide ``Registry`` (``REGISTRY``) holds every series the port
 records under the reference's names: the accel traversal's pair tests,
-the ledger's request-stage histogram, and the animated-mesh refit,
-rebuild, frame and deadline-miss series.
+the query engine's plan and dispatch series, the ledger's request-stage
+histogram, the animated-mesh refit, rebuild, frame and deadline-miss
+series, and the serving tier's request, shed, latency and health series.
 
 Unlike spans (gated by MESH_TPU_OBS), metrics are ALWAYS on: they are
 plain locked dict updates.  ``Registry.snapshot()`` is the JSON-able
-export.  The reference's Prometheus text and CLI exporters and its
-histogram exemplars are not copied (ROADMAP.md, Queue 1).
+export (what the serving tier's stats sink and the SLO monitor read); a
+histogram keeps one exemplar per bucket, the request identity of its
+largest observation.  The reference's Prometheus text and CLI exporters
+are not copied (ROADMAP.md, Queue 1).
 """
 
 import threading
@@ -86,6 +89,11 @@ class Counter(_Metric):
         with self._lock:
             return self._series.get(_label_key(labels), 0)
 
+    def total(self):
+        """Sum across every label combination."""
+        with self._lock:
+            return sum(self._series.values())
+
 
 class Gauge(_Metric):
     """A value that can go anywhere."""
@@ -123,8 +131,12 @@ class Histogram(_Metric):
         super(Histogram, self).__init__(name, help, lock)
         self.buckets = tuple(sorted(float(b) for b in buckets))
 
-    def observe(self, value, **labels):
-        """Record one observation."""
+    def observe(self, value, exemplar=None, **labels):
+        """Record one observation.  ``exemplar`` is an optional request
+        identity (a request_id string, obs/context.py): the max-value
+        observation per bucket keeps its exemplar, so a histogram bucket
+        links to one concrete replayable request; identity goes HERE,
+        never into label values."""
         value = float(value)
         key = _label_key(labels)
         with self._lock:
@@ -145,7 +157,14 @@ class Histogram(_Metric):
                     state["bucket_counts"][i] += 1
                     break
             else:
-                state["bucket_counts"][-1] += 1     # +Inf bucket
+                i = len(self.buckets)               # +Inf bucket
+                state["bucket_counts"][-1] += 1
+            if exemplar is not None:
+                exemplars = state.setdefault("exemplars", {})
+                prev = exemplars.get(i)
+                if prev is None or value >= prev["value"]:
+                    exemplars[i] = {"request_id": str(exemplar),
+                                    "value": value}
 
     def stat(self, **labels):
         """{count, sum, min, max, mean} of one labeled series (zeros when
@@ -180,6 +199,14 @@ class Histogram(_Metric):
                     "max": state["max"],
                     "buckets": cumulative,
                 }
+                exemplars = state.get("exemplars")
+                if exemplars:
+                    bounds = list(self.buckets) + ["+Inf"]
+                    series["exemplars"] = [
+                        {"le": bounds[i], "request_id": e["request_id"],
+                         "value": e["value"]}
+                        for i, e in sorted(exemplars.items())
+                    ]
                 out["series"].append(series)
         return out
 
@@ -234,6 +261,10 @@ class Registry(object):
         with self._lock:
             for metric in self._metrics.values():
                 metric.reset()
+
+    def names(self):
+        with self._lock:
+            return list(self._metrics)
 
 
 #: the process-wide registry every subsystem records into

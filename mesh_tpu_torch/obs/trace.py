@@ -15,31 +15,47 @@ Gate: ``MESH_TPU_OBS`` (obs/clock.enabled).  Off — the default — means
 no buffer append.
 
 Finished spans land in a bounded in-memory ring (``TRACER.events()``)
-and fan out to sinks (the trace tail, obs/context.py).  Under
+and fan out to sinks: the trace tail (obs/context.py), the flight
+recorder's ring (obs/recorder.py) and a JSON-lines file
+(``MESH_TPU_OBS_JSONL=path`` or ``configure(jsonl=...)``, rotated past
+``MESH_TPU_OBS_JSONL_MAX_MB``).  Under
 ``MESH_TPU_OBS_JAX_TRACE`` (the reference's knob name) each span also
 opens a ``torch.profiler.record_function``, so a ``torch.profiler`` trace
 shows the framework's phases on its timeline.
 
 ``timed_span`` is ``span`` that measures its elapsed time (device work
 included, through ``watch``) even while tracing is off: the engine's
-always-on dispatch latency reads it.  The reference's ``traced``
-decorator and JSON-lines sink (with its rotation knobs) have no caller in
-the port yet and are not copied (ROADMAP.md, Queue 1).
+always-on dispatch latency reads it.  ``traced`` is the decorator form
+of ``span``.
 """
 
+import functools
 import itertools
+import json
 import threading
 from collections import deque
 
 from .clock import enabled, env_flag, monotonic, wall
 from .context import TRACE_TAIL, current_context
 
-__all__ = ["Span", "Tracer", "TRACER", "span", "timed_span", "device_sync"]
+__all__ = [
+    "Span", "Tracer", "TRACER", "span", "timed_span", "traced", "configure",
+    "jsonl_sink", "device_sync",
+]
 
 #: torch.profiler.record_function bridge gate (adds real per-span cost on
 #: the profiler timeline, so it is opt-in on top of MESH_TPU_OBS); the
 #: reference's knob name
 PROFILER_ENV = "MESH_TPU_OBS_JAX_TRACE"
+
+#: default JSON-lines sink path gate
+JSONL_ENV = "MESH_TPU_OBS_JSONL"
+
+#: size bound (megabytes) on the live sink before rotation (unset = off)
+JSONL_MAX_MB_ENV = "MESH_TPU_OBS_JSONL_MAX_MB"
+
+#: rotated files kept as path.1..path.N (default 3)
+JSONL_KEEP_ENV = "MESH_TPU_OBS_JSONL_KEEP"
 
 _span_ids = itertools.count(1)
 
@@ -245,6 +261,7 @@ class Tracer(object):
         self._lock = threading.Lock()
         self._local = threading.local()
         self._sinks = []
+        self._env_sink_checked = False
 
     # -- span lifecycle ------------------------------------------------
 
@@ -260,6 +277,9 @@ class Tracer(object):
     def _finish(self, span):
         event = span.to_dict()
         with self._lock:
+            if not self._env_sink_checked:
+                self._env_sink_checked = True
+                self._install_env_sink_locked()
             self._events.append(event)
             sinks = list(self._sinks)
         for sink in sinks:
@@ -267,6 +287,13 @@ class Tracer(object):
                 sink(event)
             except Exception:   # a broken sink must never break serving
                 pass
+
+    def _install_env_sink_locked(self):
+        from ..utils import knobs
+
+        path = knobs.get_str(JSONL_ENV, None)
+        if path:
+            self._sinks.append(jsonl_sink(path))
 
     # -- consumption ---------------------------------------------------
 
@@ -283,6 +310,11 @@ class Tracer(object):
         with self._lock:
             self._sinks.append(sink)
         return sink
+
+    def remove_sink(self, sink):
+        with self._lock:
+            if sink in self._sinks:
+                self._sinks.remove(sink)
 
 
 #: the process-wide tracer (one request path, one tracer)
@@ -309,3 +341,77 @@ def timed_span(name, **attrs):
     if not enabled():
         return _TimedOnlySpan()
     return TRACER.span(name, **attrs)
+
+
+def traced(name=None, **attrs):
+    """Decorator form: ``@traced`` or ``@traced("custom.name", k=v)``.
+
+    Zero work beyond one env read per call while tracing is off.
+    """
+    def decorate(fn, label=None):
+        label = label or getattr(fn, "__qualname__", fn.__name__)
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not enabled():
+                return fn(*args, **kwargs)
+            with TRACER.span(label, **attrs):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    if callable(name):          # bare @traced
+        return decorate(name)
+    return lambda fn: decorate(fn, name)
+
+
+def jsonl_sink(path, max_mb=None, keep=None):
+    """A push sink appending one JSON line per finished span to ``path``
+    (opened lazily, line-buffered under a lock; errors are swallowed —
+    observability must never take serving down).
+
+    Size-bounded: when the file would exceed ``max_mb`` megabytes
+    (default ``MESH_TPU_OBS_JSONL_MAX_MB``, unset = unbounded), it is
+    rotated to ``path.1`` … ``path.<keep>`` (default keep
+    ``MESH_TPU_OBS_JSONL_KEEP`` or 3, oldest dropped) so long serving
+    runs can't grow the live trace sink without limit.
+    """
+    import os
+
+    from ..utils import knobs
+
+    if max_mb is None:
+        max_mb = knobs.get_float(JSONL_MAX_MB_ENV)
+    if keep is None:
+        keep = max(1, knobs.get_int(JSONL_KEEP_ENV))
+    max_bytes = int(max_mb * 1024 * 1024) if max_mb else None
+    lock = threading.Lock()
+    state = {"fh": None}
+
+    def rotate_locked():
+        state["fh"].close()
+        state["fh"] = None
+        for i in range(keep - 1, 0, -1):
+            src = "%s.%d" % (path, i)
+            if os.path.exists(src):
+                os.replace(src, "%s.%d" % (path, i + 1))
+        os.replace(path, "%s.1" % path)
+
+    def sink(event):
+        line = json.dumps(event) + "\n"
+        with lock:
+            if state["fh"] is None:
+                state["fh"] = open(path, "a", buffering=1)
+            if (max_bytes is not None and state["fh"].tell()
+                    and state["fh"].tell() + len(line) > max_bytes):
+                rotate_locked()
+                state["fh"] = open(path, "a", buffering=1)
+            state["fh"].write(line)
+    return sink
+
+
+def configure(jsonl=None):
+    """Programmatic sink setup (the env-var-free path for tests and
+    embedding apps).  Returns the sink handle for ``remove_sink``."""
+    if jsonl is not None:
+        return TRACER.add_sink(jsonl_sink(jsonl))
+    return None

@@ -8,8 +8,10 @@ rope kernels from ``ACCEL_DEFAULT_CROSSOVER`` faces, the streamed walk at
 ``STREAM_DEFAULT_TILES``, and under ``MESH_TPU_MXU`` the MXU rung from
 ``MXU_DEFAULT_CROSSOVER`` faces up to the brute-force ceiling.
 
-Each accessor resolves override > measured > default: the environment
-override when one parses; else this card's saved measurement, read once a
+Each accessor resolves override > tuned > measured > default: the
+environment override when one parses; else the value the closed-loop tuner
+actuated (``utils/tuning.py``; none unless a ``TunerController`` moved it);
+else this card's saved measurement, read once a
 process from its file under ``CACHE_DIR`` (named after the card, so a
 measurement never serves another card or the CPU; a malformed or unusable
 file is ignored); else the default.  The calibrations
@@ -18,8 +20,8 @@ file is ignored); else the default.  The calibrations
 they choose between on the device, with the reference's selection rules,
 set the process's measured value, and save it unless ``save=False`` or a
 re-timed point disagrees with itself by more than 2x (unstable timings).
-``CALIBRATIONS`` keeps each one's last run.  The reference's live tuner
-(its ``_tuned`` step and ``retune_hooks``) is not ported.
+``CALIBRATIONS`` keeps each one's last run; ``retune_hooks`` hands the
+saved calibrations to the tuner's background retune.
 """
 
 import contextlib
@@ -80,6 +82,15 @@ def _override(name, default):
     return default
 
 
+def _tuned(name):
+    """The tuner's live override (``utils/tuning.py``), consulted between
+    the env override and the saved measurement: None when the tuner is
+    off, the knob is env-pinned, or the controller never actuated it."""
+    from ..utils import tuning
+
+    return tuning.tuned_value(name)
+
+
 def _cache_path(name, device="cuda"):
     """The file of calibration ``name`` for ``device``, named after the
     card."""
@@ -134,11 +145,14 @@ def crossover_faces():
 
 def accel_crossover_faces():
     """The face count from which auto takes the spatial index: override
-    (``MESH_TPU_ACCEL_MIN_FACES``) > measured
+    (``MESH_TPU_ACCEL_MIN_FACES``) > tuned > measured
     (``calibrate_accel_crossover``) > ``ACCEL_DEFAULT_CROSSOVER``."""
     value = _override("MESH_TPU_ACCEL_MIN_FACES", None)
     if value is not None:
         return value
+    tuned = _tuned("accel_min_faces")
+    if tuned is not None:
+        return int(tuned)
     global _accel_measured
     if _accel_measured is None:
         _accel_measured = _read_saved(
@@ -150,10 +164,14 @@ def accel_crossover_faces():
 def mxu_crossover_faces():
     """The face count from which ``MESH_TPU_MXU`` routes the brute-force
     rung to the MXU rung: override (``MESH_TPU_MXU_CROSSOVER_FACES``) >
-    measured (``calibrate_mxu_crossover``) > ``MXU_DEFAULT_CROSSOVER``."""
+    tuned > measured (``calibrate_mxu_crossover``) >
+    ``MXU_DEFAULT_CROSSOVER``."""
     value = _override("MESH_TPU_MXU_CROSSOVER_FACES", None)
     if value is not None:
         return value
+    tuned = _tuned("mxu_crossover")
+    if tuned is not None:
+        return int(tuned)
     global _mxu_measured
     if _mxu_measured is None:
         _mxu_measured = _read_saved(
@@ -165,13 +183,47 @@ def mxu_crossover_faces():
 def stream_tile_params():
     """``(tile_q, tile_f, n_buffers)`` for the streamed rope kernel:
     measured (``calibrate_stream_tiles``) > ``STREAM_DEFAULT_TILES``, with
-    the ``MESH_TPU_BVH_STREAM_BUFFERS`` override on the ring depth."""
+    the ``MESH_TPU_BVH_STREAM_BUFFERS`` override (then the tuned
+    ``stream_n_buffers``) on the ring depth."""
     global _stream_measured
     if _stream_measured is None:
         _stream_measured = _read_saved("stream_tiles", _tiles,
                                        STREAM_DEFAULT_TILES)
     tile_q, tile_f, n_buffers = _stream_measured
+    tuned = _tuned("stream_n_buffers")
+    if tuned is not None:
+        n_buffers = int(tuned)
     return tile_q, tile_f, knobs.bvh_stream_buffers(default=n_buffers)
+
+
+def retune_hooks():
+    """The tuner's background-retune callables (obs/controller.py): each
+    reads this card's saved calibration (the side-effect-free read of its
+    file) and returns ``(value, evidence)`` for ``tuning.actuate``, or None
+    where nothing was saved (publishing the default would be generation
+    churn for no signal).  The calibrations themselves stay explicit."""
+
+    def _from_file(name, key, floor):
+        if not torch.cuda.is_available():
+            return None
+        path = _cache_path(name)
+        try:
+            with open(path) as fh:
+                value = int(json.load(fh)[key])
+            if value < floor:
+                raise ValueError(value)
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
+        return value, {"source": path, "key": key}
+
+    return {
+        "accel_min_faces": lambda: _from_file(
+            "accel_crossover", "accel_min_faces", 1),
+        "stream_n_buffers": lambda: _from_file(
+            "stream_tiles", "n_buffers", 2),
+        "mxu_crossover": lambda: _from_file(
+            "mxu_crossover", "mxu_crossover_faces", 1),
+    }
 
 
 def _time_calls(fn, reps, device):

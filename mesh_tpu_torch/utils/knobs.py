@@ -1,8 +1,9 @@
 """The ``MESH_TPU_*`` environment knobs the port reads, and the routing
 predicates built on them (counterpart of mesh_tpu/utils/knobs.py and
 mesh_tpu/utils/dispatch.py, for the knobs of the closest-point ladder and
-its MXU rung, the observability modules, the animated-mesh sessions, the
-fit loss's data term, the query engine and the topology cache folder).
+its MXU rung, the observability modules, the tuner, the serving tier, the
+animated-mesh sessions, the fit loss's data term, the query engine and the
+topology cache folder).
 
 Every knob is declared in ``KNOBS`` with its type and default, and read
 through the accessors below, which re-read ``os.environ`` on every call so
@@ -42,9 +43,29 @@ KNOBS = {
     "MESH_TPU_RECORDER_EVENTS": 2048,
     "MESH_TPU_LEDGER": True,
     "MESH_TPU_LEDGER_CAPACITY": 512,
+    "MESH_TPU_OBS_JSONL": None,
+    "MESH_TPU_OBS_JSONL_MAX_MB": None,
+    "MESH_TPU_OBS_JSONL_KEEP": 3,
+    "MESH_TPU_INCIDENT_DIR": None,
+    "MESH_TPU_INCIDENT_KEEP": 32,
+    "MESH_TPU_SLO_DRIVES_HEALTH": False,
+    "MESH_TPU_LEDGER_TAIL": 32,
     "MESH_TPU_REPLAY_TRACE": None,
+    "MESH_TPU_TUNER": True,
+    "MESH_TPU_TUNER_INTERVAL": 15.0,
+    "MESH_TPU_TUNER_AB_TOL": 0.2,
+    "MESH_TPU_KNOB_TAIL": 8,
     "MESH_TPU_TRACE_CONTEXT": True,
     "MESH_TPU_TRACE_TAIL": 64,
+    "MESH_TPU_TRACE_RESERVOIR": 8,
+    # the serving tier (serve/); the two path knobs' defaults, when unset,
+    # are the port's own files (serve/service.py, obs/recorder.py)
+    "MESH_TPU_SERVE_STATS": None,
+    "MESH_TPU_SERVE_QUEUE": 64,
+    "MESH_TPU_SERVE_DEADLINE_S": 1.0,
+    "MESH_TPU_SERVE_WORKERS": 1,
+    "MESH_TPU_SERVE_LADDER": None,
+    "MESH_TPU_SERVE_WEDGE_S": 5.0,
     # animated meshes (anim/)
     "MESH_TPU_ANIM": True,
     "MESH_TPU_ANIM_REFIT_MAX_INFLATION": None,

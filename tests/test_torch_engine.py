@@ -605,23 +605,35 @@ def test_chunk_positional_and_device_keyword_only(meshes):
             call()
 
 
-def test_timed_span_and_incidents():
+def test_timed_span_and_incidents(tmp_path, monkeypatch):
+    import json
+
     from mesh_tpu_torch.obs import recorder, trace
 
     with trace.timed_span("engine.dispatch", op="x") as sp:
         sp.watch(torch.zeros(3))
     assert sp.elapsed is not None and sp.elapsed >= 0.0
+    monkeypatch.setenv("MESH_TPU_INCIDENT_DIR", str(tmp_path))
+    monkeypatch.setenv("MESH_TPU_INCIDENT_KEEP", "4")
     rec = recorder.FlightRecorder()
     rec.record("engine.worker_crash", error="E")
-    first = rec.trigger("executor_exception", context={"error": "E"})
+    with open(rec.trigger("executor_exception",
+                          context={"error": "E"})) as fh:
+        first = json.load(fh)
     assert first["reason"] == "executor_exception"
     assert first["context"] == {"error": "E"}
     assert first["ring"][0]["kind"] == "engine.worker_crash"
-    for i in range(recorder.INCIDENTS_KEPT + 1):
-        rec.trigger("again", context={"i": i})
-    kept = rec.incidents()
-    assert len(kept) == recorder.INCIDENTS_KEPT
-    assert kept[-1]["context"] == {"i": recorder.INCIDENTS_KEPT}
+    # rate-limited unless forced; the directory keeps the newest KEEP
+    assert rec.trigger("again") is None
+    for i in range(5):
+        assert rec.trigger("again", context={"i": i}, force=True)
+    kept = recorder.list_incidents()
+    assert len(kept) == 4
+    contexts = []
+    for path in kept:
+        with open(path) as fh:
+            contexts.append(json.load(fh)["context"])
+    assert {"i": 4} in contexts
 
 
 def test_ab_engine_tool_checks_each_side_against_itself(tmp_path,

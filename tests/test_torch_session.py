@@ -201,8 +201,10 @@ def test_deadline_miss_counts_and_closes_deadline():
 def test_trace_tail_keeps_the_missed_frame_with_its_spans(monkeypatch):
     """Under MESH_TPU_OBS the tail keeps a deadline-missed frame's ledger
     row with its span tree (the frame's root span and the traversal under
-    it) and drops an on-time frame's spans."""
+    it) and, with the slow-ok reservoir off, drops an on-time frame's
+    spans."""
     monkeypatch.setenv("MESH_TPU_OBS", "1")
+    monkeypatch.setenv("MESH_TPU_TRACE_RESERVOIR", "0")
     v, f = sphere(1)
     pts = surface_queries(v, f, 8, seed=24)
     with AvatarSession(_mesh(v, f), device="cpu") as sess:
@@ -304,7 +306,7 @@ def test_metric_names_and_help_match_reference():
                                                 theirs[name]["help"]), name
 
 
-def test_ledger_stages_outcomes_and_kill_switch(monkeypatch):
+def test_ledger_stages_outcomes_and_kill_switch(monkeypatch, tmp_path):
     clock = iter([10.0, 10.5, 11.0, 11.25, 12.0, 13.0, 14.0]).__next__
     led = ledger.LatencyLedger(capacity=16, clock=clock)
     rec = led.open(tenant="t", op="anim_frame")
@@ -322,9 +324,18 @@ def test_ledger_stages_outcomes_and_kill_switch(monkeypatch):
     monkeypatch.setenv("MESH_TPU_LEDGER", "0")
     assert led.open(tenant="t") is None and led.close(None) is None
     monkeypatch.setenv("MESH_TPU_LEDGER", "1")
-    monkeypatch.setenv("MESH_TPU_REPLAY_TRACE", "trace.jsonl")
-    with pytest.raises(NotImplementedError, match=r"capture_row.*Queue 1\)"):
+    # MESH_TPU_REPLAY_TRACE streams each close into a replayable trace
+    from mesh_tpu_torch.obs import replay
+
+    path = str(tmp_path / "trace.jsonl")
+    monkeypatch.setenv("MESH_TPU_REPLAY_TRACE", path)
+    try:
         led.close(led.open(tenant="t"))
+    finally:
+        replay.reset_capture()
+    trace = replay.load_trace(path)
+    assert trace["source"] == "capture"
+    assert trace["records"] == [{"t": 0.0, "tenant": "t"}]
 
 
 def test_spans_nest_and_carry_the_request_context(monkeypatch):
@@ -390,11 +401,11 @@ def test_shape_bucket_rejects_empty_batches():
 
 def test_tunable_declaration_matches_reference():
     names = [t.name for t in tuning.tunables()]
-    assert names == ["coalesce_window_ms", "shard_min_q",
-                     "anim_refit_max_inflation"]
+    assert names == [t.name for t in jtuning.tunables()]
     for name in names:
         mine, theirs = tuning.lookup(name), jtuning.lookup(name)
-        for key in ("kind", "default", "lo", "hi", "step", "pin_env"):
+        for key in ("kind", "default", "lo", "hi", "step", "pin_env",
+                    "pin_means_default"):
             assert getattr(mine, key) == getattr(theirs, key), (name, key)
     with pytest.raises(KeyError):
         tuning.lookup("nope")
