@@ -228,8 +228,12 @@ Phases (any failure raises and exits non-zero; none catches its own):
    mesh (the streamed rope walk) against the default route (the culled
    kernel) where the faces agree; ``register_vertices`` from the rest
    template to posed body 0, 30 steps with a burst every 5 (each burst
-   through the query engine); then, after
-   the checks, the step's stages at 1 x 100,000 (lbs, search,
+   through the query engine); after the checks, two backward passes of
+   ``diff.closest_point`` at 1 x 100,000 bit-equal, ``torch.func.vmap``
+   of it over 4 bodies of phase 3 equal to ``closest_point_batched`` bit
+   for bit (outputs and gradients) with one closest_faces launch, and
+   ``torch.func.vmap`` of ``diff.point_to_triangle`` equal to its plain
+   call; then the step's stages at 1 x 100,000 (lbs, search,
    recomposition, backward, Adam);
 14b. empty: a set of no queries through every entry point (the Mesh
    facade on the brute, culled and BVH rungs, nearest vertices, both
@@ -355,7 +359,35 @@ Phases (any failure raises and exits non-zero; none catches its own):
    times between CUDA events, the one-request plan's kernels by
    ``torch.profiler``.
 
-After phase 18, the four closest-point routes (brute, culled, resident and
+19. store: the mesh store (``mesh_tpu_torch.store``) in a temporary root
+   (``MESH_TPU_STORE_DIR``), counts set to 0 just before step a and read
+   just after step d: a. phase 6's scan sphere ingested, one warm
+   ``Mesh`` call through phase 6's route (the streamed rope walk; its
+   index built and persisted as a side-car under the tag of the leaf size
+   the walk asks for) and the warm answers on bench.py's 64 jittered
+   unit-sphere queries; b. posed body 0 through ``Mesh.write_store`` and
+   ``Mesh.load_from_store``, each answering phase 4's 4096 queries; c.
+   8 requests of 1024 N(0, 0.4) queries by body 0's digest through a
+   ``QueryService(workers=2)`` with a 0.5 s deadline, each with an inline
+   twin, then an unknown key and one more keyed request; d. 16 ``lbs``
+   frames of the SMPL-sized body written as a delta sequence against its
+   stored rest keyframe and streamed through ``resolve_frame`` into
+   ``AvatarSession(digest=..., leaf_size=256)`` with 4096 queries a frame.
+   After the window: a child process on the card (its own launches) runs
+   the cold start's side-car arm (open, ``get_index``, walk) and rebuild
+   arm (open, ``build_bvh``, walk), best of 2 each on the host clock,
+   answering bit-equal to the warm answers, with side-car hits and no
+   build miss in the side-car arm; the compact tiers within their
+   manifests' tolerance and ``verify`` clean; the loaded Mesh's answers
+   equal to its source's; the first keyed request paged, the rest
+   resident, each with a ``page_in`` stage and equal to its twin bit for
+   bit, request 0 against the brute-force kernel, the unknown key a
+   ``StoreError`` for that request alone; every decoded frame within the
+   sequence's tolerance, its answers against the brute-force kernel on the
+   decoded geometry, one ``leaf_boxes`` launch a frame and no index built
+   on a refit frame; a paged mesh's upload timed; the phase within 120 s.
+
+After phase 19, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
 brute-force kernel: the crossover evidence; then each drive's stages (the
@@ -363,8 +395,8 @@ large batch's culled prologue in its parts, each anim session's resident
 rope kernel alone, held to its plain version at every sub-lane count
 as on the scan).
 
-Phases 3-15, 3b, 14b, 17 and 18 are the driven paths (phases 6 and 13
-twice);
+Phases 3-15, 3b, 14b, 17, 18 and 19 are the driven paths (phases 6 and
+13 twice);
 phase 16 drives no kernel path of its own and holds its launches itself.  A
 CUDA-graph plan's launches count once a replay (its capture counts none;
 the warm-up run before it counts as the launches it is).  Kernel
@@ -709,18 +741,33 @@ SERVE_RUNG_DEADLINE_S = 5.0
 #: this much N(0, s) noise (K 16 tables certify most of them)
 SERVE_NEAR_NOISE = 0.001
 SERVE_BUDGET_S = 60.0
+#: phase 14's diff repairs: bodies under torch.func.vmap
+DIFF_VMAP_BODIES = 4
+#: phase 19: bench.py's store cold-start queries (64 jittered unit-sphere
+#: points, bench.py:1475-1478), each arm's best of this many runs, and the
+#: child's time limit
+STORE_COLD_QUERIES = 64
+STORE_COLD_REPS = 2
+STORE_CHILD_TIMEOUT_S = 300
+#: phase 19c: store-keyed requests (each with an inline twin), and calls
+#: timing one request's upload of a paged mesh
+STORE_REQUESTS = 8
+STORE_UPLOADS = 20
+#: phase 19d: delta frames of the SMPL-sized body, queries a frame
+STORE_FRAMES = 16
+STORE_BUDGET_S = 120.0
 
 #: kernel -> the driven paths that must launch it (and no other path may);
 #: the first path's count is the kernel's ``launches`` in the kernels line
 #: (a kernel with no path has its row in its successor's)
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit",
-                                  "engine", "domain", "serve"),
+                                  "engine", "domain", "serve", "store"),
                 "closest_faces_fused": ("main_path_fused",),
                 # the every-face kernel, phase 2's face oracle
                 "closest_faces_every": (),
                 "cull_records": ("main_path", "main_path_fused", "facade",
                                  "contact", "mxu", "registration", "fit",
-                                 "engine", "domain", "serve"),
+                                 "engine", "domain", "serve", "store"),
                 "nearest_vertices": ("facade", "domain"),
                 # the every-vertex kernel, phase 2's index oracle
                 "nearest_vertices_every": (),
@@ -729,9 +776,13 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit",
                 # serve path the engine rung's, on the 98,304-face template
                 "culled_faces": ("large_batch", "fit", "engine", "domain",
                                  "serve"),
-                "rope_faces_stream": ("scan", "fit"),
-                # on the serve path the accel rung's, on the SMPL-sized body
-                "rope_faces_resident": ("scan_resident", "anim", "serve"),
+                # on the store path the scan's warm call before the
+                # cold-start child (whose own launches are its process's)
+                "rope_faces_stream": ("scan", "fit", "store"),
+                # on the serve path the accel rung's, on the SMPL-sized body;
+                # on the store path the store-keyed session's frames
+                "rope_faces_resident": ("scan_resident", "anim", "serve",
+                                        "store"),
                 "rope_mxu_stream": ("mxu_bvh",),
                 "rope_mxu_resident": ("mxu_bvh_resident",),
                 "ray_any_hit_culled": ("visibility", "engine", "domain"),
@@ -748,7 +799,7 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit",
                 # the every-pair kernel, phase 2's flag oracle
                 "tri_tri_any_hit_every": (),
                 "self_intersect": ("self_intersect",),
-                "leaf_boxes": ("anim",),
+                "leaf_boxes": ("anim", "store"),
                 # the warp-a-leaf kernel, phase 2's box oracle
                 "leaf_boxes_warp": (),
                 "mxu_faces": ("mxu",),
@@ -6242,6 +6293,514 @@ def drive_serve_phase(inp, dev, smi):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14's repairs: the diff wrappers under torch.func.vmap and the
+# envelope backward's fixed-order sum.
+
+
+def check_diff_repairs(verts, f, queries, scan, dev):
+    """After phase 14's counted window: two backward passes of
+    ``diff.closest_point`` at 1 x len(scan) give the same bits (the
+    backward sums in slot order, no atomics); ``torch.func.vmap`` of it
+    over DIFF_VMAP_BODIES bodies equals ``closest_point_batched`` bit for
+    bit, outputs and gradients, with one closest_faces launch a call; and
+    ``torch.func.vmap`` of ``diff.point_to_triangle`` equals its unmapped
+    call.  Returns the record."""
+    from mesh_tpu_torch import diff
+
+    rec = {}
+    v0 = verts[0].detach()
+    grads = []
+    for _ in range(2):
+        v = v0.clone().requires_grad_()
+        p = scan.detach().clone().requires_grad_()
+        diff.closest_point(v, f, p, device=dev)["sqdist"].sum().backward()
+        grads.append((v.grad, p.grad))
+    check(torch.equal(grads[0][0], grads[1][0])
+          and torch.equal(grads[0][1], grads[1][1]),
+          "fit: two backward passes of diff.closest_point at 1 x %d differ"
+          % scan.shape[0])
+    rec["backward_bit_equal"] = True
+    rec["backward_vertices_touched"] = int(
+        (grads[0][0].abs().sum(dim=-1) > 0).sum())
+    vb = verts[:DIFF_VMAP_BODIES].detach()
+    pb = queries[:DIFF_VMAP_BODIES].detach()
+
+    def mapped(v_, p_):
+        return torch.func.vmap(lambda a, b: diff.closest_point(
+            a, f, b, device=dev))(v_, p_)
+
+    before = read_launches()["closest_faces"]
+    out = mapped(vb, pb)
+    rec["vmap_closest_faces_launches"] = \
+        read_launches()["closest_faces"] - before
+    check(rec["vmap_closest_faces_launches"] == 1,
+          "fit: vmap over %d bodies launched closest_faces %d times"
+          % (DIFF_VMAP_BODIES, rec["vmap_closest_faces_launches"]))
+    ref = diff.closest_point_batched(vb, f, pb, device=dev)
+    check(same_arrays(out, ref),
+          "fit: vmap(diff.closest_point) differs from closest_point_batched")
+    ts = [vb.clone().requires_grad_(), pb.clone().requires_grad_()]
+    g_map = torch.autograd.grad(mapped(*ts)["sqdist"].sum(), ts)
+    tb = [vb.clone().requires_grad_(), pb.clone().requires_grad_()]
+    g_bat = torch.autograd.grad(diff.closest_point_batched(
+        tb[0], f, tb[1], device=dev)["sqdist"].sum(), tb)
+    check(same_arrays(g_map, g_bat),
+          "fit: vmap gradients differ from closest_point_batched's")
+    rng = np.random.RandomState(19)
+    tri = torch.as_tensor(rng.randn(4, DIFF_VMAP_BODIES, 1024, 3),
+                          dtype=torch.float32, device=dev)
+    p2t = torch.func.vmap(lambda *t: diff.point_to_triangle(
+        *t, device=dev))(*tri)
+    check(same_arrays(p2t, diff.point_to_triangle(*tri, device=dev))
+          and bool(torch.isfinite(p2t["sqdist"]).all()),
+          "fit: vmap(diff.point_to_triangle) differs from the plain call")
+    rec["vmap_bit_equal"] = True
+    log("  diff repairs: two backward passes at 1 x %d bit-equal (%d "
+        "vertices touched); vmap over %d bodies = closest_point_batched bit "
+        "for bit (outputs, gradients), %d closest_faces launch; vmap of "
+        "point_to_triangle = its plain call" % (
+            scan.shape[0], rec["backward_vertices_touched"],
+            DIFF_VMAP_BODIES, rec["vmap_closest_faces_launches"]))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the mesh store.
+
+#: phase 19a's child: both cold-start arms on the card in a fresh process
+STORE_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from mesh_tpu_torch.accel.build import build_bvh, clear_index_cache, get_index
+from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
+from mesh_tpu_torch.obs.metrics import REGISTRY
+from mesh_tpu_torch.query.autotune import _sphere_mesh, stream_tile_params
+from mesh_tpu_torch.store import get_store
+
+digest, pts_path, out_path, reps = sys.argv[1:5]
+pts = np.load(pts_path)
+dev = torch.device("cuda")
+tile_f = stream_tile_params()[1]
+store = get_store()
+# the card, the context and the rope library warmed on another mesh
+wv, wf = _sphere_mesh(2048)
+closest_faces_and_points_accel(wv, wf, pts, device=dev)
+
+
+def counts():
+    return [REGISTRY.counter(name).value(kind="bvh") for name in (
+        "mesh_tpu_store_sidecar_hits_total",
+        "mesh_tpu_accel_cache_misses_total")]
+
+
+def arm(sidecar):
+    clear_index_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = store.open(digest)
+    idx = (get_index(m.v, m.f, "bvh", leaf_size=tile_f) if sidecar
+           else build_bvh(m.v, m.f, leaf_size=tile_f))
+    res = closest_faces_and_points_accel(m.v, m.f, pts, index=idx,
+                                         device=dev)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, res
+
+
+seconds = {"sidecar": [], "rebuild": []}
+out, hits, misses = {}, 0, 0
+for _ in range(int(reps)):
+    before = counts()
+    sec, out["sidecar"] = arm(True)
+    after = counts()
+    hits += after[0] - before[0]
+    misses += after[1] - before[1]
+    seconds["sidecar"].append(sec)
+    sec, out["rebuild"] = arm(False)
+    seconds["rebuild"].append(sec)
+np.savez(out_path, **{"%s_%s" % (a, k): out[a][k] for a in out
+                      for k in ("face", "point", "sqdist")})
+print(json.dumps({"seconds": seconds, "sidecar_hits": hits,
+                  "sidecar_arm_build_misses": misses,
+                  "jax": "jax" in sys.modules}))
+"""
+
+
+def store_cold_start(store, v, f, dev, folder):
+    """19a: the scan mesh ingested, one warm call through phase 6's route
+    (the Mesh facade's streamed rope walk; it builds the index and persists
+    its side-car under the tag that route asks for), the warm answers on
+    bench.py's queries, then both arms in a child on the card."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.accel.build import clear_index_cache
+    from mesh_tpu_torch.accel.traverse import closest_faces_and_points_accel
+    from mesh_tpu_torch.query.autotune import stream_tile_params
+    from mesh_tpu_torch.store.sidecar import sidecar_tag
+
+    rng = np.random.RandomState(0)
+    pts = rng.randn(STORE_COLD_QUERIES, 3)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    pts *= 1.0 + 0.05 * rng.randn(STORE_COLD_QUERIES, 1)
+    pts = np.asarray(pts, np.float32)
+    t0 = time.perf_counter()
+    digest = store.ingest(v, f)
+    ingest_s = time.perf_counter() - t0
+    clear_index_cache()
+    with no_engine():
+        t0 = time.perf_counter()
+        Mesh(v, f, device=dev).closest_faces_and_points(pts)
+        warm_call_s = time.perf_counter() - t0
+    tile_f = stream_tile_params()[1]
+    want_tag = sidecar_tag("bvh", {"leaf_size": tile_f})
+    warm = closest_faces_and_points_accel(v, f, pts, device=dev)
+    return {"digest": digest, "pts": pts, "warm": warm, "tag": want_tag,
+            "ingest_s": ingest_s, "warm_call_s": warm_call_s}
+
+
+def run_store_child(cold, folder):
+    """19a's child: a fresh process on the card, MESH_TPU_STORE_DIR set,
+    stopped at its time limit."""
+    np.save(os.path.join(folder, "pts.npy"), cold["pts"])
+    out_path = os.path.join(folder, "child.npz")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", STORE_CHILD, cold["digest"],
+         os.path.join(folder, "pts.npy"), out_path, str(STORE_COLD_REPS)],
+        capture_output=True, text=True, timeout=STORE_CHILD_TIMEOUT_S,
+        env=env, cwd=_REPO)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, "store: the cold-start child failed: %s"
+          % proc.stderr[-4000:])
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    with np.load(out_path) as z:
+        doc["answers"] = {k: z[k] for k in z.files}
+    doc["child_wall_s"] = wall
+    return doc
+
+
+def drive_store(inp, dev, folder):
+    """Phase 19 a-d, launch counts set to 0 just before and read just
+    after (the child's launches are its own process's); the records the
+    checks read, which run after the window."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.accel.build import index_cache_info
+    from mesh_tpu_torch.accel.traverse import RESIDENT_TILE_F
+    from mesh_tpu_torch.anim import AvatarSession
+    from mesh_tpu_torch.obs import get_ledger
+    from mesh_tpu_torch.serve import HealthMonitor, QueryService
+    from mesh_tpu_torch.serve.deadline import _mesh_tensors
+    from mesh_tpu_torch.store import get_page_cache, get_store
+    from mesh_tpu_torch.store import deltas
+
+    out = {"times_s": {}}
+    times = out["times_s"]
+    store = get_store()
+    reset_launches()
+    marks = _Launches()
+    t_phase = time.perf_counter()
+    # a. the cold start's parent side
+    t0 = time.perf_counter()
+    out["cold"] = store_cold_start(store, *inp["scan"][:2], dev, folder)
+    times["a_parent"] = time.perf_counter() - t0
+    marks.mark("a_parent")
+    # b. the tiers and the Mesh facade
+    t0 = time.perf_counter()
+    body_v, f_np = inp["body"]
+    src = Mesh(body_v, f_np, device=dev)
+    digest = src.write_store()
+    loaded = Mesh(device=dev).load_from_store(digest)
+    out["body_digest"] = digest
+    out["facade"] = (src.closest_faces_and_points(inp["facade_q"]),
+                     loaded.closest_faces_and_points(inp["facade_q"]),
+                     loaded)
+    times["b_tiers"] = time.perf_counter() - t0
+    marks.mark("b_tiers")
+    # c. store-keyed requests, each with an inline twin
+    t0 = time.perf_counter()
+    svc = QueryService(workers=SERVE_WORKERS,
+                       default_deadline_s=SERVE_DEADLINE_S,
+                       health=HealthMonitor(watchdog=False),
+                       stats_path=os.path.join(folder, "stats.json"),
+                       device=dev)
+    rows = []
+    get_ledger().add_listener(rows.append)
+    try:
+        out["warmed"] = svc.warmup(src, queries=SERVE_QUERIES)
+        pairs = []
+        for k in range(STORE_REQUESTS):
+            keyed = svc.query(digest, inp["serve_q"], tenant="store")
+            inline = svc.query(src, inp["serve_q"], tenant="inline")
+            pairs.append((keyed, inline))
+        bad = svc.submit("0badc0de-0badc0de-v3-f1", inp["serve_q"],
+                         tenant="unknown")
+        try:
+            bad.result(timeout=30)
+            out["unknown"] = None
+        except Exception as e:                        # noqa: BLE001
+            out["unknown"] = e
+        out["after_unknown"] = svc.query(digest, inp["serve_q"],
+                                         tenant="store")
+    finally:
+        get_ledger().remove_listener(rows.append)
+        svc.stop(write_stats=False)
+    out["pairs"], out["rows"] = pairs, rows
+    times["c_serve"] = time.perf_counter() - t0
+    marks.mark("c_serve")
+    # d. delta frames through a store-keyed session
+    t0 = time.perf_counter()
+    model = inp["model"]
+    rest, frames, _ = anim_stream(model, dev, 19)
+    f_model = model.faces.cpu().numpy()
+    key = store.ingest(rest, f_model)
+    stream = []
+    for k, (v, q) in enumerate(frames()):
+        if k == STORE_FRAMES:
+            break
+        stream.append((v.cpu().numpy(), q))
+    t1 = time.perf_counter()
+    manifest = deltas.write_sequence(store, key, "phase19",
+                                     [v for v, _ in stream])
+    times["d_write_sequence"] = time.perf_counter() - t1
+    sess = AvatarSession(digest=key, leaf_size=RESIDENT_TILE_F, device=dev)
+    run = []
+    leaf_before = read_launches()["leaf_boxes"]
+    for k, (_, q) in enumerate(stream):
+        t1 = time.perf_counter()
+        frame, provenance = deltas.resolve_frame(key, "phase19", k)
+        resolve_s = time.perf_counter() - t1
+        keys = index_cache_info()["keys"]
+        res = sess.frame(vertices=np.asarray(frame.v), points=q)
+        run.append({"v": np.array(frame.v), "q": q, "out": res,
+                    "provenance": provenance, "resolve_s": resolve_s,
+                    "built": index_cache_info()["keys"] != keys})
+    out["leaf_boxes_in_frames"] = read_launches()["leaf_boxes"] - leaf_before
+    sess.stop()
+    out["anim"] = {"key": key, "manifest": manifest, "stream": stream,
+                   "run": run, "faces": f_model, "stats": sess.stats()}
+    times["d_frames"] = time.perf_counter() - t0
+    marks.mark("d_frames")
+    launches = read_launches()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["step_launches"] = marks.steps
+    # after the window: the child, the page-in and upload times
+    out["child"] = run_store_child(out["cold"], folder)
+    stored, _ = get_page_cache().resolve(digest)
+    uploads = []
+    for _ in range(STORE_UPLOADS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _mesh_tensors(stored, dev)
+        torch.cuda.synchronize()
+        uploads.append((time.perf_counter() - t1) * 1e3)
+    out["upload_ms"] = uploads
+    out["store"] = store
+    return out, launches
+
+
+def check_store(out, launches, inp, dev):
+    """Phase 19's checks, after the counted window."""
+    from mesh_tpu_torch.errors import StoreError
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.store import deltas
+
+    store = out["store"]
+    rec = {"times_s": out["times_s"], "phase_s": out["phase_s"]}
+    # a. the cold start
+    cold, child = out["cold"], out["child"]
+    tags = store.sidecar_tags(cold["digest"])
+    check(tags == [cold["tag"]], "store: the scan's side-cars %s, want the "
+          "route's %s" % (tags, cold["tag"]))
+    for arm in ("sidecar", "rebuild"):
+        for key in ("face", "point", "sqdist"):
+            check(np.array_equal(child["answers"]["%s_%s" % (arm, key)],
+                                 cold["warm"][key]),
+                  "store: the child's %s arm differs from the warm %s"
+                  % (arm, key))
+    check(child["sidecar_hits"] >= 1 and child["sidecar_arm_build_misses"]
+          == 0 and not child["jax"], "store: the child's side-car hits %s, "
+          "build misses %s, jax %s" % (
+              child["sidecar_hits"], child["sidecar_arm_build_misses"],
+              child["jax"]))
+    rec["cold_start"] = {
+        "faces": int(inp["scan"][1].shape[0]), "queries": STORE_COLD_QUERIES,
+        "tag": cold["tag"], "ingest_s": cold["ingest_s"],
+        "warm_call_s": cold["warm_call_s"],
+        "sidecar_s": child["seconds"]["sidecar"],
+        "rebuild_s": child["seconds"]["rebuild"],
+        "sidecar_best_s": min(child["seconds"]["sidecar"]),
+        "rebuild_best_s": min(child["seconds"]["rebuild"]),
+        "sidecar_hits": child["sidecar_hits"],
+        "sidecar_arm_build_misses": child["sidecar_arm_build_misses"],
+        "child_wall_s": child["child_wall_s"]}
+    # b. the tiers and the facade
+    tiers = {}
+    for name, digest in (("scan", cold["digest"]),
+                         ("body", out["body_digest"])):
+        exact, compact = store.open(digest), store.open(digest,
+                                                        tier="compact")
+        tol = store.manifest(digest)["tiers"]["compact"]["tolerance"]
+        err = float(np.max(np.abs(np.asarray(compact.v, np.float64)
+                                  - np.asarray(exact.v, np.float64))))
+        check(err <= tol, "store: %s compact tier %.3g from the exact, "
+              "tolerance %.3g" % (name, err, tol))
+        check(np.array_equal(compact.f, exact.f), "store: %s compact faces"
+              % name)
+        tiers[name] = {"compact_err": err, "tolerance": tol,
+                       "bytes": store.object_bytes(digest)}
+    check(store.verify() == [], "store: verify found problems")
+    rec["tiers"] = tiers
+    (f1, p1), (f2, p2), loaded = out["facade"]
+    src_v, src_f = inp["body"]
+    check(np.array_equal(loaded.v, np.asarray(src_v, np.float64))
+          and np.array_equal(loaded.f, np.asarray(src_f, np.uint32))
+          and np.array_equal(f1, f2) and np.array_equal(p1, p2),
+          "store: Mesh.load_from_store answers differ from the source Mesh")
+    # c. store-keyed requests
+    pairs, rows = out["pairs"], out["rows"]
+    keyed_rows = [r for r in rows if r.get("tenant") == "store"]
+    sources = [r.get("mesh_source") for r in keyed_rows]
+    check(sources == ["paged"] + ["resident"] * (len(keyed_rows) - 1),
+          "store: keyed requests' sources %s" % sources)
+    check(all("page_in" in r["stages"] and r["store_key"] ==
+              out["body_digest"] and r["outcome"] == "ok"
+              for r in keyed_rows), "store: a keyed ledger row lacks page_in")
+    for k, (keyed, inline) in enumerate(pairs):
+        check(np.array_equal(keyed.faces, inline.faces)
+              and np.array_equal(keyed.points, inline.points)
+              and keyed.rung == inline.rung,
+              "store: keyed request %d differs from its inline twin" % k)
+    rec["vs_brute"] = serve_answer_check(
+        "store-keyed request 0", pairs[0][0], np.asarray(src_v, np.float32),
+        src_f, inp["serve_q"], dev)
+    check(isinstance(out["unknown"], StoreError),
+          "store: the unknown key gave %r" % (out["unknown"],))
+    check(np.array_equal(out["after_unknown"].faces, pairs[0][1].faces),
+          "store: the request after the unknown key")
+    page_in = [r["stages"]["page_in"] * 1e3 for r in keyed_rows]
+    rec["serve"] = {
+        "requests": len(keyed_rows), "rungs": sorted({p[0].rung
+                                                      for p in pairs}),
+        "page_in_ms_paged": page_in[0],
+        "page_in_ms_p50": statistics.median(page_in),
+        "page_in_ms_resident_p50": statistics.median(page_in[1:]),
+        "latency_ms_keyed_p50": statistics.median(
+            p[0].latency_s * 1e3 for p in pairs),
+        "latency_ms_inline_p50": statistics.median(
+            p[1].latency_s * 1e3 for p in pairs),
+        "upload_ms_p50": statistics.median(out["upload_ms"]),
+        "upload_ms_min": min(out["upload_ms"]),
+        "unknown_key_error": type(out["unknown"]).__name__}
+    # d. delta frames
+    anim = out["anim"]
+    tol = deltas.sequence_tolerance(anim["manifest"])
+    f_t = torch.as_tensor(anim["faces"].astype(np.int64), device=dev)
+    worst = {"decode_err": 0.0, "sqdist_gap": 0.0, "faces_differ": 0,
+             "tie_gap": 0.0}
+    for k, ((v_in, _), fr) in enumerate(zip(anim["stream"], anim["run"])):
+        err = float(np.max(np.abs(fr["v"].astype(np.float64)
+                                  - v_in.astype(np.float64))))
+        check(err <= tol, "store: frame %d decodes %.3g off, tolerance "
+              "%.3g" % (k, err, tol))
+        worst["decode_err"] = max(worst["decode_err"], err)
+        res = fr["out"]
+        check(res["action"] in ("refit", "rebuild") and not (
+            res["action"] == "refit" and fr["built"]),
+            "store: frame %d action %s, index built %s" % (
+                k, res["action"], fr["built"]))
+        check(fr["provenance"] == "paged", "store: frame %d %s" % (
+            k, fr["provenance"]))
+        v_t = torch.as_tensor(fr["v"], device=dev)[None]
+        q_t = fr["q"][None]
+        brute = ck.closest_point_kernel(v_t, f_t, q_t)
+        got = check_against_brute(
+            "store frame %d" % k, v_t, f_t, q_t,
+            torch.as_tensor(res["faces"], device=dev)[None],
+            torch.as_tensor(res["sqdist"], device=dev)[None], brute,
+            quiet=True)
+        worst["sqdist_gap"] = max(worst["sqdist_gap"], got["sqdist_gap"])
+        worst["tie_gap"] = max(worst["tie_gap"], got["tie_gap"])
+        worst["faces_differ"] += got["faces_differ"]
+    check(out["leaf_boxes_in_frames"] == len(anim["run"]),
+          "store: leaf_boxes launched %d times over %d frames"
+          % (out["leaf_boxes_in_frames"], len(anim["run"])))
+    rec["frames"] = dict(
+        worst, frames=len(anim["run"]), tolerance=tol,
+        sequence_bytes=anim["manifest"]["bytes"],
+        raw_frame_bytes=int(sum(v.nbytes for v, _ in anim["stream"])),
+        resolve_ms_p50=statistics.median(
+            fr["resolve_s"] * 1e3 for fr in anim["run"]),
+        frame_ms_p50=statistics.median(
+            fr["out"]["latency_s"] * 1e3 for fr in anim["run"]),
+        leaf_boxes=out["leaf_boxes_in_frames"], stats=anim["stats"])
+    needed = {k for k, paths in KERNEL_PATHS.items() if "store" in paths}
+    for name in sorted(needed):
+        check(launches[name] > 0, "kernel %s never launched on the store "
+              "path" % name)
+    counted_only(launches, needed, "the store path")
+    rec["launches"] = {k: n for k, n in launches.items() if n}
+    rec["step_launches"] = out["step_launches"]
+    return rec
+
+
+def drive_store_phase(inp, dev, smi):
+    """Phase 19 -> (its record, launches on its counted window), in a
+    temporary store root (MESH_TPU_STORE_DIR) removed afterwards."""
+    import shutil
+
+    from mesh_tpu_torch.store import clear_page_cache
+
+    folder = os.path.join(_REPO, "build", "chip_smoke_store")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    log("== store: the scan sphere's cold start (a child, side-car and "
+        "rebuild arms, best of %d), tiers and Mesh.load_from_store, %d "
+        "store-keyed requests of %d queries on posed body 0, %d delta frames "
+        "through AvatarSession(digest=)" % (
+            STORE_COLD_REPS, STORE_REQUESTS, SERVE_QUERIES, STORE_FRAMES))
+    try:
+        with knobs_set(MESH_TPU_STORE_DIR=os.path.join(folder, "root"),
+                       MESH_TPU_INCIDENT_DIR=os.path.join(folder,
+                                                          "incidents")):
+            clear_page_cache()
+            out, launches = drive_store(inp, dev, folder)
+            rec = check_store(out, launches, inp, dev)
+    finally:
+        clear_page_cache()
+        shutil.rmtree(folder, ignore_errors=True)
+    check(out["phase_s"] <= STORE_BUDGET_S, "store: %.1f s, budget %.0f s"
+          % (out["phase_s"], STORE_BUDGET_S))
+    c = rec["cold_start"]
+    log("  cold start (host clock, best of %d, on %s): side-car arm %.3f s, "
+        "rebuild arm %.3f s (%d faces, %d queries; side-car hits %d, build "
+        "misses %d; child %.1f s)" % (
+            STORE_COLD_REPS, smi, c["sidecar_best_s"], c["rebuild_best_s"],
+            c["faces"], c["queries"], c["sidecar_hits"],
+            c["sidecar_arm_build_misses"], c["child_wall_s"]))
+    s = rec["serve"]
+    log("  store-keyed requests (host clock, on %s): page_in paged %.3f ms, "
+        "p50 %.4f ms (resident %.4f), a paged mesh's upload p50 %.3f ms, "
+        "latency p50 keyed %.3f / inline %.3f ms, rungs %s" % (
+            smi, s["page_in_ms_paged"], s["page_in_ms_p50"],
+            s["page_in_ms_resident_p50"], s["upload_ms_p50"],
+            s["latency_ms_keyed_p50"], s["latency_ms_inline_p50"],
+            s["rungs"]))
+    fr = rec["frames"]
+    log("  delta frames: %d, decode error %.3g within %.3g, %d of %d bytes "
+        "of raw frames, resolve p50 %.3f ms, frame p50 %.3f ms, leaf_boxes "
+        "%d; vs brute: sqdist %.3g, %d faces differ at ties (gap %.3g)" % (
+            fr["frames"], fr["decode_err"], fr["tolerance"],
+            fr["sequence_bytes"], fr["raw_frame_bytes"], fr["resolve_ms_p50"],
+            fr["frame_ms_p50"], fr["leaf_boxes"], fr["sqdist_gap"],
+            fr["faces_differ"], fr["tie_gap"]))
+    log("  steps (s): %s; phase %.1f s (budget %.0f s); launches %s" % (
+        ", ".join("%s %.2f" % kv for kv in out["times_s"].items()),
+        out["phase_s"], STORE_BUDGET_S, rec["launches"]))
+    log("store record (on %s): %s" % (smi, json.dumps(rec)))
+    return rec, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -7321,6 +7880,8 @@ def main():
         model, verts0, scans_fit, reg_pts, reg_nrm, (v_s, f_s, p_s), dev)
     fit_runs = check_fit(fit_runs, fit_keep, model, verts0, scans_fit,
                          reg_pts, reg_nrm, dev)
+    fit_runs["diff_repairs"] = check_diff_repairs(
+        verts, f, queries, scans_fit[FIT_MAIN][0], dev)
     log("  card: %s" % nvidia_smi(CARD_STATE))
     fit_times(model, scans_fit, fit_runs, dev)
     fit_runs["stages_ms"] = {}
@@ -7408,6 +7969,13 @@ def main():
     serve, launches["serve"] = drive_serve_phase(serve_inputs(
         posed[0], f_np, verts_l[0].cpu().numpy(), f_l.cpu().numpy(),
         queries_l[0].cpu().numpy()), dev, smi)
+
+    # -- 19. store: the mesh store and what stands on it ----------------------
+    store_rec, launches["store"] = drive_store_phase({
+        "scan": (v_s, f_s), "body": (posed[0], f_np), "facade_q": q1_np,
+        "serve_q": np.asarray(np.random.RandomState(19).randn(
+            SERVE_QUERIES, 3) * 0.4, np.float32),
+        "model": model}, dev, smi)
 
     # -- crossover evidence ---------------------------------------------------
     log("== crossover: every route at both drives' shapes")
@@ -7868,7 +8436,7 @@ def main():
         "mxu_bvh": mxu_bvh, "fit": fit_runs,
         "empty": {"entry_points": sorted(empty_layouts)},
         "engine": engine_rec, "fallback": fallback, "domain": domain,
-        "serve": serve}),
+        "serve": serve, "store": store_rec}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

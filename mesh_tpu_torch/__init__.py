@@ -26,7 +26,11 @@ the single-device scan-fit step (``parallel.fit``), and the rest of the
 (connectivity, Loop subdivision, quadric decimation), ``processing``,
 ``landmarks``, ``serialization`` (PLY, OBJ, JSON, with the native reader
 ``native/meshio.cpp``), ``texture``, ``colors``, ``lines``, ``sphere``,
-``metrics`` and the ``MeshArrays`` container (``core``).
+``metrics`` and the ``MeshArrays`` container (``core``), and the
+content-addressed mesh store (``store``: chunked CRC'd blocks, a compact
+tier, BVH side-cars, delta frames and the page cache behind store-keyed
+serve requests, ``Mesh.write_store`` and ``AvatarSession(digest=)``), on
+the reference's on-disk layout.
 
 ``texture_path`` is the folder of the shipped textured templates;
 ``mesh_package_cache_folder`` holds the crc32-keyed topology pickles

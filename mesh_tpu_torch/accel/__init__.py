@@ -13,4 +13,8 @@ from .build import (  # noqa: F401
     index_cache_info,
     topology_digest,
 )
-from .traverse import closest_faces_and_points_accel  # noqa: F401
+from .traverse import (  # noqa: F401
+    bvh_closest_point,
+    closest_faces_and_points_accel,
+    grid_closest_point,
+)

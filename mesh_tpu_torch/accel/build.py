@@ -20,7 +20,9 @@ Boxes are built from float32 data in a mesh-centered frame whose center is
 numpy's float32 mean (``arrays["center"]``); the walks query in that same
 frame.  The arrays are bit-equal to the reference's.
 ``get_index`` keeps the last 8 indexes built in this process, keyed by a
-digest of the vertex and face bytes and the build parameters.
+digest of the vertex and face bytes and the build parameters; behind that
+cache it reads and writes the mesh store's side-cars (``store/sidecar.py``),
+as the reference's does.
 """
 
 import threading
@@ -29,6 +31,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from ..utils.device import writable
 
 __all__ = [
     "AccelIndex", "topology_digest", "build_bvh", "build_grid", "get_index",
@@ -79,7 +83,9 @@ class AccelIndex(object):
             tensors = self._tensors.setdefault(key, {})
             for name, arr in self.arrays.items():
                 if name not in tensors:
-                    tensors[name] = torch.as_tensor(arr, device=device)
+                    # a side-car's arrays are read-only store blocks
+                    tensors[name] = torch.as_tensor(writable(arr),
+                                                    device=device)
         return tensors
 
     def uploaded(self, names):
@@ -293,32 +299,135 @@ def build_grid(v, f, faces_per_cell=DEFAULT_FACES_PER_CELL, cap=None,
 
 
 # ---------------------------------------------------------------------------
-# digest-keyed process cache: one host build per mesh and parameters
+# digest-keyed process cache: one host build per mesh and parameters, with
+# the mesh store's side-cars behind it
 
 _BUILD_BY_KIND = {"bvh": build_bvh, "grid": build_grid}
 _CACHE = OrderedDict()
 _CACHE_LOCK = threading.RLock()
 
 
+def _cache_counters():
+    from ..obs.metrics import REGISTRY
+
+    return (
+        REGISTRY.counter(
+            "mesh_tpu_accel_cache_hits_total",
+            "get_index digest-cache hits (host build skipped; label: kind)"),
+        REGISTRY.counter(
+            "mesh_tpu_accel_cache_misses_total",
+            "get_index digest-cache misses (host build paid; label: kind)"),
+        REGISTRY.histogram(
+            "mesh_tpu_accel_build_seconds",
+            "host-side spatial-index build wall seconds (label: kind)"),
+    )
+
+
+def _sidecar_hits_counter():
+    from ..obs.metrics import REGISTRY
+
+    return REGISTRY.counter(
+        "mesh_tpu_store_sidecar_hits_total",
+        "get_index served off a persisted store side-car — no host "
+        "build, no digest-cache miss (label: kind)")
+
+
+def _sidecar_lookup(digest, kind, params):
+    """Rehydrate a persisted side-car for this digest, or None.  Best
+    effort by contract: any store trouble (unreadable root, corruption,
+    already counted and flight-recorded downstream) means a host build."""
+    try:
+        from ..utils import knobs
+
+        if not knobs.flag("MESH_TPU_STORE_SIDECAR"):
+            return None
+        from ..store.store import get_store
+
+        store = get_store()
+        if not store.exists(digest):
+            return None
+        from ..store import sidecar as sidecar_mod
+
+        idx = sidecar_mod.load_sidecar(store, digest, kind, params)
+    except Exception:
+        return None
+    if idx is not None:
+        _sidecar_hits_counter().inc(kind=kind)
+    return idx
+
+
+def _sidecar_persist(idx, params):
+    """Best-effort write-back so the next cold process skips this build
+    (only when the mesh object itself is already in the store: a side-car
+    without its mesh is unservable)."""
+    try:
+        from ..utils import knobs
+
+        if not knobs.flag("MESH_TPU_STORE_SIDECAR"):
+            return
+        from ..store.store import get_store
+
+        store = get_store()
+        if not store.exists(idx.digest):
+            return
+        if store.sidecar_tag_exists(idx.digest, idx.kind, params):
+            return
+        store.put_sidecar(idx, params)
+    except Exception:
+        pass
+
+
+def _remember(key, idx):
+    _CACHE[key] = idx
+    while len(_CACHE) > _MAX_CACHED:
+        _CACHE.popitem(last=False)
+
+
 def get_index(v, f, kind="bvh", **params):
     """The :class:`AccelIndex` of ``(v, f)``: from the cache when this
-    mesh was built with these parameters in this process, else built on
-    the host.  Thread-safe; the build runs inside the lock, so two threads
-    racing on a new mesh pay one build.  ``kind`` is ``"bvh"`` or
-    ``"grid"``."""
+    mesh was built with these parameters in this process
+    (``mesh_tpu_accel_cache_hits_total``), else from the mesh store's
+    side-car under these parameters' tag when the mesh is in the store
+    (``mesh_tpu_store_sidecar_hits_total``; knob
+    ``MESH_TPU_STORE_SIDECAR``), else built on the host
+    (``mesh_tpu_accel_cache_misses_total``, the ``accel.build`` span and
+    ``mesh_tpu_accel_build_seconds``) and persisted as a side-car where
+    the mesh is in the store.  Thread-safe; the build runs inside the
+    lock, so two threads racing on a new mesh pay one build, and the
+    side-car write outside it.  ``kind`` is ``"bvh"`` or ``"grid"``."""
     if kind not in _BUILD_BY_KIND:
         raise ValueError("unknown accel index kind %r (have %s)"
                          % (kind, sorted(_BUILD_BY_KIND)))
-    key = (topology_digest(v, f), kind, tuple(sorted(params.items())))
+    from ..obs.clock import monotonic
+    from ..obs.trace import span as obs_span
+
+    digest = topology_digest(v, f)
+    key = (digest, kind, tuple(sorted(params.items())))
+    hits, misses, hist = _cache_counters()
     with _CACHE_LOCK:
         idx = _CACHE.get(key)
         if idx is not None:
             _CACHE.move_to_end(key)
+            hits.inc(kind=kind)
             return idx
-        idx = _BUILD_BY_KIND[kind](v, f, **params)
-        _CACHE[key] = idx
-        while len(_CACHE) > _MAX_CACHED:
-            _CACHE.popitem(last=False)
+        # consult the store's side-car before declaring a miss: a cold
+        # process with a populated store serves its first query with no
+        # host build and the miss counter untouched
+        idx = _sidecar_lookup(digest, kind, params)
+        if idx is not None:
+            _remember(key, idx)
+            return idx
+        misses.inc(kind=kind)
+        with obs_span("accel.build", kind=kind,
+                      faces=int(np.asarray(f).shape[0])) as sp:
+            t0 = monotonic()
+            idx = _BUILD_BY_KIND[kind](v, f, **params)
+            elapsed = monotonic() - t0
+            hist.observe(elapsed, kind=kind)
+            sp.set(digest=idx.digest, nodes=idx.meta.get("n_nodes"),
+                   build_seconds=round(elapsed, 4))
+        _remember(key, idx)
+    _sidecar_persist(idx, params)        # outside the lock: a disk write
     return idx
 
 

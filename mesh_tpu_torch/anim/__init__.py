@@ -15,8 +15,8 @@ frame: the faces never change, only the vertices.
   deltas) and queries at animation rate.
 
 ``MESH_TPU_ANIM=0`` is the kill switch: sessions build the index cold per
-frame through ``get_index``.  The reference's vertex-delta store tier
-(``store/deltas.py``) is not ported (ROADMAP.md, Queue 1).
+frame through ``get_index``.  Sequences of frames are stored as
+quantized deltas against a stored keyframe by ``store/deltas.py``.
 """
 
 from .refit import RefitState, box_measure, refit_bvh, refit_max_inflation

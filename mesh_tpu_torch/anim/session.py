@@ -19,9 +19,10 @@ closes in-flight frames ``cancelled``, so the ledger leaks nothing.
 Kill switch: ``MESH_TPU_ANIM=0`` makes every frame rebuild cold through
 the digest-keyed ``get_index`` (no refit stage, no refit arrays).
 
-The reference's store-keyed sessions (``AvatarSession(digest=...)``, the
-keyframe paged in through its ``MeshStore``) are not ported (ROADMAP.md,
-Queue 1).
+A session can also start from a store key (``AvatarSession(digest=...)``):
+the keyframe opens through the mesh store at its exact tier, and the
+frames of a stored sequence come back through ``store.deltas``
+(``resolve_frame``) as absolute vertices.
 """
 
 import itertools
@@ -73,11 +74,14 @@ class AvatarSession(object):
     """One client's animated-mesh stream over a fixed topology.
 
     Construct from a keyframe mesh (``AvatarSession(mesh)``, anything with
-    ``v`` [V, 3] and ``f`` [F, 3]).  Per frame, :meth:`frame` accepts a
-    vertex *delta* against the keyframe or absolute vertices, plus an
-    optional query batch, and returns the result dict with ``action``
-    (``refit`` / ``rebuild`` / ``cold``) and timing.  Thread-safe; frames
-    of one session serialize on the session lock (streams are ordered).
+    ``v`` [V, 3] and ``f`` [F, 3]) or a store key
+    (``AvatarSession(digest=...)``: the keyframe opens through ``store``,
+    default ``get_store()``, at its exact tier).  Per frame,
+    :meth:`frame` accepts a vertex *delta* against the keyframe or
+    absolute vertices, plus an optional query batch, and returns the
+    result dict with ``action`` (``refit`` / ``rebuild`` / ``cold``) and
+    timing.  Thread-safe; frames of one session serialize on the session
+    lock (streams are ordered).
 
     :param leaf_size: the BVH's faces per leaf (default ``build_bvh``'s 8).
         The rope walk needs leaves of its ``tile_f`` (256 resident), so an
@@ -91,18 +95,22 @@ class AvatarSession(object):
 
     def __init__(self, mesh=None, digest=None, store=None, session_id=None,
                  leaf_size=None, kernel="pallas", device="cuda"):
-        if mesh is None:
-            if digest is None:
-                raise ValueError("AvatarSession needs a keyframe mesh "
-                                 "or a store digest")
-            raise NotImplementedError(
-                "AvatarSession(digest=...): the mesh store (MeshStore, "
-                "store/store.py) is not ported (ROADMAP.md, Queue 1); pass "
-                "the keyframe mesh")
+        if mesh is None and digest is None:
+            raise ValueError("AvatarSession needs a keyframe mesh "
+                             "or a store digest")
         self.device = resolve_device(device)
-        v_key = np.asarray(mesh.v, np.float32)
-        faces = np.asarray(mesh.f, np.int32)
-        self.digest = topology_digest(v_key, faces)
+        if mesh is None:
+            from ..store import get_store
+
+            stored = (store or get_store()).open(digest, tier="exact")
+            # copies: the exact tier comes back as read-only store blocks
+            v_key = np.array(stored.v, np.float32)
+            faces = np.array(stored.f, np.int32)
+        else:
+            v_key = np.asarray(mesh.v, np.float32)
+            faces = np.asarray(mesh.f, np.int32)
+            digest = topology_digest(v_key, faces)
+        self.digest = digest
         self.v_key = v_key
         self.f = faces
         self._f_dev = as_tensor(faces.astype(np.int64), self.device)

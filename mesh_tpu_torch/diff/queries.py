@@ -29,10 +29,13 @@ graph when ``v`` requires grad; that graph is not the envelope gradient.)
 Two modes:
 
 - ``mode="frozen"`` (default): ``_Frozen``, a ``torch.autograd.Function``
-  whose backward is the closed form above, one gather and one scatter-add
-  (``index_add_``, whose atomics add in a run-dependent order on the
-  card).  First-order reverse only; a cotangent on ``bary`` is dropped
-  (the envelope theorem says it contributes nothing to distance terms).
+  whose backward is the closed form above: one gather, and a fixed-order
+  sum of the corner cotangents into the vertices (the 3Q corner slots
+  stably sorted by vertex, each vertex's slots added one after the other by
+  ``torch.segment_reduce``, with no atomics: the same bits from run to run
+  on the card).  First-order reverse only; a cotangent on ``bary`` is
+  dropped (the envelope theorem says it contributes nothing to distance
+  terms).
 - ``mode="recompute"``: the barycentrics are re-derived differentiably
   from (query, winning triangle) by ``closest_point_barycentric``, so
   ``torch.func.jvp``, second order and ``bary`` cotangents work.
@@ -40,6 +43,13 @@ Two modes:
 Every wrapper returns a dict of ``point`` [..., Q, 3], ``sqdist`` [..., Q]
 (differentiable), ``bary`` [..., Q, 3] (differentiable only under
 ``recompute``), ``face`` [..., Q] int32 and ``part`` [..., Q] int32.
+
+Under ``torch.func.vmap`` (the reference maps its queries with
+``jax.vmap``) the search and ``_Frozen`` fold the mapped axis into the batch
+axis every input leads with, so a vmapped ``closest_point`` is one search
+(one kernel launch) over all the mapped meshes, bit-equal to
+``closest_point_batched``; ``_TriFrozen`` is elementwise and lets torch
+generate its rule.
 """
 
 import math
@@ -96,12 +106,30 @@ class _Search(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, search, *tensors):
-        # jacfwd and hessian batch only the tangents: the search runs once
-        if any(d is not None for d in in_dims[1:]):
-            raise NotImplementedError(
-                "the correspondence search does not batch under vmap; pass "
-                "the batch as a leading axis (closest_point_batched)")
-        return _Search.apply(search, *tensors), None
+        if all(d is None for d in in_dims[1:]):
+            # jacfwd and hessian batch only the tangents: one search
+            return _Search.apply(search, *tensors), None
+        return _unfold(_Search.apply(search, *_folded(info, in_dims[1:],
+                                                      tensors)),
+                       info.batch_size), 0
+
+
+def _folded(info, in_dims, tensors):
+    """``tensors`` (each [B, ...], mapped along ``in_dims`` or not) with
+    the mapped axis folded into their leading batch axis: [N * B, ...],
+    the unmapped ones repeated N times."""
+    n = info.batch_size
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        t = (t.unsqueeze(0).expand((n,) + t.shape) if dim is None
+             else t.movedim(dim, 0))
+        out.append(t.reshape((-1,) + t.shape[2:]))
+    return out
+
+
+def _unfold(t, n):
+    """[N * B, ...] -> [N, B, ...]: the inverse of ``_folded``."""
+    return t.reshape((n, -1) + t.shape[1:])
 
 
 def _compose(points, tri, bary):
@@ -170,15 +198,31 @@ class _Frozen(torch.autograd.Function):
         points, point, bary, corners = ctx.saved_tensors
         g_points, g_corners = _envelope_backward(points, point, bary,
                                                  g_point, g_sqdist)
-        # cp = sum_k bary_k v[corner_k]: scatter-add each corner's cotangent
-        # into the three winning corners of each query
         n_b, n_v = ctx.v_shape[:2]
         base = torch.arange(n_b, device=corners.device)[:, None, None] * n_v
-        dv = torch.zeros((n_b * n_v, 3), dtype=g_corners.dtype,
-                         device=g_corners.device)
-        dv.index_add_(0, (base + corners).reshape(-1),
-                      g_corners.reshape(-1, 3))
+        dv = corner_sums((base + corners).reshape(-1),
+                         g_corners.reshape(-1, 3), n_b * n_v)
         return dv.view(ctx.v_shape), g_points, None
+
+    @staticmethod
+    def vmap(info, in_dims, v, points, corners):
+        outs = _Frozen.apply(*_folded(info, in_dims, (v, points, corners)))
+        return (tuple(_unfold(o, info.batch_size) for o in outs),
+                (0,) * len(outs))
+
+
+def corner_sums(slots, rows, n_out):
+    """[n_out, 3]: row i the sum of ``rows`` [S, 3] whose ``slots`` [S]
+    (int64 in [0, n_out)) is i, in slot order and without atomics (the
+    slots stably sorted, each output's run added one after the other by
+    ``torch.segment_reduce``), so the same bits from run to run; equal to
+    ``zeros(n_out, 3).index_add_(0, slots, rows)`` within rounding (to the
+    bit on the CPU, which adds in slot order too)."""
+    ordered, perm = torch.sort(slots, stable=True)
+    offsets = torch.searchsorted(
+        ordered, torch.arange(n_out + 1, device=slots.device))
+    return torch.segment_reduce(rows[perm], "sum", offsets=offsets, axis=0,
+                                unsafe=True)
 
 
 def _from_face(v, f, face, points, mode):
@@ -307,7 +351,10 @@ def closest_point_batched(v, f, points, *, mode="frozen", chunk=512,
 
 class _TriFrozen(torch.autograd.Function):
     """(point, sqdist, bary, part) of p on triangles abc (all [..., 3],
-    broadcast), with the envelope backward into p, a, b and c."""
+    broadcast), with the envelope backward into p, a, b and c.  Elementwise
+    forward and backward, so ``torch.func.vmap`` runs them as they are."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(p, a, b, c):

@@ -18,5 +18,10 @@ from .compat import (  # noqa: F401  (reference chumpy-era names)
 from .cross_product import cross  # noqa: F401
 from .rodrigues import rodrigues, rodrigues2rotmat, rotmat2rodrigues  # noqa: F401
 from .triangle_area import triangle_area  # noqa: F401
-from .tri_normals import tri_normals, tri_normals_scaled  # noqa: F401
-from .vert_normals import vert_normals  # noqa: F401
+from .tri_normals import (  # noqa: F401
+    normalize_rows,
+    tri_edges,
+    tri_normals,
+    tri_normals_scaled,
+)
+from .vert_normals import vert_normals, vert_normals_scaled  # noqa: F401

@@ -15,6 +15,13 @@ def tri_edges_t(v, f, cplus, cminus):
     return gathered[..., cplus, :] - gathered[..., cminus, :]
 
 
+def tri_edges(v, f, cplus, cminus, device="cuda"):
+    """Edge vectors v[f[:, cplus]] - v[f[:, cminus]] -> [..., F, 3]
+    (reference TriEdges)."""
+    v = as_tensor(v, device)
+    return tri_edges_t(v, as_tensor(f, v.device), cplus, cminus)
+
+
 def tri_normals_scaled_t(v, f):
     """Unnormalized face normals cross(e10, e20) -> [..., F, 3]
     (magnitude = twice the triangle area)."""

@@ -142,6 +142,12 @@ def vert_normals_t(v, f, csr=None):
     return normalize_rows(_summed(v, f, csr)).to(v.dtype)
 
 
+def vert_normals_scaled(v, f, device="cuda"):
+    """Sum of incident scaled face normals per vertex -> [..., V, 3]
+    (reference VertNormalsScaled)."""
+    return vert_normals_scaled_t(as_tensor(v, device), as_tensor(f, device))
+
+
 def vert_normals(v, f, device="cuda"):
     """Unit vertex normals -> [..., V, 3] (reference VertNormals ==
     Mesh.estimate_vertex_normals)."""

@@ -14,8 +14,9 @@ float64.  The device is chosen when the mesh is made (keyword-only
 (subdivided, simplified, uniquified, visible part, landmark markers,
 texture templates) is made on the same device.
 
-Not ported yet (each raises ``NotImplementedError``): ``show`` (the viewer)
-and ``write_store`` / ``load_from_store`` (the content-addressed store).
+Not ported yet (raises ``NotImplementedError``): ``show`` (the viewer).
+``write_store`` / ``load_from_store`` publish to and load from the
+content-addressed mesh store (``store/``).
 """
 
 import os
@@ -632,18 +633,21 @@ class Mesh(object):
         serialization.load_from_obj_cpp(self, filename)
 
     def write_store(self, store=None):
-        """Publish this mesh into the content-addressed store: the store is
-        not ported yet."""
-        raise _not_ported("Mesh.write_store",
-                          "mesh_tpu.serialization.store_io.ingest_mesh",
-                          "the mesh store, mesh_tpu/store")
+        """Publish this mesh into the content-addressed store; returns the
+        store key (topology digest)."""
+        from .serialization.store_io import ingest_mesh
+
+        return ingest_mesh(self, store=store)
 
     def load_from_store(self, digest, store=None, tier="exact"):
-        """Load geometry from a store object: the store is not ported
-        yet."""
-        raise _not_ported("Mesh.load_from_store",
-                          "mesh_tpu.store.MeshStore.open",
-                          "the mesh store, mesh_tpu/store")
+        """Load geometry from a store object (the exact tier is
+        bit-identical to what was ingested)."""
+        from .store import get_store
+
+        stored = (store or get_store()).open(digest, tier=tier)
+        self.v = np.array(stored.v)
+        self.f = np.array(stored.f)
+        return self
 
     def set_landmark_indices_from_ppfile(self, ppfilename):
         serialization.set_landmark_indices_from_ppfile(self, ppfilename)

@@ -16,7 +16,7 @@ finishes —
           -> dispatch -> device -> respond
 
 (``queue`` = serve-queue wait, ``page_in`` = store-key resolution
-(store-keyed requests only; the store is not ported yet), ``coalesce`` =
+(store-keyed requests only), ``coalesce`` =
 the engine executor's batching window, ``pad`` = stack/bucket-pad cost,
 ``compile`` = plan-cache lookup or capture, ``dispatch`` = host-side
 launch, ``device`` = on-device wall time, ``respond`` = split + response

@@ -1,6 +1,8 @@
 """Closest-point, normal-weighted, ray, visibility and
 triangle-triangle queries of the PyTorch port."""
 
+from .autotune import calibrate_crossover, crossover_faces  # noqa: F401
+from .point_triangle import closest_point_on_triangle  # noqa: F401
 from .anchored import (  # noqa: F401
     build_anchor_tables,
     closest_point_anchored,

@@ -24,10 +24,13 @@ Knobs (all overridable per-constructor): ``MESH_TPU_SERVE_QUEUE``
 ``MESH_TPU_SERVE_STATS`` (stats sink path).
 
 A request names its mesh by a live mesh object (a port ``Mesh``, on the
-card or built with ``device="cpu"``).  A *store key* (a digest string)
-needs the mesh store's page cache, which is not ported yet: such a
-request fails through its future with ``NotImplementedError`` (ROADMAP.md,
-Queue 1).
+card or built with ``device="cpu"``) or by a *store key* (a topology
+digest string), which resolves through the mesh store's page cache
+(``store/pages.py``) when a worker takes the request: the ledger records
+the ``page_in`` stage, the ``store_key`` and the ``mesh_source`` (``paged``
+off disk or ``resident`` in the cache), and a key that does not resolve
+fails that request alone.  A paged mesh runs on the current card, or
+where the service's ``device`` says (``QueryService(device="cpu")``).
 """
 
 import itertools
@@ -178,7 +181,7 @@ class QueryService(object):
 
     def __init__(self, max_queue_per_tenant=None, weights=None, workers=None,
                  ladder=None, default_deadline_s=None, health=None,
-                 chunk=512, stats_path=None, recorder=None):
+                 chunk=512, stats_path=None, recorder=None, device=None):
         self.max_queue_per_tenant = (
             knobs.get_int("MESH_TPU_SERVE_QUEUE")
             if max_queue_per_tenant is None else int(max_queue_per_tenant))
@@ -189,6 +192,9 @@ class QueryService(object):
         self.ladder = list(ladder) if ladder is not None else default_ladder()
         self.health = health if health is not None else HealthMonitor()
         self.stats_path = stats_path
+        # where store-keyed requests run (a live mesh runs on its own
+        # device): None is the card, "cpu" the CPU
+        self.device = device
         self._recorder = recorder if recorder is not None else get_recorder()
         # incidents triggered away from the serve layer (executor faults,
         # SLO breaches) still capture this service's health snapshot
@@ -258,14 +264,15 @@ class QueryService(object):
     def submit(self, mesh, points, tenant="default", priority=0,
                deadline_s=None, ctx=None):
         """Admit one closest-point request; returns a Future of
-        ServeResponse.  ``mesh`` is a live mesh object; a *store key*
-        (topology digest string) fails through the future with
-        ``NotImplementedError`` (the store is not ported).  ``ctx``
-        carries a request identity minted upstream (a fleet router);
-        standalone admissions mint their own (obs/context.py — None
-        with MESH_TPU_TRACE_CONTEXT off).  Raises ServeRejected (with
-        ``retry_after``) when backpressure applies — callers back off,
-        the queue never grows unbounded."""
+        ServeResponse.  ``mesh`` may be a live mesh object or a *store
+        key* (topology digest string): keyed requests are resolved
+        through the in-process page cache at execution time, with the
+        paged/resident provenance recorded on the request's ledger
+        record.  ``ctx`` carries a request identity minted upstream (a
+        fleet router); standalone admissions mint their own
+        (obs/context.py — None with MESH_TPU_TRACE_CONTEXT off).
+        Raises ServeRejected (with ``retry_after``) when backpressure
+        applies — callers back off, the queue never grows unbounded."""
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         state = self.health.state
@@ -409,32 +416,39 @@ class QueryService(object):
                 "deadline (%.3fs) expired after %.3fs in the %r queue"
                 % (req.deadline.seconds, req.deadline.elapsed(), tenant)))
             return
-        # store-keyed request: the reference resolves the digest through
-        # the mesh store's page cache before the ladder; the store is not
-        # ported, so the request fails here, on the reference's path for a
-        # resolution failure — admission already charged the tenant.
+        # store-keyed request: resolve the digest through the page
+        # cache before the ladder.  Provenance ("paged" off disk vs
+        # "resident" in the cache) rides the ledger; resolution failure
+        # (unknown key, corrupt object) is a request error, same path
+        # as a ladder failure — admission already charged the tenant.
         mesh_source = "inline"
         if isinstance(req.mesh, str):
             store_key = req.mesh
-            error = NotImplementedError(
-                "store-keyed request %r: the mesh store's page cache is "
-                "not ported (ROADMAP.md, Queue 1); pass a Mesh"
-                % (store_key,))
-            latency = req.deadline.elapsed()
-            self._m_requests.inc(tenant=tenant, outcome="error")
-            self._m_latency.observe(
-                latency, exemplar=(req.ctx.request_id
-                                   if req.ctx is not None else None),
-                tenant=tenant, backend="none")
-            self._recorder.record(
-                "serve.error", tenant=tenant, outcome="error",
-                error=type(error).__name__, store_key=store_key,
-                latency_ms=round(1e3 * latency, 3))
+            try:
+                from ..store import get_page_cache
+
+                req.mesh, mesh_source = get_page_cache().resolve(store_key)
+            except Exception as e:  # noqa: BLE001 — futures carry it
+                latency = req.deadline.elapsed()
+                self._m_requests.inc(tenant=tenant, outcome="error")
+                self._m_latency.observe(
+                    latency, exemplar=(req.ctx.request_id
+                                       if req.ctx is not None else None),
+                    tenant=tenant, backend="none")
+                self._recorder.record(
+                    "serve.error", tenant=tenant, outcome="error",
+                    error=type(e).__name__, store_key=store_key,
+                    latency_ms=round(1e3 * latency, 3))
+                if req.record is not None:
+                    req.record.set(store_key=store_key)
+                    get_ledger().close(req.record, outcome="error")
+                req.future.set_exception(e)
+                return
+            if self.device is not None:
+                req.mesh = req.mesh.on(self.device)
             if req.record is not None:
+                req.record.stamp("page_in")
                 req.record.set(store_key=store_key)
-                get_ledger().close(req.record, outcome="error")
-            req.future.set_exception(error)
-            return
         if req.record is not None:
             req.record.set(mesh_source=mesh_source)
         # degraded (the top rung is the one the watchdog saw wedge) or

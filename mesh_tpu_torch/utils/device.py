@@ -25,8 +25,18 @@ def resolve_device(device="cuda"):
 
 def as_tensor(x, device, dtype=None):
     """``x`` (numpy array, tensor or sequence) as a tensor on the resolved
-    ``device``; no copy when it is already there with that dtype."""
-    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
+    ``device``; no copy when it is already there with that dtype, except
+    for a read-only array (a block the mesh store mapped from disk), which
+    is copied rather than aliased by a tensor that may be written."""
+    return torch.as_tensor(writable(x), dtype=dtype,
+                           device=resolve_device(device))
+
+
+def writable(x):
+    """``x``, or a copy of it where it is a read-only numpy array."""
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        return np.array(x)
+    return x
 
 
 def host_array(x, dtype):

@@ -2,8 +2,8 @@
 predicates built on them (counterpart of mesh_tpu/utils/knobs.py and
 mesh_tpu/utils/dispatch.py, for the knobs of the closest-point ladder and
 its MXU rung, the observability modules, the tuner, the serving tier, the
-animated-mesh sessions, the fit loss's data term, the query engine and the
-topology cache folder).
+animated-mesh sessions, the fit loss's data term, the query engine, the
+mesh store and the topology cache folder).
 
 Every knob is declared in ``KNOBS`` with its type and default, and read
 through the accessors below, which re-read ``os.environ`` on every call so
@@ -76,6 +76,15 @@ KNOBS = {
     "MESH_TPU_COALESCE_WINDOW_MS": None,
     "MESH_TPU_FLEET_SHARD": True,
     "MESH_TPU_FLEET_SHARD_MIN_Q": None,
+    # the content-addressed mesh store (store/); the root's default, when
+    # unset, is the port's own folder (store/store.py default_store_root)
+    "MESH_TPU_STORE_DIR": None,
+    "MESH_TPU_STORE_BLOCK_ROWS": 262144,
+    "MESH_TPU_STORE_COMPACT": True,
+    "MESH_TPU_STORE_SIDECAR": True,
+    "MESH_TPU_STORE_VERIFY": True,
+    "MESH_TPU_STORE_PAGE_CACHE_MB": 256.0,
+    "MESH_TPU_STORE_GC_MB": 4096.0,
     # the crc32-keyed topology cache and the native reader's build
     # (topology/connectivity.py; the reference's $PSBODY_MESH_CACHE idea)
     "MESH_TPU_CACHE": None,

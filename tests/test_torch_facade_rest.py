@@ -43,7 +43,7 @@ from .test_torch_topology import (
 
 #: the reference methods the port does not have yet, each raising
 #: NotImplementedError that names ROADMAP.md, Queue 1
-NOT_PORTED = ("load_from_store", "show", "write_store")
+NOT_PORTED = ("show",)
 
 COEFF_TOL = 1e-5
 TIE_TOL = 1e-9
@@ -149,9 +149,8 @@ def test_mesh_init_takes_device_last_keyword_only():
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_not_ported_methods_raise(name):
     m = mesh_tpu_torch.Mesh(*icosphere(1), device="cpu")
-    args = {"load_from_store": ("0" * 64,)}.get(name, ())
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        getattr(m, name)(*args)
+        getattr(m, name)()
 
 
 @pytest.mark.parametrize("pair", [

@@ -532,20 +532,6 @@ def test_default_stats_path_is_the_ports_own(monkeypatch):
     assert theirs.endswith(".mesh_tpu/serve_stats.json")
 
 
-def test_store_key_requests_raise_not_implemented():
-    svc = _service(PORT)
-    try:
-        fut = svc.submit("3df8caaa-28ce129a-v642-f1280", _PTS, tenant="k")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-            fut.result(timeout=30)
-    finally:
-        svc.stop(write_stats=False)
-    assert _counter(PORT, "mesh_tpu_serve_requests_total", tenant="k",
-                    outcome="error") == 1
-    row = tobs.get_ledger().records()[-1]
-    assert row["outcome"] == "error" and row["store_key"].startswith("3df8")
-
-
 # ---------------------------------------------------------------------------
 # the wedge: degraded, one rung down, recovered
 

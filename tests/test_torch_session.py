@@ -200,9 +200,11 @@ def test_deadline_miss_counts_and_closes_deadline():
 
 def test_trace_tail_keeps_the_missed_frame_with_its_spans(monkeypatch):
     """Under MESH_TPU_OBS the tail keeps a deadline-missed frame's ledger
-    row with its span tree (the frame's root span and the traversal under
-    it) and, with the slow-ok reservoir off, drops an on-time frame's
-    spans."""
+    row with its span tree (the frame's root span, the traversal under it
+    and, under the traversal, the ``accel.build`` of the leaf-256 index the
+    rope walk rebuilds for a leaf-8 session, as the reference's get_index
+    spans it) and, with the slow-ok reservoir off, drops an on-time
+    frame's spans."""
     monkeypatch.setenv("MESH_TPU_OBS", "1")
     monkeypatch.setenv("MESH_TPU_TRACE_RESERVOIR", "0")
     v, f = sphere(1)
@@ -215,16 +217,11 @@ def test_trace_tail_keeps_the_missed_frame_with_its_spans(monkeypatch):
     assert [e["request_id"] for e in kept] == [rows[1]["request_id"]]
     assert kept[0]["outcome"] == "deadline" and kept[0]["row"] == rows[1]
     spans = {e["name"]: e for e in kept[0]["spans"]}
-    assert set(spans) == {"anim.frame", "accel.traverse"}
+    assert set(spans) == {"anim.frame", "accel.traverse", "accel.build"}
     assert spans["accel.traverse"]["parent_id"] == \
         spans["anim.frame"]["span_id"]
-
-
-def test_store_keyed_sessions_are_not_ported():
-    with pytest.raises(NotImplementedError, match=r"MeshStore.*Queue 1\)"):
-        AvatarSession(digest="3df8caaa-28ce129a-v642-f1280", device="cpu")
-    with pytest.raises(ValueError, match="keyframe mesh"):
-        AvatarSession(device="cpu")
+    assert spans["accel.build"]["parent_id"] == \
+        spans["accel.traverse"]["span_id"]
 
 
 def test_default_session_refits_through_the_leaf_box_wrapper(monkeypatch):
