@@ -741,6 +741,9 @@ SERVE_RUNG_DEADLINE_S = 5.0
 #: this much N(0, s) noise (K 16 tables certify most of them)
 SERVE_NEAR_NOISE = 0.001
 SERVE_BUDGET_S = 60.0
+#: the closed loop's ledger rows, dumped for phase 20's prof (removed there)
+SERVE_CLOSED_LEDGER = os.path.join(_REPO, "build", "chip_smoke_prof",
+                                   "serve_closed.jsonl")
 #: phase 14's diff repairs: bodies under torch.func.vmap
 DIFF_VMAP_BODIES = 4
 #: phase 19: bench.py's store cold-start queries (64 jittered unit-sphere
@@ -761,13 +764,15 @@ STORE_BUDGET_S = 120.0
 #: the first path's count is the kernel's ``launches`` in the kernels line
 #: (a kernel with no path has its row in its successor's)
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit",
-                                  "engine", "domain", "serve", "store"),
+                                  "engine", "domain", "serve", "store",
+                                  "fleet"),
                 "closest_faces_fused": ("main_path_fused",),
                 # the every-face kernel, phase 2's face oracle
                 "closest_faces_every": (),
                 "cull_records": ("main_path", "main_path_fused", "facade",
                                  "contact", "mxu", "registration", "fit",
-                                 "engine", "domain", "serve", "store"),
+                                 "engine", "domain", "serve", "store",
+                                 "fleet"),
                 "nearest_vertices": ("facade", "domain"),
                 # the every-vertex kernel, phase 2's index oracle
                 "nearest_vertices_every": (),
@@ -5842,6 +5847,15 @@ def drive_serve(inp, dev, folder):
             gc.callbacks.remove(gc_pauses)
             get_ledger().remove_listener(rows.append)
         out["closed_rows"] = rows
+        # the closed loop's rows, dumped as the reference's prof reads them
+        # (phase 20 attributes a dispatch's time with obs/prof.py)
+        os.makedirs(os.path.dirname(SERVE_CLOSED_LEDGER), exist_ok=True)
+        dumped = get_ledger().dump_jsonl(SERVE_CLOSED_LEDGER, n=len(rows))
+        with open(SERVE_CLOSED_LEDGER) as fh:
+            check(dumped == len(rows) and [
+                {k: v for k, v in json.loads(line).items() if k != "schema"}
+                for line in fh] == [json.loads(json.dumps(r)) for r in rows],
+                "serve: the ledger's dump is not the closed loop's rows")
         marks.mark("c_closed")
         # d. the open loop
         t0 = time.perf_counter()
@@ -6801,6 +6815,829 @@ def drive_store_phase(inp, dev, smi):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the fleet tier and the obs tooling it reads through.
+
+#: bench.py fleet_proxy's shape (bench.py:1756) with real meshes: 16 posed
+#: SMPL-sized bodies in a store, 3 replicas, 8 rounds of one request a key
+FLEET_BODIES = 16
+FLEET_ROUNDS = 8
+FLEET_REPLICAS = 3
+#: the replicas' per-tenant bound: no request of a replay is shed, so both
+#: replays admit the same sequence (the spill drive sets its own bound, 1)
+FLEET_QUEUE = 8192
+#: synth_mix's 11.2 s replayed at twice its pace (the checksum is
+#: invariant to the speed)
+FLEET_REPLAY_SPEED = 2.0
+#: 20e: Mesh.closest_faces_and_points timed by utils.profiling.time_fn
+FLEET_TIME_FN_REPS = 10
+#: 20g: the staged harness's budgets (the hung stage's by its knob)
+FLEET_STAGE_TIMEOUT_S = 180.0
+FLEET_STAGE_SLEEP_S = 3.0
+#: 20h: requests through the witnessed child's 2-replica router
+FLEET_WITNESS_REQUESTS = 8
+FLEET_CHILD_TIMEOUT_S = 300
+FLEET_BUDGET_S = 120.0
+
+#: 20g's stage children: each runs mesh_tpu_torch on the card; the fault
+#: hook (MESH_TPU_BENCH_FAULT) comes first, as a stage child's must
+FLEET_STAGE_CHILD = r"""
+import json, sys
+from mesh_tpu_torch.obs import perf
+name = sys.argv[1]
+perf.inject_fault(name)
+import numpy as np
+import torch
+if name == "probe":
+    print(json.dumps({"metric": "probe", "value": 1.0,
+                      "card": torch.cuda.get_device_name(0),
+                      "backend_ok": bool(torch.cuda.is_available()),
+                      "jax": "jax" in sys.modules}))
+else:
+    from mesh_tpu_torch import Mesh
+    z = np.load(sys.argv[2])
+    mesh = Mesh(z["v"], z["f"], device="cuda")
+    faces, points = mesh.closest_faces_and_points(z["q"])
+    np.savez(sys.argv[3], faces=faces, points=points)
+    print(json.dumps({"metric": name, "value": float(len(z["q"])),
+                      "sqdist_sum": float(((z["q"] - points) ** 2).sum()),
+                      "jax": "jax" in sys.modules}))
+"""
+
+#: 20h's child: the lock witness over a 2-replica router on the card
+FLEET_WITNESS_CHILD = r"""
+import json, sys
+import numpy as np
+from mesh_tpu_torch import Mesh
+from mesh_tpu_torch.fleet import FleetRouter
+from mesh_tpu_torch.serve import QueryService
+from mesh_tpu_torch.utils import lockwitness
+if not lockwitness.installed():
+    raise SystemExit("MESH_TPU_LOCK_WITNESS did not install the witness")
+z = np.load(sys.argv[1])
+mesh = Mesh(z["v"], z["f"], device="cuda")
+router = FleetRouter({"w-%d" % i: QueryService(
+    workers=2, device="cuda", default_deadline_s=30.0) for i in range(2)})
+try:
+    futures = [router.submit(mesh, z["q"], tenant="t%d" % (i % 2))
+               for i in range(int(sys.argv[2]))]
+    answers = [f.result(timeout=120) for f in futures]
+finally:
+    router.stop(write_stats=False)
+path = lockwitness.dump()
+print(json.dumps({"path": path, "answers": len(answers),
+                  "rungs": sorted({a.rung for a in answers}),
+                  "jax": "jax" in sys.modules}))
+"""
+
+
+def bridge_counts():
+    """What the torch.monitor bridge folded into the registry: kernel
+    libraries loaded (hits) and built (misses), and the misses' seconds."""
+    from mesh_tpu_torch.obs import REGISTRY
+
+    seconds = REGISTRY.get("mesh_tpu_kernel_cache_seconds")
+    miss = [s for s in (seconds.snapshot()["series"] if seconds else ())
+            if s["labels"].get("outcome") == "miss"]
+    return {"hits": REGISTRY.counter(
+                "mesh_tpu_kernel_cache_hits_total").total(),
+            "misses": REGISTRY.counter(
+                "mesh_tpu_kernel_cache_misses_total").total(),
+            "miss_seconds_n": miss[0]["count"] if miss else 0,
+            "miss_seconds": miss[0]["sum"] if miss else 0.0}
+
+
+def fleet_inputs(model, dev):
+    """Phase 20's bodies: FLEET_BODIES posed by lbs from one seed, and per
+    body FLEET_ROUNDS + 1 sets of SERVE_QUERIES N(0, 0.4) queries (the
+    last for the round after the drain)."""
+    from mesh_tpu_torch.models import lbs
+
+    rng = np.random.RandomState(20)
+    betas = torch.as_tensor(rng.randn(FLEET_BODIES, model.num_betas) * 0.3,
+                            dtype=torch.float32, device=dev)
+    pose = torch.as_tensor(rng.randn(FLEET_BODIES, model.num_joints, 3) * 0.1,
+                           dtype=torch.float32, device=dev)
+    verts, _ = lbs(model, betas, pose, device=dev)
+    return {"verts": verts.cpu().numpy(),
+            "faces": model.faces.cpu().numpy(),
+            "queries": np.asarray(rng.randn(
+                FLEET_BODIES, FLEET_ROUNDS + 1, SERVE_QUERIES, 3) * 0.4,
+                np.float32)}
+
+
+class _Kept(object):
+    """A router as the loadgen drivers see it, keeping every request's
+    mesh, points and future for the checks after the window."""
+
+    def __init__(self, router):
+        self.router = router
+        self.kept = []
+        self._lock = threading.Lock()
+
+    def submit(self, mesh, points, **kw):
+        future = self.router.submit(mesh, points, **kw)
+        with self._lock:
+            self.kept.append((mesh, points, future))
+        return future
+
+    def query(self, mesh, points, **kw):
+        return self.submit(mesh, points, **kw).result()
+
+    def admission_checksums(self):
+        return self.router.admission_checksums()
+
+
+def null_fleet_checksums(names, keys, queries, rounds):
+    """The admission checksums a fleet of the same membership gives on the
+    same submit sequence when its replicas answer from plain Python (no
+    card, no timing): what step a's must equal."""
+    from mesh_tpu_torch.fleet import FleetRouter
+    from mesh_tpu_torch.serve import HealthMonitor, QueryService, Rung
+    from mesh_tpu_torch.serve import ServeResult
+
+    def ok(mesh, points, chunk, timeout):
+        return ServeResult(np.zeros((1, len(points)), np.uint32),
+                           np.zeros((len(points), 3)), "null", True)
+
+    router = FleetRouter({n: QueryService(
+        workers=1, ladder=[Rung("null", ok)], device="cpu",
+        health=HealthMonitor(watchdog=False),
+        max_queue_per_tenant=FLEET_QUEUE) for n in names})
+    try:
+        for r in range(rounds):
+            for fut in [router.submit(k, queries[i, r], tenant="affinity")
+                        for i, k in enumerate(keys)]:
+                fut.result(timeout=60)
+        return router.admission_checksums()
+    finally:
+        router.stop(write_stats=False)
+
+
+def start_witness_child(folder, body_npz):
+    """20h's child, started in the background (it runs while the staged
+    harness's children do): (process, witness path, stdout path)."""
+    wit = os.path.join(folder, "witness.jsonl")
+    log_path = os.path.join(folder, "witness_child.out")
+    env = dict(os.environ, PYTHONPATH=_REPO, MESH_TPU_LOCK_WITNESS="1",
+               MESH_TPU_LOCK_WITNESS_FILE=wit)
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", FLEET_WITNESS_CHILD, body_npz,
+             str(FLEET_WITNESS_REQUESTS)], stdout=out,
+            stderr=subprocess.STDOUT, env=env, cwd=_REPO)
+    return proc, wit, log_path
+
+
+def wait_witness_child(proc, log_path):
+    try:
+        rc = proc.wait(timeout=FLEET_CHILD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as fh:
+        text = fh.read()
+    check(rc == 0, "fleet witness: the child exited %s: %s" % (rc,
+                                                               text[-4000:]))
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def run_fleet_stages(folder, body_npz):
+    """20g: the staged harness over three children on the card -> (results,
+    the partial file's doc, the status counters' moves)."""
+    from mesh_tpu_torch.obs import REGISTRY
+    from mesh_tpu_torch.obs import perf
+
+    def counts():
+        return {st: {lb["stage"]: n for lb, n in REGISTRY.counter(
+            "mesh_tpu_bench_stage_%s_total" % st)._labelled()}
+            for st in ("ok", "hung", "crashed", "skipped")}
+
+    env = {"PYTHONPATH": _REPO}
+    specs = [
+        perf.StageSpec("probe", [sys.executable, "-c", FLEET_STAGE_CHILD,
+                                 "probe"],
+                       perf.stage_timeout("probe", FLEET_STAGE_TIMEOUT_S),
+                       gate=True, env=env),
+        perf.StageSpec("query", [sys.executable, "-c", FLEET_STAGE_CHILD,
+                                 "query", body_npz,
+                                 os.path.join(folder, "query_out.npz")],
+                       perf.stage_timeout("query", FLEET_STAGE_TIMEOUT_S),
+                       requires_backend=True, env=env),
+        perf.StageSpec("sleep", [sys.executable, "-c", FLEET_STAGE_CHILD,
+                                 "sleep"],
+                       perf.stage_timeout("sleep", FLEET_STAGE_SLEEP_S),
+                       env=dict(env, MESH_TPU_BENCH_FAULT="sleep:hang"))]
+    before = counts()
+    partial = perf.partial_path(os.path.join(folder, "bench_partial.json"))
+    results = perf.run_stages(specs, partial, log=log)
+    after = counts()
+    moved = {st: {k: n - before[st].get(k, 0) for k, n in after[st].items()
+                  if n != before[st].get(k, 0)} for st in after}
+    return results, perf.read_bench_json(partial), moved
+
+
+def fleet_answer(label, resp, v, f, q, dev, brutes):
+    """One served answer against the brute-force kernel on the same inputs
+    (the brute result cached per body and query set)."""
+    import zlib
+
+    from mesh_tpu_torch.query import closest_kernel as ck
+
+    key = (zlib.crc32(np.ascontiguousarray(v).tobytes()),
+           zlib.crc32(np.ascontiguousarray(q).tobytes()))
+    v_t = torch.as_tensor(v, device=dev)[None]
+    f_t = torch.as_tensor(np.asarray(f, np.int64), device=dev)
+    q_t = torch.as_tensor(q, device=dev)[None]
+    if key not in brutes:
+        brutes[key] = ck.closest_point_kernel(
+            v_t, f_t, q_t,
+            assume_nondegenerate=ck.mesh_is_nondegenerate(v, f))
+    sq = ((q.astype(np.float64) - resp.points) ** 2).sum(-1)
+    return check_against_brute(
+        label, v_t, f_t, q_t,
+        torch.as_tensor(resp.faces[0].astype(np.int64), device=dev)[None],
+        torch.as_tensor(sq, dtype=torch.float32, device=dev)[None],
+        brutes[key], quiet=True)
+
+
+def drive_fleet(inp, dev, folder):
+    """Phase 20 a-e, launch counts set to 0 just before a and read just
+    after e; f-h after the window (h's child started before g's); the
+    records the checks read."""
+    from mesh_tpu_torch import Mesh
+    from mesh_tpu_torch.fleet import (FleetCoordinator, FleetRouter,
+                                      aggregate_sinks, read_sink)
+    from mesh_tpu_torch.obs import (REGISTRY, TRACER, get_ledger,
+                                    get_trace_tail, prof, prometheus_text,
+                                    render_tree, write_jsonl)
+    from mesh_tpu_torch.obs.clock import monotonic
+    from mesh_tpu_torch.obs.replay import synth_mix
+    from mesh_tpu_torch.serve import (QueryService, run_closed_loop,
+                                      run_trace_replay)
+    from mesh_tpu_torch.store import get_store
+    from mesh_tpu_torch.utils import tuning
+    from mesh_tpu_torch.utils.profiling import time_fn, trace
+
+    store = get_store()
+    verts, faces, queries = inp["verts"], inp["faces"], inp["queries"]
+    keys = [store.ingest(v, faces) for v in verts]
+    body_of = {k: i for i, k in enumerate(keys)}
+    out = {"keys": keys, "times_s": {}, "answers": [], "sent": 0}
+    times = out["times_s"]
+
+    def make(name, **kw):
+        kw.setdefault("workers", SERVE_WORKERS)
+        kw.setdefault("max_queue_per_tenant", FLEET_QUEUE)
+        return QueryService(default_deadline_s=SERVE_DEADLINE_S,
+                            stats_path=os.path.join(folder, name + ".json"),
+                            device=dev, **kw)
+
+    def counter(name):
+        return REGISTRY.counter(name).total()
+
+    rows = []
+    requests0 = counter("mesh_tpu_serve_requests_total")
+    get_ledger().add_listener(rows.append)
+    names = ["replica-%d" % i for i in range(FLEET_REPLICAS)]
+    replicas = {n: make(n) for n in names}
+    router = FleetRouter(replicas)
+    kept = _Kept(router)
+    reset_launches()
+    marks = _Launches()
+    t_phase = time.perf_counter()
+    try:
+        # a. affinity, then a drain
+        t0 = time.perf_counter()
+        out["primaries"] = [
+            router.plan("closest_point", k, queries[i, 0])[1][0]
+            for i, k in enumerate(keys)]
+        out["first_seen"] = []
+        for r in range(FLEET_ROUNDS):
+            futures = [kept.submit(k, queries[i, r], tenant="affinity")
+                       for i, k in enumerate(keys)]
+            for i, fut in enumerate(futures):
+                fut.result(timeout=60)
+                seen = (out["primaries"][i], keys[i])
+                if seen not in out["first_seen"]:
+                    out["first_seen"].append(seen)
+        out["affinity_rows"] = len(rows)
+        out["affinity_sums"] = router.admission_checksums()
+        victim = out["primaries"][0]
+        replicas[victim].health.begin_drain()
+        out["victim"] = victim
+        out["after_drain"] = [
+            router.plan("closest_point", k, queries[i, FLEET_ROUNDS])[1][0]
+            for i, k in enumerate(keys)]
+        first = len(rows)
+        for fut in [kept.submit(k, queries[i, FLEET_ROUNDS],
+                                tenant="drained")
+                    for i, k in enumerate(keys)]:
+            fut.result(timeout=60)
+        out["drain_rows"] = (first, len(rows))
+        times["a_affinity"] = time.perf_counter() - t0
+        marks.mark("a_affinity")
+        # b. spill, the kill switch, the closed loop, two replays
+        t0 = time.perf_counter()
+        key0, q0 = keys[0], queries[0, 0]
+        spill = {n: make(n, workers=1, max_queue_per_tenant=1)
+                 for n in ("spill-a", "spill-b")}
+        spill_router = FleetRouter(spill)
+        try:
+            order = spill_router.plan("closest_point", key0, q0)[1]
+            spills0 = REGISTRY.counter("mesh_tpu_fleet_spill_total").value(
+                replica=order[0])
+            rejected0 = REGISTRY.counter(
+                "mesh_tpu_fleet_requests_total").value(
+                    replica=order[0], outcome="rejected")
+            spill[order[0]].hold()
+            try:
+                burst = [spill_router.submit(key0, q0, tenant="stampede")
+                         for _ in range(2)]
+            finally:
+                spill[order[0]].release()
+            out["spill"] = {
+                "order": order,
+                "answers": [fut.result(timeout=60) for fut in burst],
+                "spills": REGISTRY.counter(
+                    "mesh_tpu_fleet_spill_total").value(
+                        replica=order[0]) - spills0,
+                "rejected": REGISTRY.counter(
+                    "mesh_tpu_fleet_requests_total").value(
+                        replica=order[0], outcome="rejected") - rejected0}
+        finally:
+            spill_router.stop(write_stats=False)
+        # two admissions and the primary's queue_full hop
+        out["sent"] += 3
+        out["answers"] += [("spill", key0, q0, a)
+                           for a in out["spill"]["answers"]]
+        solo = make("solo")
+        solo_router = FleetRouter({"solo": solo})
+        fleet0 = counter("mesh_tpu_fleet_requests_total")
+        try:
+            with knobs_set(MESH_TPU_FLEET=0):
+                via = solo_router.query(key0, q0, tenant="solo")
+            direct = solo.query(key0, q0, tenant="solo")
+        finally:
+            solo_router.stop(write_stats=False)
+        out["kill_switch"] = {
+            "equal": bool(np.array_equal(via.faces, direct.faces)
+                          and np.array_equal(via.points, direct.points)),
+            "fleet_requests": counter("mesh_tpu_fleet_requests_total")
+            - fleet0}
+        out["sent"] += 2
+        out["answers"] += [("kill switch", key0, q0, via),
+                           ("direct", key0, q0, direct)]
+        first = len(rows)
+        out["closed"] = run_closed_loop(
+            kept, key0, q0, clients=SERVE_CLIENTS,
+            requests_per_client=SERVE_REQUESTS_PER_CLIENT,
+            deadline_s=SERVE_DEADLINE_S)
+        out["closed_rows"] = (first, len(rows))
+        trace_doc = synth_mix(seed=SERVE_TRACE_SEED)
+        out["replays"] = []
+        for _ in range(2):
+            router.reset_admission_log()
+            out["replays"].append(run_trace_replay(
+                kept, key0, q0, trace_doc, speed=FLEET_REPLAY_SPEED))
+        times["b_spill_loops"] = time.perf_counter() - t0
+        marks.mark("b_spill_loops")
+        # c. the coordinator over the replicas' stats callables
+        t0 = time.perf_counter()
+        coord = FleetCoordinator({n: s.stats for n, s in replicas.items()})
+        sinks = [read_sink(s.stats) for s in replicas.values()]
+        out["sinks"], out["aggregate"] = sinks, aggregate_sinks(sinks)
+        out["step"] = coord.step()
+        now = monotonic()
+        out["grants"] = [
+            coord.grant_widen("replica-0", now=now),
+            coord.grant_widen("replica-1", now=now + 1.0),
+            coord.grant_widen("replica-1",
+                              now=now + coord.widen_cooldown_s + 1.0)]
+        out["coordinator"] = coord.status()
+        tuning.reset()          # a shrink step's actuations end here
+        times["c_coordinator"] = time.perf_counter() - t0
+        marks.mark("c_coordinator")
+        # d. prof: per replica, the fleet, one request's trace, phase 18
+        t0 = time.perf_counter()
+        by_replica = {}
+        for row in rows:
+            if row.get("replica"):
+                by_replica.setdefault(row["replica"], []).append(row)
+        out["replica_stats"] = {n: prof.stats_from_records(r)
+                                for n, r in sorted(by_replica.items())}
+        out["fleet_attribution"] = prof.fleet_attribution(
+            sorted(out["replica_stats"].items()))[1]
+        ring = os.path.join(folder, "ledger_ring.jsonl")
+        out["ring_rows"] = get_ledger().dump_jsonl(ring)
+        last = [r for r in prof.load_rows(ring) if r.get("replica")][-1]
+        out["trace"] = prof.request_trace(last["request_id"], paths=[ring],
+                                          tail=get_trace_tail())
+        out["trace_plan"] = router.plan("closest_point", key0, q0)[1]
+        out["trace_lines"] = prof.render_request_trace(out["trace"])
+        out["serve18"] = prof.load(inp["closed_ledger"])
+        lo, hi = out["closed_rows"]
+        out["fleet_closed"] = prof.stats_from_records(rows[lo:hi])
+        out["vs_serve18"] = prof.diff(out["serve18"], out["fleet_closed"])
+        times["d_prof"] = time.perf_counter() - t0
+        marks.mark("d_prof")
+        # e. export and profiling around single requests
+        t0 = time.perf_counter()
+        out["prometheus"] = prometheus_text()
+        TRACER.clear()
+        with knobs_set(MESH_TPU_OBS=1):
+            out["answers"].append(("spans", key0, q0,
+                                   kept.query(key0, q0, tenant="spans")))
+        spans = TRACER.events()
+        out["tree"] = render_tree(spans)
+        out["span_lines"] = write_jsonl(os.path.join(folder, "spans.jsonl"),
+                                        events=spans)
+        out["spans"] = len(spans)
+        with trace(os.path.join(folder, "trace")) as profile:
+            out["answers"].append(("traced", key0, q0,
+                                   kept.query(key0, q0, tenant="traced")))
+        out["trace_path"] = profile.trace_path
+        mesh = Mesh(verts[0], faces, device=dev)
+        out["time_fn_s"] = time_fn(
+            lambda: mesh.closest_faces_and_points(q0),
+            reps=FLEET_TIME_FN_REPS, warmup=1)
+        times["e_export"] = time.perf_counter() - t0
+        marks.mark("e_export")
+        launches = read_launches()
+        out["window_s"] = time.perf_counter() - t_phase
+        out["step_launches"] = marks.steps
+    finally:
+        get_ledger().remove_listener(rows.append)
+        router.stop(write_stats=False)
+    out["rows"] = rows
+    out["requests_moved"] = counter("mesh_tpu_serve_requests_total") \
+        - requests0
+    out["sent"] += len(kept.kept)
+    out["answers"] += [("fleet", k, q, fut.result(timeout=60))
+                       for k, q, fut in kept.kept]
+    out["body_of"] = body_of
+    # f-h after the window: h's child runs while g's do
+    body_npz = os.path.join(folder, "body0.npz")
+    np.savez(body_npz, v=verts[0], f=faces, q=queries[0, 0])
+    t0 = time.perf_counter()
+    witness = start_witness_child(folder, body_npz)
+    try:
+        out["stages"], out["partial"], out["stage_counts"] = \
+            run_fleet_stages(folder, body_npz)
+    finally:
+        out["witness"] = wait_witness_child(witness[0], witness[2])
+    times["gh_children"] = time.perf_counter() - t0
+    out["witness_edges"] = witness[1]
+    with np.load(os.path.join(folder, "query_out.npz")) as z:
+        out["stage_answer"] = (z["faces"], z["points"])
+    return out, launches
+
+
+def _acyclic(edges):
+    """True when the witnessed order graph (src -> dst sites) has no
+    cycle."""
+    graph = {}
+    for src, dst, _ in edges:
+        graph.setdefault(src, set()).add(dst)
+    state = {}
+
+    def visit(node):
+        state[node] = 1
+        for nxt in graph.get(node, ()):
+            if state.get(nxt) == 1 or (nxt not in state and not visit(nxt)):
+                return False
+        state[node] = 2
+        return True
+
+    return all(state.get(n) == 2 or visit(n) for n in list(graph))
+
+
+def _row_key(row):
+    return row["routing_key"].split("|")[1]
+
+
+def check_fleet_routing(out, inp, rec):
+    """(a) and (b): affinity, the drain, spill, the kill switch and the
+    loads through the router."""
+    keys, prim = out["keys"], out["primaries"]
+    names = ["replica-%d" % i for i in range(FLEET_REPLICAS)]
+    rows = out["rows"]
+    served = {}
+    for row in rows[:out["affinity_rows"]]:
+        served.setdefault(_row_key(row), []).append(row["replica"])
+    for i, k in enumerate(keys):
+        check(served.get(k) == [prim[i]] * FLEET_ROUNDS,
+              "fleet affinity: key %s served by %s, its ring primary is %s"
+              % (k, served.get(k), prim[i]))
+    check(len(set(prim)) > 1, "fleet: every key on one replica %s" % prim)
+    null = null_fleet_checksums(names, keys, inp["queries"], FLEET_ROUNDS)
+    check(out["affinity_sums"] == null, "fleet: admission checksums %s, a "
+          "plain-Python fleet's on the same sequence %s"
+          % (out["affinity_sums"], null))
+    victim, after = out["victim"], out["after_drain"]
+    moved = [i for i in range(len(keys)) if after[i] != prim[i]]
+    check(moved and all(prim[i] == victim for i in moved)
+          and all(after[i] != victim for i in range(len(keys))),
+          "fleet drain of %s moved keys %s (primaries %s, after %s)"
+          % (victim, moved, prim, after))
+    lo, hi = out["drain_rows"]
+    check(sorted((_row_key(r), r["replica"]) for r in rows[lo:hi])
+          == sorted(zip(keys, after)), "fleet: the round after the drain "
+          "was not served by the new primaries")
+    sp = out["spill"]
+    spilled = [r for r in rows if r.get("tenant") == "stampede"]
+    check(sp["spills"] == 1 and sp["rejected"] == 0
+          and sorted((r["replica"], bool(r.get("spilled"))) for r in spilled)
+          == sorted([(sp["order"][0], False), (sp["order"][1], True)]),
+          "fleet spill: %d spills, %d rejections, rows %s" % (
+              sp["spills"], sp["rejected"],
+              [(r["replica"], r.get("spilled")) for r in spilled]))
+    ks = out["kill_switch"]
+    check(ks["equal"] and ks["fleet_requests"] == 0, "fleet kill switch: "
+          "bit-equal %s, fleet series moved %s" % (ks["equal"],
+                                                   ks["fleet_requests"]))
+    closed = out["closed"]
+    n_closed = SERVE_CLIENTS * SERVE_REQUESTS_PER_CLIENT
+    check(closed["errors"] == 0 and closed["shed"] == 0
+          and closed["ok"] == closed["requests"] == n_closed
+          and closed["rungs"] == {"engine": n_closed},
+          "fleet closed loop: %s" % closed)
+    first, second = out["replays"]
+    for report in out["replays"]:
+        check(report["errors"] == 0 and report["shed"] == 0
+              and report["requests"] == report["admissions"],
+              "fleet replay: %s" % report)
+    check(first["checksum"] == second["checksum"]
+          and first["replica_checksums"] == second["replica_checksums"],
+          "fleet replay: checksums %s / %s, replicas %s / %s" % (
+              first["checksum"], second["checksum"],
+              first["replica_checksums"], second["replica_checksums"]))
+    rec["affinity"] = {"keys": len(keys), "rounds": FLEET_ROUNDS,
+                       "primaries": prim, "first_seen": out["first_seen"],
+                       "checksums": out["affinity_sums"]}
+    rec["drain"] = {"victim": victim, "moved": len(moved)}
+    rec["spill"] = {"spills": sp["spills"], "rejected": sp["rejected"]}
+    rec["closed_loop"] = {k: closed[k] for k in (
+        "p50_ms", "p95_ms", "p99_ms", "goodput_qps", "deadline_miss_rate",
+        "shed_rate", "requests", "rungs")}
+    rec["replay"] = {k: first[k] for k in (
+        "admissions", "checksum", "replica_checksums", "p50_ms", "p99_ms",
+        "paced_s")}
+    rec["replay"]["second_p99_ms"] = second["p99_ms"]
+
+
+def check_fleet_tools(out, inp, rec, dev):
+    """(c)-(h): the coordinator, prof, the exporters and profiling, the
+    bridge's counts, the staged harness and the lock witness."""
+    import re
+    import types
+
+    from mesh_tpu_torch import _build
+    from mesh_tpu_torch.obs import REGISTRY, list_incidents, perf, prof
+
+    # c. sinks sum per label set; one step; one grant per cooldown
+    for name, entry in out["aggregate"].items():
+        for series in entry["series"]:
+            want = 0
+            for sink in out["sinks"]:
+                for s in sink["metrics"].get(name, {}).get("series", ()):
+                    if s["labels"] == series["labels"]:
+                        want += s["count" if entry["type"] == "histogram"
+                                  else "value"]
+            got = series["count" if entry["type"] == "histogram" else "value"]
+            check(got == want, "fleet aggregate %s%s: %s, the sinks sum %s"
+                  % (name, series["labels"], got, want))
+    step, status = out["step"], out["coordinator"]
+    check(step["decision"] in ("hold", "shrink", "release")
+          and step["sinks"] == FLEET_REPLICAS, "fleet step %s" % step)
+    want = [True, False, True] if status["pressure"] <= 0.1 else [False] * 3
+    check(out["grants"] == want, "fleet grants %s at pressure %s"
+          % (out["grants"], status["pressure"]))
+    rec["coordinator"] = {"decision": step["decision"],
+                          "pressure": step["pressure"],
+                          "actions": len(step["actions"]),
+                          "grants": out["grants"]}
+    # d. prof
+    names = ["replica-%d" % i for i in range(FLEET_REPLICAS)]
+    check(set(out["replica_stats"]) <= set(names) | {"spill-a", "spill-b"}
+          and len(out["fleet_attribution"]) >= 2,
+          "fleet prof: replicas %s" % sorted(out["replica_stats"]))
+    tr = out["trace"]
+    check(len(tr["rows"]) == 1 and tr["rows"][0]["replica"]
+          == out["trace_plan"][0] and _row_key(tr["rows"][0])
+          == out["keys"][0], "fleet request trace %s (plan %s)"
+          % (tr["rows"], out["trace_plan"]))
+    s18 = out["serve18"]
+    check(s18["total"]["count"] == SERVE_ROUNDS * SERVE_CLIENTS
+          * SERVE_REQUESTS_PER_CLIENT, "prof of phase 18's closed loop: "
+          "%s rows" % s18["total"]["count"])
+    rec["prof"] = {
+        "serve18_stages_ms": {k: {"p50": v["p50_s"] * 1e3,
+                                  "p99": v["p99_s"] * 1e3,
+                                  "mean": v["mean_s"] * 1e3,
+                                  "count": v["count"]}
+                              for k, v in s18["stages"].items()},
+        "serve18_total_ms": {"p50": s18["total"]["p50_s"] * 1e3,
+                             "p99": s18["total"]["p99_s"] * 1e3},
+        "serve18_top": prof.top_lines(s18),
+        "fleet_closed_vs_serve18": out["vs_serve18"][1],
+        "fleet_attribution": out["fleet_attribution"],
+        "request_trace": out["trace_lines"]}
+    # e. the exporters and profiling
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? (\S+)$')
+    lines = out["prometheus"].splitlines()
+    for line in lines:
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            continue
+        m = sample.match(line)
+        check(m is not None and (m.group(2) in ("+Inf", "-Inf", "NaN")
+                                 or float(m.group(2)) == float(m.group(2))),
+              "prometheus_text: unparsable line %r" % line)
+    check(out["spans"] > 0 and "serve.request" in out["tree"]
+          and "engine.dispatch" in out["tree"]
+          and out["span_lines"] == out["spans"] + 1,
+          "render_tree of %d spans: %s" % (out["spans"], out["tree"][:400]))
+    with open(out["trace_path"]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel" and "cull" in e["name"]})
+    check(any("closest_cull_kernel" in n for n in kernels),
+          "profiling.trace: no closest_faces kernel (closest_cull_kernel) "
+          "among %s" % kernels)
+    check(out["time_fn_s"] > 0, "time_fn %s" % out["time_fn_s"])
+    rec["export"] = {"prometheus_lines": len(lines), "spans": out["spans"],
+                     "trace_kernels": kernels,
+                     "time_fn_ms": out["time_fn_s"] * 1e3}
+    # f. the bridge: one event per kernel library at phase 1's build
+    bridge = inp["bridge"]
+    check(bridge["hits"] + bridge["misses"] == len(_build.KERNELS)
+          and bridge["miss_seconds_n"] == bridge["misses"]
+          and (bridge["misses"] == 0 or bridge["miss_seconds"] > 0),
+          "bridge: %s for %d libraries" % (bridge, len(_build.KERNELS)))
+    rec["bridge"] = bridge
+    # g. the staged harness
+    st = out["stages"]
+    statuses = [r.status for r in st.values()]
+    check(statuses == ["ok", "ok", "hung"], "staged harness: %s" % {
+        n: (r.status, r.error) for n, r in st.items()})
+    probe = st["probe"].record
+    check(probe["card"] == torch.cuda.get_device_name(0)
+          and not probe["jax"] and not st["query"].record["jax"],
+          "staged probe %s" % probe)
+    doc = out["partial"]
+    check(doc["kind"] == "bench_partial" and [
+        doc["stages"][n]["status"] for n in doc["order"]] == statuses,
+        "bench_partial.json: %s" % doc)
+    hangs = [p for p in list_incidents() if "bench_stage_hang" in p]
+    check(len(hangs) == 1, "staged harness: incidents %s" % hangs)
+    check(out["stage_counts"] == {"ok": {"probe": 1, "query": 1},
+                                  "hung": {"sleep": 1}, "crashed": {},
+                                  "skipped": {}},
+          "staged counters moved %s" % out["stage_counts"])
+    rc, lines = perf.perfcheck(doc, baseline=doc)
+    check(rc == 0, "perfcheck of the partial doc: %s" % lines)
+    faces, points = out["stage_answer"]
+    v0, f0, q0 = inp["verts"][0], inp["faces"], inp["queries"][0, 0]
+    resp = types.SimpleNamespace(faces=faces[None],
+                                 points=points.astype(np.float64))
+    rec["staged"] = {
+        "statuses": dict(zip(st, statuses)),
+        "elapsed_s": {n: r.elapsed_s for n, r in st.items()},
+        "vs_brute": fleet_answer("staged query", resp, v0, f0, q0, dev, {})}
+    # h. the lock witness
+    from mesh_tpu_torch.utils import lockwitness
+
+    edges = lockwitness.load(out["witness_edges"])
+    with open(out["witness_edges"]) as fh:
+        sites = [json.loads(ln)["site"] for ln in fh if '"site"' in ln]
+    check(out["witness"]["answers"] == FLEET_WITNESS_REQUESTS
+          and out["witness"]["rungs"] == ["engine"]
+          and not out["witness"]["jax"], "witness child %s" % out["witness"])
+    check(sites and all(s[0].startswith("mesh_tpu_torch/") for s in sites)
+          and all(e[0][0].startswith("mesh_tpu_torch/")
+                  and e[1][0].startswith("mesh_tpu_torch/") for e in edges),
+          "witness sites %s" % sites)
+    check(_acyclic([(a, b, n) for a, b, n in edges]),
+          "witness: the order graph has a cycle: %s" % edges)
+    above = [(a, b) for a, b, _ in edges
+             if a[0] == "mesh_tpu_torch/fleet/router.py"
+             and b[0] == "mesh_tpu_torch/serve/health.py"]
+    check(above, "witness: no router -> health edge among %s" % edges)
+    rec["witness"] = {"sites": len(sites), "edges": len(edges),
+                      "router_above_health": above}
+
+
+def check_fleet(out, launches, inp, dev):
+    """Phase 20's checks, after the counted window."""
+    rec = {"times_s": out["times_s"], "window_s": out["window_s"]}
+    check_fleet_routing(out, inp, rec)
+    # every answer against the brute-force kernel
+    brutes, worst = {}, {"sqdist_gap": 0.0, "faces_differ": 0,
+                         "tie_gap": 0.0}
+    for label, key, q, resp in out["answers"]:
+        check(resp.rung == "engine", "fleet %s answered by %s"
+              % (label, resp.rung))
+        res = fleet_answer("fleet " + label, resp,
+                           inp["verts"][out["body_of"][key]], inp["faces"],
+                           q, dev, brutes)
+        worst = {k: max(worst[k], res[k]) for k in worst}
+    rec["vs_brute"] = dict(worst, answers=len(out["answers"]))
+    rows = out["rows"]
+    check(all(r["outcome"] == "ok" and r["total_s"] > 0
+              and {"queue", "page_in", "device", "respond"} <= set(r["stages"])
+              for r in rows), "fleet: a ledger row without its stages")
+    check(out["requests_moved"] == out["sent"] == len(rows) + 1,
+          "fleet: mesh_tpu_serve_requests_total moved %d, %d requests sent, "
+          "%d rows" % (out["requests_moved"], out["sent"], len(rows)))
+    needed = {k for k, paths in KERNEL_PATHS.items() if "fleet" in paths}
+    for name in sorted(needed):
+        check(launches[name] > 0, "kernel %s never launched on the fleet "
+              "path" % name)
+    counted_only(launches, needed, "the fleet path")
+    # every answer, and time_fn's warm-up and timed calls
+    served = len(out["answers"]) + FLEET_TIME_FN_REPS + 1
+    check(launches["closest_faces"] == launches["cull_records"]
+          <= served + 8, "fleet: closest_faces %d, cull_records %d for %d "
+          "answers" % (launches["closest_faces"], launches["cull_records"],
+                       served))
+    rec["launches"] = {k: n for k, n in launches.items() if n}
+    rec["step_launches"] = out["step_launches"]
+    rec["answers_served"] = served
+    check_fleet_tools(out, inp, rec, dev)
+    return rec
+
+
+def drive_fleet_phase(inp, dev, smi):
+    """Phase 20 -> (its record, launches on its counted window), in a
+    temporary store root and incident folder removed afterwards."""
+    import shutil
+
+    from mesh_tpu_torch.store import clear_page_cache
+
+    folder = os.path.join(_REPO, "build", "chip_smoke_fleet")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    log("== fleet: %d posed bodies in a store behind %d replicas "
+        "(QueryService(workers=%d)), %d rounds of %d queries a key, a drain, "
+        "spill, the kill switch, a closed loop of %d x %d, synth_mix(seed=%d) "
+        "replayed twice at %gx, the coordinator, prof, export, the bridge, "
+        "the staged harness and the lock witness" % (
+            FLEET_BODIES, FLEET_REPLICAS, SERVE_WORKERS, FLEET_ROUNDS,
+            SERVE_QUERIES, SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT,
+            SERVE_TRACE_SEED, FLEET_REPLAY_SPEED))
+    t_phase = time.perf_counter()
+    try:
+        with knobs_set(MESH_TPU_STORE_DIR=os.path.join(folder, "root"),
+                       MESH_TPU_INCIDENT_DIR=os.path.join(folder,
+                                                          "incidents")):
+            clear_page_cache()
+            out, launches = drive_fleet(inp, dev, folder)
+            rec = check_fleet(out, launches, inp, dev)
+    finally:
+        clear_page_cache()
+        shutil.rmtree(folder, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(SERVE_CLOSED_LEDGER),
+                      ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    check(rec["phase_s"] <= FLEET_BUDGET_S, "fleet: %.1f s, budget %.0f s"
+          % (rec["phase_s"], FLEET_BUDGET_S))
+    log("  prof of phase 18's closed loop (a dispatch's stages, host clock, "
+        "ms; on %s):" % smi)
+    for line in rec["prof"]["serve18_top"]:
+        log("    " + line)
+    log("  the fleet's closed loop against phase 18's (prof.diff):")
+    for line in rec["prof"]["fleet_closed_vs_serve18"]:
+        log("    " + line)
+    log("  fleet attribution over the replicas' ledgers:")
+    for line in rec["prof"]["fleet_attribution"]:
+        log("    " + line)
+    c = rec["closed_loop"]
+    log("  closed loop through the router (host clock, on %s): p50 %.3f ms, "
+        "p95 %.3f ms, p99 %.3f ms, goodput %.1f qps, deadline-miss rate "
+        "%.4f, rungs %s" % (smi, c["p50_ms"], c["p95_ms"], c["p99_ms"],
+                            c["goodput_qps"], c["deadline_miss_rate"],
+                            c["rungs"]))
+    log("  affinity %s; drain %s; spill %s; replay %s; coordinator %s" % (
+        rec["affinity"]["primaries"], rec["drain"], rec["spill"],
+        {k: rec["replay"][k] for k in ("admissions", "checksum", "p50_ms",
+                                       "p99_ms", "second_p99_ms")},
+        rec["coordinator"]))
+    log("  export %s; bridge %s; staged %s; witness %s" % (
+        rec["export"], rec["bridge"], rec["staged"]["statuses"],
+        {k: rec["witness"][k] for k in ("sites", "edges")}))
+    log("  launches on the window: closest_faces %d, cull_records %d for %d "
+        "answers (%s); vs brute %s" % (
+            rec["launches"].get("closest_faces", 0),
+            rec["launches"].get("cull_records", 0), rec["answers_served"],
+            rec["step_launches"], rec["vs_brute"]))
+    log("  steps (s): %s; counted window %.1f s; phase %.1f s (budget %.0f s)"
+        % (", ".join("%s %.2f" % kv for kv in rec["times_s"].items()),
+           rec["window_s"], rec["phase_s"], FLEET_BUDGET_S))
+    log("fleet record (on %s): %s" % (smi, json.dumps(rec, default=str)))
+    return rec, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6834,6 +7671,7 @@ def main():
     )
     from mesh_tpu_torch.query.closest_point import closest_faces_and_points_t
     from mesh_tpu_torch.query.visibility import visibility_rays
+    from mesh_tpu_torch.obs import install_torch_monitoring_bridge
     from mesh_tpu_torch.utils.dispatch import force_xla
 
     t_start = time.perf_counter()
@@ -6846,9 +7684,14 @@ def main():
     log("python", sys.version.split()[0], "torch", torch.__version__,
         "cuda", torch.version.cuda, "devices", torch.cuda.device_count())
     log("card:", smi)
+    # the torch.monitor bridge before the build: phase 20 reads one
+    # kernel-cache event per library off the registry
+    install_torch_monitoring_bridge()
     t0 = time.perf_counter()
     report = _build.build(verbose=True)
     build_s = time.perf_counter() - t0
+    bridge = bridge_counts()
+    log("kernel cache (torch.monitor bridge): %s" % bridge)
     for name, info in report.items():
         log("built %s in %.1f s" % (name, info["seconds"]))
         for line in info["ptxas"].splitlines():
@@ -7977,6 +8820,11 @@ def main():
             SERVE_QUERIES, 3) * 0.4, np.float32),
         "model": model}, dev, smi)
 
+    # -- 20. fleet: three replicas behind a FleetRouter and the obs tooling ----
+    fleet_rec, launches["fleet"] = drive_fleet_phase(dict(
+        fleet_inputs(model, dev), bridge=bridge,
+        closed_ledger=SERVE_CLOSED_LEDGER), dev, smi)
+
     # -- crossover evidence ---------------------------------------------------
     log("== crossover: every route at both drives' shapes")
     crossover_rows = crossover(dev, (verts_l, f_l, queries_l, nondegen_l),
@@ -8436,7 +9284,8 @@ def main():
         "mxu_bvh": mxu_bvh, "fit": fit_runs,
         "empty": {"entry_points": sorted(empty_layouts)},
         "engine": engine_rec, "fallback": fallback, "domain": domain,
-        "serve": serve, "store": store_rec}),
+        "serve": serve, "store": store_rec, "fleet": fleet_rec},
+        default=str),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -30,7 +30,11 @@ the single-device scan-fit step (``parallel.fit``), and the rest of the
 content-addressed mesh store (``store``: chunked CRC'd blocks, a compact
 tier, BVH side-cars, delta frames and the page cache behind store-keyed
 serve requests, ``Mesh.write_store`` and ``AvatarSession(digest=)``), on
-the reference's on-disk layout.
+the reference's on-disk layout, and the fleet tier (``fleet``: the hash
+ring, ``FleetRouter`` and ``FleetCoordinator`` over serving replicas) with
+the obs tooling it reads through (``obs.prof``, ``obs.export``, the staged
+bench harness and ``perfcheck``, the ``torch.monitor`` bridge,
+``utils.profiling``, the lock witness and the knob registry).
 
 ``texture_path`` is the folder of the shipped textured templates;
 ``mesh_package_cache_folder`` holds the crc32-keyed topology pickles
@@ -41,6 +45,13 @@ the reference's on-disk layout.
 import os
 
 from .utils import knobs
+
+# The lock witness must patch the threading factories before any
+# lock-creating module below is imported (utils/lockwitness.py).
+if knobs.flag("MESH_TPU_LOCK_WITNESS"):
+    from .utils import lockwitness as _lockwitness
+
+    _lockwitness.install()
 
 texture_path = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "ressources", "textures"))

@@ -5,7 +5,10 @@ shared library with a plain C interface, loaded with ``ctypes``.  The build
 happens at first use, all sources at once (one ``nvcc`` each, in parallel),
 into ``build/mesh_tpu_torch/`` beside the package, under a name keyed by
 the sources' and flags' digest, so an edited source never loads a stale
-library.  Each kernel declares its C argument types; a launch passes
+library.  Each library checked or built is logged as one
+``torch.monitor`` event (a hit when it was on disk, a miss when ``nvcc``
+ran, with its seconds), which ``obs/torch_bridge.py`` folds into the
+metrics registry.  Each kernel declares its C argument types; a launch passes
 tensors as device pointers, ints as ints and floats as C floats, on
 PyTorch's current stream, and every launch's ``cudaGetLastError()`` is
 checked: a non-zero code raises.
@@ -121,6 +124,25 @@ def _library_path(name):
     return os.path.join(BUILD_DIR, "%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 
+def _log_cache_event(name, hit, seconds):
+    """One ``torch.monitor`` event for kernel library ``name``; whatever a
+    registered handler raises is dropped, so monitoring never breaks a
+    build."""
+    import datetime
+
+    from torch import monitor
+
+    from .obs.torch_bridge import KERNEL_CACHE_EVENT
+
+    try:
+        monitor.log_event(monitor.Event(
+            name=KERNEL_CACHE_EVENT, timestamp=datetime.datetime.now(),
+            data={"library": name, "hit": bool(hit),
+                  "seconds": float(seconds)}))
+    except Exception:
+        pass
+
+
 def build(verbose=False):
     """Compile every kernel whose library is missing, all in parallel.
 
@@ -132,8 +154,10 @@ def build(verbose=False):
     report = {}
     try:
         for name, (source, _, _) in KERNELS.items():
+            t0 = time.perf_counter()
             target = _library_path(name)
             if os.path.exists(target):
+                _log_cache_event(name, True, time.perf_counter() - t0)
                 continue
             tmp = "%s.%d.tmp" % (target, os.getpid())
             cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
@@ -150,6 +174,7 @@ def build(verbose=False):
             os.replace(tmp, target)
             report[name] = {"seconds": time.perf_counter() - t0,
                             "ptxas": text}
+            _log_cache_event(name, False, report[name]["seconds"])
     finally:
         for proc, tmp, _, _ in procs.values():
             if proc.poll() is None:

@@ -15,7 +15,17 @@ with the same metric, span, record and file names.
   (``bind_current``);
 - ``recorder``: the flight recorder's event ring and its incident files
   (``get_recorder``, ``list_incidents``);
-- ``perf``: the wedge-proof ``call_with_timeout`` and ``reap_child``;
+- ``export``: JSON-lines dumps (``write_jsonl``, ``export_jsonl``),
+  Prometheus text (``prometheus_text``) and the ascii span tree
+  (``render_tree``);
+- ``prof``: stage breakdowns and regression attribution over ledger
+  dumps, serve-stats sinks, incidents and bench records;
+- ``perf``: the wedge-proof ``call_with_timeout`` and ``reap_child``, the
+  staged bench harness (``StageSpec``, ``run_stages``,
+  ``bench_partial.json``) and the ``perfcheck`` regression gate;
+- ``torch_bridge``: ``torch.monitor`` events (the kernel build cache's
+  hits and misses) folded into the registry; bound here under the
+  reference's name ``install_jax_monitoring_bridge``;
 - ``series``: windowed views over the registry (``get_series``);
 - ``slo``: objectives, compliance and multi-window burn-rate alerting;
 - ``controller``: the closed-loop ``TunerController`` over
@@ -23,9 +33,8 @@ with the same metric, span, record and file names.
 - ``replay``: trace capture, readers and writers, the admission checksum
   and the adversarial synthesizers.
 
-The rest of the reference's obs (the exporters, the profiler and its CLI,
-the staged bench harness and ``perfcheck``, the JAX bridge) is not ported
-(ROADMAP.md, Queue 1).
+The reference's CLI over these modules is not ported (ROADMAP.md,
+Queue 1).
 """
 
 from .clock import enabled, monotonic, wall  # noqa: F401
@@ -39,6 +48,7 @@ from .context import (  # noqa: F401
     mint,
     trace_context_enabled,
 )
+from .export import prometheus_text, render_tree, write_jsonl  # noqa: F401
 from .ledger import (  # noqa: F401
     LEDGER,
     LEDGER_STAGES,
@@ -57,7 +67,14 @@ from .metrics import (  # noqa: F401
     Histogram,
     Registry,
 )
-from .perf import call_with_timeout, reap_child  # noqa: F401
+from .perf import (  # noqa: F401
+    StageResult,
+    StageSpec,
+    call_with_timeout,
+    perfcheck,
+    reap_child,
+    run_stages,
+)
 from .recorder import (  # noqa: F401
     RECORDER,
     FlightRecorder,
@@ -95,6 +112,7 @@ from .slo import (  # noqa: F401
     default_rules,
     default_slos,
 )
+from .torch_bridge import install_torch_monitoring_bridge  # noqa: F401
 from .trace import (  # noqa: F401
     TRACER,
     Tracer,
@@ -105,12 +123,19 @@ from .trace import (  # noqa: F401
     traced,
 )
 
+#: the reference's name for its monitoring bridge: the port's counts the
+#: kernel build cache's hits and misses where the reference counts XLA's
+#: compilation cache (obs/torch_bridge.py)
+install_jax_monitoring_bridge = install_torch_monitoring_bridge
+
 __all__ = [
     "enabled", "span", "timed_span", "traced", "configure", "jsonl_sink",
     "TRACER", "Tracer",
     "REGISTRY", "Registry", "Counter", "Gauge", "Histogram",
     "LATENCY_BUCKETS_S",
     "counter", "gauge", "histogram", "metrics_snapshot", "reset",
+    "prometheus_text", "render_tree", "write_jsonl", "export_jsonl",
+    "install_jax_monitoring_bridge", "install_torch_monitoring_bridge",
     "RECORDER", "FlightRecorder", "get_recorder", "recorder_enabled",
     "default_incident_dir", "list_incidents",
     "LEDGER", "LEDGER_STAGES", "LatencyLedger", "RequestRecord",
@@ -122,7 +147,8 @@ __all__ = [
     "SLO", "BurnRateRule", "SLOMonitor", "default_slos", "default_rules",
     "compliance", "bind_incident_response",
     "monotonic", "wall",
-    "call_with_timeout", "reap_child",
+    "StageSpec", "StageResult", "call_with_timeout", "reap_child",
+    "run_stages", "perfcheck",
     "TRACE_SCHEMA", "ReplayError", "TraceWriter", "load_trace",
     "write_trace", "trace_from_ledger", "trace_from_incident",
     "admission_events", "sequence_checksum", "null_replay", "synthesize",
@@ -145,6 +171,10 @@ def histogram(name, help="", buckets=LATENCY_BUCKETS_S):
 def metrics_snapshot():
     """JSON-able snapshot of every registered metric."""
     return REGISTRY.snapshot()
+
+
+#: pull-mode JSON-lines export (spans + final metrics snapshot)
+export_jsonl = write_jsonl
 
 
 def reset():

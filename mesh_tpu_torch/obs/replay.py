@@ -23,9 +23,9 @@ served request; this module turns that evidence into a *workload corpus*:
   ``speed``: a time-warp changes pacing, never the sequence).
 - **shadow rows** — :func:`shadow_rows` pushes a trace through a
   synthetic stage model and emits ledger-shaped rows, so two builds'
-  stage models compare on one trace.  Embedding their stage statistics in
-  a report (``attach_stage_stats``) needs the reference's obs/prof.py,
-  which is not ported yet (ROADMAP.md, Queue 1).
+  stage models compare on one trace; ``attach_stage_stats`` embeds their
+  stage statistics in a report, which ``obs/prof.py``'s ``load`` and
+  ``diff`` then read and attribute.
 - **synthesis** — composable adversarial generators (tenant stampede,
   bucket-ladder boundary shapes, volume-filling prune-defeating queries
   from the accel hard case, degenerate meshes, avatar streams) emit the
@@ -411,12 +411,16 @@ def shadow_rows(trace, stage_model, deadline_s=None):
 
 
 def attach_stage_stats(report, rows):
-    """Embed prof-shaped stage evidence into a replay report (the
-    reference's ``prof.stats_from_records``).  Not ported yet: the port has
-    no obs/prof.py."""
-    raise NotImplementedError(
-        "attach_stage_stats needs obs/prof.py (the reference's "
-        "stats_from_records), which is not ported (ROADMAP.md, Queue 1)")
+    """Embed prof-shaped stage evidence into a replay report so the
+    report file itself is a ``prof.load`` source (the same
+    ``stage_stats`` contract a bench record uses).  Returns the report."""
+    from . import prof
+
+    stats = prof.stats_from_records(rows)
+    report["stage_stats"] = stats["stages"]
+    report["stage_total"] = stats["total"]
+    report["stage_backends"] = stats["backends"]
+    return report
 
 
 # ---------------------------------------------------------------------------

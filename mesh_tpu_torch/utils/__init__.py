@@ -1,11 +1,14 @@
-"""Device choice, environment knobs and small array helpers for the
-PyTorch port.  ``row`` / ``col`` / ``sparse`` (and the ``asarray_*``
-helpers) are lazy re-exports (PEP 562), so importing ``knobs`` never pays
-for scipy."""
+"""Device choice, environment knobs, small array helpers and timing
+utilities for the PyTorch port.  ``row`` / ``col`` / ``sparse`` (and the
+``asarray_*`` helpers) and ``Timer`` / ``host_sync`` / ``time_fn`` /
+``trace`` are lazy re-exports (PEP 562), so importing ``knobs`` never pays
+for scipy or torch."""
 
 _LAZY = {
     "row": "arrays", "col": "arrays", "sparse": "arrays",
     "asarray_f32": "arrays", "asarray_i32": "arrays",
+    "Timer": "profiling", "host_sync": "profiling",
+    "time_fn": "profiling", "trace": "profiling",
 }
 
 __all__ = sorted(_LAZY)

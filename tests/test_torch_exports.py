@@ -20,22 +20,9 @@ import mesh_tpu
 #: module -> names it exports that the port does not have yet, each with
 #: the ROADMAP.md Queue 1 item that ports it
 LATER = {
-    # item 6: the viewer
+    # item 2: the viewer
     "mesh_tpu": {"MeshViewer", "MeshViewers"},
-    # item 3: obs/export.py, obs/jax_bridge.py, the staged harness of
-    # obs/perf.py and perfcheck
-    "mesh_tpu.obs": {
-        "prometheus_text", "render_tree", "write_jsonl", "export_jsonl",
-        "install_jax_monitoring_bridge", "StageSpec", "StageResult",
-        "run_stages", "perfcheck"},
-    # item 3: utils/profiling.py
-    "mesh_tpu.utils": {"Timer", "host_sync", "time_fn", "trace"},
-    # item 4: fleet/ring.py, the rest of fleet/router.py, coordinator.py
-    "mesh_tpu.fleet": {
-        "HashRing", "DEFAULT_VNODES", "FleetRouter", "fleet_enabled",
-        "spill_enabled", "topology_digest", "FleetCoordinator",
-        "aggregate_sinks", "read_sink"},
-    # item 5: parallel/sharding.py, distributed.py, checkpoint.py
+    # item 1: parallel/sharding.py, distributed.py, checkpoint.py
     "mesh_tpu.parallel": {
         "make_device_mesh", "shard_queries",
         "sharded_closest_faces_and_points",
@@ -48,7 +35,7 @@ LATER = {
         "shard_from_local"},
 }
 
-#: reference packages that later items port whole (item 6)
+#: reference packages that later items port whole (item 2)
 LATER_PACKAGES = {"mesh_tpu.analysis", "mesh_tpu.analysis.rules",
                   "mesh_tpu.viewer"}
 

@@ -204,8 +204,17 @@ def test_shadow_rows_and_concat_match_reference():
 
 
 def test_attach_stage_stats_waits_for_prof():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        treplay.attach_stage_stats({}, [])
+    # obs/prof.py is ported: the report carries the reference's stage stats
+    def run(pkg):
+        report = pkg.replay.attach_stage_stats({"checksum": 1.0}, _rows())
+        with pytest.raises(Exception) as err:
+            pkg.replay.attach_stage_stats({}, [{"tenant": "t"}])
+        return report, type(err.value).__name__, str(err.value)
+
+    report, name, _ = _same(run)
+    assert name == "ProfError"
+    assert report["stage_total"]["count"] == 6
+    assert list(report["stage_stats"]) == ["queue", "device"]
 
 
 def test_trace_writer_listener_matches_reference(tmp_path):
