@@ -387,6 +387,39 @@ Phases (any failure raises and exits non-zero; none catches its own):
    decoded geometry, one ``leaf_boxes`` launch a frame and no index built
    on a refit frame; a paged mesh's upload timed; the phase within 120 s.
 
+21. parallel: ``mesh_tpu_torch.parallel`` in a world of PARALLEL_RANKS
+   processes (``parallel_backend``: NCCL with a card a rank; on one card
+   gloo, every rank on card 0 and the collectives staged through the host,
+   since NCCL refuses two ranks on one GPU; the phase prints which), each
+   rank's launches counted over its window (set to 0
+   just before a, read just after e) and summed with the parent's window
+   of f: a. BASELINE config 5 on a mesh: phase 14's 100,000 scan points
+   against posed body 0 through ``sharded_closest_faces_and_points`` and
+   through ``multihost_closest_faces_and_points`` with ragged per-rank
+   counts and one zero-row rank, each bit-equal to one single-device
+   ``closest_point_kernel`` call on the whole set; b. 4,096 landmark-like
+   queries against phase 6's 209,304-face sphere, face-sharded, merged by
+   gather and by ring: faces, parts, points and sqdist bit-equal to the
+   single-device kernel and to each other; c. ``sharded_visibility`` on
+   body 0 and ``sharded_batched_visibility`` on phase 7's 64 bodies from
+   its 4 cameras, flag for flag and n.dir equal to ``visibility_compute``,
+   ``sharded_batched_vert_normals`` on the main path's 256 bodies bit-equal
+   to the batched normals; d. 10 steps of ``make_fit_step(mesh=...)`` at
+   bench_256 (PARALLEL_RANKS bodies, dp = PARALLEL_RANKS) and at
+   config5_100k (dp 1, sp = PARALLEL_RANKS), from one converted state
+   (the unsharded step's two steps in): the first step's loss and betas
+   within 1e-5 of the unsharded step's, the loss falling; e. at step 3 a
+   checkpoint restored into a fresh template placed on the mesh, whose
+   next step equals the live one bit for bit; then in the parent f. one
+   100,000-query ``engine.submit("closest_point")`` on body 0, timed
+   PARALLEL_REPS times with the lane off and PARALLEL_REPS times with
+   MESH_TPU_FLEET_SHARD_MIN_Q=1024 (the sharded lane, each request counted
+   once), every answer bit-equal to the lane-off one, and 600 queries that
+   do not take it.  Times after the window: a's wall against the
+   single-device call, each rank's kernel on its shard, the gather and
+   ring merges, a fit step sharded and unsharded, the lane's request on
+   and off; the phase within PARALLEL_BUDGET_S.
+
 After phase 19, the four closest-point routes (brute, culled, resident and
 streamed rope) are timed at phases 5 and 6's shapes, and
 ``calibrate_mxu_crossover(save=False)`` times the MXU rung against the
@@ -395,7 +428,7 @@ large batch's culled prologue in its parts, each anim session's resident
 rope kernel alone, held to its plain version at every sub-lane count
 as on the scan).
 
-Phases 3-15, 3b, 14b, 17, 18 and 19 are the driven paths (phases 6 and
+Phases 3-15, 3b, 14b, 17-21 are the driven paths (phases 6 and
 13 twice);
 phase 16 drives no kernel path of its own and holds its launches itself.  A
 CUDA-graph plan's launches count once a replay (its capture counts none;
@@ -765,14 +798,14 @@ STORE_BUDGET_S = 120.0
 #: (a kernel with no path has its row in its successor's)
 KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit",
                                   "engine", "domain", "serve", "store",
-                                  "fleet"),
+                                  "fleet", "parallel"),
                 "closest_faces_fused": ("main_path_fused",),
                 # the every-face kernel, phase 2's face oracle
                 "closest_faces_every": (),
                 "cull_records": ("main_path", "main_path_fused", "facade",
                                  "contact", "mxu", "registration", "fit",
                                  "engine", "domain", "serve", "store",
-                                 "fleet"),
+                                 "fleet", "parallel"),
                 "nearest_vertices": ("facade", "domain"),
                 # the every-vertex kernel, phase 2's index oracle
                 "nearest_vertices_every": (),
@@ -790,7 +823,8 @@ KERNEL_PATHS = {"closest_faces": ("main_path", "facade", "contact", "fit",
                                         "store"),
                 "rope_mxu_stream": ("mxu_bvh",),
                 "rope_mxu_resident": ("mxu_bvh_resident",),
-                "ray_any_hit_culled": ("visibility", "engine", "domain"),
+                "ray_any_hit_culled": ("visibility", "engine", "domain",
+                                       "parallel"),
                 # the every-face kernel, phase 2's flag oracle
                 "ray_any_hit": (),
                 "alongnormal_faces": ("registration",),
@@ -7638,6 +7672,572 @@ def drive_fleet_phase(inp, dev, smi):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the parallel layer on one card.
+
+#: the world of phase 21: ranks sharing card 0 under gloo
+PARALLEL_RANKS = 4
+#: 21b's landmark-like queries (surface samples of the sphere, noisy)
+PARALLEL_LANDMARKS = 4096
+#: 21f: the lane's threshold, and a request below it
+PARALLEL_LANE_MIN_Q = 1024
+PARALLEL_LANE_SMALL = 600
+#: 21d-e: the sharded fit's first-step tolerance against the unsharded
+#: step (the reference's), the checkpoint's step, timed repeats of a-c
+PARALLEL_FIT_TOL = 1e-5
+PARALLEL_CKPT_STEP = 3
+PARALLEL_REPS = 3
+PARALLEL_CHILD_TIMEOUT_S = 420
+PARALLEL_BUDGET_S = 180.0
+
+#: one rank of phase 21's world: a-e with its launches counted over its
+#: window, then its times; writes rank<r>.npz (rank 0: every replicated
+#: result; the others a digest of each) and rank<r>.json
+PARALLEL_RANK = r"""
+import hashlib, json, os, statistics, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, port, folder, device, backend = sys.argv[1:7]
+rank, world = int(rank), int(world)
+dev = torch.device(device)
+if dev.type == "cuda":
+    # NCCL: a card a rank; gloo: every rank on card 0
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+dist.init_process_group(backend, init_method="tcp://localhost:" + port,
+                        world_size=world, rank=rank)
+from mesh_tpu_torch import parallel as par
+from mesh_tpu_torch.convert import fit_state_from_arrays
+from mesh_tpu_torch.models import synthetic_body_model
+from mesh_tpu_torch.parallel import fit, sharding
+from mesh_tpu_torch.query import closest_kernel as ck
+from mesh_tpu_torch.query import ray_kernel as ray
+
+inp = dict(np.load(os.path.join(folder, "inputs.npz")))
+counters = (ck.LAUNCHES, ray.LAUNCHES)
+
+
+def sync():
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def wall(fn):
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rows(state):
+    return {k: getattr(state, k).detach().cpu().numpy()
+            for k in fit.FIT_PARAMS}
+
+
+arrays, doc = {}, {"rank": rank, "world": world,
+                   "backend": dist.get_backend(), "device": str(dev)}
+mesh = par.make_device_mesh(device=device)
+v, f = inp["body_v"], inp["body_f"]
+model = synthetic_body_model(seed=0, device=dev)
+for c in counters:
+    for k in c:
+        c[k] = 0
+t_window = time.perf_counter()
+# a. config 5 on the mesh, then the multi-process form with ragged counts
+arrays["a"] = par.sharded_closest_faces_and_points(v, f, inp["scan"], mesh)
+lo, hi = inp["ragged"][rank], inp["ragged"][rank + 1]
+arrays["a_multihost"] = par.multihost_closest_faces_and_points(
+    v, f, inp["scan"][lo:hi], mesh)
+# b. face-sharded, both merges
+for merge in ("gather", "ring"):
+    arrays["b_" + merge] = par.sharded_closest_faces_sharded_topology(
+        inp["sphere_v"], inp["sphere_f"], inp["landmarks"], mesh,
+        merge=merge)
+# c. visibility and normals
+arrays["c_vis"] = par.sharded_visibility(v, f, inp["cams"],
+                                         n=inp["body_n"], mesh=mesh)
+arrays["c_batch_vis"] = par.sharded_batched_visibility(
+    inp["vis_bodies"], f, inp["cams"], mesh)
+arrays["c_normals"] = par.sharded_batched_vert_normals(
+    inp["main_bodies"], f, mesh).cpu().numpy()
+# d, e. the sharded fit, a checkpoint at step PARALLEL_CKPT_STEP
+fits = {}
+for label, shape in (("bench_256", (world, 1)), ("config5_100k", (1, world))):
+    m = par.make_device_mesh(axis_names=("dp", "sp"), shape=shape,
+                             device=device)
+    target = inp["fit_" + label]
+    state = fit_state_from_arrays(
+        {k: inp["fit_%s_%s" % (label, k)] for k in fit.FIT_PARAMS},
+        inp["fit_%s_count" % label],
+        {k: inp["fit_%s_mu_%s" % (label, k)] for k in fit.FIT_PARAMS},
+        {k: inp["fit_%s_nu_%s" % (label, k)] for k in fit.FIT_PARAMS},
+        device=dev, mesh=m)
+    step = par.make_fit_step(model, fit.adam, mesh=m)
+    run = {"losses": [], "step_ms": [], "rows": state.shard.rows}
+    for i in range(int(inp["fit_steps"])):
+        if i == int(inp["ckpt_step"]):
+            path = par.save_fit_state(
+                os.path.join(folder, "ckpt_" + label), state, step=i)
+            template = par.place_fit_state(fit.init_fit_state(
+                model, target.shape[0], device=dev)[0], m)
+            restored, run["restored_at"] = par.restore_fit_state(path,
+                                                                 template)
+        (state, loss), ms = wall(lambda: step(state, target))
+        run["losses"].append(float(loss))
+        run["step_ms"].append(ms)
+        if i == 0:
+            run["step1"] = rows(state)
+        if i == int(inp["ckpt_step"]):
+            nxt, r_loss = step(restored, target)
+            run["resumed_equal"] = float(r_loss) == float(loss) and all(
+                np.array_equal(a, rows(state)[k])
+                for k, a in rows(nxt).items())
+    fits[label] = run
+sync()
+doc["window_s"] = time.perf_counter() - t_window
+doc["launches"] = {k: n for c in counters for k, n in c.items() if n}
+
+# times, after the window
+doc["a_ms"] = statistics.median([
+    wall(lambda: par.sharded_closest_faces_and_points(v, f, inp["scan"],
+                                                      mesh))[1]
+    for _ in range(int(inp["reps"]))])
+n_rows = -(-len(inp["scan"]) // world)
+mine = torch.as_tensor(inp["scan"][rank * n_rows:(rank + 1) * n_rows],
+                       device=dev)
+vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(
+    f.astype(np.int64), device=dev)
+nondegen = ck.mesh_is_nondegenerate(v, f)
+kernel_ms = []
+for _ in range(int(inp["reps"])):
+    dist.barrier()
+    if dev.type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        ck.closest_point_kernel(vt, ft, mine, assume_nondegenerate=nondegen)
+        end.record()
+        end.synchronize()
+        kernel_ms.append(start.elapsed_time(end))
+    else:
+        kernel_ms.append(wall(lambda: ck.closest_point_kernel(
+            vt, ft, mine, assume_nondegenerate=nondegen))[1])
+doc["kernel_ms"] = statistics.median(kernel_ms)
+sv, sf = inp["sphere_v"], inp["sphere_f"]
+padded, _ = sharding._pad_rows(sf.astype(np.int64), world)
+per = len(padded) // world
+res, key = sharding._closest_keyed(
+    torch.as_tensor(sv, device=dev),
+    torch.as_tensor(padded[rank * per:(rank + 1) * per], device=dev),
+    torch.as_tensor(inp["landmarks"], device=dev), 512, True)
+packed = torch.cat([key[:, None], res["sqdist"][:, None],
+                    res["part"].to(torch.float32)[:, None], res["point"]],
+                   dim=1)
+faces = res["face"].to(torch.int32) + rank * per
+for merge, fn in (("gather", sharding._gather_merge),
+                  ("ring", sharding._ring_merge)):
+    doc["merge_%s_ms" % merge] = statistics.median([wall(
+        lambda: fn(packed, faces, mesh, "dp"))[1]
+        for _ in range(int(inp["reps"]))])
+doc["fits"] = {label: {k: r[k] for k in ("losses", "step_ms", "rows",
+                                          "restored_at", "resumed_equal")}
+               for label, r in fits.items()}
+
+out = {}
+for name, val in arrays.items():
+    if isinstance(val, np.ndarray):
+        out[name] = val
+        continue
+    for k, a in (val.items() if isinstance(val, dict) else enumerate(val)):
+        out["%s.%s" % (name, k)] = np.asarray(a)
+for label, r in fits.items():
+    for k, a in r["step1"].items():
+        out["fit_%s.%s" % (label, k)] = a
+if rank:
+    doc["digests"] = {k: hashlib.sha256(np.ascontiguousarray(a).tobytes())
+                      .hexdigest() for k, a in out.items()
+                      if not k.startswith("fit_")}
+    out = {k: a for k, a in out.items() if k.startswith("fit_")}
+np.savez(os.path.join(folder, "rank%d.npz" % rank), **out)
+doc["jax"] = "jax" in sys.modules or "mesh_tpu" in sys.modules
+with open(os.path.join(folder, "rank%d.json" % rank), "w") as fh:
+    json.dump(doc, fh)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def ragged_counts(n, k):
+    """Row bounds [k + 1] of ``n`` rows over ``k`` ranks: ragged (weights
+    k, k - 1, ..., 1) with rank 1 holding none."""
+    weights = np.arange(k, 0, -1, dtype=np.float64)
+    weights[1 % k] = 0.0
+    counts = np.floor(n * weights / weights.sum()).astype(np.int64)
+    counts[0] += n - counts.sum()
+    return np.concatenate([[0], np.cumsum(counts)])
+
+
+def parallel_fit_arrays(model, target, dev):
+    """One state to start from, as the converter takes it: the unsharded
+    step's state two steps in from small random parameters (moments and a
+    count to carry)."""
+    from mesh_tpu_torch.parallel import fit
+
+    n_b = target.shape[0]
+    rng = np.random.RandomState(21)
+    leaves = [torch.as_tensor(rng.randn(*shape) * 0.05, dtype=torch.float32,
+                              device=dev).requires_grad_(True)
+              for shape in ((n_b, model.num_betas),
+                            (n_b, model.num_joints, 3), (n_b, 3))]
+    state = fit.FitState(*leaves, opt_state=fit.adam(leaves))
+    step = fit.make_fit_step(model, fit.adam, device=dev)
+    for _ in range(2):
+        state, _ = step(state, target)
+    opt = state.opt_state
+    out = {"count": np.float32(opt.state[state.betas]["step"])}
+    for name in fit.FIT_PARAMS:
+        leaf = getattr(state, name)
+        out[name] = leaf.detach().cpu().numpy()
+        out["mu_" + name] = opt.state[leaf]["exp_avg"].cpu().numpy()
+        out["nu_" + name] = opt.state[leaf]["exp_avg_sq"].cpu().numpy()
+    return out
+
+
+def parallel_inputs(model, posed, f_np, verts, verts_v, cams, scan,
+                    sphere, dev):
+    """Phase 21's inputs (numpy, as the ranks load them) and the parent's
+    single-device references."""
+    from mesh_tpu_torch.geometry.vert_normals import vert_normals_t
+    from mesh_tpu_torch.parallel import fit
+    from mesh_tpu_torch.query import closest_kernel as ck
+    from mesh_tpu_torch.query.visibility import visibility_compute
+
+    k = PARALLEL_RANKS
+    v_s, f_s = sphere
+    rng = np.random.RandomState(21)
+    sv_t = torch.as_tensor(v_s, device=dev)
+    land = surface_queries(sv_t[None], torch.as_tensor(
+        f_s.astype(np.int64), device=dev), PARALLEL_LANDMARKS, rng)[0][0]
+    f_t = torch.as_tensor(f_np.astype(np.int64), device=dev)
+    body_n = vert_normals_t(torch.as_tensor(posed[0], device=dev),
+                            f_t).cpu().numpy()
+    inp = {"body_v": posed[0], "body_f": f_np, "body_n": body_n,
+           "scan": scan, "ragged": ragged_counts(len(scan), k),
+           "sphere_v": v_s, "sphere_f": f_s,
+           "landmarks": land.cpu().numpy(),
+           "cams": cams.cpu().numpy(), "vis_bodies": verts_v.cpu().numpy(),
+           "main_bodies": verts.cpu().numpy(),
+           "fit_steps": FIT_STEPS, "ckpt_step": PARALLEL_CKPT_STEP,
+           "reps": PARALLEL_REPS}
+    targets = {"bench_256": (rng.randn(k, 256, 3) * 0.3).astype(np.float32),
+               "config5_100k": scan[None]}
+    ref = {"fit": {}}
+    for label, target in targets.items():
+        inp["fit_" + label] = target
+        arrays = parallel_fit_arrays(model, torch.as_tensor(
+            target, device=dev), dev)
+        for key, val in arrays.items():
+            inp["fit_%s_%s" % (label, key)] = val
+        from mesh_tpu_torch.convert import fit_state_from_arrays
+
+        state = fit_state_from_arrays(
+            {n: arrays[n] for n in fit.FIT_PARAMS}, arrays["count"],
+            {n: arrays["mu_" + n] for n in fit.FIT_PARAMS},
+            {n: arrays["nu_" + n] for n in fit.FIT_PARAMS}, device=dev)
+        step = fit.make_fit_step(model, fit.adam, device=dev)
+        losses, step_ms = [], []
+        target_t = torch.as_tensor(target, device=dev)
+        for i in range(FIT_STEPS):
+            t0 = time.perf_counter()
+            state, loss = step(state, target_t)
+            losses.append(float(loss))          # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                first = {n: getattr(state, n).detach().cpu().numpy()
+                         for n in fit.FIT_PARAMS}
+        ref["fit"][label] = {"losses": losses, "step1": first,
+                             "step_ms": statistics.median(step_ms[4:])}
+    v_t = torch.as_tensor(posed[0], device=dev)
+    nondegen = ck.mesh_is_nondegenerate(posed[0], f_np)
+    scan_t = torch.as_tensor(scan, device=dev)
+    ref["a"], ref["a_ms"] = timed(lambda: ck.closest_point_kernel(
+        v_t, f_t, scan_t, assume_nondegenerate=nondegen))
+    ref["a_ms"] = statistics.median(timed(lambda: ck.closest_point_kernel(
+        v_t, f_t, scan_t, assume_nondegenerate=nondegen))[1]
+        for _ in range(PARALLEL_REPS))
+    ref["b"] = ck.closest_point_kernel(
+        sv_t, torch.as_tensor(f_s.astype(np.int64), device=dev), land)
+    ref["c_vis"] = visibility_compute(posed[0], f_np, inp["cams"],
+                                      n=body_n, device=dev)
+    normals_v = vert_normals_t(verts_v, f_t).cpu().numpy()
+    ref["c_batch_vis"] = [
+        visibility_compute(inp["vis_bodies"][b], f_np, inp["cams"],
+                           n=normals_v[b], device=dev)
+        for b in range(len(normals_v))]
+    ref["c_normals"] = vert_normals_t(verts, f_t).cpu().numpy()
+    ref = {key: ({n: x.cpu().numpy() for n, x in val.items()}
+                 if key in ("a", "b") else val) for key, val in ref.items()}
+    return inp, ref
+
+
+def parallel_backend(device):
+    """NCCL when every rank of phase 21 can have a card of its own, else
+    gloo with the ranks sharing card 0 (NCCL refuses two ranks on one
+    GPU; the collectives then go through the host)."""
+    device = torch.device(device)
+    if (device.type == "cuda"
+            and torch.cuda.device_count() >= PARALLEL_RANKS):
+        return "nccl"
+    return "gloo"
+
+
+def run_parallel_world(inp, folder, device):
+    """Phase 21's ranks, started together and stopped at their time limit
+    -> (each rank's json record, rank 0's arrays, every rank's fit rows)."""
+    import socket
+
+    np.savez(os.path.join(folder, "inputs.npz"), **inp)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = str(sock.getsockname()[1])
+    sock.close()
+    env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PARALLEL_RANK, str(r), str(PARALLEL_RANKS),
+         port, folder, str(device), parallel_backend(device)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=_REPO) for r in range(PARALLEL_RANKS)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(
+                timeout=PARALLEL_CHILD_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, out) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0, "parallel: rank %d failed (rc %s): %s"
+              % (r, proc.returncode, out[-4000:]))
+    docs, fits = [], []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(folder, "rank%d.json" % r)) as fh:
+            docs.append(json.load(fh))
+        with np.load(os.path.join(folder, "rank%d.npz" % r)) as z:
+            arrays = {key: z[key] for key in z.files}
+        fits.append({key: a for key, a in arrays.items()
+                     if key.startswith("fit_")})
+        if r == 0:
+            first = arrays
+    return docs, first, fits
+
+
+def _result_of(arrays, name):
+    return {key.split(".", 1)[1]: a for key, a in arrays.items()
+            if key.split(".", 1)[0] == name}
+
+
+def same_closest(label, got, want):
+    """A closest-point result dict bit for bit against another."""
+    for key in ("face", "part", "sqdist", "point"):
+        check(np.array_equal(np.asarray(got[key]), np.asarray(want[key]),
+                             equal_nan=True),
+              "parallel %s: %s differs in %d places" % (
+                  label, key, int((np.asarray(got[key])
+                                   != np.asarray(want[key])).sum())))
+
+
+def drive_lane(body_v, f_np, scan, dev):
+    """21f in the parent: a warm-up request of the whole scan with the lane
+    off, PARALLEL_REPS more timed, PARALLEL_REPS timed with it on
+    (MESH_TPU_FLEET_SHARD_MIN_Q), then a small one -> the answers, the
+    lane counter's moves and the medians of the timed requests."""
+    from mesh_tpu_torch import Mesh, engine
+    from mesh_tpu_torch.obs.metrics import REGISTRY
+
+    mesh = Mesh(body_v, f_np, device=dev)
+    counter = REGISTRY.counter("mesh_tpu_fleet_shard_dispatches_total")
+
+    def timed():
+        t0 = time.perf_counter()
+        res = engine.submit("closest_point", mesh, scan).result(timeout=300)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    with knobs_set(MESH_TPU_FLEET_SHARD="1"):
+        n0 = counter.value()
+        out["off"] = engine.submit("closest_point", mesh, scan).result(
+            timeout=300)
+        runs = [timed() for _ in range(PARALLEL_REPS)]
+        out["off_counted"] = counter.value() - n0
+        out["off_ms"] = statistics.median(ms for _, ms in runs)
+        out["answers"] = [res for res, _ in runs]
+        with knobs_set(MESH_TPU_FLEET_SHARD_MIN_Q=PARALLEL_LANE_MIN_Q):
+            n0 = counter.value()
+            runs = [timed() for _ in range(PARALLEL_REPS)]
+            out["on_counted"] = counter.value() - n0
+            out["on_ms"] = statistics.median(ms for _, ms in runs)
+            out["answers"] += [res for res, _ in runs]
+            n0 = counter.value()
+            engine.submit("closest_point", mesh,
+                          scan[:PARALLEL_LANE_SMALL]).result(timeout=300)
+            out["small_counted"] = counter.value() - n0
+    return out
+
+
+def check_parallel(docs, arrays, fits, lane, inp, ref):
+    """21a-f against the single-device references -> the phase's record."""
+    rec = {"ranks": PARALLEL_RANKS, "backend": docs[0]["backend"],
+           "device": docs[0]["device"]}
+    check(all(not d["jax"] for d in docs), "parallel: a rank imported jax")
+    digests = docs[1]["digests"]
+    for d in docs[2:]:
+        check(d["digests"] == digests, "parallel: ranks 1 and %d disagree"
+              % d["rank"])
+    import hashlib
+
+    for key, a in arrays.items():
+        if key in digests:
+            check(hashlib.sha256(np.ascontiguousarray(a).tobytes())
+                  .hexdigest() == digests[key],
+                  "parallel: rank 0 and rank 1 disagree on %s" % key)
+    same_closest("a (query-sharded)", _result_of(arrays, "a"), ref["a"])
+    same_closest("a (multihost)", _result_of(arrays, "a_multihost"),
+                 ref["a"])
+    for merge in ("gather", "ring"):
+        same_closest("b (%s)" % merge, _result_of(arrays, "b_" + merge),
+                     ref["b"])
+    same_closest("b (gather vs ring)", _result_of(arrays, "b_gather"),
+                 _result_of(arrays, "b_ring"))
+    vis = _result_of(arrays, "c_vis")
+    check(np.array_equal(vis["0"], ref["c_vis"][0])
+          and np.array_equal(vis["1"], ref["c_vis"][1]),
+          "parallel c: sharded_visibility differs from visibility_compute")
+    bvis = _result_of(arrays, "c_batch_vis")
+    for b, (want_vis, want_ndc) in enumerate(ref["c_batch_vis"]):
+        check(np.array_equal(bvis["0"][b], want_vis)
+              and np.array_equal(bvis["1"][b], want_ndc),
+              "parallel c: sharded_batched_visibility body %d differs" % b)
+    check(np.array_equal(arrays["c_normals"], ref["c_normals"]),
+          "parallel c: sharded normals differ from the batched ones")
+    rec["visible_share"] = float(vis["0"].mean())
+    rec["fit"] = {}
+    for label, want in ref["fit"].items():
+        runs = [d["fits"][label] for d in docs]
+        losses = runs[0]["losses"]
+        check(all(r["losses"] == losses for r in runs),
+              "parallel d %s: ranks disagree on the loss" % label)
+        by_rows = {}
+        for fit_rows, r in zip(fits, runs):
+            by_rows[tuple(r["rows"])] = fit_rows["fit_%s.betas" % label]
+        betas = np.concatenate([by_rows[k] for k in sorted(by_rows)])
+        loss_gap = abs(losses[0] - want["losses"][0])
+        betas_gap = float(np.abs(betas - want["step1"]["betas"]).max())
+        check(loss_gap <= PARALLEL_FIT_TOL and betas_gap <= PARALLEL_FIT_TOL,
+              "parallel d %s: step 1 loss gap %.3g, betas gap %.3g against "
+              "the unsharded step" % (label, loss_gap, betas_gap))
+        check(losses[-1] < losses[0], "parallel d %s: the loss did not "
+              "fall: %s" % (label, losses))
+        check(all(r["restored_at"] == PARALLEL_CKPT_STEP
+                  and r["resumed_equal"] for r in runs),
+              "parallel e %s: the resumed step differs from the live one"
+              % label)
+        rec["fit"][label] = {
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "loss_gap": loss_gap, "betas_gap": betas_gap,
+            "step_ms_sharded": max(statistics.median(r["step_ms"][4:])
+                                   for r in runs),
+            "step_ms_unsharded": want["step_ms"]}
+    check(lane["off_counted"] == 0 and lane["on_counted"] == PARALLEL_REPS
+          and lane["small_counted"] == 0,
+          "parallel f: the lane counted %d off, %d on (of %d requests), %d "
+          "small" % (lane["off_counted"], lane["on_counted"], PARALLEL_REPS,
+                     lane["small_counted"]))
+    for answer in lane["answers"]:
+        for a, b in zip(lane["off"], answer):
+            check(np.array_equal(a, b), "parallel f: a request's answer "
+                  "differs from the first lane-off answer")
+    rec["lane_ms"] = lane["on_ms"]
+    rec["lane_off_ms"] = lane["off_ms"]
+    rec["times_ms"] = {
+        "a_sharded_wall": max(d["a_ms"] for d in docs),
+        "a_single_device": ref["a_ms"],
+        "kernel_per_rank": [d["kernel_ms"] for d in docs],
+        "merge_gather": max(d["merge_gather_ms"] for d in docs),
+        "merge_ring": max(d["merge_ring_ms"] for d in docs)}
+    rec["window_s"] = max(d["window_s"] for d in docs)
+    return rec
+
+
+def drive_parallel_phase(inp, ref, dev, smi):
+    """Phase 21 -> (its record, launches on its counted windows: every
+    rank's and the parent's lane, summed)."""
+    import shutil
+
+    folder = os.path.join(_REPO, "build", "chip_smoke_parallel")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    backend = parallel_backend(dev)
+    log("== parallel: a world of %d ranks, backend %s (%s; on %s): config "
+        "5's %d scan points query-sharded and multihost, %d landmarks "
+        "face-sharded against %d faces, visibility and normals, the sharded "
+        "fit at bench_256 and config5_100k with a checkpoint, then the "
+        "engine's lane" % (
+            PARALLEL_RANKS, backend,
+            "a card a rank" if backend == "nccl" else
+            "every rank on card 0, the collectives staged through the host",
+            smi, len(inp["scan"]), PARALLEL_LANDMARKS,
+            len(inp["sphere_f"])))
+    t_phase = time.perf_counter()
+    try:
+        docs, arrays, fits = run_parallel_world(inp, folder, dev)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    reset_launches()
+    lane = drive_lane(inp["body_v"], inp["body_f"], inp["scan"], dev)
+    launches = read_launches()
+    for d in docs:
+        for name, n in d["launches"].items():
+            launches[name] += n
+    needed = {k for k, paths in KERNEL_PATHS.items() if "parallel" in paths}
+    for name in sorted(needed):
+        check(launches[name] > 0, "kernel %s never launched on the parallel "
+              "path" % name)
+    counted_only(launches, needed, "the parallel path")
+    rec = check_parallel(docs, arrays, fits, lane, inp, ref)
+    rec["launches"] = {k: n for k, n in launches.items() if n}
+    rec["launches_by_rank"] = [d["launches"] for d in docs]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    check(rec["phase_s"] <= PARALLEL_BUDGET_S, "parallel: %.1f s, budget "
+          "%.0f s" % (rec["phase_s"], PARALLEL_BUDGET_S))
+    t = rec["times_ms"]
+    log("  backend %s, %d ranks on %s (%s)" % (
+        rec["backend"], PARALLEL_RANKS, rec["device"], smi))
+    log("  a: query-sharded wall %.3f ms against the single-device kernel "
+        "call's %.3f ms; each rank's kernel on its shard %s ms" % (
+            t["a_sharded_wall"], t["a_single_device"],
+            ["%.3f" % x for x in t["kernel_per_rank"]]))
+    log("  f: the engine's %d-query request, median of %d: lane on %.3f ms, "
+        "lane off %.3f ms (host clock)" % (
+            len(inp["scan"]), PARALLEL_REPS, rec["lane_ms"],
+            rec["lane_off_ms"]))
+    log("  b: merge gather %.3f ms, ring %.3f ms (host clock)"
+        % (t["merge_gather"], t["merge_ring"]))
+    for label, r in rec["fit"].items():
+        log("  d: %s step 1 loss gap %.3g, betas gap %.3g; loss %.6g -> "
+            "%.6g; a step %.3f ms sharded, %.3f ms unsharded (host clock)"
+            % (label, r["loss_gap"], r["betas_gap"], r["loss_first"],
+               r["loss_last"], r["step_ms_sharded"], r["step_ms_unsharded"]))
+    log("  launches on the windows %s (by rank %s); phase %.1f s (budget "
+        "%.0f s)" % (rec["launches"], rec["launches_by_rank"],
+                     rec["phase_s"], PARALLEL_BUDGET_S))
+    log("parallel record (on %s): %s" % (smi, json.dumps(rec, default=str)))
+    return rec, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -8735,6 +9335,8 @@ def main():
                 "%s %.3f (%.3f-%.3f)" % (k, t["median"], t["min"], t["max"])
                 for k, t in stages.items())))
     log("  card: %s" % nvidia_smi(CARD_STATE))
+    # phase 21 shards phase 14's config-5 scan
+    parallel_scan = scans_fit[FIT_MAIN][0].cpu().numpy()
     del fit_keep, scans_fit
 
     # -- 14b. empty: no queries through every entry point ---------------------
@@ -8824,6 +9426,14 @@ def main():
     fleet_rec, launches["fleet"] = drive_fleet_phase(dict(
         fleet_inputs(model, dev), bridge=bridge,
         closed_ledger=SERVE_CLOSED_LEDGER), dev, smi)
+
+    # -- 21. parallel: the parallel layer in a world of ranks on this card ----
+    par_inp, par_ref = parallel_inputs(
+        model, posed, f_np, verts, verts_v, cams,
+        parallel_scan, (v_s, f_s), dev)
+    parallel_rec, launches["parallel"] = drive_parallel_phase(
+        par_inp, par_ref, dev, smi)
+    del par_inp, par_ref
 
     # -- crossover evidence ---------------------------------------------------
     log("== crossover: every route at both drives' shapes")
@@ -9284,7 +9894,8 @@ def main():
         "mxu_bvh": mxu_bvh, "fit": fit_runs,
         "empty": {"entry_points": sorted(empty_layouts)},
         "engine": engine_rec, "fallback": fallback, "domain": domain,
-        "serve": serve, "store": store_rec, "fleet": fleet_rec},
+        "serve": serve, "store": store_rec, "fleet": fleet_rec,
+        "parallel": parallel_rec},
         default=str),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,10 +34,8 @@ from .models.body_model import (  # noqa: F401
     WEIGHT_NAMES,
     body_model_from_arrays,
 )
+from .parallel.fit import FIT_PARAMS  # noqa: F401
 from .utils.device import as_tensor
-
-#: the parameters of a fit state, in the optimizer's order
-FIT_PARAMS = ("betas", "pose", "trans")
 
 
 def body_model_from_fields(fields, parents, device="cuda"):
@@ -50,7 +48,8 @@ def body_model_from_fields(fields, parents, device="cuda"):
     return body_model_from_arrays(fields, parents, device=device)
 
 
-def fit_state_from_arrays(params, count, mu, nu, lr=1e-2, *, device="cuda"):
+def fit_state_from_arrays(params, count, mu, nu, lr=1e-2, *, device="cuda",
+                          mesh=None, dp_axis="dp"):
     """The port's ``FitState`` from a JAX one handed over as numpy arrays.
 
     ``params``, ``mu`` and ``nu`` are dicts keyed by FIT_PARAMS: the
@@ -58,8 +57,10 @@ def fit_state_from_arrays(params, count, mu, nu, lr=1e-2, *, device="cuda"):
     moments of its ``optax.adam`` state; ``count`` is that state's step
     count.  The optimizer is ``torch.optim.Adam(lr=lr)`` with those
     moments and that step, which continues optax's update (the same
-    formula, up to rounding)."""
-    from .parallel.fit import FitState, adam
+    formula, up to rounding).  With ``mesh`` the state lands on it
+    (``parallel.fit.place_fit_state``): each rank keeps its rows along
+    ``dp_axis``, parameters and moments, on the mesh's device."""
+    from .parallel.fit import FitState, adam, place_fit_state
 
     leaves = [as_tensor(params[name], device).detach().clone()
               .requires_grad_(True) for name in FIT_PARAMS]
@@ -70,7 +71,8 @@ def fit_state_from_arrays(params, count, mu, nu, lr=1e-2, *, device="cuda"):
             "exp_avg": as_tensor(mu[name], leaf.device, leaf.dtype).clone(),
             "exp_avg_sq": as_tensor(nu[name], leaf.device,
                                     leaf.dtype).clone()}
-    return FitState(*leaves, opt_state=opt)
+    state = FitState(*leaves, opt_state=opt)
+    return state if mesh is None else place_fit_state(state, mesh, dp_axis)
 
 
 def accel_index_from_arrays(kind, digest, arrays, meta):

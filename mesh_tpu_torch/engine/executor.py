@@ -23,10 +23,9 @@ the fence, coalescing is opportunistic (the ``coalesce_window_ms``
 tunable lets the worker linger for one).
 
 The sharded big-batch lane (``_shard_eligible``) is off unless the
-``shard_min_q`` tunable is set and ``MESH_TPU_FLEET_SHARD`` is on; the
-port has no sharded plan yet, so a request the gate admits raises
-``NotImplementedError`` through its future instead of quietly taking the
-single-device path.
+``shard_min_q`` tunable is set and ``MESH_TPU_FLEET_SHARD`` is on; a
+request it admits runs the query-sharded plan's shard body on its own
+card, with no device mesh or process group (``_dispatch_sharded``).
 """
 
 import threading
@@ -364,15 +363,49 @@ class EngineExecutor(object):
         return knobs.flag("MESH_TPU_FLEET_SHARD")
 
     def _dispatch_sharded(self, req):
-        """One request through the query-sharded plan, which the port
-        does not have yet: raises (through the request's future) rather
-        than quietly taking the single-device path."""
-        raise NotImplementedError(
-            "the engine's sharded big-batch lane (%d queries >= shard_min_q "
-            "with MESH_TPU_FLEET_SHARD on) is not ported yet (ROADMAP.md, "
-            "Queue 1); unset MESH_TPU_FLEET_SHARD_MIN_Q or set "
-            "MESH_TPU_FLEET_SHARD=0 for the single-device path"
-            % req.points.shape[0])
+        """One big request through the query-sharded plan's shard body
+        (``parallel.sharding._closest_local``: the row-1 kernel with the
+        data-derived ``assume_nondegenerate`` flag and the tile variant) on
+        the request's device, the whole request as one shard.  A process
+        drives one card, so the plan has one shard here: no device mesh,
+        no process group and no collective, and inside a multi-rank world
+        the lane stays on the submitting rank (the executor is one thread,
+        and a collective the other ranks do not join would hang).  Spreading
+        one request over several cards waits for a process that drives
+        more than one.  Per-query independence makes the answer
+        bit-identical to the single-device path; the ledger record skips
+        the pad/compile stamps (no bucket padding here) and carries
+        ``backend="xla_sharded"`` so the stage histogram splits the
+        lanes."""
+        from ..batch import _batch_nondegen, _strategy
+        from ..parallel.sharding import _closest_local
+        from ..utils.device import as_tensor
+        from ..utils.knobs import tile_variant
+
+        q = req.points.shape[0]
+        device = resolve_device(getattr(req.mesh, "device", None) or "cuda")
+        with obs_span("engine.shard_dispatch", op=req.op, q=q):
+            if req.record is not None:
+                req.record.set(op=req.op, bucket=q, backend="xla_sharded")
+            v = np.asarray(req.mesh.v, np.float32)
+            f = np.asarray(req.mesh.f, np.int64)
+            use_pallas, _ = _strategy(f, device)
+            res = _closest_local(
+                as_tensor(v, device), as_tensor(f, device),
+                as_tensor(np.asarray(req.points, np.float32), device),
+                req.chunk, use_pallas, _batch_nondegen(v, f), tile_variant())
+            faces = res["face"].cpu().numpy().astype(np.uint32)[None, :]
+            points = res["point"].cpu().numpy().astype(np.float64)
+            if req.record is not None:
+                req.record.stamp("device")
+        from ..obs.metrics import REGISTRY
+
+        REGISTRY.counter(
+            "mesh_tpu_fleet_shard_dispatches_total",
+            "Coalesced closest-point batches routed through the "
+            "dp-sharded big-batch lane (parallel/sharding.py).",
+        ).inc()
+        req.future.set_result((faces, points))
 
 
 class OrderedGroups(object):

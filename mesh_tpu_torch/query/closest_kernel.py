@@ -412,6 +412,25 @@ def winner_epilogue(best, tri, pts, center):
             "sqdist": sqd}
 
 
+def winner_costs(pts, planes, best, tile_variant="fast",
+                 degenerate_tail=True):
+    """[B, Q] float32: the tile cost of each query's face ``best`` [B, Q]
+    (``pts`` [B, Q, 3] and ``planes`` [B, 19, F] as ``argmin_faces``
+    takes them), the value its argmin compared: the plain tile on the
+    winner's planes, which the kernel repeats op for op.  On the card a
+    NaN cost is 0, as the kernel's ``fmaxf`` clamp makes it."""
+    tile = {"fast": _sqdist_tile_fast, "safe": _sqdist_tile_safe}[
+        tile_variant]
+    rows = torch.gather(planes, 2, best.long()[:, None, :].expand(
+        -1, planes.shape[1], -1))
+    cost = tile(pts[..., 0], pts[..., 1], pts[..., 2],
+                *rows[:, :N_FACE_ROWS].unbind(1),
+                degenerate_tail=degenerate_tail)
+    if cost.is_cuda:
+        cost = torch.where(torch.isnan(cost), torch.zeros_like(cost), cost)
+    return cost
+
+
 def _batched(v, points):
     """(v [B, V, 3], points [B, Q, 3], unbatch) for one mesh or a batch."""
     if v.ndim == 2:

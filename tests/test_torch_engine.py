@@ -437,27 +437,78 @@ def test_cancel_before_dispatch_skips_request(mesh):
         ex.shutdown()
 
 
-@pytest.mark.parametrize("shard_knob, raises", [("1", True), ("0", False)])
+@pytest.mark.parametrize("shard_knob, lane", [("1", True), ("0", False)])
 def test_sharded_lane_raises_once_turned_on(mesh, monkeypatch, shard_knob,
-                                            raises):
-    """The lane's gate: shard_min_q set and MESH_TPU_FLEET_SHARD on sends
-    a big single request to the sharded lane, which raises; the kill
-    switch off keeps the single-device path."""
-    monkeypatch.setenv("MESH_TPU_FLEET_SHARD_MIN_Q", "1024")
-    monkeypatch.setenv("MESH_TPU_FLEET_SHARD", shard_knob)
+                                            lane):
+    """The lane's gate: shard_min_q set and MESH_TPU_FLEET_SHARD on send a
+    big single request to the sharded lane (counted once, the same answer
+    as the single-device path); the kill switch off keeps the
+    single-device path; a small request never takes the lane.  (The name
+    is kept from when the admitted request raised.)"""
+    counter = REGISTRY.counter("mesh_tpu_fleet_shard_dispatches_total")
+    pts = _queries(2000, seed=3)
     ex = engine.EngineExecutor()
     try:
-        fut = ex.submit("closest_point", mesh, _queries(2000, seed=3))
-        if raises:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md, Queue 1"):
-                fut.result(timeout=60)
-        else:
-            assert fut.result(timeout=60)[0].shape == (1, 2000)
+        faces_off, points_off = ex.submit("closest_point", mesh,
+                                          pts).result(timeout=60)
+        monkeypatch.setenv("MESH_TPU_FLEET_SHARD_MIN_Q", "1024")
+        monkeypatch.setenv("MESH_TPU_FLEET_SHARD", shard_knob)
+        n0 = counter.value()
+        faces, points = ex.submit("closest_point", mesh,
+                                  pts).result(timeout=60)
+        assert counter.value() == n0 + int(lane)
+        np.testing.assert_array_equal(faces, faces_off)
+        np.testing.assert_array_equal(points, points_off)
         small = ex.submit("closest_point", mesh, _queries(100, seed=4))
         assert small.result(timeout=60)[0].shape == (1, 100)
+        assert counter.value() == n0 + int(lane)
     finally:
         ex.shutdown()
+
+
+def test_shard_lane_bit_identical_and_counted(mesh, monkeypatch):
+    """The reference's lane case (tests/test_fleet.py): off by default,
+    the kill switch beats the pin, the lane on is counted and bit-identical
+    to the single-device path, below the threshold it never engages; the
+    lane's ledger record carries backend "xla_sharded" under the
+    engine.shard_dispatch span."""
+    from mesh_tpu_torch.obs.ledger import RequestRecord
+    from mesh_tpu_torch.obs.trace import TRACER
+
+    pts = _queries(1500, seed=9)
+    counter = REGISTRY.counter("mesh_tpu_fleet_shard_dispatches_total")
+
+    def run(record=None):
+        return engine.submit("closest_point", mesh, pts,
+                             record=record).result(timeout=120)
+
+    n0 = counter.value()
+    faces_off, points_off = run()
+    assert counter.value() == n0
+    monkeypatch.setenv("MESH_TPU_FLEET_SHARD_MIN_Q", "1024")
+    monkeypatch.setenv("MESH_TPU_FLEET_SHARD", "0")
+    faces_kill, points_kill = run()
+    assert counter.value() == n0
+    assert np.array_equal(faces_kill, faces_off)
+    assert np.array_equal(points_kill, points_off)
+    monkeypatch.delenv("MESH_TPU_FLEET_SHARD")
+    record = RequestRecord(monotonic(), {}, monotonic)
+    monkeypatch.setenv("MESH_TPU_OBS", "1")
+    spans = []
+    sink = TRACER.add_sink(spans.append)
+    try:
+        faces_on, points_on = run(record)
+    finally:
+        TRACER.remove_sink(sink)
+    assert counter.value() == n0 + 1
+    assert np.array_equal(faces_on, faces_off)
+    assert np.array_equal(points_on, points_off)
+    assert record.meta["backend"] == "xla_sharded"
+    assert "pad" not in record.stamps and "device" in record.stamps
+    assert any(event["name"] == "engine.shard_dispatch" for event in spans)
+    base = counter.value()
+    engine.submit("closest_point", mesh, pts[:600]).result(timeout=120)
+    assert counter.value() == base
 
 
 def test_failed_plan_reaches_the_future_without_fallback(mesh, monkeypatch):

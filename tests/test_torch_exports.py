@@ -20,22 +20,11 @@ import mesh_tpu
 #: module -> names it exports that the port does not have yet, each with
 #: the ROADMAP.md Queue 1 item that ports it
 LATER = {
-    # item 2: the viewer
+    # item 1: the viewer
     "mesh_tpu": {"MeshViewer", "MeshViewers"},
-    # item 1: parallel/sharding.py, distributed.py, checkpoint.py
-    "mesh_tpu.parallel": {
-        "make_device_mesh", "shard_queries",
-        "sharded_closest_faces_and_points",
-        "sharded_closest_faces_sharded_topology",
-        "sharded_batched_vert_normals", "sharded_batched_visibility",
-        "sharded_visibility", "restore_fit_state",
-        "save_fit_state", "gather_to_hosts",
-        "global_device_mesh", "initialize_multihost",
-        "multihost_closest_faces_and_points", "replicate_to_mesh",
-        "shard_from_local"},
 }
 
-#: reference packages that later items port whole (item 2)
+#: reference packages that later items port whole (item 1)
 LATER_PACKAGES = {"mesh_tpu.analysis", "mesh_tpu.analysis.rules",
                   "mesh_tpu.viewer"}
 

@@ -191,8 +191,19 @@ def test_step_holes_and_checks():
     state, opt = fit.init_fit_state(tm, 2, device="cpu")
     assert state.betas.shape == (2, 4) and state.pose.shape == (2, 6, 3)
     assert isinstance(state.opt_state, torch.optim.Adam)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        fit.make_fit_step(tm, opt, mesh=object(), device="cpu")
+    # the sharded step builds on a one-rank ("dp", "sp") mesh and takes
+    # the unsharded step's loss (its own share normalised by the global
+    # counts: the same sum up to rounding)
+    from mesh_tpu_torch.parallel import make_device_mesh
+
+    mesh = make_device_mesh(axis_names=("dp", "sp"), device="cpu")
+    sharded, _ = fit.init_fit_state(tm, 2, device="cpu")
+    sharded, loss_s = fit.make_fit_step(tm, opt, mesh=mesh)(sharded,
+                                                            _scan(2))
+    assert sharded.shard is not None and sharded.shard.rows == (0, 2)
+    whole, _ = fit.init_fit_state(tm, 2, device="cpu")
+    _, loss_u = fit.make_fit_step(tm, opt, device="cpu")(whole, _scan(2))
+    np.testing.assert_allclose(float(loss_s), float(loss_u), rtol=1e-6)
     with pytest.raises(ValueError, match="precision"):
         fit.make_fit_step(tm, opt, precision="tf32", device="cpu")
     # a state without an optimizer gets one at its first step
